@@ -5,28 +5,39 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
-  2. build: the three CUDA kernels from mixq_tpu_torch/csrc, timed;
-  3. kernels: each kernel at Llama-2-7B main-path shapes against its plain
-     PyTorch version on the same inputs, with the stated tolerance, then
-     its device time on the card (CUPTI, through torch.profiler) beside
-     its bound (bytes over
-     3.35 TB/s or operations over the data-sheet peak, whichever is
-     larger), its plain version's and, where one exists, that of one
-     PyTorch call computing the same function (`library_ms`);
-  4. reference: a tiny W8A8 model on the card against the same model on the
-     CPU (the plain versions), teacher-forced logits, bf16 and int8 KV;
-  5. serve: full-width 32-layer Llama-2-7B W8A8O16 (random weights from a
-     seed, 128 outlier channels per linear input), int8 KV, 8 left-padded
+  2. build: the four CUDA kernel libraries from mixq_tpu_torch/csrc, timed;
+  3. kernels: each kernel, in each mode the main paths run, at Llama-2-7B
+     main-path shapes against its plain PyTorch version on the same inputs,
+     with the stated tolerance, then its device time on the card (CUPTI,
+     through torch.profiler) beside its bound (bytes over 3.35 TB/s or
+     operations over the data-sheet peak, whichever is larger), its plain
+     version's and, where one exists, that of one PyTorch call computing
+     the same function (`library_ms`): fused RMSNorm + quantization (A8 and
+     A4), the int8 GEMM in its W8A8, packed-W4 and grouped modes, the a16
+     (weight-only) GEMM with int8 and packed weights, per-channel and
+     grouped, with the w8a16_matmul and int8_matmul_dequant entry points,
+     and flash decode;
+  4. reference: tiny W8A8, W4A4 (per-channel and grouped) and W8A16 models
+     on the card against the same models on the CPU (the plain versions),
+     teacher-forced logits, bf16 and int8 KV, launch counts by mode;
+  5. serve: full-width 32-layer Llama-2-7B in four configurations, one
+     after another (each freed before the next is built): W8A8O16, and
+     from the reference policy (quantize.resolve_specs) W4A4O16 per-channel,
+     W4A4O16 with 128-row scale groups, and W8A16; random weights from a
+     seed, 128 outlier channels per MIX linear input, int8 KV, 8 left-padded
      prompts, 32 greedy tokens through InferenceEngine.generate, with every
-     kernel's launch count asserted;
-  6. timing: the decode step at batch 64 with the int8 KV cache filled to
-     512 positions: ms/step, tok/s, peak device memory, and over three
-     more steps under torch.profiler the device time per step, the
-     device's busy share and the top kernels.
-It then prints the kernels line and, last, the device line. Details go to
-chiprun_out/chip_smoke.json. Without a CUDA card, or without the package
-beside it, the script exits non-zero and prints no result.
+     kernel's launch count asserted by mode;
+  6. timing: for each configuration the decode step at batch 64 with the
+     int8 KV cache filled to 512 positions: ms/step, tok/s, peak device
+     memory, the step's byte bound from the model's tensors, and over three
+     more steps under torch.profiler the device time per step, the device's
+     busy share and the top kernels.
+It then prints the kernels line (one entry per ported TPU kernel) and,
+last, the device line. Details go to chiprun_out/chip_smoke.json. Without a
+CUDA card, or without the package beside it, the script exits non-zero and
+prints no result.
 """
+import gc
 import json
 import os
 import subprocess
@@ -110,6 +121,7 @@ def rotating(fns):
 # ---------------------------------------------------------------------------
 
 def kernel_rmsnorm(dev, gen, rows):
+    """A8 (the W8A8 paths and o/down) and A4 (q/k/v, up/gate of W4A4)."""
     from mixq_tpu_torch.kernels.rmsnorm_quant import (fused_rmsnorm_quant,
                                                       rmsnorm_quant_plain)
     from mixq_tpu_torch.ops import quant as Q
@@ -119,111 +131,326 @@ def kernel_rmsnorm(dev, gen, rows):
     gamma = 1 + 0.1 * torch.randn(H, generator=gen, device=dev)
     oset = Q.outlier_set_from_indices(
         torch.randperm(H, generator=gen, device=dev)[:Bo], H, Bo, device=dev)
-    args = (x, gamma, oset.k_mask, 1e-5, 8, oset.ind, oset.mask)
-    y, q, s, xo = fused_rmsnorm_quant(*args)
-    torch.cuda.synchronize()
-    yp, qp, sp, xop = rmsnorm_quant_plain(*args)
-    dy = (y.float() - yp.float()).abs()
-    dq = (q.int() - qp.int()).abs().max().item()
-    ds = ((s - sp).abs() / sp).max().item()
-    dxo = (xo.float() - xop.float()).abs()
-    ok = (bool((dy <= BF16_ULP * yp.float().abs()).all()) and dq <= 1
-          and ds <= 1e-5 and bool((dxo <= BF16_ULP * xop.float().abs()).all()))
-    check(ok, f"rmsnorm_quant disagrees: dy {dy.max().item()} dq {dq} "
-              f"ds {ds}")
-    nbytes = M * H * 2 + 2 * H * 4 + Bo * 8 + M * H * 3 + M * 4 + M * Bo * 2
-    b, by = bound_ms(nbytes, [(8 * M * H, "f32")])
-    row = dict(work=f"M={M} H={H}, {Bo} outlier channels",
-               tolerance="y within 1 bf16 ulp, q_x within 1 LSB, x_scale "
-                         "rtol 1e-5",
-               max_abs_err=dy.max().item(), q_lsb_err=dq,
-               ms=device_ms(lambda: fused_rmsnorm_quant(*args), 200),
-               plain_ms=device_ms(lambda: rmsnorm_quant_plain(*args), 10),
-               bound_ms=b, bound_by=by, library_ms=None)
-    rows["rmsnorm_quant"] = [row]
+    out_rows = []
+    for a_bits in (8, 4):
+        args = (x, gamma, oset.k_mask, 1e-5, a_bits, oset.ind, oset.mask)
+        y, q, s, xo = fused_rmsnorm_quant(*args)
+        torch.cuda.synchronize()
+        yp, qp, sp, xop = rmsnorm_quant_plain(*args)
+        dy = (y.float() - yp.float()).abs()
+        dq = (q.int() - qp.int()).abs().max().item()
+        ds = ((s - sp).abs() / sp).max().item()
+        dxo = (xo.float() - xop.float()).abs()
+        ok = (bool((dy <= BF16_ULP * yp.float().abs()).all()) and dq <= 1
+              and ds <= 1e-5
+              and q.abs().max().item() <= 2 ** (a_bits - 1) - 1
+              and bool((dxo <= BF16_ULP * xop.float().abs()).all()))
+        check(ok, f"rmsnorm_quant a{a_bits} disagrees: dy {dy.max().item()} "
+                  f"dq {dq} ds {ds}")
+        nbytes = (M * H * 2 + 2 * H * 4 + Bo * 8 + M * H * 3 + M * 4
+                  + M * Bo * 2)
+        b, by = bound_ms(nbytes, [(8 * M * H, "f32")])
+        out_rows.append(dict(
+            mode=f"A{a_bits}",
+            work=f"M={M} H={H}, {Bo} outlier channels, A{a_bits}",
+            tolerance="y within 1 bf16 ulp, q_x within 1 LSB, x_scale "
+                      "rtol 1e-5",
+            max_abs_err=dy.max().item(), q_lsb_err=dq,
+            ms=device_ms(lambda: fused_rmsnorm_quant(*args), 200),
+            plain_ms=device_ms(lambda: rmsnorm_quant_plain(*args), 10),
+            bound_ms=b, bound_by=by, library_ms=None))
+    rows["rmsnorm_quant"] = out_rows
+    return out_rows[0]
+
+
+# the linears of one Llama-2-7B block at decode: (name, K, N, fuse)
+BLOCK = [("q", 4096, 4096, "none"), ("k", 4096, 4096, "none"),
+         ("v", 4096, 4096, "none"), ("o", 4096, 4096, "none"),
+         ("up", 4096, 11008, "none"), ("gate", 4096, 11008, "silu"),
+         ("down", 11008, 4096, "none")]
+W4_SLOTS = ("q", "k", "v", "up", "gate")        # W4A4 under the policy
+GEMM_TOL = "1 bf16 ulp + 1e-4 max|y|"
+INT_MM = "torch._int_mm over the int8 weight values (product only)"
+
+
+def copies_of(w, nbytes):
+    """`w` and clones of it (strides kept) totalling >= 100 MB, so a timed
+    GEMM that rotates over them finds its weight cold in the 50 MB L2, as
+    the decode step does."""
+    n = max(2, -(-100_000_000 // nbytes))
+    return [w] + [w.clone() for _ in range(n - 1)]
+
+
+def timed_gemm(kern, plain, lib, w, lib_w, wbytes, bound, **row):
+    """Device ms of the kernel and the library call, each over rotated
+    copies of its weight, and of the plain version, into one result row."""
+    copies, lib_copies = copies_of(w, wbytes), copies_of(lib_w, wbytes)
+    b, by = bound
+    row.update(ms=device_ms(rotating([lambda c=c: kern(c) for c in copies]),
+                            40),
+               plain_ms=device_ms(plain, 5),
+               library_ms=device_ms(rotating([lambda c=c: lib(c)
+                                              for c in lib_copies]), 40),
+               bound_ms=b, bound_by=by)
     return row
 
 
-def gemm_inputs(dev, gen, M, K, N, Bo):
-    q_x = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
-                        dtype=torch.int8)
-    w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
-                      dtype=torch.int8)
-    xs = torch.rand(M, 1, generator=gen, device=dev) * 1e-3 + 1e-4
-    ws = torch.rand(N, generator=gen, device=dev) * 1e-3 + 1e-4
-    xo = torch.randn(M, Bo, generator=gen, device=dev).to(torch.bfloat16)
-    wo = (torch.randn(Bo, N, generator=gen, device=dev) * 0.02).to(
-        torch.bfloat16)
-    return q_x, w, xs, ws, xo, wo
-
-
-def gemm_bound(M, K, N, Bo):
-    nbytes = M * K + K * N + M * 4 + N * 4 + M * Bo * 2 + Bo * N * 2 + M * N * 2
-    return bound_ms(nbytes, [(2 * M * N * K, "int8"), (2 * M * N * Bo, "bf16")])
-
-
-def kernel_mix_gemm(dev, gen, rows):
-    from mixq_tpu_torch.kernels.mix_gemm import mix_gemm, mix_gemm_plain
-
-    M, Bo = 64, 128
-    # the 7 linears of one Llama-2-7B block: q, k, v, o, up, gate(+SiLU), down
-    block = [(4096, 4096, "none")] * 4 + [(4096, 11008, "none"),
-                                          (4096, 11008, "silu"),
-                                          (11008, 4096, "none")]
-    tolerance = "1 bf16 ulp + 1e-4 max|y|"
-    errs, out_rows = [], []
-    for K, N, fuse in sorted(set(block)):
-        ins = gemm_inputs(dev, gen, M, K, N, Bo)
-        got = mix_gemm(*ins, fuse=fuse)
-        torch.cuda.synchronize()
-        ref = mix_gemm_plain(*ins, fuse=fuse)
-        err = (got.float() - ref.float()).abs()
-        tol = BF16_ULP * ref.float().abs() + 1e-4 * ref.float().abs().max()
-        check(bool((err <= tol).all()),
-              f"mix_gemm {K}x{N} {fuse} disagrees: {err.max().item()}")
-        errs.append(err.max().item())
-        # distinct weight copies, so each timed call finds its weight cold in
-        # the 50 MB L2, as the decode step does
-        n_copies = max(2, -(-100_000_000 // (K * N)))
-        copies = [ins[1]] + [ins[1].clone() for _ in range(n_copies - 1)]
-        q_x, _, xs, ws, xo, wo = ins
-        kern = rotating([
-            (lambda w=w: mix_gemm(q_x, w, xs, ws, xo, wo, fuse=fuse))
-            for w in copies])
-        cms = [w.t().contiguous().t() for w in copies]   # cuBLASLt layout
-        lib = rotating([(lambda w=w: torch._int_mm(q_x, w)) for w in cms])
-        b, by = gemm_bound(M, K, N, Bo)
-        out_rows.append(dict(work=f"M={M} K={K} N={N} fuse={fuse} B={Bo}",
-                             tolerance=tolerance, max_abs_err=errs[-1],
-                             ms=device_ms(kern, 40),
-                             plain_ms=device_ms(
-                                 lambda: mix_gemm_plain(*ins, fuse=fuse), 5),
-                             library_ms=device_ms(lib, 40),
-                             bound_ms=b, bound_by=by))
-        del copies, cms, kern, lib
-    # the block as the decode step runs it: 7 distinct weights (~200 MB), the
-    # kernel, its plain version and the library product over the same inputs
-    seq = [gemm_inputs(dev, gen, M, K, N, Bo) + (fuse,)
-           for K, N, fuse in block]
-    lib_w = [s[1].t().contiguous().t() for s in seq]
-    bounds = [gemm_bound(M, K, N, Bo) for K, N, _ in block]
-    blk = dict(work=f"the 7 linears of one Llama-2-7B block at M={M}, "
-                    f"{Bo} outlier channels each (q,k,v,o 4096x4096; "
-                    "up, gate+SiLU 4096x11008; down 11008x4096)",
-               tolerance=tolerance, max_abs_err=max(errs),
-               ms=device_ms(lambda: [mix_gemm(*s[:6], fuse=s[6])
-                                     for s in seq], 20),
-               plain_ms=device_ms(lambda: [mix_gemm_plain(*s[:6], fuse=s[6])
-                                           for s in seq], 3),
-               library_ms=device_ms(lambda: [torch._int_mm(s[0], w) for s, w
-                                             in zip(seq, lib_w)], 20),
-               library="torch._int_mm (the int8 product alone)",
+def block_row(kern, plain, lib, bounds, **row):
+    """Device ms of a block's GEMMs run back to back on distinct weights, as
+    the decode step runs them: the kernel, its plain version and the
+    library call; the bound is the sum of theirs."""
+    row.update(ms=device_ms(kern, 20), plain_ms=device_ms(plain, 3),
+               library_ms=device_ms(lib, 20),
                bound_ms=sum(b for b, _ in bounds),
                bound_by=("bytes" if all(by == "bytes" for _, by in bounds)
                          else "operations"))
+    return row
+
+
+def check_gemm(got, ref, what):
+    err = (got.float() - ref.float()).abs()
+    tol = BF16_ULP * ref.float().abs() + 1e-4 * ref.float().abs().max()
+    check(bool((err <= tol).all()) and bool(torch.isfinite(got).all()),
+          f"{what} disagrees: {err.max().item()}")
+    return err.max().item()
+
+
+def gemm_inputs(dev, gen, M, K, N, Bo, G=1, w4=False):
+    """Operands of the int8-activation GEMM: A8/W8 (the W8A8 linears and
+    o/down), or as q/k/v/up/gate of W4A4 give them (w4): A4 activations and
+    packed int4 weights; [G, N] scales when G > 1. Also the library's
+    operand: the int8 weight values, column-major (cuBLASLt)."""
+    from mixq_tpu_torch.ops import quant as Q
+
+    qa, (lo, hi) = (7 if w4 else 127), ((-8, 8) if w4 else (-127, 128))
+    q_x = torch.randint(-qa, qa + 1, (M, K), generator=gen, device=dev,
+                        dtype=torch.int8)
+    q_w = torch.randint(lo, hi, (K, N), generator=gen, device=dev,
+                        dtype=torch.int8)
+    xs = torch.rand(M, 1, generator=gen, device=dev) * 1e-3 + 1e-4
+    ws = torch.rand(*((G, N) if G > 1 else (N,)), generator=gen,
+                    device=dev) * 1e-3 + 1e-4
+    xo = torch.randn(M, Bo, generator=gen, device=dev).to(torch.bfloat16)
+    wo = (torch.randn(Bo, N, generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    w = Q.pack_int4(q_w) if w4 else q_w
+    return (q_x, w, xs, ws, xo, wo), q_w.t().contiguous().t()
+
+
+def gemm_bound(M, K, N, Bo, G=1, w4=False):
+    nbytes = (M * K + K * N // (2 if w4 else 1) + M * 4 + G * N * 4
+              + M * Bo * 2 + Bo * N * 2 + M * N * 2)
+    return bound_ms(nbytes, [(2 * M * N * K, "int8"), (2 * M * N * Bo,
+                                                       "bf16")])
+
+
+def gemm_cases(dev, gen, M, Bo, cases):
+    """Kernels 2 and A, one (K, N, fuse, w4, G) shape at a time: checked
+    against the plain version, then timed over rotated weight copies.
+    Returns the rows and each case's error."""
+    from mixq_tpu_torch.kernels.mix_gemm import mix_gemm, mix_gemm_plain
+
+    out_rows, errs = [], []
+    for K, N, fuse, w4, G in cases:
+        ins, lib_w = gemm_inputs(dev, gen, M, K, N, Bo, G, w4)
+        got = mix_gemm(*ins, fuse=fuse)
+        torch.cuda.synchronize()
+        mode = ("W4" if w4 else "W8A8") + (f" grouped G={G}" if G > 1 else "")
+        err = check_gemm(got, mix_gemm_plain(*ins, fuse=fuse),
+                         f"mix_gemm {mode} {K}x{N} {fuse}")
+        errs.append(err)
+        q_x, _, xs, ws, xo, wo = ins
+        out_rows.append(timed_gemm(
+            lambda w: mix_gemm(q_x, w, xs, ws, xo, wo, fuse=fuse),
+            lambda: mix_gemm_plain(*ins, fuse=fuse),
+            lambda w: torch._int_mm(q_x, w), ins[1], lib_w,
+            K * N // (2 if w4 else 1), gemm_bound(M, K, N, Bo, G, w4),
+            work=f"{mode} M={M} K={K} N={N} fuse={fuse} B={Bo}", mode=mode,
+            tolerance=GEMM_TOL, max_abs_err=err, library=INT_MM))
+        del ins, lib_w
+    return out_rows, errs
+
+
+def gemm_block(dev, gen, M, Bo, slots, w4, G_of, **row):
+    """Kernels 2 and A over the named linears of one block, as the decode
+    step runs them (distinct weights, back to back)."""
+    from mixq_tpu_torch.kernels.mix_gemm import mix_gemm, mix_gemm_plain
+
+    seq = [gemm_inputs(dev, gen, M, K, N, Bo, G_of(K), w4) + (fuse,)
+           for n, K, N, fuse in BLOCK if n in slots]
+    bounds = [gemm_bound(M, K, N, Bo, G_of(K), w4)
+              for n, K, N, _ in BLOCK if n in slots]
+    return block_row(
+        lambda: [mix_gemm(*s[0], fuse=s[2]) for s in seq],
+        lambda: [mix_gemm_plain(*s[0], fuse=s[2]) for s in seq],
+        lambda: [torch._int_mm(s[0][0], s[1]) for s in seq], bounds,
+        tolerance=GEMM_TOL, library=INT_MM, **row)
+
+
+def kernel_mix_gemm(dev, gen, rows):
+    """Kernel 2, W8A8: each distinct shape of a block alone, then the block
+    of seven linears (~200 MB of weights)."""
+    M, Bo = 64, 128
+    out_rows, errs = gemm_cases(dev, gen, M, Bo, [
+        (K, N, f, False, 1) for K, N, f in
+        sorted({(K, N, f) for _, K, N, f in BLOCK})])
+    blk = gemm_block(
+        dev, gen, M, Bo, [n for n, *_ in BLOCK], False, lambda K: 1,
+        mode="W8A8", max_abs_err=max(errs),
+        work=f"the 7 linears of one Llama-2-7B block at M={M}, {Bo} "
+             "outlier channels each (q,k,v,o 4096x4096; up, gate+SiLU "
+             "4096x11008; down 11008x4096)")
     rows["mix_gemm"] = out_rows + [blk]
-    del seq, lib_w
     return blk
+
+
+def kernel_w4_gemm(dev, gen, rows):
+    """Kernel A: the packed-W4 linears of a W4A4 block (q, k, v, up, gate+
+    SiLU), per-channel and with 128-row scale groups, and the grouped W8A8
+    o/down of the grouped W4A4 path; each shape alone over rotated weight
+    copies, then each block of five as the decode step runs it."""
+    M, Bo, gs = 64, 128, 128
+    w4_shapes = sorted({(K, N, f) for n, K, N, f in BLOCK if n in W4_SLOTS})
+    out_rows, errs = gemm_cases(dev, gen, M, Bo, (
+        [(K, N, f, True, 1) for K, N, f in w4_shapes]
+        + [(K, N, f, True, K // gs) for K, N, f in w4_shapes]
+        + [(K, N, f, False, K // gs) for n, K, N, f in BLOCK
+           if n in ("o", "down")]))
+    n = len(w4_shapes)
+    blocks = [gemm_block(
+        dev, gen, M, Bo, W4_SLOTS, True,
+        (lambda K: K // gs) if grouped else (lambda K: 1),
+        mode="W4" + (f" grouped group_size={gs}" if grouped else ""),
+        max_abs_err=max(errs[n:2 * n] if grouped else errs[:n]),
+        work=f"the five W4{' grouped' if grouped else ''} linears of one "
+             f"Llama-2-7B W4A4 block at M={M}, {Bo} outlier channels each "
+             "(q,k,v 4096x4096; up, gate+SiLU 4096x11008)")
+        for grouped in (False, True)]
+    rows["mix_gemm_w4_grouped"] = out_rows + blocks
+    return blocks[0]
+
+
+def a16_inputs(dev, gen, M, K, N, G, w4):
+    from mixq_tpu_torch.kernels.w8a16 import dequant_weight
+    from mixq_tpu_torch.ops import quant as Q
+
+    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    lo, hi = (-8, 8) if w4 else (-127, 128)
+    q_w = torch.randint(lo, hi, (K, N), generator=gen, device=dev,
+                        dtype=torch.int8)
+    ws = torch.rand(*((G, N) if G > 1 else (N,)), generator=gen,
+                    device=dev) * 1e-3 + 1e-4
+    w = Q.pack_int4(q_w) if w4 else q_w
+    # the library's operand: the same bf16-rounded weight, dequantized ahead
+    return (x, w, ws), dequant_weight(w, ws)
+
+
+def a16_bound(M, K, N, G, w4):
+    nbytes = M * K * 2 + K * N // (2 if w4 else 1) + G * N * 4 + M * N * 2
+    return bound_ms(nbytes, [(2 * M * N * K, "bf16")])
+
+
+def check_a16(got, ref, x, wd, what):
+    """1 bf16 ulp of |y| + 1e-5 * (|x| @ |wd|): the same bf16 operands and
+    exact products on both sides, summed in another order."""
+    S = x.float().abs() @ wd.float().abs()
+    err = (got.float() - ref.float()).abs()
+    check(bool((err <= BF16_ULP * ref.float().abs() + 1e-5 * S).all())
+          and bool(torch.isfinite(got).all()),
+          f"{what} disagrees: {err.max().item()}")
+    return err.max().item()
+
+
+A16_TOL = "1 bf16 ulp + 1e-5 (|x| @ |wd|)"
+A16_LIB = ("torch.matmul of x with the pre-dequantized bf16 weight (product "
+           "only)")
+
+
+def kernel_a16(dev, gen, rows):
+    """Kernel B: the seven W8A16 linears of a block, each shape alone over
+    rotated weight copies and then the block as the decode step runs it;
+    one packed-W4 (W4A16) and one grouped case at 4096x11008; row 5's
+    w8a16_matmul entry at 4096x4096."""
+    from mixq_tpu_torch.kernels.w8a16 import (mix_gemm_a16, w8a16_matmul,
+                                              w8a16_plain)
+
+    M = 64
+    cases = ([(K, N, f, False, 1) for K, N, f in
+              sorted({(K, N, f) for _, K, N, f in BLOCK})]
+             + [(4096, 11008, "none", True, 1),
+                (4096, 11008, "none", False, 32)])
+    out_rows, errs = [], []
+    for K, N, fuse, w4, G in cases:
+        ins, wd = a16_inputs(dev, gen, M, K, N, G, w4)
+        mode = ("W4A16" if w4 else "W8A16") + (f" grouped G={G}" if G > 1
+                                                else "")
+        got = mix_gemm_a16(*ins, fuse=fuse)
+        torch.cuda.synchronize()
+        err = check_a16(got, w8a16_plain(*ins, fuse=fuse), ins[0], wd,
+                        f"mix_gemm_a16 {mode} {K}x{N} {fuse}")
+        if not w4 and G == 1:
+            errs.append(err)
+        x, _, ws = ins
+        out_rows.append(timed_gemm(
+            lambda w: mix_gemm_a16(x, w, ws, fuse=fuse),
+            lambda: w8a16_plain(*ins, fuse=fuse),
+            lambda w: torch.matmul(x, w), ins[1], wd,
+            K * N // (2 if w4 else 1), a16_bound(M, K, N, G, w4),
+            work=f"{mode} M={M} K={K} N={N} fuse={fuse}", mode=mode,
+            tolerance=A16_TOL, max_abs_err=err, library=A16_LIB))
+        del ins, wd
+    seq = [a16_inputs(dev, gen, M, K, N, 1, False) + (fuse,)
+           for _, K, N, fuse in BLOCK]
+    block = block_row(
+        lambda: [mix_gemm_a16(*s[0], fuse=s[2]) for s in seq],
+        lambda: [w8a16_plain(*s[0], fuse=s[2]) for s in seq],
+        lambda: [torch.matmul(s[0][0], s[1]) for s in seq],
+        [a16_bound(M, K, N, 1, False) for _, K, N, _ in BLOCK],
+        work=f"the seven W8A16 linears of one Llama-2-7B block at M={M} "
+             "(q,k,v,o 4096x4096; up, gate+SiLU 4096x11008; down "
+             "11008x4096)",
+        mode="W8A16", tolerance=A16_TOL, max_abs_err=max(errs),
+        library=A16_LIB)
+    del seq
+    rows["mix_gemm_a16"] = out_rows + [block]
+    # row 5: the w8a16_matmul entry (int8, per-channel, no epilogue)
+    K = N = 4096
+    ins, wd = a16_inputs(dev, gen, M, K, N, 1, False)
+    x, w, ws = ins
+    got = w8a16_matmul(x, w, ws)
+    torch.cuda.synchronize()
+    err = check_a16(got, w8a16_plain(*ins), x, wd, "w8a16_matmul")
+    entry = timed_gemm(
+        lambda c: w8a16_matmul(x, c, ws), lambda: w8a16_plain(*ins),
+        lambda c: torch.matmul(x, c), w, wd, K * N,
+        a16_bound(M, K, N, 1, False),
+        work=f"w8a16_matmul entry, M={M} K={K} N={N}", mode="W8A16",
+        tolerance=A16_TOL, max_abs_err=err, library=A16_LIB)
+    rows["w8a16_matmul"] = [entry]
+    return block, entry
+
+
+def kernel_int8_matmul(dev, gen, rows):
+    """Row 6: the int8_matmul_dequant entry onto kernel 2 (W8A8, no
+    outliers) at the o_proj shape."""
+    from mixq_tpu_torch.kernels.mix_gemm import (int8_matmul_dequant,
+                                                 mix_gemm_plain)
+
+    M, K, N = 64, 4096, 4096
+    (q_x, w, xs, ws, _, _), lib_w = gemm_inputs(dev, gen, M, K, N, 0)
+    got = int8_matmul_dequant(q_x, w, xs, ws)
+    torch.cuda.synchronize()
+    err = check_gemm(got, mix_gemm_plain(q_x, w, xs, ws),
+                     "int8_matmul_dequant")
+    row = timed_gemm(
+        lambda c: int8_matmul_dequant(q_x, c, xs, ws),
+        lambda: mix_gemm_plain(q_x, w, xs, ws),
+        lambda c: torch._int_mm(q_x, c), w, lib_w, K * N,
+        gemm_bound(M, K, N, 0),
+        work=f"int8_matmul_dequant entry, M={M} K={K} N={N}", mode="W8A8",
+        tolerance=GEMM_TOL, max_abs_err=err, library=INT_MM)
+    rows["int8_matmul_dequant"] = [row]
+    return row
 
 
 def flash_case(dev, gen, B, S, n_q, n_kv, D, int8):
@@ -287,7 +514,8 @@ def kernel_flash(dev, gen, rows):
             qb = q[:, :, None, :]
             lib = device_ms(lambda: F.scaled_dot_product_attention(
                 qb, kb, vb, attn_mask=mask), 20)
-        row = dict(work=f"B={B} S={S} n_q={n_q} n_kv={n_kv} D={D} "
+        row = dict(mode=f"{'int8' if int8 else 'bf16'} KV",
+                   work=f"B={B} S={S} n_q={n_q} n_kv={n_kv} D={D} "
                         f"{'int8' if int8 else 'bf16'} KV, ragged lengths "
                         f"and kv_start ({valid} valid rows)",
                    tolerance=f"2 bf16 ulps of |y| + {atol}",
@@ -321,60 +549,119 @@ def llama2_7b():
                        max_position_embeddings=4096)
 
 
+# launches per layer and forward of each configuration's linears, by mode
+# (kernels.launch_counts keys); flash_decode adds one per layer and decode
+# step, and every other count stays 0
+PER_LAYER = {
+    "W8A8": {"rmsnorm_quant": 2, "mix_gemm": 7, "mix_gemm.w8a8": 7},
+    "W4A4": {"rmsnorm_quant": 2, "mix_gemm": 7, "mix_gemm.w4": 5,
+             "mix_gemm.w8a8": 2},
+    "W4A4 grouped": {"rmsnorm_quant": 2, "mix_gemm": 7,
+                     "mix_gemm.w4_grouped": 5, "mix_gemm.w8a8_grouped": 2},
+    "W8A16": {"w8a16": 7, "w8a16.w8": 7},
+}
+
+
+def path_specs(name, group_size=128, outlier_budget=128):
+    """The DecoderSpecs of a configuration: W8A8 on every linear, or the
+    reference policy of quantize.resolve_specs (W4A4: q/k/v/up/gate W4A4,
+    o/down W8A8; W8A16: weight-only everywhere)."""
+    from mixq_tpu_torch.config import QuantConfig
+    from mixq_tpu_torch.models.decoder import DecoderSpecs
+    from mixq_tpu_torch.ops.mixed_linear import LinearSpec
+    from mixq_tpu_torch.quantize import resolve_specs
+
+    if name == "W8A8":
+        return DecoderSpecs.uniform(LinearSpec(w_bit=8, a_bit=8))
+    if name == "W8A16":
+        return resolve_specs(QuantConfig.w8a16())
+    return resolve_specs(QuantConfig.w4a4(
+        outlier_budget=outlier_budget,
+        q_group_size=group_size if name == "W4A4 grouped" else -1))
+
+
+def expect_launches(name, L, forwards, decode_steps):
+    want = {k: v * L * forwards for k, v in PER_LAYER[name].items()}
+    want["flash_decode"] = L * decode_steps
+    return want
+
+
+def check_launches(counts, want, what):
+    got = {k: v for k, v in counts.items() if v}
+    check(got == want, f"{what}: launch counts {got} != {want}")
+
+
+# tiny model card vs CPU: max |dlogits| over max |logits|. W8A8 and W8A16:
+# one bf16 rounding that another summation order flips moves an int8
+# level or a bf16 ulp (JAX's own jit and eager forwards differ by <= 1.5e-2
+# on the tiny W8A8 models). W4A4: a 4-bit activation level is 1/7 of the
+# row's absmax, so the same flip moves the logits 18x as far; JAX's own two
+# paths differ by up to 8.5e-2 on the tiny W4A4 models
+# (tests/test_torch_decoder.py::test_w4a4_limit_is_jax_own_spread).
+TINY_TOL = {"W8A8": 2e-2, "W4A4": 1e-1, "W4A4 grouped": 1e-1,
+            "W8A16": 2e-2}
+
+
 def reference_check(dev):
-    """A tiny W8A8 model (seeded outliers) on the card through the three
-    kernels against the same model on the CPU through their plain versions,
-    bf16 and int8 KV: teacher-forced logits (a prefill and 4 decode steps)
-    within 2e-2 * max|logits|, and every kernel launched on the card."""
+    """Tiny models (seeded outliers on every MIX linear input) on the card
+    through the kernels against the same models on the CPU through their
+    plain versions, bf16 and int8 KV: teacher-forced logits (a prefill and
+    4 decode steps) within TINY_TOL * max|logits|, and every launch count by
+    mode. W8A8, W4A4 per-channel and with 64-row groups (a divisor of the
+    tiny K/2 = 128 and 256), and W8A16. Every configuration runs before the
+    checks, so a failing one still shows the others' numbers."""
     from mixq_tpu_torch.config import EngineConfig, ModelConfig
     from mixq_tpu_torch.convert import params_to
     from mixq_tpu_torch.engine import InferenceEngine
     from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from mixq_tpu_torch.models.decoder import (DecoderSpecs,
-                                               init_decoder_params)
-    from mixq_tpu_torch.ops.mixed_linear import LinearSpec
+    from mixq_tpu_torch.models.decoder import init_decoder_params
 
     cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512,
                            num_attention_heads=4, num_key_value_heads=2)
-    specs = DecoderSpecs.uniform(LinearSpec(w_bit=8, a_bit=8))
-    cpu = init_decoder_params(cfg, specs, torch.Generator().manual_seed(0),
-                              device="cpu", outlier_budget=16)
     toks = torch.randint(1, cfg.vocab_size, (3, 12),
                          generator=torch.Generator().manual_seed(1))
     kv_start = torch.tensor([0, 2, 5], dtype=torch.int32)
     L = cfg.num_hidden_layers
-    res = {}
-    for kv_dtype in ("bfloat16", "int8"):
-        ecfg = EngineConfig(max_seq_len=64, prefill_chunk=8,
-                            kv_dtype=kv_dtype)
-        reset_launch_counts()
-        outs = []
-        for params, d in ((cpu, "cpu"), (params_to(cpu, dev), dev)):
-            eng = InferenceEngine(params, cfg, specs, ecfg, device=d)
-            cache = eng.new_cache(3, 128)
-            logits, cache = eng.prefill(toks[:, :8], cache, kv_start)
-            steps = [logits.float().cpu()]
-            for i in range(4):
-                logits, cache = eng.decode_step(toks[:, 8 + i:9 + i], cache,
-                                                kv_start)
-                steps.append(logits.float().cpu())
-            outs.append(torch.stack(steps))
-        ref, got = outs
-        err = (got - ref).abs().max().item()
-        tol = 2e-2 * ref.abs().max().item()
-        check(bool(torch.isfinite(got).all()) and err <= tol,
-              f"tiny model card vs CPU, {kv_dtype} KV: max |dlogits| {err} "
-              f"> {tol}")
-        want = {"rmsnorm_quant": 2 * L * 5, "mix_gemm": 7 * L * 5,
-                "flash_decode": 4 * L}
-        check(launch_counts() == want,
-              f"tiny model launches {launch_counts()} != {want}")
-        res[kv_dtype] = dict(max_abs_err=err, tolerance=tol,
-                             shape=list(got.shape))
+    res, failures = {}, []
+    for name in PER_LAYER:
+        specs = path_specs(name, group_size=64, outlier_budget=16)
+        cpu = init_decoder_params(cfg, specs, torch.Generator().manual_seed(0),
+                                  device="cpu", outlier_budget=16)
+        for kv_dtype in ("bfloat16", "int8"):
+            ecfg = EngineConfig(max_seq_len=64, prefill_chunk=8,
+                                kv_dtype=kv_dtype)
+            reset_launch_counts()
+            outs = []
+            for params, d in ((cpu, "cpu"), (params_to(cpu, dev), dev)):
+                eng = InferenceEngine(params, cfg, specs, ecfg, device=d)
+                cache = eng.new_cache(3, 128)
+                logits, cache = eng.prefill(toks[:, :8], cache, kv_start)
+                steps = [logits.float().cpu()]
+                for i in range(4):
+                    logits, cache = eng.decode_step(toks[:, 8 + i:9 + i],
+                                                    cache, kv_start)
+                    steps.append(logits.float().cpu())
+                outs.append(torch.stack(steps))
+            ref, got = outs
+            err = (got - ref).abs().max().item()
+            tol = TINY_TOL[name] * ref.abs().max().item()
+            counts = launch_counts()
+            want = expect_launches(name, L, 5, 4)
+            if not (bool(torch.isfinite(got).all()) and err <= tol):
+                failures.append(f"tiny {name} model card vs CPU, {kv_dtype} "
+                                f"KV: max |dlogits| {err} > {tol}")
+            if {k: v for k, v in counts.items() if v} != want:
+                failures.append(f"tiny {name}, {kv_dtype} KV: launches "
+                                f"{counts} != {want}")
+            res[f"{name} {kv_dtype} KV"] = dict(
+                max_abs_err=err, tolerance=tol, shape=list(got.shape))
+    print(f"reference: tiny models card vs CPU, teacher-forced logits {res}",
+          flush=True)
+    check(not failures, "; ".join(failures))
     return res
 
 
-def serve(dev, params, cfg, specs):
+def serve(dev, params, cfg, specs, name):
     from mixq_tpu_torch.config import EngineConfig
     from mixq_tpu_torch.engine import InferenceEngine
     from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -393,15 +680,13 @@ def serve(dev, params, cfg, specs):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    L = cfg.num_hidden_layers
     shape = (len(out), min(len(r) for r in out), max(len(r) for r in out))
-    check(shape == (8, new, new), f"generate returned shape {shape}")
+    check(shape == (8, new, new), f"{name} generate returned shape {shape}")
     check(all(0 <= t < cfg.vocab_size for r in out for t in r),
-          "token out of range")
-    forwards = new                 # one prefill + (new - 1) decode steps
-    want = {"rmsnorm_quant": 2 * L * forwards, "mix_gemm": 7 * L * forwards,
-            "flash_decode": L * (new - 1)}
-    check(counts == want, f"launch counts {counts} != {want}")
+          f"{name}: token out of range")
+    # one prefill + (new - 1) decode steps
+    check_launches(counts, expect_launches(name, cfg.num_hidden_layers, new,
+                                           new - 1), f"{name} serve")
     return eng, dict(prompts=lens, new_tokens=new, tokens_shape=[8, new],
                      wall_s=wall, launches=counts, first_row=out[0][:8])
 
@@ -415,7 +700,7 @@ def tensor_bytes(obj):
     return 0
 
 
-def decode_timing(dev, eng, cfg, gen):
+def decode_timing(dev, eng, cfg, gen, tag):
     B, fill, steps, warm = 64, 512, 8, 2
     cache = eng.new_cache(B, 640)
     for buf in (cache.k, cache.v):
@@ -461,13 +746,14 @@ def decode_timing(dev, eng, cfg, gen):
                bound_ms=bound_ms(nbytes, [])[0],
                max_memory_allocated_gib=torch.cuda.max_memory_allocated()
                / 2 ** 30)
-    res.update(profile_steps(step, tok))
+    res.update(profile_steps(step, tok, tag))
     return res
 
 
-def profile_steps(step, tok, n=3):
+def profile_steps(step, tok, tag, n=3):
     """Device time per step, the device's busy share and the top kernels
-    over n decode steps; the profiler's table goes to chiprun_out."""
+    over n decode steps; the profiler's table goes to
+    chiprun_out/profile_<tag>.txt."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -485,7 +771,7 @@ def profile_steps(step, tok, n=3):
     top = sorted((e for e in ka if e.device_type == DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)[:15]
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"profile_{tag}.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
     return dict(profiled_steps=n, profiled_wall_us=wall_us, device_us=dev_us,
                 device_ms_per_step=dev_us / n / 1e3,
@@ -493,6 +779,32 @@ def profile_steps(step, tok, n=3):
                 top_kernels_us_per_step=[
                     (e.key[:60], e.count, e.self_device_time_total / n)
                     for e in top])
+
+
+# the kernels line: one entry per ported TPU kernel (a row of PERF.md's
+# table): (name, source module, REPLACES attribute, phase-3 row key,
+# launch-count keys summed over the four serve runs)
+KERNEL_ROWS = [
+    ("rmsnorm_quant", "rmsnorm_quant", "REPLACES", "rmsnorm_quant",
+     ("rmsnorm_quant",)),
+    ("mix_gemm_w8a8", "mix_gemm", "REPLACES", "mix_gemm",
+     ("mix_gemm.w8a8",)),
+    ("mix_gemm_w4_grouped", "mix_gemm", "REPLACES_W4", "mix_gemm_w4_grouped",
+     ("mix_gemm.w4", "mix_gemm.w4_grouped", "mix_gemm.w8a8_grouped")),
+    ("mix_gemm_a16", "w8a16", "REPLACES", "mix_gemm_a16", ("w8a16",)),
+    ("w8a16_matmul", "w8a16", "REPLACES_W8A16", "w8a16_matmul",
+     ("w8a16.w8",)),
+    ("int8_matmul_dequant", "mix_gemm", "REPLACES_INT8_MATMUL",
+     "int8_matmul_dequant", ("mix_gemm.w8a8",)),
+    ("flash_decode", "flash_decode", "REPLACES", "flash_decode",
+     ("flash_decode",)),
+]
+KERNEL_NOTES = {
+    "w8a16_matmul": "launches: the a16 kernel's int8 per-channel mode, "
+                    "which computes this entry's function",
+    "int8_matmul_dequant": "launches: kernel 2's W8A8 mode, which computes "
+                           "this entry's function",
+}
 
 
 def main():
@@ -506,9 +818,7 @@ def main():
               f"script ({e})", file=sys.stderr)
         return 3
     from mixq_tpu_torch.kernels import MODULES, _build
-    from mixq_tpu_torch.models.decoder import (DecoderSpecs,
-                                               init_decoder_params)
-    from mixq_tpu_torch.ops.mixed_linear import LinearSpec
+    from mixq_tpu_torch.models.decoder import init_decoder_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -539,7 +849,11 @@ def main():
     rows = {}
     main_rows = {"rmsnorm_quant": kernel_rmsnorm(dev, gen, rows),
                  "mix_gemm": kernel_mix_gemm(dev, gen, rows),
-                 "flash_decode": kernel_flash(dev, gen, rows)}
+                 "mix_gemm_w4_grouped": kernel_w4_gemm(dev, gen, rows)}
+    main_rows["mix_gemm_a16"], main_rows["w8a16_matmul"] = kernel_a16(
+        dev, gen, rows)
+    main_rows["int8_matmul_dequant"] = kernel_int8_matmul(dev, gen, rows)
+    main_rows["flash_decode"] = kernel_flash(dev, gen, rows)
     for name, rs in rows.items():
         for r in rs:
             lib = ("-" if r.get("library_ms") is None
@@ -557,38 +871,53 @@ def main():
     torch.cuda.empty_cache()
 
     report["reference"] = reference_check(dev)
-    print(f"reference: tiny W8A8 model card vs CPU, teacher-forced logits "
-          f"{report['reference']}", flush=True)
 
     cfg = llama2_7b()
-    specs = DecoderSpecs.uniform(LinearSpec(w_bit=8, a_bit=8))
-    t0 = time.perf_counter()
-    params = init_decoder_params(cfg, specs, gen, device=dev,
-                                 dtype=torch.bfloat16, outlier_budget=128)
-    torch.cuda.synchronize()
-    report["init_s"] = time.perf_counter() - t0
-    print(f"init: Llama-2-7B W8A8O16, {cfg.num_hidden_layers} layers, 128 "
-          f"outlier channels per linear input, {report['init_s']:.1f} s",
-          flush=True)
-    eng, report["serve"] = serve(dev, params, cfg, specs)
-    print(f"serve: {report['serve']}", flush=True)
-    report["decode"] = decode_timing(dev, eng, cfg, gen)
-    decode = {k: v for k, v in report["decode"].items()
-              if k != "top_kernels_us_per_step"}
-    print(f"decode: {decode} on {card}", flush=True)
+    report["paths"] = {}
+    launches = {}
+    for name, label in (("W8A8", "W8A8O16"), ("W4A4", "W4A4O16"),
+                        ("W4A4 grouped", "W4A4O16 group_size=128"),
+                        ("W8A16", "W8A16")):
+        specs = path_specs(name)
+        t0 = time.perf_counter()
+        params = init_decoder_params(cfg, specs, gen, device=dev,
+                                     dtype=torch.bfloat16,
+                                     outlier_budget=128)
+        torch.cuda.synchronize()
+        path = {"init_s": time.perf_counter() - t0}
+        print(f"init: Llama-2-7B {label}, {cfg.num_hidden_layers} layers, "
+              f"{tensor_bytes(params) / 2 ** 30:.2f} GiB of parameters, "
+              f"{path['init_s']:.1f} s", flush=True)
+        eng, path["serve"] = serve(dev, params, cfg, specs, name)
+        print(f"serve {label}: {path['serve']}", flush=True)
+        tag = label.split()[0] + ("_g128" if "group" in label else "")
+        path["decode"] = decode_timing(dev, eng, cfg, gen, tag)
+        decode = {k: v for k, v in path["decode"].items()
+                  if k != "top_kernels_us_per_step"}
+        print(f"decode {label}: {decode} on {card}", flush=True)
+        report["paths"][label] = path
+        for k, v in path["serve"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        del eng, params                 # free the model before the next
+        gc.collect()
+        torch.cuda.empty_cache()
     report["total_s"] = time.perf_counter() - t_start
 
-    launches = report["serve"]["launches"]
     kernels = []
-    for name, mod in MODULES.items():
-        r = main_rows[name]
+    for name, mod, attr, row, keys in KERNEL_ROWS:
+        r = main_rows[row]
+        n = sum(launches[k] for k in keys)
+        check(n > 0, f"{name}: no launch on the main paths")
         kernels.append({
-            "name": name, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": launches[name],
+            "name": name, "mode": r["mode"], "route": "cuda",
+            "source": MODULES[mod].SOURCE,
+            "replaces": getattr(MODULES[mod], attr), "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "work": r["work"]})
+            "work": r["work"], **({"note": KERNEL_NOTES[name]}
+                                  if name in KERNEL_NOTES else {})})
+    report["kernels_line"] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)

@@ -3,9 +3,12 @@
 `decoder_params_from_numpy(params, device)` takes the JAX package's
 `DecoderParams` after `jax.tree.map(np.asarray, params)` (NamedTuples of
 numpy arrays, bf16 as ml_dtypes' bfloat16) and builds the port's
-`DecoderParams` with the same field layout and dtypes: int8 q_weight, f32
-w_scale / k_mask / out_mask, bf16 w_outlier, int32 out_ind, embed and
-lm_head (None = tied). It reads fields by name and imports nothing of JAX.
+`DecoderParams` with the same field layout and dtypes: int8 q_weight (or
+packed int4 uint8 [K/2, N], halves layout), f32 w_scale [N] or [G, N],
+f32 k_mask / out_mask, bf16 w_outlier, int32 out_ind, embed and lm_head
+(None = tied). Every array is carried bit for bit. It reads fields by name
+and imports nothing of JAX. jnp.int4 weight storage is not carried: the
+port keeps int4 weights packed, JAX's default storage.
 """
 from __future__ import annotations
 
@@ -20,10 +23,15 @@ from mixq_tpu_torch.ops.mixed_linear import MixLinearParams
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """numpy (incl. ml_dtypes bfloat16) -> torch tensor on `device`."""
     a = np.asarray(a)
+    if a.dtype.name == "int4":
+        raise NotImplementedError(
+            "jnp.int4 weight storage: quantize with packed uint8 storage")
+    # np.ascontiguousarray makes a 0-d array 1-d; keep the shape
+    a = np.ascontiguousarray(a).reshape(a.shape)
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = torch.from_numpy(a.view(np.uint16).copy())
         return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(a.copy()).to(device)
 
 
 def _opt(a, device):

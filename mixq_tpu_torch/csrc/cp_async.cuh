@@ -1,0 +1,24 @@
+// cp.async helpers shared by the GEMM kernels (sm_80+; built for sm_90a).
+#pragma once
+#include <cuda_runtime.h>
+
+namespace mixq {
+
+// 16-byte global -> shared copy; `valid == false` copies 0 source bytes,
+// which zero-fills the 16 destination bytes (masked edges).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+}  // namespace mixq

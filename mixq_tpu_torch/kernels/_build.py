@@ -2,10 +2,11 @@
 
 Each source in `mixq_tpu_torch/csrc/` is compiled by `nvcc` for sm_90a into
 its own shared library with a plain C interface, loaded with `ctypes`
-(no PyTorch headers, so a build takes seconds). `build_all()` starts one
+(no PyTorch headers, so a build takes seconds); the sources share the
+headers beside them (`csrc/*.cuh`). `build_all()` starts one
 `nvcc` per source, all at once, and waits for them. A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is reused. The build directory, `mixq_tpu_torch/build/`,
+carries a hash of its source, the shared headers and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused. The build directory, `mixq_tpu_torch/build/`,
 is listed in `.gitignore`.
 
 Nothing here runs at import time: the CPU tests import every kernel module
@@ -21,12 +22,15 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 SOURCES = {
     "rmsnorm_quant": "rmsnorm_quant.cu",
     "mix_gemm": "mix_gemm.cu",
     "flash_decode": "flash_decode.cu",
+    "w8a16": "w8a16.cu",
 }
 # No --use_fast_math: quantization is round(x / scale), which needs IEEE
 # division, and the softmax needs the accurate expf.
@@ -53,6 +57,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{h}.so"
 
@@ -108,3 +113,44 @@ def check(rc: int, what: str) -> None:
     was refused or an attribute could not be set)."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+# ---------------------------------------------------------------------------
+# Checks shared by the GEMM wrappers
+# ---------------------------------------------------------------------------
+
+FUSES = ("none", "silu")          # the epilogue activations that are ported
+
+
+def check_fuse(fuse: str, what: str) -> None:
+    if fuse not in FUSES:
+        raise NotImplementedError(
+            f"{what} fuse={fuse!r}: only {FUSES} are ported")
+
+
+def require(t: torch.Tensor, dtype, shape, name: str, device) -> None:
+    """Raise unless `t` is what a kernel takes: a contiguous, 16-byte
+    aligned tensor of this dtype and shape on this device."""
+    if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                         f"{dtype} {shape} tensor on {device}; got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def scale_groups(w_scale: torch.Tensor, K: int, halves: bool,
+                 what: str) -> int:
+    """The number of K-groups G of a [N] (G = 1) or [G, N] weight scale,
+    checked against what the GEMM kernels take: group_size = K / G a
+    multiple of 16 and, with `halves` (a kernel that folds the low and high
+    K-rows of a packed int4 row together), a divisor of K / 2."""
+    if w_scale.dim() == 1:
+        return 1
+    G = w_scale.shape[0]
+    if G == 1:
+        return 1
+    if K % G or (K // G) % 16 or (halves and (K // 2) % (K // G)):
+        raise ValueError(
+            f"{what}: {G} scale groups over K={K} need group_size = K/G a "
+            f"multiple of 16{' dividing K/2' if halves else ''}")
+    return G

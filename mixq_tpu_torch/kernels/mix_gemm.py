@@ -1,20 +1,26 @@
-"""W8A8 mixed-precision GEMM with the fused dequant/outlier/SiLU epilogue
-(kernel 2).
+"""Int8-activation mixed-precision GEMM with the fused dequant/outlier/SiLU
+epilogue (kernel 2 and kernel A).
 
-Replaces mixq_tpu/ops/pallas/mix_gemm.py::mix_gemm in its W8A8 mode with the
-CUDA kernel in mixq_tpu_torch/csrc/mix_gemm.cu:
+Replaces mixq_tpu/ops/pallas/mix_gemm.py::mix_gemm with the CUDA kernel in
+mixq_tpu_torch/csrc/mix_gemm.cu, in the Pallas kernel's int8-activation
+modes, chosen as JAX chooses them, from dtypes and shapes:
 
-    y = float(q_x @ w) * x_scale * w_scale  (+ x_outlier @ w_outlier in f32)
-    y = silu(y) if fuse == "silu";  cast to out_dtype
+    w int8 [K, N]           W8   (kernel 2; mode "w8a8")
+    w uint8 [K/2, N]        packed W4, halves layout (kernel A; mode "w4")
+    w_scale [N]             per-channel: y = float(q_x @ w) * x_scale * w_scale
+    w_scale [G, N], G > 1   grouped: y = (sum_g float(acc_g) * w_scale[g])
+                            * x_scale (kernel A; "w8a8_grouped", "w4_grouped")
+    (+ x_outlier @ w_outlier in f32); silu if fuse == "silu"; cast to out_dtype
 
-`int8_matmul_dequant` is mixq_tpu/ops/pallas/int8_matmul.py's entry point,
-the same contract, as a thin call onto this kernel.
-
-The packed-W4, grouped-scale and bf16-activation (a16) modes of the Pallas
-kernel, and the gelu epilogues, are not ported yet (ROADMAP.md Queue B).
+A bf16 activation is the a16 (weight-only) mode, which runs on kernel B
+(kernels/w8a16.py); `mix_gemm` hands it over, as the Pallas kernel
+dispatches on the activation's dtype. `int8_matmul_dequant` is
+mixq_tpu/ops/pallas/int8_matmul.py's entry point, the W8A8 contract, as a
+thin call onto this kernel. The gelu epilogues are not ported yet.
 
 `mix_gemm` launches the kernel for CUDA tensors and runs `mix_gemm_plain`,
-the same arithmetic in PyTorch ops, for CPU tensors.
+the same arithmetic in PyTorch ops, for CPU tensors. Besides its total
+`launches`, the wrapper counts its launches by mode in `mode_launches`.
 """
 from __future__ import annotations
 
@@ -25,16 +31,18 @@ from typing import Optional
 import torch
 
 from mixq_tpu_torch.kernels import _build
+from mixq_tpu_torch.kernels.w8a16 import mix_gemm_a16
+from mixq_tpu_torch.ops.quant import grouped_int8_matmul_dequant, unpack_int4
 
 SOURCE = "mixq_tpu_torch/csrc/mix_gemm.cu"
 REPLACES = "mixq_tpu/ops/pallas/mix_gemm.py:140"
-FUSES = ("none", "silu")
+REPLACES_W4 = "mixq_tpu/ops/pallas/mix_gemm.py:43"     # _unpack_w4, grouped
+REPLACES_INT8_MATMUL = "mixq_tpu/ops/pallas/int8_matmul.py:53"
+MODES = ("w8a8", "w8a8_grouped", "w4", "w4_grouped")
 
 
-def _check_fuse(fuse: str) -> None:
-    if fuse not in FUSES:
-        raise NotImplementedError(
-            f"mix_gemm fuse={fuse!r}: only {FUSES} are ported")
+def _mode(w4: bool, G: int) -> str:
+    return ("w4" if w4 else "w8a8") + ("_grouped" if G > 1 else "")
 
 
 def mix_gemm_plain(
@@ -43,13 +51,20 @@ def mix_gemm_plain(
     w_outlier: Optional[torch.Tensor] = None, fuse: str = "none",
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """PyTorch version of the kernel, in the JAX order of operations. The
-    int32 accumulator is computed in float64, which holds every partial sum
-    of int8 products exactly (|acc| <= 127*127*K < 2**53), and is rounded
-    to f32 as JAX's int32 -> f32 cast rounds it."""
-    _check_fuse(fuse)
-    acc = torch.matmul(q_x.double(), w.double()).float()
-    y = acc * x_scale.reshape(-1, 1) * w_scale[None, :]
+    """PyTorch version of the kernel, in the JAX order of operations. A
+    packed weight is unpacked first. The int32 accumulator (per group when
+    grouped) is computed in float64, which holds every partial sum of int8
+    products exactly (|acc| <= 127*127*K < 2**53), and is rounded to f32 as
+    JAX's int32 -> f32 cast rounds it."""
+    _build.check_fuse(fuse, "mix_gemm")
+    if w.dtype == torch.uint8:
+        w = unpack_int4(w)
+    if w_scale.dim() == 2 and w_scale.shape[0] > 1:
+        y = grouped_int8_matmul_dequant(q_x, x_scale.reshape(-1, 1), w,
+                                        w_scale)
+    else:
+        acc = torch.matmul(q_x.double(), w.double()).float()
+        y = acc * x_scale.reshape(-1, 1) * w_scale.reshape(1, -1)
     if x_outlier is not None and w_outlier is not None:
         y = y + torch.matmul(x_outlier.float(), w_outlier.float())
     if fuse == "silu":
@@ -59,75 +74,75 @@ def mix_gemm_plain(
 
 @functools.cache
 def _launcher():
-    fn = _build.load("mix_gemm").mix_gemm_w8a8_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn = _build.load("mix_gemm").mix_gemm_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _require(t: torch.Tensor, dtype, shape, name: str, device) -> None:
-    if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
-            or not t.is_contiguous() or t.data_ptr() % 16):
-        raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                         f"{dtype} {shape} tensor on {device}; got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-
-
 def mix_gemm(
-    q_x: torch.Tensor,                        # int8 [M, K]
-    w: torch.Tensor,                          # int8 [K, N]
-    x_scale: torch.Tensor,                    # f32 [M, 1]
-    w_scale: torch.Tensor,                    # f32 [N]
+    q_x: torch.Tensor,                        # int8 [M, K] | bf16 (a16)
+    w: torch.Tensor,                          # int8 [K, N] | uint8 [K/2, N]
+    x_scale: Optional[torch.Tensor],          # f32 [M, 1] (int8 q_x only)
+    w_scale: torch.Tensor,                    # f32 [N] | [G, N]
     x_outlier: Optional[torch.Tensor] = None,  # bf16 [M, B]
     w_outlier: Optional[torch.Tensor] = None,  # bf16 [B, N]
     fuse: str = "none",
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Returns y [M, N] in out_dtype (bf16 or f32)."""
+    if q_x.dtype != torch.int8:               # the a16 mode: kernel B
+        return mix_gemm_a16(q_x, w, w_scale, x_outlier, w_outlier, fuse,
+                            out_dtype)
     if q_x.device.type == "cpu":
         return mix_gemm_plain(q_x, w, x_scale, w_scale, x_outlier, w_outlier,
                               fuse, out_dtype)
     if q_x.device.type != "cuda":
         raise ValueError(f"unsupported device {q_x.device}")
-    _check_fuse(fuse)
-    if q_x.dtype != torch.int8 or w.dtype != torch.int8:
-        raise NotImplementedError(
-            "only the W8A8 mode (int8 activation x int8 [K, N] weight) is "
-            "ported")
+    _build.check_fuse(fuse, "mix_gemm")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype {out_dtype} not supported")
+    w4 = w.dtype == torch.uint8
     M, K = q_x.shape
     N = w.shape[1]
-    if K % 16 or N % 16:
-        raise ValueError(f"K ({K}) and N ({N}) must be multiples of 16")
+    if K % (32 if w4 else 16) or N % 16:
+        raise ValueError(f"K ({K}) must be a multiple of {32 if w4 else 16} "
+                         f"and N ({N}) of 16")
     dev = q_x.device
-    _require(q_x, torch.int8, (M, K), "q_x", dev)
-    _require(w, torch.int8, (K, N), "w", dev)
-    _require(x_scale.reshape(M), torch.float32, (M,), "x_scale", dev)
-    _require(w_scale, torch.float32, (N,), "w_scale", dev)
+    G = _build.scale_groups(w_scale, K, halves=True, what="mix_gemm")
+    _build.require(q_x, torch.int8, (M, K), "q_x", dev)
+    _build.require(w, w.dtype if w4 else torch.int8,
+                   (K // 2, N) if w4 else (K, N), "w", dev)
+    _build.require(x_scale.reshape(M), torch.float32, (M,), "x_scale", dev)
+    _build.require(w_scale, torch.float32,
+                   (G, N) if G > 1 else tuple(w_scale.shape), "w_scale", dev)
+    if w_scale.numel() != G * N:
+        raise ValueError(f"w_scale {tuple(w_scale.shape)} for N={N}")
     has_out = x_outlier is not None and w_outlier is not None
     Bo = 0
     if has_out:
         Bo = x_outlier.shape[-1]
         if Bo % 16:
             raise ValueError(f"outlier budget {Bo} must be a multiple of 16")
-        _require(x_outlier, torch.bfloat16, (M, Bo), "x_outlier", dev)
-        _require(w_outlier, torch.bfloat16, (Bo, N), "w_outlier", dev)
+        _build.require(x_outlier, torch.bfloat16, (M, Bo), "x_outlier", dev)
+        _build.require(w_outlier, torch.bfloat16, (Bo, N), "w_outlier", dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launcher()(
         q_x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         x_outlier.data_ptr() if has_out else None,
         w_outlier.data_ptr() if has_out else None, out.data_ptr(),
-        M, N, K, Bo, int(fuse == "silu"), int(out_dtype == torch.float32),
-        stream)
+        M, N, K, Bo, G, int(w4), int(fuse == "silu"),
+        int(out_dtype == torch.float32), stream)
     _build.check(rc, "mix_gemm")
     mix_gemm.launches += 1
+    mix_gemm.mode_launches[_mode(w4, G)] += 1
     return out
 
 
 mix_gemm.launches = 0
+mix_gemm.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def int8_matmul_dequant(

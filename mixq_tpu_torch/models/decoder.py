@@ -12,9 +12,15 @@ python-loop-over-layers runtime with a head-major KV cache:
   decode (T = 1): the token is written into the cache, then kernel 3 attends
       over the cache.
 
-Per block on the card: kernel 1 twice (the two norms with their activation
-quantization), kernel 2 seven times (q, k, v, o, up, gate+SiLU, down),
-kernel 3 once per decode step. The stacked `lax.scan` runtime, continuous
+The precision of each linear slot comes from `DecoderSpecs` (e.g. from
+quantize.resolve_specs). As in JAX, only a MIX linear group (q/k/v, up/gate)
+shares one prepared activation, made by the fused norm + quantization
+(kernel 1); FP16 and WEIGHT_ONLY linears take the plain rmsnorm output. Per
+block on the card, W8A8: kernel 1 twice, the int8 GEMM seven times (q, k,
+v, o, up, gate+SiLU, down); W4A4 (reference policy): kernel 1 twice, five
+packed-W4 GEMMs (q, k, v, up, gate) and two W8A8 ones (o, down); W8A16:
+seven a16 GEMMs and no kernel 1; and flash decode once per decode step.
+The stacked `lax.scan` runtime, continuous
 batching slots, ring caches, ALiBi, softcaps, rope scaling and the other
 families raise NotImplementedError (ROADMAP.md Queue A).
 """
@@ -122,15 +128,17 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"model features not ported yet: {bad} (llama family only)")
 
 
-def _quantized(spec: LinearSpec) -> bool:
-    return not (spec.version == "FP16" or spec.w_bit == 16)
+def _shares_act(spec: LinearSpec) -> bool:
+    """JAX's routing rule: only MIX linears take a shared prepared
+    activation; FP16, WEIGHT_ONLY and QUIK linears take the fp input."""
+    return spec.version not in ("FP16", "WEIGHT_ONLY", "QUIK")
 
 
 def _norm_act(x, scale, lin: MixLinearParams, spec: LinearSpec,
               cfg: ModelConfig):
-    """The pre-linear norm; for a quantized linear also its shared
+    """The pre-linear norm; for a MIX linear group also its shared
     quantized activation (kernel 1)."""
-    if _quantized(spec):
+    if _shares_act(spec):
         return rmsnorm_quant(x, scale, lin, spec, cfg.rms_norm_eps)
     return rmsnorm(x, scale, cfg.rms_norm_eps), None
 
@@ -247,14 +255,17 @@ def init_decoder_params(
     dtype: torch.dtype = torch.float32,
     outlier_budget: int = 0,
 ) -> DecoderParams:
-    """Random N(0, 0.02) weights, quantized at init when `specs` is.
+    """Random N(0, 0.02) weights, quantized at init slot by slot as `specs`
+    says (e.g. resolve_specs(QuantConfig.w4a4()): q/k/v/up/gate W4A4, o/down
+    W8A8).
 
-    With `outlier_budget` > 0 every linear INPUT of a quantized model gets
-    that many seeded fp outlier channels (through outlier_set_from_indices
-    and from_float(outlier_set=...)): q/k/v share one set, as they share one
-    activation, and so do up/gate; o and down have their own. JAX's init
-    makes no outlier sets, so this is the port's way to run the outlier term
-    of the GEMM on random weights."""
+    With `outlier_budget` > 0 every MIX linear INPUT gets that many seeded
+    fp outlier channels (through outlier_set_from_indices and
+    from_float(outlier_set=...)): q/k/v share one set, as they share one
+    activation, and so do up/gate; o and down have their own. FP16 and
+    WEIGHT_ONLY linears get none. JAX's init makes no outlier sets, so this
+    is the port's way to run the outlier term of the GEMM on random
+    weights."""
     _check_supported(cfg)
     specs = specs or DecoderSpecs.fp16()
     if generator is None:
@@ -268,7 +279,7 @@ def init_decoder_params(
                            dtype=dtype) * 0.02
 
     def oset(K: int, spec: LinearSpec):
-        if not outlier_budget or not _quantized(spec):
+        if not outlier_budget or spec.version != "MIX":
             return None
         idx = torch.randperm(K, generator=generator, device=device)
         return Q.outlier_set_from_indices(

@@ -4,14 +4,17 @@ A quantized linear is a plain tensor container plus a static spec:
 
     y = mixed_linear(params: MixLinearParams, x, spec: LinearSpec)
 
-The W8A8 GEMM with its dequant/outlier/SiLU epilogue is kernel 2
-(kernels/mix_gemm.py) on the card; the activation preparation (outlier
-extract, inlier mask, per-token quantization) is PyTorch glue, as it is jnp
-glue in JAX.
+Every int8-activation linear (MIX: W8 or packed W4, per-channel [N] or
+grouped [G, N] scales) runs its GEMM with the dequant/outlier/SiLU epilogue
+on the card through kernels/mix_gemm.py (kernel 2 / kernel A); a
+WEIGHT_ONLY (W8A16) linear runs on the a16 kernel (kernels/w8a16.py, kernel
+B). The activation preparation (outlier extract, inlier mask, per-token
+quantization) is PyTorch glue, as it is jnp glue in JAX.
 
-Ported: MIX W8A8 with per-channel scales and fp outlier channels, and FP16
-linears. W4 (packed or not), grouped scales, WEIGHT_ONLY (W8A16) and QUIK
-raise NotImplementedError (ROADMAP.md Queue A item 3).
+Int4 weights are stored packed, two per uint8 in the halves layout
+(ops/quant.py::pack_int4): the port has no jnp.int4 storage and no storage
+switches. QUIK linears raise NotImplementedError (ROADMAP.md Queue A
+item 3).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from mixq_tpu_torch.kernels.mix_gemm import mix_gemm
+from mixq_tpu_torch.kernels.w8a16 import mix_gemm_a16
 from mixq_tpu_torch.ops import quant as Q
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -48,8 +52,9 @@ class LinearSpec:
 class MixLinearParams(NamedTuple):
     """Quantized linear parameters; weight layout [K, N] (in-dim first).
 
-    q_weight:  int8 [K, N]  (w_bit 8)  |  [K, N] fp (FP16 spec)
-    w_scale:   f32 [N]      per-out-channel scale
+    q_weight:  int8 [K, N]  (w_bit 8)  |  uint8 [K/2, N] (w_bit 4, packed)
+               |  [K, N] fp (FP16 spec)
+    w_scale:   f32 [N]      per-out-channel scale | f32 [G, N] per group
     w_outlier: bf16 [B, N] | None   fp weight rows of the outlier channels
     out_ind:   int32 [B]   | None   outlier channel indices (padded)
     out_mask:  f32 [B]     | None   1 for live outlier slots
@@ -87,6 +92,14 @@ class QuantizedAct(NamedTuple):
     x_outlier: Optional[torch.Tensor]     # [..., B] fp outlier activations
 
 
+def int_weight(params: MixLinearParams, spec: LinearSpec) -> torch.Tensor:
+    """The int8 [K, N] weight values (packed int4 storage unpacked)."""
+    qw = params.q_weight
+    if spec.w_bit == 4 and qw.dtype == torch.uint8:
+        return Q.unpack_int4(qw)
+    return qw
+
+
 def _apply_fuse(y: torch.Tensor, fuse: str, out_dtype) -> torch.Tensor:
     if fuse == "silu":
         y = y.float()
@@ -96,14 +109,6 @@ def _apply_fuse(y: torch.Tensor, fuse: str, out_dtype) -> torch.Tensor:
     elif fuse == "gelu_new":
         y = F.gelu(y.float(), approximate="tanh")
     return y.to(out_dtype)
-
-
-def _check_w8a8(params: MixLinearParams, spec: LinearSpec) -> None:
-    if (spec.version != "MIX" or spec.w_bit != 8 or spec.group_size > 0
-            or params.q_weight.dtype != torch.int8
-            or params.w_scale.dim() != 1):
-        raise NotImplementedError(
-            f"only MIX W8A8 with per-channel scales is ported (spec {spec})")
 
 
 def prepare_act(x: torch.Tensor, params: MixLinearParams,
@@ -123,8 +128,8 @@ def prepare_act(x: torch.Tensor, params: MixLinearParams,
 def mixed_linear_prepared(params: MixLinearParams, act: QuantizedAct,
                           spec: LinearSpec) -> torch.Tensor:
     """Mixed int GEMM on a pre-quantized activation (the reference's
-    forward_without_precondition[FusedSilu]), on kernel 2."""
-    _check_w8a8(params, spec)
+    forward_without_precondition[FusedSilu]): W8 or packed W4, per-channel
+    or grouped scales, all on the mix_gemm wrapper."""
     lead = act.q_x.shape[:-1]
     K = act.q_x.shape[-1]
     x_out = None
@@ -151,7 +156,30 @@ def mixed_linear(params: MixLinearParams, x: torch.Tensor,
         if params.bias is not None:
             y = y + params.bias.float()
         return _apply_fuse(y, spec.fuse, spec.odtype)
+    if spec.version == "WEIGHT_ONLY":
+        return w8a16_linear(params, x, spec)
+    if spec.version == "QUIK":
+        raise NotImplementedError("QUIK linears are not ported")
     return mixed_linear_prepared(params, prepare_act(x, params, spec), spec)
+
+
+def w8a16_linear(params: MixLinearParams, x: torch.Tensor,
+                 spec: LinearSpec) -> torch.Tensor:
+    """Weight-only linear (EETQ.w8_a16_gemm): the weight stays int8 (or
+    packed int4) in device memory and is dequantized to bf16 inside the
+    a16 kernel, `wd = bf16(w) * bf16(w_scale)`, then a bf16 x bf16 -> f32
+    GEMM. JAX computes the same function in jnp for an int8 per-channel
+    weight; the kernel also takes packed int4 and grouped scales."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K).to(torch.bfloat16).contiguous()
+    if params.bias is None:
+        y = mix_gemm_a16(x2, params.q_weight, params.w_scale, fuse=spec.fuse,
+                         out_dtype=spec.odtype)
+    else:
+        y = mix_gemm_a16(x2, params.q_weight, params.w_scale,
+                         out_dtype=torch.float32)
+        y = _apply_fuse(y + params.bias.float(), spec.fuse, spec.odtype)
+    return y.reshape(*lead, params.q_weight.shape[1])
 
 
 def from_float(
@@ -162,7 +190,10 @@ def from_float(
     store_dtype: torch.dtype = torch.bfloat16,
 ) -> MixLinearParams:
     """Quantize an fp weight [K, N] into MixLinearParams. Outlier channels
-    keep an fp copy in w_outlier and their int rows are zeroed."""
+    keep an fp copy in w_outlier and their int rows are zeroed (not for
+    WEIGHT_ONLY linears, which take no outlier set, as in JAX). int4
+    weights are packed (halves layout); group_size > 0 gives [G, N]
+    scales."""
     K, N = w.shape
     b = None if bias is None else bias.to(store_dtype)
     if spec.version == "FP16" or spec.w_bit == 16:
@@ -170,18 +201,27 @@ def from_float(
             q_weight=w.to(store_dtype),
             w_scale=torch.ones((N,), dtype=torch.float32, device=w.device),
             bias=b)
-    if spec.version != "MIX" or spec.w_bit != 8 or spec.group_size > 0:
-        raise NotImplementedError(
-            f"from_float: only MIX w_bit=8 per-channel and FP16 are ported "
-            f"(spec {spec})")
+    if spec.version == "QUIK":
+        raise NotImplementedError("from_float: QUIK linears are not ported")
     w_outlier = None
     oset_fields = (None, None, None, None)
     w_for_quant = w
-    if outlier_set is not None:
+    if outlier_set is not None and spec.version != "WEIGHT_ONLY":
         w_outlier = Q.gather_outlier_weights(w, outlier_set).to(store_dtype)
         w_for_quant = w * outlier_set.k_mask[:, None].to(w.dtype)
         oset_fields = tuple(outlier_set)
-    q_w, w_scale = Q.quantize_weight_int8(w_for_quant)
+    if spec.group_size > 0 and spec.w_bit <= 8:
+        q_w, w_scale = Q.quantize_weight_grouped(
+            w_for_quant, bits=spec.w_bit, group_size=spec.group_size)
+        if spec.w_bit == 4:
+            q_w = Q.pack_int4(q_w)
+    elif spec.w_bit == 8:
+        q_w, w_scale = Q.quantize_weight_int8(w_for_quant)
+    elif spec.w_bit == 4:
+        q_w, w_scale = Q.quantize_weight_int4(w_for_quant)
+        q_w = Q.pack_int4(q_w)
+    else:
+        raise ValueError(f"unsupported w_bit {spec.w_bit}")
     return MixLinearParams(
         q_weight=q_w, w_scale=w_scale, w_outlier=w_outlier,
         out_ind=oset_fields[0], out_mask=oset_fields[1],

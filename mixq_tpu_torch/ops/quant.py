@@ -4,10 +4,12 @@ Every function repeats the JAX arithmetic in the same order and dtypes, so
 the integer results are bit-equal: `torch.round` and `jnp.round` both round
 half to even, and each division is an IEEE f32 division on both sides.
 
-Ported here: int8 weight, per-token activation and per-(token, head) KV
-quantization, the static-budget outlier set and its helpers, and the dequant
-epilogue. int4 packing, grouped and asymmetric quantization and the online
-outlier detector are still to be ported (ROADMAP.md Queue A item 2).
+Ported here: int8, int4 and group-wise weight quantization, int4 packing in
+the halves layout, per-token activation and per-(token, head) KV
+quantization, the static-budget outlier set and its helpers, the dequant
+epilogue and the grouped int8 GEMM reference. Asymmetric (QUIK) quantization
+and the online outlier detector are still to be ported (ROADMAP.md Queue A
+item 2).
 """
 from __future__ import annotations
 
@@ -29,6 +31,78 @@ def quantize_weight_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp_min(w.abs().amax(dim=0) / 127.0, 1e-8)
     q = torch.clamp(torch.round(w / scale[None, :]), -127, 127).to(torch.int8)
     return q, scale
+
+
+def quantize_weight_int4(
+    w: torch.Tensor, clip_scale_denom: float = 7.0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-out-channel int4 weight quant (unpacked, int8 storage):
+    scale = max|w| / clip_scale_denom, values clamped to [-8, 7].
+    Returns (q_w int8 [K, N], scale f32 [N])."""
+    w = w.float()
+    scale = torch.clamp_min(w.abs().amax(dim=0) / clip_scale_denom, 1e-8)
+    q = torch.clamp(torch.round(w / scale[None, :]), -8, 7).to(torch.int8)
+    return q, scale
+
+
+def quantize_weight_grouped(
+    w: torch.Tensor, bits: int = 4, group_size: int = 128
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group-wise symmetric weight quant: one scale per (K-group,
+    out-channel). w: [K, N] -> (q int8 [K, N], scale f32 [K/group_size, N]);
+    values clamp to [-qmax - 1, qmax]."""
+    K, N = w.shape
+    if K % group_size:
+        raise ValueError(f"K={K} not divisible by group {group_size}")
+    qmax = 127.0 if bits == 8 else 7.0
+    wg = w.float().reshape(K // group_size, group_size, N)
+    scale = torch.clamp_min(wg.abs().amax(dim=1) / qmax, 1e-8)   # [G, N]
+    q = torch.clamp(torch.round(wg / scale[:, None, :]), -qmax - 1, qmax)
+    return q.reshape(K, N).to(torch.int8), scale
+
+
+def grouped_int8_matmul_dequant(
+    q_x: torch.Tensor,          # int8 [M, K]
+    x_scale: torch.Tensor,      # f32 [M, 1]
+    q_w: torch.Tensor,          # int8 [K, N]
+    w_scale_g: torch.Tensor,    # f32 [G, N]
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Int8 GEMM with per-group weight scales: one exact integer product per
+    K-group (in float64, exact for |acc| < 2**53), each rounded to f32 and
+    scaled by its group's scales, summed over groups in f32, then times the
+    row scale."""
+    M, K = q_x.shape
+    G, N = w_scale_g.shape
+    xg = q_x.double().reshape(M, G, K // G)
+    wg = q_w.double().reshape(G, K // G, N)
+    acc = torch.einsum("mgk,gkn->gmn", xg, wg).float()           # [G, M, N]
+    y = torch.sum(acc * w_scale_g[:, None, :], dim=0)
+    return (y * x_scale).to(out_dtype)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack int4 values (int8 storage, [-8, 7]) two per byte along axis 0.
+
+    q: [K, N] -> uint8 [K/2, N] in the HALVES layout: row k in the low
+    nibble, row k + K/2 in the high nibble, so a kernel's unpack of a packed
+    row block gives two contiguous row blocks of the natural order."""
+    K = q.shape[0]
+    if K % 2:
+        raise ValueError("K must be even to pack int4")
+    half = K // 2
+    lo = (q[:half] & 0x0F).to(torch.uint8)
+    hi = (q[half:] & 0x0F).to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_int4: uint8 [K/2, N] -> int8 [K, N] in [-8, 7]."""
+    lo = (packed & 0x0F).to(torch.int8)
+    hi = ((packed >> 4) & 0x0F).to(torch.int8)
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    return torch.cat([lo, hi], dim=0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version at small shapes (edges, outliers, GQA, ragged lengths). The tiny
-model served on the card against the same model on the CPU is phase 4 of
-chip_smoke.py.
+version at small shapes (edges, outliers, GQA, ragged lengths; the int8
+GEMM in its W8, packed-W4 and grouped modes; the a16 GEMM with int8 and
+packed weights, per-channel and grouped scales, outliers and SiLU) and the
+wrappers' refusals. The tiny models served on the card against the same
+models on the CPU are phase 4 of chip_smoke.py.
 
 Every test here needs a CUDA card: the `cuda` fixture decides at run time
 and skips with a reason elsewhere. This file imports neither JAX nor the
@@ -12,7 +14,12 @@ JAX package, so it also runs on a machine without them:
 Tolerances: y of kernel 1 within one bf16 ulp (2**-7 relative; the row's
 sum of squares is added in another order), q_x within 1 LSB; kernel 2 f32
 outputs within 1e-4 (the outlier dot accumulates on tensor cores), bf16
-outputs within one ulp; kernel 3 within two bf16 ulps of |y| plus
+outputs within one ulp; in the W4 and grouped modes f32 within 1e-4 |y| +
+1e-4 plus G f32 ulps of S = x_scale * sum_g |float(acc_g) * w_scale[g]|
+(the f32 group sum runs in another order and its terms can cancel), bf16
+within one ulp more; the a16 kernel f32 within 1e-5 *
+(|x| @ |wd|) (same bf16 operands, exact products, tensor-core summation
+order), bf16 within one ulp; kernel 3 within two bf16 ulps of |y| plus
 FLASH_ATOL, for a probability whose rounding (to int8, or to bf16 in bf16
 mode) an exp() ulp flips; a typical |y| is ~0.1 here, and
 tests/test_torch_flash_decode.py shows that the int8 limit stops a kernel
@@ -26,6 +33,8 @@ from mixq_tpu_torch.kernels.mix_gemm import (int8_matmul_dequant, mix_gemm,
                                              mix_gemm_plain)
 from mixq_tpu_torch.kernels.rmsnorm_quant import (fused_rmsnorm_quant,
                                                   rmsnorm_quant_plain)
+from mixq_tpu_torch.kernels.w8a16 import (dequant_weight, mix_gemm_a16,
+                                          w8a16_matmul, w8a16_plain)
 from mixq_tpu_torch.ops import quant as Q
 
 pytestmark = pytest.mark.gpu
@@ -46,9 +55,10 @@ def _gen(seed):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
+@pytest.mark.parametrize("a_bits", [8, 4])
 @pytest.mark.parametrize("M,H,n_out", [(1, 64, 0), (7, 4096, 128),
                                        (64, 4096, 0), (5, 11008, 16)])
-def test_rmsnorm_quant(cuda, M, H, n_out):
+def test_rmsnorm_quant(cuda, M, H, n_out, a_bits):
     g = _gen(M + H)
     x = (torch.randn(M, H, generator=g, device=cuda) * 3).to(torch.bfloat16)
     gamma = 1 + 0.1 * torch.randn(H, generator=g, device=cuda)
@@ -56,7 +66,7 @@ def test_rmsnorm_quant(cuda, M, H, n_out):
     if n_out:
         idx = torch.randperm(H, generator=g, device=cuda)[:n_out]
         oset = Q.outlier_set_from_indices(idx, H, n_out, device=cuda)
-    args = (x, gamma, None if oset is None else oset.k_mask, 1e-5, 8,
+    args = (x, gamma, None if oset is None else oset.k_mask, 1e-5, a_bits,
             None if oset is None else oset.ind,
             None if oset is None else oset.mask)
     y, q, s, xo = fused_rmsnorm_quant(*args)
@@ -65,6 +75,7 @@ def test_rmsnorm_quant(cuda, M, H, n_out):
     assert (y.float() - yp.float()).abs().le(
         BF16_ULP * yp.float().abs()).all()
     assert (q.int() - qp.int()).abs().max() <= 1
+    assert q.abs().max() <= 2 ** (a_bits - 1) - 1
     torch.testing.assert_close(s, sp, rtol=1e-5, atol=0)
     if n_out:
         assert (xo.float() - xop.float()).abs().le(
@@ -114,6 +125,141 @@ def test_int8_matmul_dequant_and_checks(cuda):
         mix_gemm(q_x, w, xs, ws, fuse="gelu")
     with pytest.raises(ValueError):                # N % 16 != 0
         mix_gemm(q_x, w[:, :70].contiguous(), xs, ws[:70].contiguous())
+
+
+def _w4_gemm_operands(cuda, g, M, K, N, G, B, w4):
+    q_x = torch.randint(-127, 128, (M, K), generator=g, device=cuda,
+                        dtype=torch.int8)
+    lo, hi = (-8, 8) if w4 else (-127, 128)
+    q_w = torch.randint(lo, hi, (K, N), generator=g, device=cuda,
+                        dtype=torch.int8)
+    xs = torch.rand(M, 1, generator=g, device=cuda) * 1e-3 + 1e-4
+    ws = torch.rand(*((G, N) if G else (N,)), generator=g, device=cuda)
+    ws = ws * 1e-3 + 1e-4
+    xo = wo = None
+    if B:
+        xo = torch.randn(M, B, generator=g, device=cuda).to(torch.bfloat16)
+        wo = torch.randn(B, N, generator=g, device=cuda).to(torch.bfloat16)
+    return q_x, Q.pack_int4(q_w) if w4 else q_w, xs, ws, xo, wo
+
+
+def _group_sum_atol(q_x, w, xs, ws):
+    """G f32 ulps of x_scale * sum_g |float(acc_g) * w_scale[g]|."""
+    if ws.dim() == 1:
+        return 0.0
+    wv = Q.unpack_int4(w) if w.dtype == torch.uint8 else w
+    G, (M, K) = ws.shape[0], q_x.shape
+    acc = torch.einsum("mgk,gkn->gmn", q_x.double().reshape(M, G, K // G),
+                       wv.double().reshape(G, K // G, -1))
+    S = (acc * ws[:, None, :].double()).abs().sum(0) * xs.double()
+    return (G * 2.0 ** -23 * S).float()
+
+
+@pytest.mark.parametrize("M,K,N,G,B,w4", [
+    (1, 256, 384, 0, 0, True), (70, 512, 400, 0, 32, True),
+    (64, 4096, 4096, 0, 128, True),
+    (1, 256, 384, 8, 0, False), (33, 512, 256, 4, 16, False),
+    (130, 11008, 4096, 86, 128, False),
+    (16, 512, 384, 4, 0, True), (70, 256, 400, 8, 16, True),
+    (64, 4096, 11008, 32, 128, True)])
+@pytest.mark.parametrize("fuse", ["none", "silu"])
+def test_mix_gemm_w4_and_grouped(cuda, M, K, N, G, B, w4, fuse):
+    g = _gen(M + K + N + G)
+    ops = _w4_gemm_operands(cuda, g, M, K, N, G, B, w4)
+    mode = ("w4" if w4 else "w8a8") + ("_grouped" if G else "")
+    before = mix_gemm.mode_launches[mode]
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = mix_gemm(*ops, fuse, out_dtype)
+        torch.cuda.synchronize()
+        ref = mix_gemm_plain(*ops, fuse, out_dtype)
+        assert got.shape == (M, N) and got.dtype == out_dtype
+        # f32: the f32 limit; bf16: one ulp of |y| on top of it (near
+        # y = 0, where the outlier term cancels, the f32 limit decides)
+        tol = 1e-4 * ref.float().abs() + 1e-4 + _group_sum_atol(*ops[:4])
+        if out_dtype == torch.bfloat16:
+            tol = tol + BF16_ULP * ref.float().abs()
+        assert (got.float() - ref.float()).abs().le(tol).all()
+    assert mix_gemm.mode_launches[mode] == before + 2
+
+
+def _a16_operands(cuda, g, M, K, N, G, B, w4):
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    lo, hi = (-8, 8) if w4 else (-127, 128)
+    q_w = torch.randint(lo, hi, (K, N), generator=g, device=cuda,
+                        dtype=torch.int8)
+    ws = torch.rand(*((G, N) if G else (N,)), generator=g, device=cuda)
+    ws = ws * 1e-2 + 1e-3
+    xo = wo = None
+    if B:
+        xo = torch.randn(M, B, generator=g, device=cuda).to(torch.bfloat16)
+        wo = (torch.randn(B, N, generator=g, device=cuda) * 0.02).to(
+            torch.bfloat16)
+    return x, Q.pack_int4(q_w) if w4 else q_w, ws, xo, wo
+
+
+@pytest.mark.parametrize("M,K,N,G,B,w4", [
+    (1, 256, 384, 0, 0, False), (70, 512, 400, 0, 0, False),
+    (64, 4096, 11008, 0, 0, False), (1, 256, 384, 0, 0, True),
+    (70, 512, 400, 0, 16, True), (33, 512, 256, 4, 0, False),
+    (16, 256, 384, 8, 16, True), (64, 4096, 11008, 32, 0, True)])
+@pytest.mark.parametrize("fuse", ["none", "silu"])
+def test_a16_gemm(cuda, M, K, N, G, B, w4, fuse):
+    g = _gen(M + K + N + G + 1)
+    ops = _a16_operands(cuda, g, M, K, N, G, B, w4)
+    x, w, ws, xo, wo = ops
+    S = x.float().abs() @ dequant_weight(w, ws).float().abs()
+    if B:
+        S = S + xo.float().abs() @ wo.float().abs()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = mix_gemm_a16(*ops, fuse, out_dtype)
+        torch.cuda.synchronize()
+        ref = w8a16_plain(*ops, fuse, out_dtype)
+        assert got.shape == (M, N) and got.dtype == out_dtype
+        if out_dtype == torch.float32:
+            assert (got - ref).abs().le(1e-5 * S).all()
+        else:
+            assert (got.float() - ref.float()).abs().le(
+                BF16_ULP * ref.float().abs() + 1e-5 * S).all()
+    # the mix_gemm wrapper hands a bf16 activation to this kernel
+    before = mix_gemm_a16.launches
+    got = mix_gemm(x, w, None, ws, xo, wo, fuse, torch.float32)
+    assert mix_gemm_a16.launches == before + 1
+    assert (got - w8a16_plain(*ops, fuse, torch.float32)).abs().le(
+        1e-5 * S).all()
+
+
+def test_w8a16_matmul_entry(cuda):
+    g = _gen(9)
+    x, w, ws, _, _ = _a16_operands(cuda, g, 33, 4096, 4096, 0, 0, False)
+    got = w8a16_matmul(x, w, ws, out_dtype=torch.float32)
+    ref = w8a16_plain(x, w, ws, out_dtype=torch.float32)
+    S = x.float().abs() @ dequant_weight(w, ws).float().abs()
+    assert (got - ref).abs().le(1e-5 * S).all()
+    with pytest.raises(ValueError):                 # packed: not its contract
+        w8a16_matmul(x, Q.pack_int4(w.clamp(-8, 7)), ws)
+
+
+def test_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    g = _gen(11)
+    q_x, w4, xs, ws, _, _ = _w4_gemm_operands(cuda, g, 8, 80, 64, 0, 0, True)
+    with pytest.raises(ValueError):                 # W4: K % 32 != 0
+        mix_gemm(q_x, w4, xs, ws)
+    q_x, w, xs, ws, _, _ = _w4_gemm_operands(cuda, g, 8, 256, 64, 8, 0, False)
+    with pytest.raises(ValueError):                 # 5 groups: K % G != 0
+        mix_gemm(q_x, w, xs, ws[:5].contiguous())
+    q_x, w, xs, ws, _, _ = _w4_gemm_operands(cuda, g, 8, 384, 64, 3, 0, True)
+    with pytest.raises(ValueError):                 # W4: group 128 does not
+        mix_gemm(q_x, w, xs, ws)                    # divide K/2 = 192
+    with pytest.raises(ValueError):                 # group_size 8 % 16 != 0
+        mix_gemm(q_x, Q.unpack_int4(w), xs,
+                 torch.ones(48, 64, device=cuda))
+    x, w, ws, _, _ = _a16_operands(cuda, g, 8, 256, 64, 0, 0, False)
+    with pytest.raises(ValueError):                 # a16: x must be bf16
+        mix_gemm_a16(x.float(), w, ws)
+    with pytest.raises(ValueError):                 # a16: N % 16 != 0
+        mix_gemm_a16(x, w[:, :40].contiguous(), ws[:40].contiguous())
+    with pytest.raises(NotImplementedError):
+        mix_gemm_a16(x, w, ws, fuse="gelu")
 
 
 def _cache(cuda, g, L, nkv, B, S, D, int8, pad):

@@ -142,7 +142,8 @@ def test_unported_modes_raise():
     with pytest.raises(NotImplementedError):
         mix_gemm(q_x, w, torch.ones(2, 1), torch.ones(16), fuse="gelu")
     with pytest.raises(NotImplementedError):
-        TML.from_float(torch.zeros(32, 16), TML.LinearSpec(w_bit=4))
+        TML.from_float(torch.zeros(32, 16),
+                       TML.LinearSpec(w_bit=4, version="QUIK"))
     spec = dataclasses.replace(TML.LinearSpec(), version="QUIK")
     with pytest.raises(NotImplementedError):
         TML.mixed_linear(TML.MixLinearParams(w, torch.ones(16)),

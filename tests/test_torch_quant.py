@@ -149,3 +149,79 @@ def test_dequant_epilogue():
                                 None if outlier is None else t(outlier),
                                 torch.float32)
         assert_same(j, p)
+
+
+@pytest.mark.parametrize("kind", ["random", "outliers", "ties"])
+def test_quantize_weight_int4_and_packing(kind):
+    """int4 quantization, and halves-layout packing of its values (and of
+    every int4 value at every position), bit-equal to JAX both ways."""
+    w = _inputs(kind, (40, 96), 5).T.copy()      # [K=96, N=40]
+    jq, js = JQ.quantize_weight_int4(jnp.asarray(w))
+    tq, ts = TQ.quantize_weight_int4(t(w))
+    assert_same(jq, tq)
+    assert_same(js, ts)
+    every = np.tile(np.arange(-8, 8, dtype=np.int8), (8, 3))   # [8, 48]
+    for q in (np.asarray(jq), every.T.copy()):
+        jp, tp = JQ.pack_int4(jnp.asarray(q)), TQ.pack_int4(t(q))
+        assert_same(jp, tp)
+        assert_same(JQ.unpack_int4(jp), TQ.unpack_int4(tp))
+        assert_same(q, TQ.unpack_int4(tp))
+    # the halves layout: row k in the low nibble, row k + K/2 in the high
+    q = np.asarray(jq)
+    tp = TQ.pack_int4(t(q)).numpy()
+    assert (tp & 0x0F == q[:48] & 0x0F).all()
+    assert (tp >> 4 == q[48:] & 0x0F).all()
+
+
+@pytest.mark.parametrize("bits,group", [(4, 32), (8, 16), (4, 48)])
+@pytest.mark.parametrize("kind", ["random", "outliers", "ties"])
+def test_quantize_weight_grouped(bits, group, kind):
+    w = _inputs(kind, (24, 96), 6).T.copy()      # [K=96, N=24]
+    jq, js = JQ.quantize_weight_grouped(jnp.asarray(w), bits, group)
+    tq, ts = TQ.quantize_weight_grouped(t(w), bits, group)
+    assert_same(jq, tq)
+    assert_same(js, ts)
+    assert tuple(ts.shape) == (96 // group, 24)
+
+
+def test_grouped_int8_matmul_dequant():
+    """f32 within 2 ulps of |y|: the integer group sums are exact on both
+    sides; only the f32 sum over groups may pair terms in another order."""
+    rng = np.random.default_rng(7)
+    M, K, N, G = 5, 128, 24, 4
+    q_x = rng.integers(-127, 128, (M, K)).astype(np.int8)
+    q_w = rng.integers(-8, 8, (K, N)).astype(np.int8)
+    xs = rng.uniform(0.01, 0.1, (M, 1)).astype(np.float32)
+    ws = rng.uniform(0.01, 0.1, (G, N)).astype(np.float32)
+    j = np.asarray(JQ.grouped_int8_matmul_dequant(
+        jnp.asarray(q_x), jnp.asarray(xs), jnp.asarray(q_w), jnp.asarray(ws)))
+    p = TQ.grouped_int8_matmul_dequant(t(q_x), t(xs), t(q_w), t(ws)).numpy()
+    assert p.dtype == np.float32
+    np.testing.assert_allclose(p, j, rtol=2 * 2.0 ** -23, atol=0)
+
+
+@pytest.mark.parametrize("make", ["w8a8", "w4a4", "w4a4_g128", "w8a16",
+                                  "fp16", "quik", "gptj_w4a4"])
+def test_resolve_specs_matches_jax(make):
+    """Every slot's LinearSpec equal, field for field, to JAX's policy
+    (apply_arch_policy first, as quantize_model does)."""
+    import dataclasses
+
+    from mixq_tpu.quantize import quantizer as JQZ
+    from mixq_tpu_torch.quantize import quantizer as TQZ
+
+    arch = "gptj" if make.startswith("gptj") else "llama"
+    specs = []
+    for mod, cfgmod in ((JQZ, jcfg), (TQZ, tcfg)):
+        QC = cfgmod.QuantConfig
+        q = {"w8a8": QC.w8a8(), "w4a4": QC.w4a4(),
+             "w4a4_g128": QC.w4a4(q_group_size=128), "w8a16": QC.w8a16(),
+             "fp16": QC.fp16(), "quik": QC.quik_w4a4(),
+             "gptj_w4a4": QC.w4a4()}[make]
+        specs.append(mod.resolve_specs(mod.apply_arch_policy(q, arch)))
+    for slot in ("wqkv", "wo", "up", "gate", "down"):
+        assert (dataclasses.asdict(getattr(specs[0], slot))
+                == dataclasses.asdict(getattr(specs[1], slot))), slot
+    for mod, cfgmod in ((JQZ, jcfg), (TQZ, tcfg)):
+        with pytest.raises(ValueError):
+            mod.resolve_specs(cfgmod.QuantConfig.quik_w4a4(q_group_size=64))
