@@ -16,26 +16,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      A4), the int8 GEMM in its W8A8, packed-W4 and grouped modes, the a16
      (weight-only) GEMM with int8 and packed weights, per-channel and
      grouped, with the w8a16_matmul and int8_matmul_dequant entry points,
-     and flash decode;
-  4. reference: tiny W8A8, W4A4 (per-channel and grouped) and W8A16 models
-     on the card against the same models on the CPU (the plain versions),
-     teacher-forced logits, bf16 and int8 KV, launch counts by mode;
-  5. serve: full-width 32-layer Llama-2-7B in four configurations, one
-     after another (each freed before the next is built): W8A8O16, and
-     from the reference policy (quantize.resolve_specs) W4A4O16 per-channel,
-     W4A4O16 with 128-row scale groups, and W8A16; random weights from a
-     seed, 128 outlier channels per MIX linear input, int8 KV, 8 left-padded
-     prompts, 32 greedy tokens through InferenceEngine.generate, with every
-     kernel's launch count asserted by mode;
+     and flash decode; then Gemma-2-9B's: kernel 1 at H=3584 (A8 and A4),
+     every linear shape of its block in kernel 2 (W8A8), kernel A (W4 on
+     q/k/v/up/gate) and kernel B (W8A16), with the tanh-GELU (gelu_new)
+     epilogue on the gate, and the gate once with the exact GELU (no serve
+     path runs it yet); flash decode with the logit softcap at its decode
+     shape, int8 and bf16 KV, with a spread and a peaked softmax, and with
+     Gemma-2-27B's score scale;
+  4. reference: tiny W8A8, W4A4 (per-channel and grouped) and W8A16 llama
+     models, and tiny W8A8, W4A4 and W8A16 gemma2 models (caps that bind
+     without saturating), on the card against the same models on the CPU
+     (the plain versions), teacher-forced logits, bf16 and int8 KV, each
+     limit below the int8-vs-bf16 KV control; every flash decode launch
+     against its plain version on the model's own inputs, where the card
+     first leaves the CPU, and launch counts by mode;
+  5. serve: full-width 32-layer Llama-2-7B in four configurations and
+     full-width 42-layer Gemma-2-9B in three, one after another (each freed
+     before the next is built): Llama W8A8O16, and from the reference policy
+     (quantize.resolve_specs) W4A4O16 per-channel, W4A4O16 with 128-row
+     scale groups, and W8A16; Gemma-2-9B W8A8O16, W4A4O16 and W8A16; random
+     weights from a seed, 128 outlier channels per MIX linear input, int8
+     KV, 8 left-padded prompts, 32 greedy tokens through
+     InferenceEngine.generate, with every kernel's launch count asserted by
+     mode (launch counts set to 0 just before each generate, read just
+     after);
   6. timing: for each configuration the decode step at batch 64 with the
-     int8 KV cache filled to 512 positions: ms/step, tok/s, peak device
-     memory, the step's byte bound from the model's tensors, and over three
-     more steps under torch.profiler the device time per step, the device's
-     busy share and the top kernels.
-It then prints the kernels line (one entry per ported TPU kernel) and,
-last, the device line. Details go to chiprun_out/chip_smoke.json. Without a
-CUDA card, or without the package beside it, the script exits non-zero and
-prints no result.
+     int8 KV cache filled to 512 positions: one step's launch counts by
+     mode (asserted), ms/step, tok/s, peak device memory, the memory of the
+     f32 head the engine holds, the step's byte bound from the model's
+     tensors, and over three more steps under torch.profiler the device
+     time per step, the device's busy share and the top kernels.
+It then prints the kernels line (one entry per ported TPU kernel, and one
+per mode a later slice added to a path: the GEMMs' gelu_new epilogue and
+flash decode's softcap) and, last, the device line. Details go to
+OUT_DIR/chip_smoke.json. Without a CUDA card, or without the package beside
+it, the script exits non-zero and prints no result.
 """
 import gc
 import json
@@ -95,13 +110,18 @@ def device_ms(fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = _device_us(prof)
-    check(us > 0, "the profiler saw no device time")
-    return us / iters / 1e3
+    # a profiler window now and then comes back with no device events at
+    # all (seen once on the H100, in a library call); a window that sees
+    # none three times fails
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = _device_us(prof)
+        if us > 0:
+            return us / iters / 1e3
+    raise SmokeError("the profiler saw no device time")
 
 
 def rotating(fns):
@@ -121,18 +141,21 @@ def rotating(fns):
 # ---------------------------------------------------------------------------
 
 def kernel_rmsnorm(dev, gen, rows):
-    """A8 (the W8A8 paths and o/down) and A4 (q/k/v, up/gate of W4A4)."""
+    """A8 (the W8A8 paths and o/down) and A4 (q/k/v, up/gate of W4A4) at
+    Llama-2-7B's width (H=4096) and at Gemma-2-9B's (H=3584)."""
     from mixq_tpu_torch.kernels.rmsnorm_quant import (fused_rmsnorm_quant,
                                                       rmsnorm_quant_plain)
     from mixq_tpu_torch.ops import quant as Q
 
-    M, H, Bo = 64, 4096, 128
-    x = (torch.randn(M, H, generator=gen, device=dev) * 3).to(torch.bfloat16)
-    gamma = 1 + 0.1 * torch.randn(H, generator=gen, device=dev)
-    oset = Q.outlier_set_from_indices(
-        torch.randperm(H, generator=gen, device=dev)[:Bo], H, Bo, device=dev)
+    M, Bo = 64, 128
     out_rows = []
-    for a_bits in (8, 4):
+    for H, a_bits in ((4096, 8), (4096, 4), (3584, 8), (3584, 4)):
+        x = (torch.randn(M, H, generator=gen, device=dev) * 3).to(
+            torch.bfloat16)
+        gamma = 1 + 0.1 * torch.randn(H, generator=gen, device=dev)
+        oset = Q.outlier_set_from_indices(
+            torch.randperm(H, generator=gen, device=dev)[:Bo], H, Bo,
+            device=dev)
         args = (x, gamma, oset.k_mask, 1e-5, a_bits, oset.ind, oset.mask)
         y, q, s, xo = fused_rmsnorm_quant(*args)
         torch.cuda.synchronize()
@@ -145,8 +168,8 @@ def kernel_rmsnorm(dev, gen, rows):
               and ds <= 1e-5
               and q.abs().max().item() <= 2 ** (a_bits - 1) - 1
               and bool((dxo <= BF16_ULP * xop.float().abs()).all()))
-        check(ok, f"rmsnorm_quant a{a_bits} disagrees: dy {dy.max().item()} "
-                  f"dq {dq} ds {ds}")
+        check(ok, f"rmsnorm_quant H={H} a{a_bits} disagrees: dy "
+                  f"{dy.max().item()} dq {dq} ds {ds}")
         nbytes = (M * H * 2 + 2 * H * 4 + Bo * 8 + M * H * 3 + M * 4
                   + M * Bo * 2)
         b, by = bound_ms(nbytes, [(8 * M * H, "f32")])
@@ -171,6 +194,29 @@ BLOCK = [("q", 4096, 4096, "none"), ("k", 4096, 4096, "none"),
 W4_SLOTS = ("q", "k", "v", "up", "gate")        # W4A4 under the policy
 GEMM_TOL = "1 bf16 ulp + 1e-4 max|y|"
 INT_MM = "torch._int_mm over the int8 weight values (product only)"
+# f32 operations of an epilogue per output (a transcendental counted as one)
+EPILOGUE_OPS = {"none": 0, "silu": 5, "gelu": 4, "gelu_new": 9}
+GELUS = ("gelu", "gelu_new")
+
+
+def lib_epilogue(fuse):
+    """What the library call adds to the product: F.gelu for a GELU row
+    (the `library_ms` of a gelu epilogue is the product and F.gelu), and
+    nothing for the other rows (the product only)."""
+    import torch.nn.functional as F
+
+    if fuse in GELUS:
+        approximate = "tanh" if fuse == "gelu_new" else "none"
+        return lambda y: F.gelu(y.float(), approximate=approximate)
+    return lambda y: y
+
+
+def lib_label(base, fuse):
+    if fuse not in GELUS:
+        return base
+    return (base.replace("(product only)", "")
+            + f"then F.gelu(approximate="
+              f"{'tanh' if fuse == 'gelu_new' else 'none'})")
 
 
 def copies_of(w, nbytes):
@@ -237,11 +283,12 @@ def gemm_inputs(dev, gen, M, K, N, Bo, G=1, w4=False):
     return (q_x, w, xs, ws, xo, wo), q_w.t().contiguous().t()
 
 
-def gemm_bound(M, K, N, Bo, G=1, w4=False):
+def gemm_bound(M, K, N, Bo, G=1, w4=False, fuse="none"):
     nbytes = (M * K + K * N // (2 if w4 else 1) + M * 4 + G * N * 4
               + M * Bo * 2 + Bo * N * 2 + M * N * 2)
     return bound_ms(nbytes, [(2 * M * N * K, "int8"), (2 * M * N * Bo,
-                                                       "bf16")])
+                                                       "bf16"),
+                             (EPILOGUE_OPS[fuse] * M * N, "f32")])
 
 
 def gemm_cases(dev, gen, M, Bo, cases):
@@ -260,13 +307,15 @@ def gemm_cases(dev, gen, M, Bo, cases):
                          f"mix_gemm {mode} {K}x{N} {fuse}")
         errs.append(err)
         q_x, _, xs, ws, xo, wo = ins
+        epi = lib_epilogue(fuse)
         out_rows.append(timed_gemm(
             lambda w: mix_gemm(q_x, w, xs, ws, xo, wo, fuse=fuse),
             lambda: mix_gemm_plain(*ins, fuse=fuse),
-            lambda w: torch._int_mm(q_x, w), ins[1], lib_w,
-            K * N // (2 if w4 else 1), gemm_bound(M, K, N, Bo, G, w4),
+            lambda w: epi(torch._int_mm(q_x, w)), ins[1], lib_w,
+            K * N // (2 if w4 else 1), gemm_bound(M, K, N, Bo, G, w4, fuse),
             work=f"{mode} M={M} K={K} N={N} fuse={fuse} B={Bo}", mode=mode,
-            tolerance=GEMM_TOL, max_abs_err=err, library=INT_MM))
+            tolerance=GEMM_TOL, max_abs_err=err,
+            library=lib_label(INT_MM, fuse)))
         del ins, lib_w
     return out_rows, errs
 
@@ -345,9 +394,10 @@ def a16_inputs(dev, gen, M, K, N, G, w4):
     return (x, w, ws), dequant_weight(w, ws)
 
 
-def a16_bound(M, K, N, G, w4):
+def a16_bound(M, K, N, G, w4, fuse="none"):
     nbytes = M * K * 2 + K * N // (2 if w4 else 1) + G * N * 4 + M * N * 2
-    return bound_ms(nbytes, [(2 * M * N * K, "bf16")])
+    return bound_ms(nbytes, [(2 * M * N * K, "bf16"),
+                             (EPILOGUE_OPS[fuse] * M * N, "f32")])
 
 
 def check_a16(got, ref, x, wd, what):
@@ -366,6 +416,33 @@ A16_LIB = ("torch.matmul of x with the pre-dequantized bf16 weight (product "
            "only)")
 
 
+def a16_row(dev, gen, M, K, N, fuse, w4, G, gemm_rule=False):
+    """Kernel B at one shape: checked against its plain version (under the
+    a16 rule, or check_gemm's with `gemm_rule`), then timed over rotated
+    weight copies."""
+    from mixq_tpu_torch.kernels.w8a16 import mix_gemm_a16, w8a16_plain
+
+    ins, wd = a16_inputs(dev, gen, M, K, N, G, w4)
+    mode = ("W4A16" if w4 else "W8A16") + (f" grouped G={G}" if G > 1
+                                            else "")
+    got = mix_gemm_a16(*ins, fuse=fuse)
+    torch.cuda.synchronize()
+    ref = w8a16_plain(*ins, fuse=fuse)
+    what = f"mix_gemm_a16 {mode} {K}x{N} {fuse}"
+    err = (check_gemm(got, ref, what) if gemm_rule
+           else check_a16(got, ref, ins[0], wd, what))
+    x, _, ws = ins
+    epi = lib_epilogue(fuse)
+    return timed_gemm(
+        lambda w: mix_gemm_a16(x, w, ws, fuse=fuse),
+        lambda: w8a16_plain(*ins, fuse=fuse),
+        lambda w: epi(torch.matmul(x, w)), ins[1], wd,
+        K * N // (2 if w4 else 1), a16_bound(M, K, N, G, w4, fuse),
+        work=f"{mode} M={M} K={K} N={N} fuse={fuse}", mode=mode,
+        tolerance=GEMM_TOL if gemm_rule else A16_TOL, max_abs_err=err,
+        library=lib_label(A16_LIB, fuse))
+
+
 def kernel_a16(dev, gen, rows):
     """Kernel B: the seven W8A16 linears of a block, each shape alone over
     rotated weight copies and then the block as the decode step runs it;
@@ -379,26 +456,10 @@ def kernel_a16(dev, gen, rows):
               sorted({(K, N, f) for _, K, N, f in BLOCK})]
              + [(4096, 11008, "none", True, 1),
                 (4096, 11008, "none", False, 32)])
-    out_rows, errs = [], []
-    for K, N, fuse, w4, G in cases:
-        ins, wd = a16_inputs(dev, gen, M, K, N, G, w4)
-        mode = ("W4A16" if w4 else "W8A16") + (f" grouped G={G}" if G > 1
-                                                else "")
-        got = mix_gemm_a16(*ins, fuse=fuse)
-        torch.cuda.synchronize()
-        err = check_a16(got, w8a16_plain(*ins, fuse=fuse), ins[0], wd,
-                        f"mix_gemm_a16 {mode} {K}x{N} {fuse}")
-        if not w4 and G == 1:
-            errs.append(err)
-        x, _, ws = ins
-        out_rows.append(timed_gemm(
-            lambda w: mix_gemm_a16(x, w, ws, fuse=fuse),
-            lambda: w8a16_plain(*ins, fuse=fuse),
-            lambda w: torch.matmul(x, w), ins[1], wd,
-            K * N // (2 if w4 else 1), a16_bound(M, K, N, G, w4),
-            work=f"{mode} M={M} K={K} N={N} fuse={fuse}", mode=mode,
-            tolerance=A16_TOL, max_abs_err=err, library=A16_LIB))
-        del ins, wd
+    out_rows = [a16_row(dev, gen, M, K, N, fuse, w4, G)
+                for K, N, fuse, w4, G in cases]
+    errs = [r["max_abs_err"] for r, (_, _, _, w4, G) in zip(out_rows, cases)
+            if not w4 and G == 1]
     seq = [a16_inputs(dev, gen, M, K, N, 1, False) + (fuse,)
            for _, K, N, fuse in BLOCK]
     block = block_row(
@@ -453,16 +514,20 @@ def kernel_int8_matmul(dev, gen, rows):
     return row
 
 
-def flash_case(dev, gen, B, S, n_q, n_kv, D, int8):
+def flash_case(dev, gen, B, S, n_q, n_kv, D, int8, offset=0.0, gain=1.0):
+    """Random q (N(0, gain^2)) and K/V (N(0, 1)), q and K shifted by
+    `offset`, ragged lengths and first slots."""
     from mixq_tpu_torch.ops import quant as Q
 
-    q = torch.randn(B, n_q, D, generator=gen, device=dev).to(torch.bfloat16)
+    q = (torch.randn(B, n_q, D, generator=gen, device=dev) * gain
+         + offset).to(torch.bfloat16)
     shape = (1, n_kv, B, S, D)
+    kf = torch.randn(shape, generator=gen, device=dev) + offset
     if int8:
-        k, ks = Q.quantize_kv(torch.randn(shape, generator=gen, device=dev))
+        k, ks = Q.quantize_kv(kf)
         v, vs = Q.quantize_kv(torch.randn(shape, generator=gen, device=dev))
     else:
-        k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        k = kf.to(torch.bfloat16)
         v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         ks = vs = None
     lengths = torch.randint(S // 2, S + 1, (B,), generator=gen, device=dev,
@@ -474,65 +539,190 @@ def flash_case(dev, gen, B, S, n_q, n_kv, D, int8):
     return q, k, v, ks, vs, lengths, starts
 
 
-def kernel_flash(dev, gen, rows):
+def beyond_levels(got, ref, level):
+    """(largest |got - ref| beyond two bf16 ulps of |ref|, the same per
+    output row in units of that row's probability level, at its largest)."""
+    over = ((got.float() - ref.float()).abs()
+            - 2 * BF16_ULP * ref.float().abs())
+    return over.max().item(), (over.amax(-1) / level).max().item()
+
+
+def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
+              offset=0.0, model="Llama-2-7B", gain=1.0):
+    """Kernel 3 on one case against its plain version, then timed. The
+    limit is two bf16 ulps of |y| plus FLASH_ATOL; for a peaked case
+    (gain > 1) it is two ulps plus PEAK_LEVELS of its row's probability
+    level (flash_decode_level). With a softcap the case also shows that the
+    cap binds: the uncapped plain version lies beyond the limit by a
+    margin."""
     from mixq_tpu_torch.kernels.flash_decode import (flash_decode_attention,
+                                                     flash_decode_level,
                                                      flash_decode_plain)
     import torch.nn.functional as F
 
-    B, S, D = 64, 512, 128
-    main = None
-    out_rows = []
-    for n_q, n_kv, int8 in ((32, 32, True), (32, 32, False), (32, 8, True)):
-        q, k, v, ks, vs, lengths, starts = flash_case(dev, gen, B, S, n_q,
-                                                      n_kv, D, int8)
-        args = (q, k, v, lengths, ks, vs, starts, 0)
-        got = flash_decode_attention(*args)
-        torch.cuda.synchronize()
-        ref = flash_decode_plain(*args)
-        err = (got.float() - ref.float()).abs()
-        over = err - 2 * BF16_ULP * ref.float().abs()
-        beyond, share = over.max().item(), (over > 0).float().mean().item()
-        atol = FLASH_ATOL["int8" if int8 else "bf16"]
+    q, k, v, ks, vs, lengths, starts = flash_case(dev, gen, B, S, n_q, n_kv,
+                                                  D, int8, offset, gain)
+    args = (q, k, v, lengths, ks, vs, starts, 0)
+    opts = dict(softcap=softcap, scale=scale)
+    kv = "int8" if int8 else "bf16"
+    mode = f"{kv} KV" + (f", softcap {softcap:g}" if softcap else "") + (
+        f", scale {scale:.6g}" if scale is not None else "") + (
+        f", peaked (q x {gain:g})" if gain != 1 else "")
+    what = f"flash_decode {model} n_q={n_q} n_kv={n_kv} D={D} {mode}"
+    got = flash_decode_attention(*args, **opts)
+    torch.cuda.synchronize()
+    ref = flash_decode_plain(*args, **opts).float()
+    level = flash_decode_level(*args, **opts)
+    err = (got.float() - ref).abs()
+    beyond, levels = beyond_levels(got, ref, level)
+    share = ((err - 2 * BF16_ULP * ref.abs()) > 0).float().mean().item()
+    by_level = gain != 1
+    atol, max_levels = FLASH_ATOL[kv], PEAK_LEVELS[kv]
+    if by_level:
+        check(levels <= max_levels and bool(torch.isfinite(got).all()),
+              f"{what}: error beyond two bf16 ulps is {levels} probability "
+              f"levels of its row > {max_levels}")
+        tolerance = f"2 bf16 ulps of |y| + {max_levels:g} levels of its row"
+    else:
         check(beyond <= atol and bool(torch.isfinite(got).all()),
-              f"flash_decode n_q={n_q} n_kv={n_kv} int8={int8}: error "
-              f"{beyond} beyond two bf16 ulps > {atol}")
-        valid = (lengths - starts).sum().item()
-        esize = 1 if int8 else 2
-        nbytes = (valid * n_kv * D * esize * 2 + (valid * n_kv * 8 if int8
-                                                  else 0)
-                  + 2 * B * n_q * D * 2 + 8 * B)
-        b, by = bound_ms(nbytes, [(4 * valid * n_q * D,
-                                   "int8" if int8 else "bf16")])
-        lib = None
-        if not int8:
-            # SDPA over the same bf16 cache, batch-major, with the same mask
-            kb = k[0].permute(1, 0, 2, 3).contiguous()
-            vb = v[0].permute(1, 0, 2, 3).contiguous()
-            pos = torch.arange(S, device=dev)
-            mask = ((pos[None] < lengths[:, None])
-                    & (pos[None] >= starts[:, None]))[:, None, None, :]
-            qb = q[:, :, None, :]
-            lib = device_ms(lambda: F.scaled_dot_product_attention(
-                qb, kb, vb, attn_mask=mask), 20)
-        row = dict(mode=f"{'int8' if int8 else 'bf16'} KV",
-                   work=f"B={B} S={S} n_q={n_q} n_kv={n_kv} D={D} "
-                        f"{'int8' if int8 else 'bf16'} KV, ragged lengths "
-                        f"and kv_start ({valid} valid rows)",
-                   tolerance=f"2 bf16 ulps of |y| + {atol}",
-                   max_abs_err=err.max().item(), beyond_2_ulps=beyond,
-                   share_beyond_2_ulps=share,
-                   ms=device_ms(lambda: flash_decode_attention(*args), 50),
-                   plain_ms=device_ms(lambda: flash_decode_plain(*args), 5),
-                   library_ms=lib,
-                   library=(None if int8 else
-                            "F.scaled_dot_product_attention, bf16"),
-                   bound_ms=b, bound_by=by)
-        out_rows.append(row)
-        if main is None:
-            main = row
-        del q, k, v, ks, vs
-    rows["flash_decode"] = out_rows
-    return main
+              f"{what}: error {beyond} beyond two bf16 ulps > {atol}")
+        tolerance = f"2 bf16 ulps of |y| + {atol}"
+    row = {}
+    if softcap:
+        free = flash_decode_plain(*args, scale=scale).float()
+        (row["uncapped_beyond_2_ulps"],
+         row["uncapped_levels"]) = beyond_levels(got, free, level)
+        check(row["uncapped_levels"] > 1.5 * max_levels if by_level
+              else row["uncapped_beyond_2_ulps"] > 2 * atol,
+              f"{what}: the cap does not bind on these inputs")
+    valid = (lengths - starts).sum().item()
+    esize = 1 if int8 else 2
+    nbytes = (valid * n_kv * D * esize * 2 + (valid * n_kv * 8 if int8
+                                              else 0)
+              + 2 * B * n_q * D * 2 + 8 * B)
+    # the two dots, and per score the cap's divide, tanh and multiply
+    b, by = bound_ms(nbytes, [(4 * valid * n_q * D, kv),
+                              (3 * valid * n_q if softcap else 0, "f32")])
+    lib = None
+    if not int8 and not softcap:
+        # SDPA over the same bf16 cache, batch-major, with the same mask
+        kb = k[0].permute(1, 0, 2, 3).contiguous()
+        vb = v[0].permute(1, 0, 2, 3).contiguous()
+        pos = torch.arange(S, device=dev)
+        mask = ((pos[None] < lengths[:, None])
+                & (pos[None] >= starts[:, None]))[:, None, None, :]
+        qb = q[:, :, None, :]
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=mask, scale=scale), 20)
+    row.update(mode=mode,
+               work=f"{model} B={B} S={S} n_q={n_q} n_kv={n_kv} D={D} "
+                    f"{mode}, ragged lengths and kv_start ({valid} valid "
+                    "rows)" + (f", q and K + {offset:g}" if offset else ""),
+               tolerance=tolerance,
+               max_abs_err=err.max().item(), beyond_2_ulps=beyond,
+               beyond_levels=levels, share_beyond_2_ulps=share,
+               ms=device_ms(lambda: flash_decode_attention(*args, **opts), 50),
+               plain_ms=device_ms(lambda: flash_decode_plain(*args, **opts),
+                                  5),
+               library_ms=lib,
+               library=("F.scaled_dot_product_attention, bf16" if lib
+                        is not None else "none: " + (
+                            "SDPA has no logit softcap" if softcap
+                            else "no PyTorch call attends over int8 K/V")),
+               bound_ms=b, bound_by=by)
+    return row
+
+
+def kernel_flash(dev, gen, rows):
+    """Kernel 3 at Llama-2-7B's decode shape (MHA int8 and bf16 KV) and
+    with GQA 32/8; and at Gemma-2-9B's heads (16/8, D=256) without the
+    softcap, the yardstick of the softcap's cost."""
+    rows["flash_decode"] = [
+        flash_row(dev, gen, 64, 512, n_q, n_kv, D, int8, model=model)
+        for model, n_q, n_kv, D, int8 in (
+            ("Llama-2-7B", 32, 32, 128, True),
+            ("Llama-2-7B", 32, 32, 128, False),
+            ("Llama-2-7B", 32, 8, 128, True),
+            ("Gemma-2-9B", 16, 8, 256, True))]
+    return rows["flash_decode"][0]
+
+
+# gemma2's attention: the published logit softcap and query_pre_attn_scalar
+GEMMA2_SOFTCAP = 50.0
+# Spread case: q and K are shifted by 2 in every element, so that each row's
+# scores sit at ~43-64 (D * 4 * scale), where the cap of 50 bends them to
+# 0.3-0.5x their spread, while the slots keep scores of std ~2 around that:
+# the softmax stays spread over many slots, as FLASH_ATOL assumes.
+FLASH_OFFSET = 2.0
+# Peaked case: q x 3 (scores of std 3 around 0): about a third of a row's
+# probability on its top slot and ~14 slots above 1%, as decode attention
+# often is. A flipped int8 probability level then moves the row by up to
+# flash_decode_level (max|v| * p_scale / l, with l near 1), and a flipped
+# bf16 probability by up to 2^-8 * max|v| / l: both more than FLASH_ATOL,
+# so such a row is held to PEAK_LEVELS of its own levels. int8 allows a few
+# flips: on the CPU the plain version and the Pallas kernel differ by up to
+# 2.2 levels there, and a kernel that skips the probability quantization
+# by 4.1 or more (tests/test_torch_flash_softcap.py); bf16 allows one.
+PEAK_GAIN, PEAK_LEVELS = 3.0, {"int8": 3.0, "bf16": 1.0}
+
+
+def kernel_flash_softcap(dev, gen, rows):
+    """Kernel 3 in gemma2's softcap mode: at Gemma-2-9B's decode shape
+    (B=64, S=512, 16/8 heads, D=256; its query_pre_attn_scalar 256 gives
+    the default scale, passed explicitly), int8 and bf16 KV, with a spread
+    softmax (FLASH_OFFSET) and a peaked one (PEAK_GAIN); and at
+    Gemma-2-27B's heads (32/16, D=128) with its non-default score scale
+    144^-0.5, int8 KV."""
+    rows["flash_decode_softcap"] = [
+        flash_row(dev, gen, 64, 512, n_q, n_kv, D, int8, GEMMA2_SOFTCAP,
+                  scale, offset, model, gain)
+        for model, n_q, n_kv, D, scale, int8, offset, gain in (
+            ("Gemma-2-9B", 16, 8, 256, 256.0 ** -0.5, True, FLASH_OFFSET, 1),
+            ("Gemma-2-9B", 16, 8, 256, 256.0 ** -0.5, False, FLASH_OFFSET,
+             1),
+            ("Gemma-2-9B", 16, 8, 256, 256.0 ** -0.5, True, 0, PEAK_GAIN),
+            ("Gemma-2-9B", 16, 8, 256, 256.0 ** -0.5, False, 0, PEAK_GAIN),
+            ("Gemma-2-27B", 32, 16, 128, 144.0 ** -0.5, True, FLASH_OFFSET,
+             1))]
+    return rows["flash_decode_softcap"][0]
+
+
+# the linears of one Gemma-2-9B block at decode (16 q and 8 kv heads of 256,
+# H=3584, I=14336): (name, K, N, fuse)
+GEMMA2_BLOCK = [("q", 3584, 4096, "none"), ("k", 3584, 2048, "none"),
+                ("v", 3584, 2048, "none"), ("o", 4096, 3584, "none"),
+                ("up", 3584, 14336, "none"), ("gate", 3584, 14336, "gelu_new"),
+                ("down", 14336, 3584, "none")]
+
+
+def kernel_gemma2_gemms(dev, gen, rows):
+    """Every distinct linear shape of a Gemma-2-9B block at decode (M=64):
+    kernel 2 (W8A8, 128 outlier channels) on all seven, as the W8A8O16 path
+    runs them and as W4A4O16 runs o and down; kernel A (packed W4, A4
+    activations) on q, k, v, up and gate+gelu_new, as W4A4O16 runs them;
+    kernel B (W8A16) on all seven; and kernel 2 once with the exact gelu,
+    which no serve path runs yet. Each is held to its plain version under
+    check_gemm's rule and timed over rotated weight copies; up is the gate's
+    shape with no epilogue, the yardstick of the epilogue's cost. Returns
+    the three gelu_new gate rows."""
+    M, Bo = 64, 128
+    shapes = sorted({(K, N, f) for _, K, N, f in GEMMA2_BLOCK})
+    w4_shapes = sorted({(K, N, f) for n, K, N, f in GEMMA2_BLOCK
+                        if n in W4_SLOTS})
+    gate = next((K, N, f) for n, K, N, f in GEMMA2_BLOCK if n == "gate")
+    w8, _ = gemm_cases(dev, gen, M, Bo, [(K, N, f, False, 1)
+                                         for K, N, f in shapes]
+                       + [(gate[0], gate[1], "gelu", False, 1)])
+    w4, _ = gemm_cases(dev, gen, M, Bo, [(K, N, f, True, 1)
+                                         for K, N, f in w4_shapes])
+    a16 = [a16_row(dev, gen, M, K, N, f, False, 1, gemm_rule=True)
+           for K, N, f in shapes]
+    for r in w8 + w4 + a16:
+        r["work"] = "Gemma-2-9B, " + r["work"]
+    rows["gemma2_mix_gemm"], rows["gemma2_w4"], rows["gemma2_a16"] = (
+        w8, w4, a16)
+    pick = [shapes.index(gate), w4_shapes.index(gate), shapes.index(gate)]
+    return w8[pick[0]], w4[pick[1]], a16[pick[2]]
 
 
 # ---------------------------------------------------------------------------
@@ -549,9 +739,46 @@ def llama2_7b():
                        max_position_embeddings=4096)
 
 
-# launches per layer and forward of each configuration's linears, by mode
-# (kernels.launch_counts keys); flash_decode adds one per layer and decode
-# step, and every other count stays 0
+def gemma2_9b():
+    from mixq_tpu_torch.config import ModelConfig
+
+    # the published config.json of google/gemma-2-9b, in the form
+    # mixq_tpu/models/hf.py:202-223 gives it; all 42 layers
+    return ModelConfig(
+        model_type="gemma2", vocab_size=256000, hidden_size=3584,
+        intermediate_size=14336, num_hidden_layers=42,
+        num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+        rms_norm_eps=1e-6, rope_theta=10000.0,
+        hidden_act="gelu_pytorch_tanh", gated_mlp=True,
+        tie_word_embeddings=True, embed_multiplier=3584 ** 0.5,
+        post_norms=True, query_pre_attn_scalar=256.0,
+        attn_logit_softcap=50.0, final_logit_softcap=30.0,
+        sliding_window=4096, sliding_window_pattern=2,
+        max_position_embeddings=8192)
+
+
+def tiny_gemma2():
+    """tests/test_torch_gemma2.py's gemma2 fields at phase 4's tiny widths,
+    a window no shorter than the cache, and caps that bind without
+    saturating: about three times the typical value on the seeded tiny
+    models (|score| averages 0.13, at most 0.57; |logit| 0.25, at most
+    1.5), so the attention cap is 0.4 and the final cap 1.0."""
+    from mixq_tpu_torch.config import ModelConfig
+
+    return ModelConfig.tiny(
+        model_type="gemma2", hidden_size=256, intermediate_size=512,
+        num_attention_heads=4, num_key_value_heads=2, rms_norm_eps=1e-6,
+        hidden_act="gelu_pytorch_tanh", gated_mlp=True,
+        tie_word_embeddings=True, embed_multiplier=256 ** 0.5,
+        post_norms=True, query_pre_attn_scalar=24.0, attn_logit_softcap=0.4,
+        final_logit_softcap=1.0, sliding_window=128,
+        sliding_window_pattern=2)
+
+
+# launches per layer and forward of each configuration's linears, by weight
+# mode (kernels.launch_counts keys); the gate GEMM adds one of its epilogue
+# (silu, or gemma2's gelu_new), flash_decode one per layer and decode step
+# (and gemma2 one of its softcap mode), and every other count stays 0
 PER_LAYER = {
     "W8A8": {"rmsnorm_quant": 2, "mix_gemm": 7, "mix_gemm.w8a8": 7},
     "W4A4": {"rmsnorm_quant": 2, "mix_gemm": 7, "mix_gemm.w4": 5,
@@ -580,9 +807,17 @@ def path_specs(name, group_size=128, outlier_budget=128):
         q_group_size=group_size if name == "W4A4 grouped" else -1))
 
 
-def expect_launches(name, L, forwards, decode_steps):
-    want = {k: v * L * forwards for k, v in PER_LAYER[name].items()}
+def expect_launches(name, cfg, forwards, decode_steps):
+    from mixq_tpu_torch.models.decoder import GATE_FUSE
+
+    L = cfg.num_hidden_layers
+    gate = ("w8a16" if name == "W8A16" else "mix_gemm") + "." + GATE_FUSE[
+        cfg.hidden_act]
+    want = {k: v * L * forwards
+            for k, v in {**PER_LAYER[name], gate: 1}.items()}
     want["flash_decode"] = L * decode_steps
+    if cfg.attn_logit_softcap:
+        want["flash_decode.softcap"] = L * decode_steps
     return want
 
 
@@ -591,70 +826,177 @@ def check_launches(counts, want, what):
     check(got == want, f"{what}: launch counts {got} != {want}")
 
 
-# tiny model card vs CPU: max |dlogits| over max |logits|. W8A8 and W8A16:
-# one bf16 rounding that another summation order flips moves an int8
-# level or a bf16 ulp (JAX's own jit and eager forwards differ by <= 1.5e-2
-# on the tiny W8A8 models). W4A4: a 4-bit activation level is 1/7 of the
-# row's absmax, so the same flip moves the logits 18x as far; JAX's own two
-# paths differ by up to 8.5e-2 on the tiny W4A4 models
-# (tests/test_torch_decoder.py::test_w4a4_limit_is_jax_own_spread).
-TINY_TOL = {"W8A8": 2e-2, "W4A4": 1e-1, "W4A4 grouped": 1e-1,
-            "W8A16": 2e-2}
+# tiny model card vs CPU: max |dlogits| over max |logits|, per family and
+# configuration. Each limit lies between what the card reads (the larger of
+# bf16 and int8 KV) and the control, the same CPU model with int8 KV
+# against bf16 KV, near their geometric mean; the check asserts the control
+# on every run, so a card path that lost as much precision as an int8 KV
+# cache would fail. On an H100 (card; control): llama W8A8 5.4e-3; 1.9e-2,
+# W4A4 3.1e-2; 7.9e-2, W4A4 grouped 3.4e-2; 6.5e-2, W8A16 3.6e-3; 7.1e-3;
+# gemma2 W8A8 1.7e-2; 4.0e-2, W4A4 7.2e-2; 1.36e-1, W8A16 5.3e-3; 1.3e-2.
+# The card first leaves the CPU in the prefill (forward 0) by one bf16 ulp
+# of a block's output, before any flash decode launch, and every flash
+# launch stays within its limit of its plain version on the model's own
+# inputs (Tap); 4-bit activations carry such a flip furthest.
+TINY_TOL = {
+    ("llama", "W8A8"): 1e-2, ("llama", "W4A4"): 5e-2,
+    ("llama", "W4A4 grouped"): 5e-2, ("llama", "W8A16"): 5e-3,
+    ("gemma2", "W8A8"): 2.5e-2, ("gemma2", "W4A4"): 1e-1,
+    ("gemma2", "W8A16"): 8e-3}
+
+
+class Tap:
+    """Records a forward pass layer by layer: each block's output and each
+    decode-step attention output (to the host), and on the card, for each
+    flash decode launch, the kernel's distance from its plain version on the
+    same inputs (beyond two bf16 ulps, absolute and in probability levels of
+    its row). Used as `with Tap() as tap:` around the engine's calls."""
+
+    def __enter__(self):
+        from mixq_tpu_torch.kernels.flash_decode import (flash_decode_level,
+                                                         flash_decode_plain)
+        from mixq_tpu_torch.models import decoder as D
+
+        self.blocks, self.attn, self.kernel = [], [], []
+        self._D = D
+        self._real = D.flash_decode_attention, D.block_core
+        real_fd, real_bc = self._real
+
+        def fd(*a, **kw):
+            out = real_fd(*a, **kw)
+            self.attn.append(out.float().cpu())
+            if out.is_cuda:
+                self.kernel.append(beyond_levels(
+                    out, flash_decode_plain(*a, **kw),
+                    flash_decode_level(*a, **kw)))
+            return out
+
+        def bc(*a, **kw):
+            x = real_bc(*a, **kw)
+            self.blocks.append(x.float().cpu())
+            return x
+        D.flash_decode_attention, D.block_core = fd, bc
+        return self
+
+    def __exit__(self, *exc):
+        self._D.flash_decode_attention, self._D.block_core = self._real
+        return False
+
+
+def first_divergence(cpu, card, L):
+    """Where the card's run first leaves the CPU's: the first (forward,
+    layer) whose block output differs, whether the decode-step attention
+    output of that layer already differs, and the kernel's distance from its
+    plain version at that launch."""
+    for i, (a, b) in enumerate(zip(cpu.blocks, card.blocks)):
+        d = (a - b).abs().max().item()
+        if d == 0:
+            continue
+        f, layer = divmod(i, L)
+        out = dict(forward=f, layer=layer, block_max_abs_diff=d)
+        if f > 0:                       # a decode step: attention by flash
+            j = (f - 1) * L + layer
+            out["attention_max_abs_diff"] = (
+                cpu.attn[j] - card.attn[j]).abs().max().item()
+            (out["kernel_beyond_2_ulps"],
+             out["kernel_levels"]) = card.kernel[j]
+        return out
+    return None
+
+
+def teacher_forced(eng, toks, kv_start):
+    """Prefill of 8 tokens, then 4 decode steps fed the given tokens:
+    the logits [5, B, V] on the host and the cache."""
+    cache = eng.new_cache(3, 128)
+    logits, cache = eng.prefill(toks[:, :8], cache, kv_start)
+    steps = [logits.float().cpu()]
+    for i in range(4):
+        logits, cache = eng.decode_step(toks[:, 8 + i:9 + i], cache,
+                                        kv_start)
+        steps.append(logits.float().cpu())
+    return torch.stack(steps), cache
 
 
 def reference_check(dev):
     """Tiny models (seeded outliers on every MIX linear input) on the card
     through the kernels against the same models on the CPU through their
     plain versions, bf16 and int8 KV: teacher-forced logits (a prefill and
-    4 decode steps) within TINY_TOL * max|logits|, and every launch count by
-    mode. W8A8, W4A4 per-channel and with 64-row groups (a divisor of the
-    tiny K/2 = 128 and 256), and W8A16. Every configuration runs before the
-    checks, so a failing one still shows the others' numbers."""
+    4 decode steps) within TINY_TOL * max|logits|, each limit below the
+    CPU's int8-vs-bf16 KV control; every flash decode launch within its
+    plain version's limit on the model's own inputs; every launch count by
+    mode; and where the card's run first leaves the CPU's (Tap). Llama in
+    W8A8, W4A4 per-channel and with 64-row groups (a divisor of the tiny
+    K/2 = 128 and 256), and W8A16; gemma2 in W8A8, W4A4 and W8A16. Every
+    configuration runs before the checks, so a failing one still shows the
+    others' numbers."""
     from mixq_tpu_torch.config import EngineConfig, ModelConfig
     from mixq_tpu_torch.convert import params_to
     from mixq_tpu_torch.engine import InferenceEngine
     from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
     from mixq_tpu_torch.models.decoder import init_decoder_params
 
-    cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512,
-                           num_attention_heads=4, num_key_value_heads=2)
-    toks = torch.randint(1, cfg.vocab_size, (3, 12),
+    llama = ModelConfig.tiny(hidden_size=256, intermediate_size=512,
+                             num_attention_heads=4, num_key_value_heads=2)
+    toks = torch.randint(1, llama.vocab_size, (3, 12),
                          generator=torch.Generator().manual_seed(1))
     kv_start = torch.tensor([0, 2, 5], dtype=torch.int32)
-    L = cfg.num_hidden_layers
     res, failures = {}, []
-    for name in PER_LAYER:
+    for family, cfg, name in (
+            [("llama", llama, n) for n in PER_LAYER]
+            + [("gemma2", tiny_gemma2(), n)
+               for n in ("W8A8", "W4A4", "W8A16")]):
         specs = path_specs(name, group_size=64, outlier_budget=16)
         cpu = init_decoder_params(cfg, specs, torch.Generator().manual_seed(0),
                                   device="cpu", outlier_budget=16)
+        card = params_to(cpu, dev)
+        L = cfg.num_hidden_layers
+        ref = {}
         for kv_dtype in ("bfloat16", "int8"):
             ecfg = EngineConfig(max_seq_len=64, prefill_chunk=8,
                                 kv_dtype=kv_dtype)
             reset_launch_counts()
-            outs = []
-            for params, d in ((cpu, "cpu"), (params_to(cpu, dev), dev)):
+            runs = []
+            for params, d in ((cpu, "cpu"), (card, dev)):
                 eng = InferenceEngine(params, cfg, specs, ecfg, device=d)
-                cache = eng.new_cache(3, 128)
-                logits, cache = eng.prefill(toks[:, :8], cache, kv_start)
-                steps = [logits.float().cpu()]
-                for i in range(4):
-                    logits, cache = eng.decode_step(toks[:, 8 + i:9 + i],
-                                                    cache, kv_start)
-                    steps.append(logits.float().cpu())
-                outs.append(torch.stack(steps))
-            ref, got = outs
-            err = (got - ref).abs().max().item()
-            tol = TINY_TOL[name] * ref.abs().max().item()
+                with Tap() as tap:
+                    logits, cache = teacher_forced(eng, toks, kv_start)
+                runs.append((logits, cache, tap))
             counts = launch_counts()
-            want = expect_launches(name, L, 5, 4)
+            (ref[kv_dtype], c_cpu, t_cpu), (got, c_card, t_card) = runs
+            scale = ref[kv_dtype].abs().max().item()
+            err = (got - ref[kv_dtype]).abs().max().item()
+            tol = TINY_TOL[family, name] * scale
+            flash = max(t_card.kernel, key=lambda r: r[0],
+                        default=(0.0, 0.0))
+            kv_diff = sum(int((a.cpu() != b.cpu()).sum()) for a, b in (
+                (c_cpu.k, c_card.k), (c_cpu.v, c_card.v)))
+            key = f"{family} {name} {kv_dtype} KV"
+            res[key] = dict(
+                max_abs_err=err, share_of_max=err / scale, tolerance=tol,
+                shape=list(got.shape), kv_cache_entries_differing=kv_diff,
+                flash_kernel_beyond_2_ulps=flash[0],
+                flash_kernel_levels=max((r[1] for r in t_card.kernel),
+                                        default=0.0),
+                first_divergence=first_divergence(t_cpu, t_card, L))
             if not (bool(torch.isfinite(got).all()) and err <= tol):
-                failures.append(f"tiny {name} model card vs CPU, {kv_dtype} "
-                                f"KV: max |dlogits| {err} > {tol}")
+                failures.append(f"tiny {key} card vs CPU: max |dlogits| "
+                                f"{err} > {tol}")
+            if flash[0] > FLASH_ATOL["int8" if kv_dtype == "int8"
+                                     else "bf16"]:
+                failures.append(f"tiny {key}: a flash decode launch is "
+                                f"{flash[0]} beyond two ulps of its plain "
+                                "version")
+            want = expect_launches(name, cfg, 5, 4)
             if {k: v for k, v in counts.items() if v} != want:
-                failures.append(f"tiny {name}, {kv_dtype} KV: launches "
-                                f"{counts} != {want}")
-            res[f"{name} {kv_dtype} KV"] = dict(
-                max_abs_err=err, tolerance=tol, shape=list(got.shape))
+                failures.append(f"tiny {key}: launches {counts} != {want}")
+        # the control: what int8 KV moves on the same CPU model
+        control = ((ref["int8"] - ref["bfloat16"]).abs().max().item()
+                   / ref["bfloat16"].abs().max().item())
+        res[f"{family} {name} control"] = control
+        if not TINY_TOL[family, name] < control:
+            failures.append(f"tiny {family} {name}: limit "
+                            f"{TINY_TOL[family, name]} of max|logits| is not "
+                            f"below the int8-vs-bf16 KV control {control}")
     print(f"reference: tiny models card vs CPU, teacher-forced logits {res}",
           flush=True)
     check(not failures, "; ".join(failures))
@@ -685,8 +1027,8 @@ def serve(dev, params, cfg, specs, name):
     check(all(0 <= t < cfg.vocab_size for r in out for t in r),
           f"{name}: token out of range")
     # one prefill + (new - 1) decode steps
-    check_launches(counts, expect_launches(name, cfg.num_hidden_layers, new,
-                                           new - 1), f"{name} serve")
+    check_launches(counts, expect_launches(name, cfg, new, new - 1),
+                   f"{name} serve")
     return eng, dict(prompts=lens, new_tokens=new, tokens_shape=[8, new],
                      wall_s=wall, launches=counts, first_row=out[0][:8])
 
@@ -700,7 +1042,9 @@ def tensor_bytes(obj):
     return 0
 
 
-def decode_timing(dev, eng, cfg, gen, tag):
+def decode_timing(dev, eng, cfg, gen, tag, name):
+    from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
+
     B, fill, steps, warm = 64, 512, 8, 2
     cache = eng.new_cache(B, 640)
     for buf in (cache.k, cache.v):
@@ -716,8 +1060,14 @@ def decode_timing(dev, eng, cfg, gen, tag):
         logits, _ = eng.decode_step(tok, cache, kv_start)
         return logits, torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
 
-    for _ in range(warm):
+    for _ in range(warm - 1):
         logits, tok = step(tok)
+    # the last warm-up step's launches: one decode step's, by mode
+    reset_launch_counts()
+    logits, tok = step(tok)
+    per_step = {k: v for k, v in launch_counts().items() if v}
+    check_launches(per_step, expect_launches(name, cfg, 1, 1),
+                   f"{tag} decode step")
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -740,6 +1090,7 @@ def decode_timing(dev, eng, cfg, gen, tag):
     check(tuple(logits.shape) == (B, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "decode logits not finite")
     res = dict(batch=B, kv_filled=fill, steps=steps,
+               launches_per_step=per_step,
                ms_per_step=wall * 1e3,
                event_ms_per_step=e0.elapsed_time(e1) / steps,
                tok_per_s=B / wall,
@@ -781,29 +1132,64 @@ def profile_steps(step, tok, tag, n=3):
                     for e in top])
 
 
+# the served paths, one after another: (model, configuration, label,
+# profile tag)
+PATHS = [
+    ("Llama-2-7B", "W8A8", "Llama-2-7B W8A8O16", "W8A8O16"),
+    ("Llama-2-7B", "W4A4", "Llama-2-7B W4A4O16", "W4A4O16"),
+    ("Llama-2-7B", "W4A4 grouped", "Llama-2-7B W4A4O16 group_size=128",
+     "W4A4O16_g128"),
+    ("Llama-2-7B", "W8A16", "Llama-2-7B W8A16", "W8A16"),
+    ("Gemma-2-9B", "W8A8", "Gemma-2-9B W8A8O16", "gemma2_W8A8O16"),
+    ("Gemma-2-9B", "W4A4", "Gemma-2-9B W4A4O16", "gemma2_W4A4O16"),
+    ("Gemma-2-9B", "W8A16", "Gemma-2-9B W8A16", "gemma2_W8A16"),
+]
+MODELS = {"Llama-2-7B": llama2_7b, "Gemma-2-9B": gemma2_9b}
+
 # the kernels line: one entry per ported TPU kernel (a row of PERF.md's
-# table): (name, source module, REPLACES attribute, phase-3 row key,
-# launch-count keys summed over the four serve runs)
+# table) and per mode a later slice added to a path: (name, source module,
+# REPLACES attribute, phase-3 row key, launch-count keys, the serve runs
+# whose counts are summed: None for all of them)
 KERNEL_ROWS = [
     ("rmsnorm_quant", "rmsnorm_quant", "REPLACES", "rmsnorm_quant",
-     ("rmsnorm_quant",)),
+     ("rmsnorm_quant",), None),
     ("mix_gemm_w8a8", "mix_gemm", "REPLACES", "mix_gemm",
-     ("mix_gemm.w8a8",)),
+     ("mix_gemm.w8a8",), None),
     ("mix_gemm_w4_grouped", "mix_gemm", "REPLACES_W4", "mix_gemm_w4_grouped",
-     ("mix_gemm.w4", "mix_gemm.w4_grouped", "mix_gemm.w8a8_grouped")),
-    ("mix_gemm_a16", "w8a16", "REPLACES", "mix_gemm_a16", ("w8a16",)),
+     ("mix_gemm.w4", "mix_gemm.w4_grouped", "mix_gemm.w8a8_grouped"), None),
+    ("mix_gemm_a16", "w8a16", "REPLACES", "mix_gemm_a16", ("w8a16",),
+     None),
     ("w8a16_matmul", "w8a16", "REPLACES_W8A16", "w8a16_matmul",
-     ("w8a16.w8",)),
+     ("w8a16.w8",), None),
     ("int8_matmul_dequant", "mix_gemm", "REPLACES_INT8_MATMUL",
-     "int8_matmul_dequant", ("mix_gemm.w8a8",)),
+     "int8_matmul_dequant", ("mix_gemm.w8a8",), None),
     ("flash_decode", "flash_decode", "REPLACES", "flash_decode",
-     ("flash_decode",)),
+     ("flash_decode",), None),
+    ("mix_gemm_w8a8_gelu_new", "mix_gemm", "REPLACES", "gelu_w8a8",
+     ("mix_gemm.gelu_new",), ("Gemma-2-9B W8A8O16",)),
+    ("mix_gemm_w4_gelu_new", "mix_gemm", "REPLACES_W4", "gelu_w4",
+     ("mix_gemm.gelu_new",), ("Gemma-2-9B W4A4O16",)),
+    ("mix_gemm_a16_gelu_new", "w8a16", "REPLACES", "gelu_a16",
+     ("w8a16.gelu_new",), ("Gemma-2-9B W8A16",)),
+    ("flash_decode_softcap", "flash_decode", "REPLACES",
+     "flash_decode_softcap", ("flash_decode.softcap",), None),
 ]
 KERNEL_NOTES = {
     "w8a16_matmul": "launches: the a16 kernel's int8 per-channel mode, "
                     "which computes this entry's function",
     "int8_matmul_dequant": "launches: kernel 2's W8A8 mode, which computes "
                            "this entry's function",
+    "mix_gemm_w8a8_gelu_new": "kernel 2 (W8A8) with the gelu_new epilogue, "
+                              "Gemma-2-9B's gate; launches: the Gemma-2-9B "
+                              "W8A8O16 run's",
+    "mix_gemm_w4_gelu_new": "kernel A (packed W4) with the gelu_new "
+                            "epilogue, Gemma-2-9B's gate; launches: the "
+                            "Gemma-2-9B W4A4O16 run's",
+    "mix_gemm_a16_gelu_new": "kernel B (W8A16) with the gelu_new epilogue, "
+                             "Gemma-2-9B's gate; launches: the Gemma-2-9B "
+                             "W8A16 run's",
+    "flash_decode_softcap": "kernel 3 in gemma2's logit-softcap mode; "
+                            "launches: the Gemma-2-9B runs'",
 }
 
 
@@ -854,6 +1240,9 @@ def main():
         dev, gen, rows)
     main_rows["int8_matmul_dequant"] = kernel_int8_matmul(dev, gen, rows)
     main_rows["flash_decode"] = kernel_flash(dev, gen, rows)
+    main_rows["flash_decode_softcap"] = kernel_flash_softcap(dev, gen, rows)
+    (main_rows["gelu_w8a8"], main_rows["gelu_w4"],
+     main_rows["gelu_a16"]) = kernel_gemma2_gemms(dev, gen, rows)
     for name, rs in rows.items():
         for r in rs:
             lib = ("-" if r.get("library_ms") is None
@@ -863,7 +1252,8 @@ def main():
                   f"plain_ms {r['plain_ms']:.4f} library_ms {lib} "
                   f"max_abs_err {r['max_abs_err']:.3g}"
                   + (f" beyond_2_ulps {r['beyond_2_ulps']:.3g} in a share "
-                     f"{r['share_beyond_2_ulps']:.3g} of outputs"
+                     f"{r['share_beyond_2_ulps']:.3g} of outputs, at most "
+                     f"{r['beyond_levels']:.3g} probability levels of a row"
                      if "beyond_2_ulps" in r else "")
                   + f" ({r['tolerance']})",
                   flush=True)
@@ -872,41 +1262,39 @@ def main():
 
     report["reference"] = reference_check(dev)
 
-    cfg = llama2_7b()
     report["paths"] = {}
-    launches = {}
-    for name, label in (("W8A8", "W8A8O16"), ("W4A4", "W4A4O16"),
-                        ("W4A4 grouped", "W4A4O16 group_size=128"),
-                        ("W8A16", "W8A16")):
-        specs = path_specs(name)
+    for model, name, label, tag in PATHS:
+        cfg, specs = MODELS[model](), path_specs(name)
         t0 = time.perf_counter()
         params = init_decoder_params(cfg, specs, gen, device=dev,
                                      dtype=torch.bfloat16,
                                      outlier_budget=128)
         torch.cuda.synchronize()
-        path = {"init_s": time.perf_counter() - t0}
-        print(f"init: Llama-2-7B {label}, {cfg.num_hidden_layers} layers, "
-              f"{tensor_bytes(params) / 2 ** 30:.2f} GiB of parameters, "
+        path = {"init_s": time.perf_counter() - t0,
+                "param_gib": tensor_bytes(params) / 2 ** 30}
+        print(f"init: {label}, {cfg.num_hidden_layers} layers, "
+              f"{path['param_gib']:.2f} GiB of parameters, "
               f"{path['init_s']:.1f} s", flush=True)
         eng, path["serve"] = serve(dev, params, cfg, specs, name)
+        # the f32 head the engine widened once, held for its life
+        path["head_f32_gib"] = tensor_bytes(eng.head_f32) / 2 ** 30
         print(f"serve {label}: {path['serve']}", flush=True)
-        tag = label.split()[0] + ("_g128" if "group" in label else "")
-        path["decode"] = decode_timing(dev, eng, cfg, gen, tag)
+        path["decode"] = decode_timing(dev, eng, cfg, gen, tag, name)
         decode = {k: v for k, v in path["decode"].items()
                   if k != "top_kernels_us_per_step"}
         print(f"decode {label}: {decode} on {card}", flush=True)
         report["paths"][label] = path
-        for k, v in path["serve"]["launches"].items():
-            launches[k] = launches.get(k, 0) + v
         del eng, params                 # free the model before the next
         gc.collect()
         torch.cuda.empty_cache()
     report["total_s"] = time.perf_counter() - t_start
 
     kernels = []
-    for name, mod, attr, row, keys in KERNEL_ROWS:
+    for name, mod, attr, row, keys, labels in KERNEL_ROWS:
         r = main_rows[row]
-        n = sum(launches[k] for k in keys)
+        n = sum(p["serve"]["launches"][k]
+                for label, p in report["paths"].items()
+                if labels is None or label in labels for k in keys)
         check(n > 0, f"{name}: no launch on the main paths")
         kernels.append({
             "name": name, "mode": r["mode"], "route": "cuda",

@@ -4,13 +4,19 @@
 // groups of g query heads per kv head.
 //
 // Replaces: mixq_tpu/ops/pallas/flash_decode.py::flash_decode_attention
-// (its main-cache path: no tail window, ALiBi, softcap or score override).
+// (its main-cache path, with the softcap and the score-scale override of
+// gemma2; no tail window, ALiBi or window start).
 // It repeats the Pallas kernel's single-pass whole-row softmax exactly:
 //   int8: q is absmax-quantized per head, s = int32(q_i8 . k) * q_scale *
-//         k_scale * scale; p = exp(s - max); l = sum(p); p2 = p * v_scale;
+//         k_scale * scale; [softcap] s = tanh(s / cap) * cap;
+//         p = exp(s - max); l = sum(p); p2 = p * v_scale;
 //         p_scale = max(max(p2) / 127, 1e-20); p_i8 = round(p2 / p_scale);
 //         o = int32(p_i8 . v) * p_scale / l
-//   bf16: s = (q . k) * scale in f32; o = (bf16(p) . v) / l
+//   bf16: s = (q . k) * scale in f32; [softcap]; o = (bf16(p) . v) / l
+// `scale` is a runtime float (1/sqrt(D), or gemma2's
+// query_pre_attn_scalar^-0.5); the softcap is a template flag, so the
+// instantiations without it are the ones llama runs. The softcap uses the
+// accurate tanhf (no tanh.approx, no --use_fast_math).
 // Masked slots get exactly the probability the Pallas kernel gives them, 0,
 // so they are skipped instead of read. A row with no valid slot is written
 // as zeros (the Pallas kernel's `live` factor; it zeroes only rows of
@@ -28,7 +34,8 @@
 // multiply-adds (both exact), the bf16 dots in f32.
 //
 // Launch: grid (n_kv, B), block 128, dynamic shared memory
-// g*S*4 + 4*g*D*4 + g*D*4 + g*D bytes (flash_decode_smem_bytes). The launcher returns
+// g*S*4 + 4*g*D*4 + g*D*4 + g*D bytes (flash_decode_smem_bytes; gemma2's
+// g=2, D=256 at S=4096, its window: 43,520 bytes). The launcher returns
 // cudaGetLastError(); it allocates nothing and does not synchronize.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,7 +87,7 @@ __device__ __forceinline__ int s8_at(const int4& r, int e) {
   return (int)(signed char)((word(r, e >> 2) >> (8 * (e & 3))) & 0xffu);
 }
 
-template <int G, bool kInt8>
+template <int G, bool kInt8, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, n_kv*G, D]
                     const void* __restrict__ kc,          // [n_kv, B, S, D]
@@ -91,7 +98,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, n_kv*G, D]
                     int length_all,
                     const int32_t* __restrict__ starts,   // [B] or null
                     __nv_bfloat16* __restrict__ out,      // [B, n_kv*G, D]
-                    int B, int S, int Sp, int D, float scale) {
+                    int B, int S, int Sp, int D, float scale,
+                    float softcap) {
   constexpr int E = Chunk<kInt8>::kElems;
   // shared memory, 16-byte aligned pieces first (D * esize % 16 == 0):
   // qf [G, D] f32 | qi [G, D] int8 | pv_red [kWarps, G, D] | sc [G, S] f32
@@ -188,6 +196,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, n_kv*G, D]
                                    ks[((size_t)hk * B + b) * Sp + s]), scale);
         else
           sv = __fmul_rn(dot, scale);
+        if constexpr (kSoftcap)
+          sv = __fmul_rn(tanhf(__fdiv_rn(sv, softcap)), softcap);
         sc[h * S + s] = sv;
       }
     }
@@ -304,38 +314,45 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, n_kv*G, D]
   }
 }
 
-template <int G, bool kInt8>
+template <int G, bool kInt8, bool kSoftcap>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* lengths, int length_all,
            const void* starts, void* out, int B, int n_kv, int S, int Sp,
-           int D, float scale, cudaStream_t stream) {
+           int D, float scale, float softcap, cudaStream_t stream) {
   static int smem_limit = 48 * 1024;
   const int smem = G * S * 4 + kWarps * G * D * 4 + G * D * 4 + G * D;
   if (smem > smem_limit) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<G, kInt8>,
+        flash_decode_kernel<G, kInt8, kSoftcap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     smem_limit = smem;
   }
   dim3 grid(n_kv, B);
-  flash_decode_kernel<G, kInt8><<<grid, kThreads, smem, stream>>>(
+  flash_decode_kernel<G, kInt8, kSoftcap><<<grid, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, k, v, (const float*)ks, (const float*)vs,
       (const int32_t*)lengths, length_all, (const int32_t*)starts,
-      (__nv_bfloat16*)out, B, S, Sp, D, scale);
+      (__nv_bfloat16*)out, B, S, Sp, D, scale, softcap);
   return (int)cudaGetLastError();
 }
 
-template <bool kInt8>
+template <bool kInt8, bool kSoftcap>
 int dispatch(int g, const void* q, const void* k, const void* v,
              const void* ks, const void* vs, const void* lengths,
              int length_all, const void* starts, void* out, int B, int n_kv,
-             int S, int Sp, int D, float scale, cudaStream_t stream) {
+             int S, int Sp, int D, float scale, float softcap,
+             cudaStream_t stream) {
   switch (g) {
-    case 1: return launch<1, kInt8>(q, k, v, ks, vs, lengths, length_all, starts, out, B, n_kv, S, Sp, D, scale, stream);
-    case 2: return launch<2, kInt8>(q, k, v, ks, vs, lengths, length_all, starts, out, B, n_kv, S, Sp, D, scale, stream);
-    case 4: return launch<4, kInt8>(q, k, v, ks, vs, lengths, length_all, starts, out, B, n_kv, S, Sp, D, scale, stream);
-    case 8: return launch<8, kInt8>(q, k, v, ks, vs, lengths, length_all, starts, out, B, n_kv, S, Sp, D, scale, stream);
+#define MIXQ_FD_CASE(G)                                                     \
+  case G:                                                                   \
+    return launch<G, kInt8, kSoftcap>(q, k, v, ks, vs, lengths, length_all, \
+                                      starts, out, B, n_kv, S, Sp, D, scale, \
+                                      softcap, stream);
+    MIXQ_FD_CASE(1)
+    MIXQ_FD_CASE(2)
+    MIXQ_FD_CASE(4)
+    MIXQ_FD_CASE(8)
+#undef MIXQ_FD_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -348,16 +365,27 @@ extern "C" int flash_decode_smem_bytes(int g, int S, int D) {
   return g * S * 4 + kWarps * g * D * 4 + g * D * 4 + g * D;
 }
 
+// softcap > 0: scores = tanh(scores / softcap) * softcap after the scale.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* ks,
                                    const void* vs, const void* lengths,
                                    int length_all, const void* starts,
                                    void* out, int B, int n_kv, int g, int S,
-                                   int Sp, int D, float scale, int int8,
-                                   void* stream) {
+                                   int Sp, int D, float scale, float softcap,
+                                   int int8, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  return int8 ? dispatch<true>(g, q, k, v, ks, vs, lengths, length_all, starts,
-                               out, B, n_kv, S, Sp, D, scale, st)
-              : dispatch<false>(g, q, k, v, ks, vs, lengths, length_all,
-                                starts, out, B, n_kv, S, Sp, D, scale, st);
+  const bool cap = softcap > 0.f;
+  if (int8)
+    return cap ? dispatch<true, true>(g, q, k, v, ks, vs, lengths, length_all,
+                                      starts, out, B, n_kv, S, Sp, D, scale,
+                                      softcap, st)
+               : dispatch<true, false>(g, q, k, v, ks, vs, lengths,
+                                       length_all, starts, out, B, n_kv, S,
+                                       Sp, D, scale, softcap, st);
+  return cap ? dispatch<false, true>(g, q, k, v, ks, vs, lengths, length_all,
+                                     starts, out, B, n_kv, S, Sp, D, scale,
+                                     softcap, st)
+             : dispatch<false, false>(g, q, k, v, ks, vs, lengths, length_all,
+                                      starts, out, B, n_kv, S, Sp, D, scale,
+                                      softcap, st);
 }

@@ -3,8 +3,9 @@
 //   per-channel: y = float(sum_k q_x[m,k] * w[k,n]) * x_scale[m] * w_scale[n]
 //   grouped:     y = (sum_g float(acc_g[m,n]) * w_scale[g,n]) * x_scale[m],
 //                acc_g the exact int32 sum over the K rows of group g
-//   then + sum_b x_out[m,b] * w_out[b,n] (fp outlier channels), optional
-//   SiLU, and the cast to bf16 or f32.
+//   then + sum_b x_out[m,b] * w_out[b,n] (fp outlier channels), the
+//   activation epilogue (none, SiLU, exact GELU or tanh GELU "gelu_new";
+//   csrc/epilogue.cuh), and the cast to bf16 or f32.
 // The weight is int8 [K, N] (W8) or packed int4 uint8 [K/2, N] (W4) in the
 // halves layout of ops/quant.py::pack_int4: packed row p holds K-row p in
 // its low nibble and K-row K/2 + p in its high nibble.
@@ -64,6 +65,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "epilogue.cuh"
 
 using namespace nvcuda;
 using mixq::cp_async16;
@@ -173,7 +175,7 @@ mix_gemm_kernel(const int8_t* __restrict__ qx,     // [M, K]
                 const __nv_bfloat16* __restrict__ xo,  // [M, Bo] / null
                 const __nv_bfloat16* __restrict__ wo,  // [Bo, N] / null
                 void* __restrict__ out,            // [M, N]
-                int M, int N, int K, int Bo, int gs, int silu, int out_f32) {
+                int M, int N, int K, int Bo, int gs, int fuse, int out_f32) {
   constexpr int BS = W4 ? B_STAGE / 2 : B_STAGE;  // stored tile bytes
   constexpr int SROWS = W4 ? KSTEP / 2 : KSTEP;   // stored rows per stage
   extern __shared__ __align__(128) unsigned char smem[];
@@ -304,7 +306,7 @@ mix_gemm_kernel(const int8_t* __restrict__ qx,     // [M, K]
     else
       y = __fmul_rn(__fmul_rn((float)Cs[r * LDC + c], xs[gm]), ws[gn]);
     if (has_out) y = __fadd_rn(y, Fs[r * LDC + c]);
-    if (silu) y = __fmul_rn(y, 1.0f / (1.0f + expf(-y)));
+    y = mixq::apply_epilogue(y, fuse);
     if (out_f32)
       reinterpret_cast<float*>(out)[(size_t)gm * N + gn] = y;
     else
@@ -316,7 +318,7 @@ mix_gemm_kernel(const int8_t* __restrict__ qx,     // [M, K]
 template <bool W4, bool GROUPED>
 int launch(const void* qx, const void* w, const void* xs, const void* ws,
            const void* xo, const void* wo, void* out, int M, int N, int K,
-           int Bo, int gs, int silu, int out_f32, cudaStream_t stream) {
+           int Bo, int gs, int fuse, int out_f32, cudaStream_t stream) {
   static int smem_limit = 48 * 1024;   // per instantiation
   const int smem = STAGES * (A_STAGE + (W4 ? B_STAGE / 2 : B_STAGE)) +
                    (W4 ? B_STAGE : 0) + 2 * BM * LDC * 4 +
@@ -332,27 +334,28 @@ int launch(const void* qx, const void* w, const void* xs, const void* ws,
   mix_gemm_kernel<W4, GROUPED><<<grid, THREADS, smem, stream>>>(
       (const int8_t*)qx, (const uint8_t*)w, (const float*)xs,
       (const float*)ws, (const __nv_bfloat16*)xo, (const __nv_bfloat16*)wo,
-      out, M, N, K, Bo, gs, silu, out_f32);
+      out, M, N, K, Bo, gs, fuse, out_f32);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// w4: the weight is packed uint8 [K/2, N]; G > 1: w_scale is [G, N].
+// w4: the weight is packed uint8 [K/2, N]; G > 1: w_scale is [G, N];
+// fuse: the epilogue's code (mixq::Epilogue, csrc/epilogue.cuh).
 extern "C" int mix_gemm_launch(const void* qx, const void* w, const void* xs,
                                const void* ws, const void* xo, const void* wo,
                                void* out, int M, int N, int K, int Bo, int G,
-                               int w4, int silu, int out_f32, void* stream) {
+                               int w4, int fuse, int out_f32, void* stream) {
   const int bo = xo ? Bo : 0;
   const int gs = G > 1 ? K / G : K;
   cudaStream_t st = (cudaStream_t)stream;
   if (w4)
     return G > 1 ? launch<true, true>(qx, w, xs, ws, xo, wo, out, M, N, K, bo,
-                                      gs, silu, out_f32, st)
+                                      gs, fuse, out_f32, st)
                  : launch<true, false>(qx, w, xs, ws, xo, wo, out, M, N, K,
-                                       bo, gs, silu, out_f32, st);
+                                       bo, gs, fuse, out_f32, st);
   return G > 1 ? launch<false, true>(qx, w, xs, ws, xo, wo, out, M, N, K, bo,
-                                     gs, silu, out_f32, st)
+                                     gs, fuse, out_f32, st)
                : launch<false, false>(qx, w, xs, ws, xo, wo, out, M, N, K, bo,
-                                      gs, silu, out_f32, st);
+                                      gs, fuse, out_f32, st);
 }

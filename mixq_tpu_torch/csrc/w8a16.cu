@@ -3,7 +3,8 @@
 //   wd[k,n] = bf16( bf16(w[k,n]) * bf16(w_scale[g(k), n]) )
 //   y = float(x) @ float(wd)  (f32 accumulation)
 //       + sum_b x_out[m,b] * w_out[b,n]  (fp outlier channels, optional)
-//   then optional SiLU, then the cast to bf16 or f32.
+//   then the activation epilogue (none, SiLU, exact GELU or tanh GELU
+//   "gelu_new"; csrc/epilogue.cuh), then the cast to bf16 or f32.
 // w is int8 [K, N] or packed uint8 [K/2, N] in the halves layout of
 // ops/quant.py::pack_int4 (packed row p: K-row p in the low nibble, K-row
 // K/2 + p in the high one); w_scale is [N] (g = 0) or [G, N] (g = k / (K/G)).
@@ -47,6 +48,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "epilogue.cuh"
 
 using namespace nvcuda;
 using mixq::cp_async16;
@@ -143,7 +145,7 @@ w8a16_kernel(const __nv_bfloat16* __restrict__ x,  // [M, K]
              const __nv_bfloat16* __restrict__ xo, // [M, Bo] / null
              const __nv_bfloat16* __restrict__ wo, // [Bo, N] / null
              void* __restrict__ out,               // [M, N]
-             int M, int N, int K, int Bo, int gs, int silu, int out_f32) {
+             int M, int N, int K, int Bo, int gs, int fuse, int out_f32) {
   constexpr int WS = W4 ? W_STAGE / 2 : W_STAGE;  // stored tile bytes
   constexpr int SROWS = W4 ? KSTEP / 2 : KSTEP;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -246,7 +248,7 @@ w8a16_kernel(const __nv_bfloat16* __restrict__ x,  // [M, K]
     if (gm >= M || gn >= N) continue;
     float y = Cs[r * LDC + c];
     if (has_out) y = __fadd_rn(y, Fs[r * LDC + c]);
-    if (silu) y = __fmul_rn(y, 1.0f / (1.0f + expf(-y)));
+    y = mixq::apply_epilogue(y, fuse);
     if (out_f32)
       reinterpret_cast<float*>(out)[(size_t)gm * N + gn] = y;
     else
@@ -258,7 +260,7 @@ w8a16_kernel(const __nv_bfloat16* __restrict__ x,  // [M, K]
 template <bool W4, bool GROUPED>
 int launch(const void* x, const void* w, const void* ws, const void* xo,
            const void* wo, void* out, int M, int N, int K, int Bo, int gs,
-           int silu, int out_f32, cudaStream_t stream) {
+           int fuse, int out_f32, cudaStream_t stream) {
   static int smem_limit = 48 * 1024;   // per instantiation
   const int smem = STAGES * (A_STAGE * 2 + (W4 ? W_STAGE / 2 : W_STAGE)) +
                    KSTEP * BN * 2 + 2 * BM * LDC * 4 +
@@ -274,27 +276,28 @@ int launch(const void* x, const void* w, const void* ws, const void* xo,
   w8a16_kernel<W4, GROUPED><<<grid, THREADS, smem, stream>>>(
       (const __nv_bfloat16*)x, (const uint8_t*)w, (const float*)ws,
       (const __nv_bfloat16*)xo, (const __nv_bfloat16*)wo, out, M, N, K, Bo,
-      gs, silu, out_f32);
+      gs, fuse, out_f32);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// w4: the weight is packed uint8 [K/2, N]; G > 1: w_scale is [G, N].
+// w4: the weight is packed uint8 [K/2, N]; G > 1: w_scale is [G, N];
+// fuse: the epilogue's code (mixq::Epilogue, csrc/epilogue.cuh).
 extern "C" int w8a16_launch(const void* x, const void* w, const void* ws,
                             const void* xo, const void* wo, void* out, int M,
-                            int N, int K, int Bo, int G, int w4, int silu,
+                            int N, int K, int Bo, int G, int w4, int fuse,
                             int out_f32, void* stream) {
   const int bo = xo ? Bo : 0;
   const int gs = G > 1 ? K / G : K;
   cudaStream_t st = (cudaStream_t)stream;
   if (w4)
     return G > 1 ? launch<true, true>(x, w, ws, xo, wo, out, M, N, K, bo, gs,
-                                      silu, out_f32, st)
+                                      fuse, out_f32, st)
                  : launch<true, false>(x, w, ws, xo, wo, out, M, N, K, bo, gs,
-                                       silu, out_f32, st);
+                                       fuse, out_f32, st);
   return G > 1 ? launch<false, true>(x, w, ws, xo, wo, out, M, N, K, bo, gs,
-                                     silu, out_f32, st)
+                                     fuse, out_f32, st)
                : launch<false, false>(x, w, ws, xo, wo, out, M, N, K, bo, gs,
-                                      silu, out_f32, st);
+                                      fuse, out_f32, st);
 }

@@ -6,8 +6,10 @@ mixq_tpu/engine/engine.py).
     generate(prompts, ...) -> token lists
 
 Eager PyTorch: the cache is written in place, and `generate` is a stepwise
-host loop (sample, then the next decode step). JAX's one-program device
-decode loop and its tail-window flushes are not ported (ROADMAP.md).
+host loop (sample, then the next decode step). The head is widened to f32
+once, when the engine is built (`lm_head_f32`), not on every step. JAX's
+one-program device decode loop and its tail-window flushes are not ported
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import torch
 from mixq_tpu_torch.config import EngineConfig, ModelConfig
 from mixq_tpu_torch.engine.sampling import (SamplingParams, chosen_logprob,
                                             sample)
-from mixq_tpu_torch.models.decoder import DecoderParams, DecoderSpecs, forward
+from mixq_tpu_torch.models.decoder import (DecoderParams, DecoderSpecs,
+                                           forward, lm_head_f32)
 from mixq_tpu_torch.models.layers import KVCache
 from mixq_tpu_torch.utils.shapes import round_up
 
@@ -49,6 +52,9 @@ class InferenceEngine:
         if self.engine_cfg.kv_dtype not in _KV_DTYPES:
             raise NotImplementedError(
                 f"kv_dtype {self.engine_cfg.kv_dtype!r}: bfloat16 or int8")
+        # the f32 head [H, V] that every forward's logits product reads
+        # (4 bytes per element, held for the engine's life)
+        self.head_f32 = lm_head_f32(params, specs)
 
     def new_cache(self, batch: int, max_seq: Optional[int] = None) -> KVCache:
         mc = self.model_cfg
@@ -70,7 +76,8 @@ class InferenceEngine:
         tokens = torch.as_tensor(tokens, device=self.device)
         logits, cache = forward(self.params, tokens, cache, self.specs,
                                 self.model_cfg,
-                                self._rows(kv_start, tokens.shape[0]))
+                                self._rows(kv_start, tokens.shape[0]),
+                                head_f32=self.head_f32)
         return logits[:, -1, :], cache
 
     @torch.inference_mode()
@@ -79,7 +86,8 @@ class InferenceEngine:
         tokens = torch.as_tensor(tokens, device=self.device)
         logits, cache = forward(self.params, tokens, cache, self.specs,
                                 self.model_cfg,
-                                self._rows(kv_start, tokens.shape[0]))
+                                self._rows(kv_start, tokens.shape[0]),
+                                head_f32=self.head_f32)
         return logits[:, -1, :], cache
 
     @torch.inference_mode()

@@ -3,8 +3,9 @@
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 module's plain PyTorch version only for CPU tensors. Each keeps a plain
 integer count of its launches in its `launches` attribute, and a wrapper
-with several modes also counts them by mode in `mode_launches`, so a run
-can show that the main path went through the kernels, in the modes it
+with several modes also counts them by mode in `mode_launches` (the GEMMs
+by weight mode and by epilogue, flash decode its softcap launches), so a
+run can show that the main path went through the kernels, in the modes it
 expects.
 """
 from mixq_tpu_torch.kernels import flash_decode, mix_gemm, rmsnorm_quant, w8a16

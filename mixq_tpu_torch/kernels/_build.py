@@ -119,13 +119,34 @@ def check(rc: int, what: str) -> None:
 # Checks shared by the GEMM wrappers
 # ---------------------------------------------------------------------------
 
-FUSES = ("none", "silu")          # the epilogue activations that are ported
+# The epilogue activations, in the order of their codes in the kernels
+# (csrc/epilogue.cuh: mixq::Epilogue).
+FUSES = ("none", "silu", "gelu", "gelu_new")
+# f32(sqrt(2/pi)) and f32(sqrt(1/2)), the constants of jax.nn.gelu
+_SQRT_2_OVER_PI = float.fromhex("0x1.988454p-1")
+_SQRT_HALF = float.fromhex("0x1.6a09e6p-1")
 
 
-def check_fuse(fuse: str, what: str) -> None:
+def check_fuse(fuse: str, what: str) -> int:
+    """The kernels' code of an epilogue; raises for one they do not have."""
     if fuse not in FUSES:
         raise NotImplementedError(
             f"{what} fuse={fuse!r}: only {FUSES} are ported")
+    return FUSES.index(fuse)
+
+
+def apply_epilogue(y: torch.Tensor, fuse: str) -> torch.Tensor:
+    """The plain version of the kernels' epilogue on the f32 result `y`, in
+    jax.nn.gelu's order of operations (gelu: 0.5 y erfc(-y sqrt(1/2));
+    gelu_new: y * 0.5 (1 + tanh(sqrt(2/pi) (y + 0.044715 y^3))))."""
+    if fuse == "silu":
+        return y * torch.sigmoid(y)
+    if fuse == "gelu":
+        return 0.5 * y * torch.special.erfc(-y * _SQRT_HALF)
+    if fuse == "gelu_new":
+        inner = _SQRT_2_OVER_PI * (y + 0.044715 * (y * y * y))
+        return y * (0.5 * (1.0 + torch.tanh(inner)))
+    return y
 
 
 def require(t: torch.Tensor, dtype, shape, name: str, device) -> None:

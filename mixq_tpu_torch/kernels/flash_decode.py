@@ -3,25 +3,32 @@
 Replaces mixq_tpu/ops/pallas/flash_decode.py::flash_decode_attention (its
 main-cache path) with the CUDA kernel in mixq_tpu_torch/csrc/flash_decode.cu.
 bf16 or int8 cache with per-(token, head) scales, GQA, per-row valid lengths
-and first valid slots (kv_start). The int8 mode repeats the Pallas recipe:
-q and the probabilities are absmax-quantized so both dots are int8 x int8.
+and first valid slots (kv_start), and gemma2's score-scale override (`scale`,
+default 1/sqrt(D)) and logit softcap (`softcap` > 0: tanh(s / cap) * cap
+after the scale, before the mask), with the Pallas signature's meaning. The
+int8 mode repeats the Pallas recipe: q and the probabilities are
+absmax-quantized so both dots are int8 x int8.
 
 One difference from the Pallas kernel: a row with no valid slot
 (length <= kv_start) comes out as zeros. The Pallas kernel zeroes only rows
 of length 0 and returns an average over masked slots when
 kv_start >= length > 0; the decoder never produces such a row.
 
-Still to port (ROADMAP.md Queue B): the token-major tail window, ALiBi,
-softcap and score-scale overrides, sliding-window starts and T>1 verify.
+Still to port (ROADMAP.md Queue B): ALiBi, sliding-window starts, the
+token-major tail window and T>1 verify.
 
 `flash_decode_attention` launches the kernel for CUDA tensors and runs
-`flash_decode_plain`, the same arithmetic in PyTorch ops, for CPU tensors.
+`flash_decode_plain`, the same arithmetic in PyTorch ops, for CPU tensors;
+`flash_decode_level` sizes one flipped probability level per output row,
+the unit of the kernel's tolerance against the plain version on a peaked
+softmax.
+Besides its total `launches`, the wrapper counts its softcap launches in
+`mode_launches["softcap"]`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Optional, Union
 
 import torch
@@ -42,6 +49,12 @@ def _rows(x: Rows, B: int, device) -> torch.Tensor:
                            device=device).expand(B)
 
 
+def _score_scale(scale: Optional[float], D: int) -> float:
+    """The score scale, 1/sqrt(D) as the Pallas kernel computes it unless
+    overridden."""
+    return scale if scale is not None else 1.0 / (D ** 0.5)
+
+
 def _layer_view(k, v, k_scale, v_scale, layer):
     if k.dim() == 5:
         if layer is None:
@@ -52,14 +65,11 @@ def _layer_view(k, v, k_scale, v_scale, layer):
     return k, v, k_scale, v_scale
 
 
-def flash_decode_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: Rows,
-    k_scale: Optional[torch.Tensor] = None,
-    v_scale: Optional[torch.Tensor] = None, kv_start: Rows = None,
-    layer: Optional[int] = None,
-) -> torch.Tensor:
-    """PyTorch version of the kernel, in the Pallas kernel's order of
-    operations. The int8 dots run in float64, which holds them exactly."""
+def _softmax_parts(q, k, v, lengths, k_scale, v_scale, kv_start, layer,
+                   softcap, scale):
+    """The plain version's scores and softmax numerator: (p = exp(s - max)
+    [B, n_kv, g, S] f32, l = sum(p), valid [B, S], live, the layer's v and
+    v_scale, quantized)."""
     k, v, k_scale, v_scale = _layer_view(k, v, k_scale, v_scale, layer)
     B, n_q, D = q.shape
     n_kv, _, S, _ = k.shape
@@ -70,10 +80,9 @@ def flash_decode_plain(
     pos = torch.arange(S, device=dev)
     valid = (pos[None] < lengths[:, None]) & (pos[None] >= starts[:, None])
     live = (lengths > starts).float()[:, None, None, None]
-    scale = 1.0 / (D ** 0.5)
+    scale = _score_scale(scale, D)
     qf = q.float().reshape(B, n_kv, g, D)
     kt = k.permute(1, 0, 3, 2)                       # [B, n_kv, D, S]
-    vv = v.permute(1, 0, 2, 3)                       # [B, n_kv, S, D]
     quantized = k_scale is not None
     if quantized:
         q_scale = torch.clamp_min(qf.abs().amax(-1, keepdim=True) / 127.0,
@@ -84,10 +93,28 @@ def flash_decode_plain(
         qk = acc * q_scale * ks * scale
     else:
         qk = torch.matmul(qf, kt.float()) * scale
+    if softcap:
+        qk = torch.tanh(qk / softcap) * softcap
     qk = torch.where(valid[:, None, None, :], qk, MASK_VALUE)
     m = qk.amax(-1, keepdim=True)
     p = torch.exp(qk - m)
-    l = p.sum(-1, keepdim=True)
+    return p, p.sum(-1, keepdim=True), valid, live, v, v_scale, quantized
+
+
+def flash_decode_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: Rows,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None, kv_start: Rows = None,
+    layer: Optional[int] = None, softcap: float = 0.0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """PyTorch version of the kernel, in the Pallas kernel's order of
+    operations. The int8 dots run in float64, which holds them exactly."""
+    p, l, _, live, v, v_scale, quantized = _softmax_parts(
+        q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap, scale)
+    B, n_q, D = q.shape
+    S = v.shape[2]
+    vv = v.permute(1, 0, 2, 3)                       # [B, n_kv, S, D]
     if quantized:
         vs = v_scale[..., :S].permute(1, 0, 2)[:, :, None, :]
         p2 = p * vs
@@ -100,13 +127,41 @@ def flash_decode_plain(
     return o.reshape(B, n_q, D).to(q.dtype)
 
 
+def flash_decode_level(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: Rows,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None, kv_start: Rows = None,
+    layer: Optional[int] = None, softcap: float = 0.0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """[B, n_q] f32: the most that one probability level, rounded the other
+    way, moves an output row of flash_decode_plain. int8: a level of p_i8
+    is p_scale and |v_i8| <= 127, so 127 * p_scale / l = max(p * v_scale) /
+    l; bf16: a bf16 ulp of p <= 1 is at most 2^-8, so 2^-8 * max|v| / l
+    over the row's valid slots. An exp() or tanh() ulp between two
+    implementations flips such roundings now and then; a peaked softmax
+    (small l) makes each flip large."""
+    p, l, valid, _, v, v_scale, quantized = _softmax_parts(
+        q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap, scale)
+    B, n_q, _ = q.shape
+    S = v.shape[2]
+    if quantized:
+        vs = v_scale[..., :S].permute(1, 0, 2)[:, :, None, :]
+        top = (p * vs).amax(-1)
+    else:
+        vmax = torch.where(valid[:, None, :, None],
+                           v.permute(1, 0, 2, 3).float().abs(), 0.0)
+        top = 2.0 ** -8 * vmax.amax((-1, -2))[:, :, None]
+    return (top / l[..., 0]).reshape(B, n_q)
+
+
 @functools.cache
 def _lib():
     lib = _build.load("flash_decode")
     lib.flash_decode_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p,
                                  ctypes.c_void_p] + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.flash_decode_launch.restype = ctypes.c_int
     lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.flash_decode_smem_bytes.restype = ctypes.c_int
@@ -134,11 +189,13 @@ def flash_decode_attention(
     v_scale: Optional[torch.Tensor] = None,
     kv_start: Rows = None,                    # None, int or [B] int32
     layer: Optional[int] = None,              # layer index of a 5D cache
+    softcap: float = 0.0,                     # > 0: gemma2 logit softcap
+    scale: Optional[float] = None,            # score scale; None: 1/sqrt(D)
 ) -> torch.Tensor:
     """Returns the attention output [B, n_q, D] in q.dtype."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, k_scale, v_scale,
-                                  kv_start, layer)
+                                  kv_start, layer, softcap, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     k, v, k_scale, v_scale = _layer_view(k, v, k_scale, v_scale, layer)
@@ -154,6 +211,8 @@ def flash_decode_attention(
         raise ValueError(f"head dim {D} not supported for {kv_dtype}")
     g = n_q // n_kv
     dev = q.device
+    if softcap < 0:
+        raise ValueError(f"softcap {softcap} must be >= 0 (0: none)")
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError("q must be a contiguous bf16 tensor")
     for t, name in ((k, "k"), (v, "v")):
@@ -191,10 +250,14 @@ def flash_decode_attention(
         None if len_t is None else len_t.data_ptr(),
         lengths if len_t is None else 0,
         None if st_t is None else st_t.data_ptr(), out.data_ptr(),
-        B, n_kv, g, S, Sp, D, 1.0 / math.sqrt(D), int(quantized), stream)
+        B, n_kv, g, S, Sp, D, _score_scale(scale, D), softcap,
+        int(quantized), stream)
     _build.check(rc, "flash_decode")
     flash_decode_attention.launches += 1
+    if softcap:
+        flash_decode_attention.mode_launches["softcap"] += 1
     return out
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.mode_launches = {"softcap": 0}

@@ -10,17 +10,20 @@ modes, chosen as JAX chooses them, from dtypes and shapes:
     w_scale [N]             per-channel: y = float(q_x @ w) * x_scale * w_scale
     w_scale [G, N], G > 1   grouped: y = (sum_g float(acc_g) * w_scale[g])
                             * x_scale (kernel A; "w8a8_grouped", "w4_grouped")
-    (+ x_outlier @ w_outlier in f32); silu if fuse == "silu"; cast to out_dtype
+    (+ x_outlier @ w_outlier in f32); the epilogue `fuse` ("silu", "gelu",
+    "gelu_new"; _build.apply_epilogue); cast to out_dtype
 
 A bf16 activation is the a16 (weight-only) mode, which runs on kernel B
 (kernels/w8a16.py); `mix_gemm` hands it over, as the Pallas kernel
 dispatches on the activation's dtype. `int8_matmul_dequant` is
 mixq_tpu/ops/pallas/int8_matmul.py's entry point, the W8A8 contract, as a
-thin call onto this kernel. The gelu epilogues are not ported yet.
+thin call onto this kernel.
 
 `mix_gemm` launches the kernel for CUDA tensors and runs `mix_gemm_plain`,
 the same arithmetic in PyTorch ops, for CPU tensors. Besides its total
-`launches`, the wrapper counts its launches by mode in `mode_launches`.
+`launches`, the wrapper counts its launches in `mode_launches` by weight
+mode (MODES) and, separately, by epilogue (EPILOGUES): a launch counts once
+in each.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ REPLACES = "mixq_tpu/ops/pallas/mix_gemm.py:140"
 REPLACES_W4 = "mixq_tpu/ops/pallas/mix_gemm.py:43"     # _unpack_w4, grouped
 REPLACES_INT8_MATMUL = "mixq_tpu/ops/pallas/int8_matmul.py:53"
 MODES = ("w8a8", "w8a8_grouped", "w4", "w4_grouped")
+EPILOGUES = _build.FUSES[1:]              # "silu", "gelu", "gelu_new"
 
 
 def _mode(w4: bool, G: int) -> str:
@@ -67,9 +71,7 @@ def mix_gemm_plain(
         y = acc * x_scale.reshape(-1, 1) * w_scale.reshape(1, -1)
     if x_outlier is not None and w_outlier is not None:
         y = y + torch.matmul(x_outlier.float(), w_outlier.float())
-    if fuse == "silu":
-        y = y * torch.sigmoid(y)
-    return y.to(out_dtype)
+    return _build.apply_epilogue(y, fuse).to(out_dtype)
 
 
 @functools.cache
@@ -100,7 +102,7 @@ def mix_gemm(
                               fuse, out_dtype)
     if q_x.device.type != "cuda":
         raise ValueError(f"unsupported device {q_x.device}")
-    _build.check_fuse(fuse, "mix_gemm")
+    fuse_code = _build.check_fuse(fuse, "mix_gemm")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype {out_dtype} not supported")
     w4 = w.dtype == torch.uint8
@@ -133,16 +135,18 @@ def mix_gemm(
         q_x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         x_outlier.data_ptr() if has_out else None,
         w_outlier.data_ptr() if has_out else None, out.data_ptr(),
-        M, N, K, Bo, G, int(w4), int(fuse == "silu"),
+        M, N, K, Bo, G, int(w4), fuse_code,
         int(out_dtype == torch.float32), stream)
     _build.check(rc, "mix_gemm")
     mix_gemm.launches += 1
     mix_gemm.mode_launches[_mode(w4, G)] += 1
+    if fuse_code:
+        mix_gemm.mode_launches[fuse] += 1
     return out
 
 
 mix_gemm.launches = 0
-mix_gemm.mode_launches = dict.fromkeys(MODES, 0)
+mix_gemm.mode_launches = dict.fromkeys(MODES + EPILOGUES, 0)
 
 
 def int8_matmul_dequant(

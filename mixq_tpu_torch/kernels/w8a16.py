@@ -5,7 +5,8 @@ One CUDA kernel, mixq_tpu_torch/csrc/w8a16.cu, replaces two TPU kernels:
 
 - mixq_tpu/ops/pallas/mix_gemm.py::mix_gemm with a bf16 activation (its a16
   modes): w int8 [K, N] or packed uint8 [K/2, N] (halves layout), w_scale
-  [N] or grouped [G, N], optional fp outlier term and SiLU. This is
+  [N] or grouped [G, N], optional fp outlier term and the silu, gelu or
+  gelu_new epilogue. This is
   `mix_gemm_a16`; kernels/mix_gemm.py::mix_gemm hands a bf16 activation to
   it.
 - mixq_tpu/ops/pallas/w8a16.py::w8a16_matmul (EETQ's w8_a16_gemm): int8,
@@ -15,14 +16,16 @@ Both compute, in this order,
 
     wd = bf16(bf16(w) * bf16(w_scale[group of k]))     [K, N]
     y  = x @ wd  with f32 accumulation  (+ x_outlier @ w_outlier in f32)
-    y  = silu(y) if fuse == "silu";  cast to out_dtype
+    y  = epilogue(y)  (fuse: "silu", "gelu", "gelu_new");  cast to out_dtype
 
 The scale is rounded to bf16 before the multiply and the product again
 after it; applying the scale in f32 gives a different function.
 
 `mix_gemm_a16` launches the kernel for CUDA tensors and runs `w8a16_plain`,
 the same arithmetic in PyTorch ops, for CPU tensors. Besides its total
-`launches`, the wrapper counts its launches by mode in `mode_launches`.
+`launches`, the wrapper counts its launches in `mode_launches` by weight
+mode (MODES) and, separately, by epilogue (EPILOGUES): a launch counts once
+in each.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ SOURCE = "mixq_tpu_torch/csrc/w8a16.cu"
 REPLACES = "mixq_tpu/ops/pallas/mix_gemm.py:93"          # the a16 branch
 REPLACES_W8A16 = "mixq_tpu/ops/pallas/w8a16.py:30"
 MODES = ("w8", "w8_grouped", "w4", "w4_grouped")
+EPILOGUES = _build.FUSES[1:]              # "silu", "gelu", "gelu_new"
 
 
 def dequant_weight(w: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
@@ -60,15 +64,13 @@ def w8a16_plain(
 ) -> torch.Tensor:
     """PyTorch version of the kernel, in the JAX order: the bf16-rounded
     weight, then an f32 matmul of the bf16 operands (every product exact in
-    f32), the outlier term, SiLU and the cast."""
+    f32), the outlier term, the epilogue and the cast."""
     _build.check_fuse(fuse, "mix_gemm_a16")
     wd = dequant_weight(w, w_scale)
     y = torch.matmul(x.to(torch.bfloat16).float(), wd.float())
     if x_outlier is not None and w_outlier is not None:
         y = y + torch.matmul(x_outlier.float(), w_outlier.float())
-    if fuse == "silu":
-        y = y * torch.sigmoid(y)
-    return y.to(out_dtype)
+    return _build.apply_epilogue(y, fuse).to(out_dtype)
 
 
 @functools.cache
@@ -99,7 +101,7 @@ def mix_gemm_a16(
                            out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _build.check_fuse(fuse, "mix_gemm_a16")
+    fuse_code = _build.check_fuse(fuse, "mix_gemm_a16")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype {out_dtype} not supported")
     w4 = w.dtype == torch.uint8
@@ -131,16 +133,18 @@ def mix_gemm_a16(
         x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
         x_outlier.data_ptr() if has_out else None,
         w_outlier.data_ptr() if has_out else None, out.data_ptr(),
-        M, N, K, Bo, G, int(w4), int(fuse == "silu"),
+        M, N, K, Bo, G, int(w4), fuse_code,
         int(out_dtype == torch.float32), stream)
     _build.check(rc, "mix_gemm_a16")
     mix_gemm_a16.launches += 1
     mix_gemm_a16.mode_launches[_mode(w4, G)] += 1
+    if fuse_code:
+        mix_gemm_a16.mode_launches[fuse] += 1
     return out
 
 
 mix_gemm_a16.launches = 0
-mix_gemm_a16.mode_launches = dict.fromkeys(MODES, 0)
+mix_gemm_a16.mode_launches = dict.fromkeys(MODES + EPILOGUES, 0)
 
 
 def w8a16_matmul(

@@ -3,8 +3,12 @@ mixq_tpu/models/decoder.py).
 
 A model is a plain tensor container (`DecoderParams`) plus `forward`; the
 per-linear precision policy is a static `DecoderSpecs`. Ported: the llama
-family (RMSNorm, gated SiLU MLP, GQA, unscaled neox RoPE) on the
-python-loop-over-layers runtime with a head-major KV cache:
+family (RMSNorm, gated SiLU MLP, GQA, unscaled neox RoPE) and gemma2 (the
+embedding multiplier, post-attention and post-FFW norms, the GeGLU MLP with
+the tanh-GELU fused into the gate GEMM, the query_pre_attn_scalar score
+scale, the attention and final-logit softcaps, the tied head, and
+alternating sliding windows that never bind) on the python-loop-over-layers
+runtime with a head-major KV cache:
 
   prefill (T > 1, fresh cache): attention over the chunk's own k/v (`attend`,
       plain PyTorch, as JAX computes it in jnp), while the chunk is written
@@ -17,12 +21,13 @@ quantize.resolve_specs). As in JAX, only a MIX linear group (q/k/v, up/gate)
 shares one prepared activation, made by the fused norm + quantization
 (kernel 1); FP16 and WEIGHT_ONLY linears take the plain rmsnorm output. Per
 block on the card, W8A8: kernel 1 twice, the int8 GEMM seven times (q, k,
-v, o, up, gate+SiLU, down); W4A4 (reference policy): kernel 1 twice, five
-packed-W4 GEMMs (q, k, v, up, gate) and two W8A8 ones (o, down); W8A16:
-seven a16 GEMMs and no kernel 1; and flash decode once per decode step.
-The stacked `lax.scan` runtime, continuous
-batching slots, ring caches, ALiBi, softcaps, rope scaling and the other
-families raise NotImplementedError (ROADMAP.md Queue A).
+v, o, up, gate+SiLU or gemma2's gate+GELU-tanh, down); W4A4 (reference
+policy): kernel 1 twice, five packed-W4 GEMMs (q, k, v, up, gate) and two
+W8A8 ones (o, down); W8A16: seven a16 GEMMs and no kernel 1; and flash
+decode once per decode step (gemma2: in its softcap mode). The stacked `lax.scan` runtime, continuous
+batching slots, ring caches, uniform (mistral) and binding windows, ALiBi,
+rope scaling and the other families raise NotImplementedError (ROADMAP.md
+Queue A).
 """
 from __future__ import annotations
 
@@ -67,7 +72,7 @@ class BlockParams(NamedTuple):
     ln2_scale: Optional[torch.Tensor]
     ln2_bias: Optional[torch.Tensor]
     mlp: MLPParams
-    post_attn_norm_scale: Optional[torch.Tensor] = None   # gemma2 (not ported)
+    post_attn_norm_scale: Optional[torch.Tensor] = None   # gemma2
     post_ffw_norm_scale: Optional[torch.Tensor] = None
 
 
@@ -101,23 +106,28 @@ class DecoderSpecs:
         return cls.uniform(LinearSpec(version="FP16", w_bit=16))
 
 
+# the gate GEMM's epilogue for each gated-MLP activation (JAX's _mlp)
+GATE_FUSE = {"silu": "silu", "gelu": "gelu", "gelu_new": "gelu_new",
+              "gelu_pytorch_tanh": "gelu_new"}
+
+
 def _check_supported(cfg: ModelConfig) -> None:
+    gated = (cfg.gated_mlp if cfg.gated_mlp is not None
+             else cfg.hidden_act == "silu")
     unsupported = {
         "layernorm": cfg.layernorm != "rmsnorm",
         "parallel_attn_mlp": cfg.parallel_attn_mlp,
         "rope_style": cfg.rope_style != "neox",
         "rotary_dim": cfg.rotary_dim not in (None, cfg.head_dim_),
         "qk_norm": cfg.qk_norm,
-        "post_norms": cfg.post_norms,
-        "query_pre_attn_scalar": cfg.query_pre_attn_scalar is not None,
-        "attn_logit_softcap": cfg.attn_logit_softcap is not None,
-        "final_logit_softcap": cfg.final_logit_softcap is not None,
         "num_local_experts": cfg.num_local_experts > 0,
-        "embed_multiplier": cfg.embed_multiplier != 1.0,
-        "gated_mlp": cfg.gated_mlp is False,
-        "hidden_act": cfg.hidden_act != "silu",
+        "gated_mlp": not gated,
+        "hidden_act": cfg.hidden_act not in GATE_FUSE,
         "rope_scaling_type": cfg.rope_scaling_type is not None,
-        "sliding_window": cfg.sliding_window is not None,
+        # a uniform window (mistral) needs kernel 3's window start; an
+        # alternating one (gemma2) never binds on the head-major cache
+        "sliding_window": (cfg.sliding_window is not None
+                           and cfg.sliding_window_pattern <= 1),
         "alibi": cfg.alibi,
         "attention_bias": cfg.attention_bias,
         "mlp_bias": cfg.mlp_bias,
@@ -125,7 +135,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"model features not ported yet: {bad} (llama family only)")
+            f"model features not ported yet: {bad} (llama and gemma2 "
+            "families only)")
 
 
 def _shares_act(spec: LinearSpec) -> bool:
@@ -151,11 +162,14 @@ def _linear(lin, h, act, spec):
 
 def _mlp(x: torch.Tensor, bp: BlockParams, specs: DecoderSpecs,
          cfg: ModelConfig) -> torch.Tensor:
-    """Gated SiLU MLP on the pre-norm residual x: norm, up and gate sharing
-    one quantized activation (SiLU fused into gate), then down."""
+    """Gated MLP on the pre-norm residual x: norm, up and gate sharing one
+    quantized activation, the activation of `cfg.hidden_act` fused into the
+    gate GEMM (SwiGLU, or gemma's GeGLU: gelu_pytorch_tanh is gelu_new),
+    then down."""
     mlp = bp.mlp
-    spec_gate = (specs.gate if specs.gate.fuse == "silu"
-                 else dataclasses.replace(specs.gate, fuse="silu"))
+    gate_fuse = GATE_FUSE[cfg.hidden_act]
+    spec_gate = (specs.gate if specs.gate.fuse == gate_fuse
+                 else dataclasses.replace(specs.gate, fuse=gate_fuse))
     h, act = _norm_act(x, bp.ln2_scale, mlp.up, specs.up, cfg)
     up = _linear(mlp.up, h, act, specs.up)
     gate = _linear(mlp.gate, h, act, spec_gate)
@@ -184,8 +198,24 @@ def block_core(
     k = apply_rope(k, cos, sin, cfg.rope_style)
     attn = kv_apply(q, k, v).reshape(B, T, n_q * hd)
     # o_proj quantizes its own input (the reference's unfused call)
-    x = x + mixed_linear(bp.attn.wo, attn, specs.wo).to(x.dtype)
-    return x + _mlp(x, bp, specs, cfg).to(x.dtype)
+    attn_out = mixed_linear(bp.attn.wo, attn, specs.wo)
+    if bp.post_attn_norm_scale is not None:      # gemma2 pre-residual norms
+        attn_out = rmsnorm(attn_out, bp.post_attn_norm_scale,
+                           cfg.rms_norm_eps)
+    x = x + attn_out.to(x.dtype)
+    mlp_out = _mlp(x, bp, specs, cfg)
+    if bp.post_ffw_norm_scale is not None:
+        mlp_out = rmsnorm(mlp_out, bp.post_ffw_norm_scale, cfg.rms_norm_eps)
+    return x + mlp_out.to(x.dtype)
+
+
+def lm_head_f32(params: DecoderParams, specs: DecoderSpecs) -> torch.Tensor:
+    """The head [H, V] (the embedding's transpose when tied) rounded to the
+    activation dtype and widened to f32: the operand of JAX's
+    jnp.dot(bf16, bf16, preferred_element_type=f32), whose products of the
+    bf16-rounded operands are exact in f32. The engine widens it once."""
+    head = params.lm_head if params.lm_head is not None else params.embed.T
+    return head.to(specs.wqkv.odtype).float()
 
 
 def forward(
@@ -195,13 +225,24 @@ def forward(
     specs: DecoderSpecs,
     cfg: ModelConfig,
     kv_start: Optional[torch.Tensor] = None,   # [B] int32 first real slot
+    *,
+    head_f32: torch.Tensor,                    # lm_head_f32(params, specs)
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder on a token chunk starting at cache.length.
 
     Returns (logits [B, T, V] f32, the cache, written in place with its
     length advanced by T). T > 1 is a prefill chunk on a fresh cache; T = 1
-    is a decode step."""
+    is a decode step. `head_f32` is the head widened once by the caller
+    (the engine holds it)."""
     _check_supported(cfg)
+    if (cfg.sliding_window is not None and cfg.sliding_window_pattern != 1
+            and cache.max_seq > cfg.sliding_window):
+        # JAX's guard for a head-major cache (decoder.py:497-508): kernel 3
+        # takes no per-layer window start, so the window must never bind
+        raise NotImplementedError(
+            "head-major (flash) KV cache: alternating-window (gemma2) "
+            f"models need max_seq <= sliding_window ({cache.max_seq} > "
+            f"{cfg.sliding_window})")
     if params.stacked is not None or params.pos_embed is not None:
         raise NotImplementedError("stacked (scan) params / learned positions")
     B, T = tokens.shape
@@ -211,6 +252,11 @@ def forward(
             "chunks attend over the cache and are not ported)")
     dev = tokens.device
     x = params.embed[tokens].to(specs.wqkv.odtype)
+    if cfg.embed_multiplier != 1.0:
+        # gemma: sqrt(hidden), rounded to the activation dtype first, as JAX
+        # and HF multiply
+        x = x * torch.tensor(cfg.embed_multiplier, dtype=x.dtype,
+                             device=dev)
     q_slot = torch.arange(cache.length, cache.length + T, device=dev)
     if kv_start is not None:
         rope_pos = torch.clamp_min(q_slot[None, :] - kv_start[:, None], 0)
@@ -218,28 +264,44 @@ def forward(
         rope_pos = q_slot
     cos, sin = rope_cos_sin(rope_pos, cfg.head_dim_, cfg.rope_theta)
     kv_len = cache.length + T
+    # gemma2's attention (None elsewhere)
+    attn_scale = (cfg.query_pre_attn_scalar ** -0.5
+                  if cfg.query_pre_attn_scalar is not None else None)
+    attn_softcap = cfg.attn_logit_softcap
 
     for i, bp in enumerate(params.blocks):
-        def kv_apply(q, k, v, i=i):
+        # alternating windows: layers with i % pattern == 0 are local
+        win = (cfg.sliding_window
+               if cfg.sliding_window is not None
+               and i % cfg.sliding_window_pattern == 0 else None)
+
+        def kv_apply(q, k, v, i=i, win=win):
             cache.update_layer(i, k, v)
             if T == 1:
+                # the window never binds here (guard above), so decode
+                # needs no window start
                 k_c, v_c, ks_c, vs_c = cache.layer_kv(i)
                 out = flash_decode_attention(q[:, 0], k_c, v_c, kv_len, ks_c,
-                                             vs_c, kv_start=kv_start)
+                                             vs_c, kv_start=kv_start,
+                                             softcap=attn_softcap or 0.0,
+                                             scale=attn_scale)
                 return out[:, None]
             # fresh-cache prefill: attention over the chunk's own fp k/v
             # equals attention over the cache
-            return attend(q, k, v, q_slot, kv_len, kv_start=kv_start)
+            return attend(q, k, v, q_slot, kv_len, kv_start=kv_start,
+                          sliding_window=win, scale=attn_scale,
+                          softcap=attn_softcap)
 
         x = block_core(x, bp, kv_apply, cos, sin, specs, cfg)
     cache.advance(T)
 
     x = rmsnorm(x, params.lnf_scale, cfg.rms_norm_eps)
-    head = params.lm_head if params.lm_head is not None else params.embed.T
-    hdt = specs.wqkv.odtype
     # jnp.dot(bf16, bf16, preferred_element_type=f32): f32 products of the
     # bf16-rounded operands, summed in f32
-    logits = torch.matmul(x.to(hdt).float(), head.to(hdt).float())
+    logits = torch.matmul(x.to(specs.wqkv.odtype).float(), head_f32)
+    if cfg.final_logit_softcap is not None:        # gemma2
+        cap = cfg.final_logit_softcap
+        logits = torch.tanh(logits / cap) * cap
     return logits, cache
 
 
@@ -304,8 +366,11 @@ def init_decoder_params(
             gate=from_float(normal(H, I), specs.gate, outlier_set=s_up),
             down=from_float(normal(I, H), specs.down, outlier_set=s_down),
         )
-        blocks.append(BlockParams(ln1_scale=ones(H), ln1_bias=None, attn=attn,
-                                  ln2_scale=ones(H), ln2_bias=None, mlp=mlp))
+        blocks.append(BlockParams(
+            ln1_scale=ones(H), ln1_bias=None, attn=attn, ln2_scale=ones(H),
+            ln2_bias=None, mlp=mlp,
+            post_attn_norm_scale=ones(H) if cfg.post_norms else None,
+            post_ffw_norm_scale=ones(H) if cfg.post_norms else None))
     return DecoderParams(
         embed=normal(V, H),
         blocks=tuple(blocks),

@@ -10,7 +10,8 @@ the TPU. On the card a write into a [.., S, D] stripe is an ordinary strided
 copy, so this cache is written in place and keeps no tail; results, not
 layout, are held against the reference. The batch-major layout, ring
 (sliding-window) writes, layernorm, rope scaling and ALiBi are still to be
-ported (ROADMAP.md Queue A).
+ported (ROADMAP.md Queue A). `attend` takes gemma2's score scale, softcap
+and (alternating) sliding window.
 """
 from __future__ import annotations
 
@@ -177,23 +178,35 @@ def attend(
     q_slot: torch.Tensor,           # [T] int — cache-slot index of each query
     kv_valid_len: int,              # number of valid slots
     kv_start: Optional[torch.Tensor] = None,   # [B] first real slot per row
+    sliding_window: Optional[int] = None,      # keep kv_pos > q_slot - W
+    scale: Optional[float] = None,             # default 1/sqrt(D) (gemma2:
+                                               # query_pre_attn_scalar^-0.5)
+    softcap: Optional[float] = None,           # gemma2: tanh(s / cap) * cap
 ) -> torch.Tensor:
     """Masked multi-head attention over an fp KV buffer, GQA by grouping
-    query heads against their kv head. Operands in f32 (the JAX CPU path's
-    operand type; prefill is not the bandwidth-bound step). The int8-scaled
-    form over a batch-major cache is still to be ported."""
+    query heads against their kv head, with JAX's options in JAX's order:
+    the scale override replaces 1/sqrt(D), the softcap comes after the
+    scale, and the window masks slots at or before q_slot - W. Operands in
+    f32 (the JAX CPU path's operand type; prefill is not the
+    bandwidth-bound step). The int8-scaled form over a batch-major cache and
+    ALiBi are still to be ported."""
     B, T, n_q, D = q.shape
     S, n_kv = k.shape[1], k.shape[2]
     groups = n_q // n_kv
-    # f32 reciprocal of the f32 sqrt, as jnp computes 1 / sqrt(D)
-    scale = 1.0 / torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
+    if scale is None:
+        # f32 reciprocal of the f32 sqrt, as jnp computes 1 / sqrt(D)
+        scale = 1.0 / torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
     qf = q.float().reshape(B, T, n_kv, groups, D)
     scores = torch.einsum("bthgd,bshd->bhgts", qf, k.float()) * scale
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
     kv_pos = torch.arange(S, device=q.device)[None, None, :]       # [1,1,S]
     causal = kv_pos <= q_slot[None, :, None]
     mask = causal & (kv_pos < kv_valid_len)                        # [1,T,S]
     if kv_start is not None:
         mask = mask & (kv_pos >= kv_start[:, None, None])          # [B,T,S]
+    if sliding_window is not None:
+        mask = mask & (kv_pos > q_slot[None, :, None] - sliding_window)
     scores = torch.where(mask[:, None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v.float())

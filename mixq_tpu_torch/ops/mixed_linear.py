@@ -22,8 +22,8 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
+from mixq_tpu_torch.kernels._build import apply_epilogue
 from mixq_tpu_torch.kernels.mix_gemm import mix_gemm
 from mixq_tpu_torch.kernels.w8a16 import mix_gemm_a16
 from mixq_tpu_torch.ops import quant as Q
@@ -101,14 +101,9 @@ def int_weight(params: MixLinearParams, spec: LinearSpec) -> torch.Tensor:
 
 
 def _apply_fuse(y: torch.Tensor, fuse: str, out_dtype) -> torch.Tensor:
-    if fuse == "silu":
-        y = y.float()
-        y = y * torch.sigmoid(y)
-    elif fuse == "gelu":
-        y = F.gelu(y.float())
-    elif fuse == "gelu_new":
-        y = F.gelu(y.float(), approximate="tanh")
-    return y.to(out_dtype)
+    """The GEMM kernels' epilogue, in f32, outside a kernel (FP16 linears,
+    linears with a bias)."""
+    return apply_epilogue(y.float(), fuse).to(out_dtype)
 
 
 def prepare_act(x: torch.Tensor, params: MixLinearParams,

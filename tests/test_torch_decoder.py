@@ -25,7 +25,7 @@ import torch
 from mixq_tpu.models import KVCache as JKVCache
 from mixq_tpu.models.decoder import forward as j_forward
 from mixq_tpu_torch.models import layers as t_layers
-from mixq_tpu_torch.models.decoder import forward
+from mixq_tpu_torch.models.decoder import forward, lm_head_f32
 from mixq_tpu_torch.models.layers import KVCache
 
 import test_torch_models as models
@@ -59,11 +59,12 @@ def test_teacher_forced_logits_and_cache(kv_dtype, quantized, config):
     tc = KVCache.create(L, B, S, nkv, hd, getattr(torch, kv_dtype),
                         device="cpu")
     chunks = [toks[:, :T]] + [toks[:, T + i:T + i + 1] for i in range(STEPS)]
+    head = lm_head_f32(tp, tspecs)
     for chunk in chunks:
         jl, jc = j_forward(jp, jnp.asarray(chunk), jc, jspecs, cfg,
                            jnp.asarray(kv_start))
         tl, tc = forward(tp, torch.from_numpy(chunk), tc, tspecs, cfg,
-                         torch.from_numpy(kv_start))
+                         torch.from_numpy(kv_start), head_f32=head)
         jl = np.asarray(jl)
         assert tl.shape == jl.shape and tl.dtype == torch.float32
         np.testing.assert_allclose(tl.numpy(), jl, rtol=0,
@@ -98,7 +99,7 @@ def test_only_mix_linears_share_a_prepared_act(monkeypatch, config,
     tc = KVCache.create(L, 2, 16, cfg.num_key_value_heads, cfg.head_dim_,
                         torch.int8, device="cpu")
     logits, _ = forward(tp, torch.ones((2, 5), dtype=torch.int64), tc,
-                        tspecs, cfg)
+                        tspecs, cfg, head_f32=lm_head_f32(tp, tspecs))
     assert bool(torch.isfinite(logits).all())
     assert len(calls) == norm_quant_calls * L
     assert all(bits == 4 for bits in calls)          # A4 for q/k/v, up/gate

@@ -86,23 +86,32 @@ def test_padded_scales_and_scalar_length():
     assert beyond_two_ulps(got.float().numpy(), ref) <= ATOL[True]
 
 
-def _f32_probabilities(q, k, v, ks, vs, lengths, starts, layer):
-    """The int8 recipe without its probability quantization: f32 p times
-    v_scale times the int8 v (a plausible wrong kernel)."""
+def unrounded_probabilities(q, k, v, lengths, ks, vs, starts, layer,
+                            softcap=0.0, scale=None):
+    """The kernel's recipe without its probability rounding (int8: f32 p
+    times v_scale times the int8 v, no p quantization; bf16: p kept in
+    f32): a plausible wrong kernel."""
     k, v = k[layer].float(), v[layer].float()
-    ks, vs = ks[layer], vs[layer]
     B, n_q, D = q.shape
     n_kv, _, S, _ = k.shape
+    scale = D ** -0.5 if scale is None else scale
     qf = q.float().reshape(B, n_kv, n_q // n_kv, D)
-    q_scale = (qf.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
-    q_i8 = (qf / q_scale).round().clamp(-127, 127)
-    s = (q_i8 @ k.permute(1, 0, 3, 2) * q_scale
-         * ks[..., :S].permute(1, 0, 2)[:, :, None, :] / D ** 0.5)
+    kt = k.permute(1, 0, 3, 2)
+    if ks is not None:
+        q_scale = (qf.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+        q_i8 = (qf / q_scale).round().clamp(-127, 127)
+        s = (q_i8 @ kt * q_scale
+             * ks[layer][..., :S].permute(1, 0, 2)[:, :, None, :] * scale)
+    else:
+        s = qf @ kt * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
     pos = torch.arange(S)
     valid = (pos[None] < lengths[:, None]) & (pos[None] >= starts[:, None])
     s = s.masked_fill(~valid[:, None, None], -torch.inf)
     p = torch.exp(s - s.amax(-1, keepdim=True))
-    p2 = p * vs[..., :S].permute(1, 0, 2)[:, :, None, :]
+    p2 = (p if vs is None
+          else p * vs[layer][..., :S].permute(1, 0, 2)[:, :, None, :])
     o = p2 @ v.permute(1, 0, 2, 3) / p.sum(-1, keepdim=True)
     return o.reshape(B, n_q, D).to(torch.bfloat16)
 
@@ -121,7 +130,7 @@ def test_tolerance_pins_the_int8_recipe(nq, nkv):
                                                       lengths, start))
     ref = flash_decode_plain(q, k, v, lengths, ks, vs, kv_start=start,
                              layer=0)
-    wrong = _f32_probabilities(q, k, v, ks, vs, lengths, start, layer=0)
+    wrong = unrounded_probabilities(q, k, v, lengths, ks, vs, start, 0)
     assert beyond_two_ulps(wrong.float().numpy(),
                            ref.float().numpy()) > 1.5 * ATOL[True]
 

@@ -1,8 +1,11 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version at small shapes (edges, outliers, GQA, ragged lengths; the int8
 GEMM in its W8, packed-W4 and grouped modes; the a16 GEMM with int8 and
-packed weights, per-channel and grouped scales, outliers and SiLU) and the
-wrappers' refusals. The tiny models served on the card against the same
+packed weights, per-channel and grouped scales and outliers; every GEMM
+epilogue: SiLU, exact GELU and tanh GELU; flash decode with gemma2's
+softcap and score scale, up to its 4096-slot window, and on a peaked
+softmax) and the wrappers'
+refusals. The tiny models served on the card against the same
 models on the CPU are phase 4 of chip_smoke.py.
 
 Every test here needs a CUDA card: the `cuda` fixture decides at run time
@@ -23,11 +26,14 @@ order), bf16 within one ulp; kernel 3 within two bf16 ulps of |y| plus
 FLASH_ATOL, for a probability whose rounding (to int8, or to bf16 in bf16
 mode) an exp() ulp flips; a typical |y| is ~0.1 here, and
 tests/test_torch_flash_decode.py shows that the int8 limit stops a kernel
-that skips the probability quantization."""
+that skips the probability quantization. The GELU epilogues call CUDA's
+erfcf / tanhf in the kernel and torch's erfc / tanh in the plain version,
+a few f32 ulps apart: inside every limit above."""
 import pytest
 import torch
 
 from mixq_tpu_torch.kernels.flash_decode import (flash_decode_attention,
+                                                 flash_decode_level,
                                                  flash_decode_plain)
 from mixq_tpu_torch.kernels.mix_gemm import (int8_matmul_dequant, mix_gemm,
                                              mix_gemm_plain)
@@ -40,6 +46,8 @@ from mixq_tpu_torch.ops import quant as Q
 pytestmark = pytest.mark.gpu
 BF16_ULP = 2.0 ** -7
 FLASH_ATOL = {True: 8e-3, False: 5e-4}           # int8, bf16 KV
+PEAK_LEVELS = {True: 3.0, False: 1.0}   # peaked softmax, levels of a row
+FUSES = ["none", "silu", "gelu", "gelu_new"]
 
 
 @pytest.fixture
@@ -86,7 +94,7 @@ def test_rmsnorm_quant(cuda, M, H, n_out, a_bits):
 @pytest.mark.parametrize("M,K,N,B", [(1, 256, 384, 0), (7, 512, 256, 0),
                                      (64, 256, 640, 32), (33, 384, 400, 16),
                                      (130, 4096, 4096, 128)])
-@pytest.mark.parametrize("fuse", ["none", "silu"])
+@pytest.mark.parametrize("fuse", FUSES)
 def test_mix_gemm(cuda, M, K, N, B, fuse):
     g = _gen(M + K + N)
     q_x = torch.randint(-127, 128, (M, K), generator=g, device=cuda,
@@ -122,7 +130,7 @@ def test_int8_matmul_dequant_and_checks(cuda):
     ref = mix_gemm_plain(q_x, w, xs, ws, out_dtype=torch.float32)
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
     with pytest.raises(NotImplementedError):
-        mix_gemm(q_x, w, xs, ws, fuse="gelu")
+        mix_gemm(q_x, w, xs, ws, fuse="relu")
     with pytest.raises(ValueError):                # N % 16 != 0
         mix_gemm(q_x, w[:, :70].contiguous(), xs, ws[:70].contiguous())
 
@@ -162,7 +170,7 @@ def _group_sum_atol(q_x, w, xs, ws):
     (130, 11008, 4096, 86, 128, False),
     (16, 512, 384, 4, 0, True), (70, 256, 400, 8, 16, True),
     (64, 4096, 11008, 32, 128, True)])
-@pytest.mark.parametrize("fuse", ["none", "silu"])
+@pytest.mark.parametrize("fuse", FUSES)
 def test_mix_gemm_w4_and_grouped(cuda, M, K, N, G, B, w4, fuse):
     g = _gen(M + K + N + G)
     ops = _w4_gemm_operands(cuda, g, M, K, N, G, B, w4)
@@ -202,7 +210,7 @@ def _a16_operands(cuda, g, M, K, N, G, B, w4):
     (64, 4096, 11008, 0, 0, False), (1, 256, 384, 0, 0, True),
     (70, 512, 400, 0, 16, True), (33, 512, 256, 4, 0, False),
     (16, 256, 384, 8, 16, True), (64, 4096, 11008, 32, 0, True)])
-@pytest.mark.parametrize("fuse", ["none", "silu"])
+@pytest.mark.parametrize("fuse", FUSES)
 def test_a16_gemm(cuda, M, K, N, G, B, w4, fuse):
     g = _gen(M + K + N + G + 1)
     ops = _a16_operands(cuda, g, M, K, N, G, B, w4)
@@ -259,12 +267,12 @@ def test_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                 # a16: N % 16 != 0
         mix_gemm_a16(x, w[:, :40].contiguous(), ws[:40].contiguous())
     with pytest.raises(NotImplementedError):
-        mix_gemm_a16(x, w, ws, fuse="gelu")
+        mix_gemm_a16(x, w, ws, fuse="relu")
 
 
-def _cache(cuda, g, L, nkv, B, S, D, int8, pad):
+def _cache(cuda, g, L, nkv, B, S, D, int8, pad, k_offset=0.0):
     if int8:
-        kf = torch.randn(L, nkv, B, S, D, generator=g, device=cuda)
+        kf = torch.randn(L, nkv, B, S, D, generator=g, device=cuda) + k_offset
         vf = torch.randn(L, nkv, B, S, D, generator=g, device=cuda)
         k, ks = Q.quantize_kv(kf)
         v, vs = Q.quantize_kv(vf)
@@ -273,7 +281,7 @@ def _cache(cuda, g, L, nkv, B, S, D, int8, pad):
             ks = torch.nn.functional.pad(ks, (0, Sp - S), value=1.0)
             vs = torch.nn.functional.pad(vs, (0, Sp - S), value=1.0)
         return k, v, ks.contiguous(), vs.contiguous()
-    k = torch.randn(L, nkv, B, S, D, generator=g, device=cuda)
+    k = torch.randn(L, nkv, B, S, D, generator=g, device=cuda) + k_offset
     v = torch.randn(L, nkv, B, S, D, generator=g, device=cuda)
     return k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
 
@@ -306,3 +314,62 @@ def _assert_flash_close(got, ref, int8):
     ref = ref.float()
     beyond = (got.float() - ref).abs() - 2 * BF16_ULP * ref.abs()
     assert beyond.max().item() <= FLASH_ATOL[int8]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nq,nkv,D,S,scale", [
+    (4, 2, 256, 300, 24.0 ** -0.5),          # gemma2-9B's g and D
+    (4, 2, 256, 4096, None),                 # its window: 43,520 B of smem
+    (4, 2, 128, 200, 144.0 ** -0.5)])        # gemma2-27B's g, D and scale
+def test_flash_decode_softcap_and_scale(cuda, int8, nq, nkv, D, S, scale):
+    """q and K shifted by 2 in every element (as chip_smoke.py's
+    FLASH_OFFSET), so that the scores sit at ~43-64, where the cap of 50
+    bends them, while the softmax stays spread over the slots; the result
+    differs from the uncapped one beyond the limit."""
+    g = _gen(nq + D + S + 7)
+    B, L, cap = 4, 1, 50.0
+    q = (torch.randn(B, nq, D, generator=g, device=cuda) + 2).to(
+        torch.bfloat16)
+    k, v, ks, vs = _cache(cuda, g, L, nkv, B, S, D, int8, pad=S % 128 != 0,
+                          k_offset=2.0)
+    lengths = torch.tensor([S, S // 2 + 1, 9, 1], dtype=torch.int32,
+                           device=cuda)
+    start = torch.tensor([0, 5, 3, 0], dtype=torch.int32, device=cuda)
+    args = (q, k, v, lengths, ks, vs, start, 0)
+    before = flash_decode_attention.mode_launches["softcap"]
+    got = flash_decode_attention(*args, softcap=cap, scale=scale)
+    torch.cuda.synchronize()
+    assert flash_decode_attention.mode_launches["softcap"] == before + 1
+    _assert_flash_close(got, flash_decode_plain(*args, softcap=cap,
+                                                scale=scale), int8)
+    uncapped = flash_decode_plain(*args, scale=scale).float()
+    assert ((got.float() - uncapped).abs()
+            - 2 * BF16_ULP * uncapped.abs()).max() > 2 * FLASH_ATOL[int8]
+    with pytest.raises(ValueError):
+        flash_decode_attention(*args, softcap=-1.0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_flash_decode_peaked_softcap(cuda, int8):
+    """gemma2-9B's g, D and scale with q x 3: a peaked softmax (about a
+    third of a row's probability on one slot), where one flipped int8
+    probability level (or bf16 probability ulp) moves a row by up to
+    flash_decode_level, beyond FLASH_ATOL, so each row is held to
+    PEAK_LEVELS such levels, as chip_smoke.py holds it."""
+    g = _gen(int8 + 11)
+    B, L, nq, nkv, D, S, cap = 8, 1, 4, 2, 256, 512, 50.0
+    q = (torch.randn(B, nq, D, generator=g, device=cuda) * 3).to(
+        torch.bfloat16)
+    k, v, ks, vs = _cache(cuda, g, L, nkv, B, S, D, int8, pad=False)
+    lengths = torch.randint(S // 2, S + 1, (B,), generator=g, device=cuda,
+                            dtype=torch.int32)
+    start = torch.randint(0, 32, (B,), generator=g, device=cuda,
+                          dtype=torch.int32)
+    args = (q, k, v, lengths, ks, vs, start, 0)
+    opts = dict(softcap=cap, scale=256.0 ** -0.5)
+    got = flash_decode_attention(*args, **opts)
+    torch.cuda.synchronize()
+    ref = flash_decode_plain(*args, **opts).float()
+    over = ((got.float() - ref).abs() - 2 * BF16_ULP * ref.abs()).amax(-1)
+    assert ((over / flash_decode_level(*args, **opts)).max()
+            <= PEAK_LEVELS[int8])

@@ -140,7 +140,7 @@ def test_unported_modes_raise():
     q_x = torch.zeros((2, 32), dtype=torch.int8)
     w = torch.zeros((32, 16), dtype=torch.int8)
     with pytest.raises(NotImplementedError):
-        mix_gemm(q_x, w, torch.ones(2, 1), torch.ones(16), fuse="gelu")
+        mix_gemm(q_x, w, torch.ones(2, 1), torch.ones(16), fuse="relu")
     with pytest.raises(NotImplementedError):
         TML.from_float(torch.zeros(32, 16),
                        TML.LinearSpec(w_bit=4, version="QUIK"))

@@ -42,10 +42,12 @@ def tiny_cfg() -> ModelConfig:
                             num_attention_heads=4, num_key_value_heads=2)
 
 
-def build(seed: int, quantized: bool = True, qcfg: QuantConfig = None):
+def build(seed: int, quantized: bool = True, qcfg: QuantConfig = None,
+          cfg: ModelConfig = None):
     """(cfg, JAX params, JAX specs with attn_impl="flash", port params on
-    the CPU, port specs). quantized=False keeps the FP16 (bf16) linears."""
-    cfg = tiny_cfg()
+    the CPU, port specs). quantized=False keeps the FP16 (bf16) linears;
+    `cfg` defaults to tiny_cfg()."""
+    cfg = cfg or tiny_cfg()
     rng = np.random.default_rng(seed)
     fp = init_decoder_params(jax.random.PRNGKey(seed), cfg,
                              DecoderSpecs.fp16())
