@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
-  2. build: the four CUDA kernel libraries from mixq_tpu_torch/csrc, timed;
+  2. build: the five CUDA kernel libraries from mixq_tpu_torch/csrc, timed;
   3. kernels: each kernel, in each mode the main paths run, at Llama-2-7B
      main-path shapes against its plain PyTorch version on the same inputs,
      with the stated tolerance, then its device time on the card (CUPTI,
@@ -22,30 +22,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      epilogue on the gate, and the gate once with the exact GELU (no serve
      path runs it yet); flash decode with the logit softcap at its decode
      shape, int8 and bf16 KV, with a spread and a peaked softmax, and with
-     Gemma-2-27B's score scale;
+     Gemma-2-27B's score scale; and decode attention over the batch-major
+     cache (kernel 8) at Mistral-7B's heads (int8, spread and peaked), at
+     Llama-2-7B's (bf16, beside SDPA), on Mistral's 4096-slot ring read
+     past its wrap, and at Gemma-2-9B's with the softcap;
   4. reference: tiny W8A8, W4A4 (per-channel and grouped) and W8A16 llama
      models, and tiny W8A8, W4A4 and W8A16 gemma2 models (caps that bind
-     without saturating), on the card against the same models on the CPU
-     (the plain versions), teacher-forced logits, bf16 and int8 KV, each
-     limit below the int8-vs-bf16 KV control; every flash decode launch
-     against its plain version on the model's own inputs, where the card
-     first leaves the CPU, and launch counts by mode;
-  5. serve: full-width 32-layer Llama-2-7B in four configurations and
-     full-width 42-layer Gemma-2-9B in three, one after another (each freed
-     before the next is built): Llama W8A8O16, and from the reference policy
-     (quantize.resolve_specs) W4A4O16 per-channel, W4A4O16 with 128-row
-     scale groups, and W8A16; Gemma-2-9B W8A8O16, W4A4O16 and W8A16; random
-     weights from a seed, 128 outlier channels per MIX linear input, int8
-     KV, 8 left-padded prompts, 32 greedy tokens through
+     without saturating), on the head-major cache (attn_impl="flash"); a
+     tiny W8A8 llama on the batch-major cache and a tiny W8A8 mistral on an
+     8-slot ring that wraps twice (attn_impl="auto"); each on the card
+     against the same model on the CPU (the plain versions), teacher-forced
+     logits, bf16 and int8 KV, each limit below the int8-vs-bf16 KV
+     control; every flash decode and decode attention launch against its
+     plain version on the model's own inputs, where the card first leaves
+     the CPU, and launch counts by mode;
+  5. serve: full-width 32-layer Llama-2-7B in four configurations,
+     full-width 42-layer Gemma-2-9B in three, full-width 32-layer
+     Mistral-7B-v0.1 W8A8O16 and Llama-2-7B W8A8O16 with bf16 KV, one after
+     another (each freed before the next is built): Llama W8A8O16, and from
+     the reference policy (quantize.resolve_specs) W4A4O16 per-channel,
+     W4A4O16 with 128-row scale groups, and W8A16; Gemma-2-9B W8A8O16,
+     W4A4O16 and W8A16 (all on the head-major cache with int8 KV, kernel
+     3); Mistral (int8 KV) and Llama bf16 KV under the default
+     attn_impl="auto", which puts them on the batch-major cache (Mistral's
+     a ring), kernel 8; random weights from a seed, 128 outlier channels
+     per MIX linear input, 8 left-padded prompts, 32 greedy tokens through
      InferenceEngine.generate, with every kernel's launch count asserted by
      mode (launch counts set to 0 just before each generate, read just
      after);
   6. timing: for each configuration the decode step at batch 64 with the
-     int8 KV cache filled to 512 positions: one step's launch counts by
-     mode (asserted), ms/step, tok/s, peak device memory, the memory of the
-     f32 head the engine holds, the step's byte bound from the model's
-     tensors, and over three more steps under torch.profiler the device
-     time per step, the device's busy share and the top kernels.
+     KV cache filled to 512 positions: one step's launch counts by mode
+     (asserted), ms/step, tok/s, peak device memory, the memory of the f32
+     head the engine holds, the step's byte bound from the model's tensors,
+     and over three more steps under torch.profiler the device time per
+     step, the device's busy share and the top kernels; for Mistral also
+     one step at batch 16 on a window-sized (4096-slot) ring filled past
+     its wrap, every kernel-8 launch held against its plain version.
 It then prints the kernels line (one entry per ported TPU kernel, and one
 per mode a later slice added to a path: the GEMMs' gelu_new epilogue and
 flash decode's softcap) and, last, the device line. Details go to
@@ -61,7 +73,8 @@ import time
 
 import torch
 
-# NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, tensor-core ops/s
+# NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, tensor-core ops/s (f32:
+# the CUDA cores)
 PEAK = {"bytes": 3.35e12, "int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 BF16_ULP = 2.0 ** -7
 # flash decode against its plain version: two bf16 ulps of the output, plus
@@ -725,6 +738,140 @@ def kernel_gemma2_gemms(dev, gen, rows):
     return w8[pick[0]], w4[pick[1]], a16[pick[2]]
 
 
+def decode_case(dev, gen, B, S, n_q, n_kv, D, int8, offset=0.0, gain=1.0,
+                ring=False):
+    """A batch-major cache layer [B, S, n_kv, D] of N(0, 1) K (+ offset) and
+    V, q ~ N(offset, gain^2). Ragged lengths and first positions; a ring is
+    read past its wrap (the first row at S + 37) from the window start of a
+    window of S, as Mistral's 4096-slot ring is."""
+    from mixq_tpu_torch.ops import quant as Q
+
+    q = (torch.randn(B, n_q, D, generator=gen, device=dev) * gain
+         + offset).to(torch.bfloat16)
+    shape = (B, S, n_kv, D)
+    kf = torch.randn(shape, generator=gen, device=dev) + offset
+    vf = torch.randn(shape, generator=gen, device=dev)
+    if int8:
+        (k, ks), (v, vs) = Q.quantize_kv(kf), Q.quantize_kv(vf)
+    else:
+        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    del kf, vf
+    if ring:
+        lengths = torch.randint(S + 1, 2 * S, (B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        lengths[0] = S + 37
+        starts = (lengths - S).to(torch.int32)
+    else:
+        lengths = torch.randint(S // 2, S + 1, (B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        lengths[0], lengths[1] = S, 1
+        starts = torch.minimum(
+            torch.randint(0, 32, (B,), generator=gen, device=dev,
+                          dtype=torch.int32), lengths - 1)
+    hi = lengths if ring else torch.clamp_max(lengths, S)
+    lo = torch.clamp_min(starts, 0)
+    if ring:
+        lo = torch.maximum(lo, lengths - S)
+    valid = int(torch.clamp_min(hi - lo, 0).sum().item())
+    return (q, k, v, lengths, ks, vs, starts), valid
+
+
+def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
+               scale=None, offset=0.0, gain=1.0, ring=False):
+    """Kernel 8 on one case against its plain version (two bf16 ulps of |y|
+    plus DECODE_ATOL), then timed; with a softcap the uncapped plain version
+    lies beyond the limit. The library call, for bf16 KV without softcap or
+    ring, is SDPA (enable_gqa) over the same cache with the same mask."""
+    from mixq_tpu_torch.kernels.decode_attention import (
+        DECODE_ATOL, decode_attention, decode_attention_plain)
+    import torch.nn.functional as F
+
+    args, valid = decode_case(dev, gen, B, S, n_q, n_kv, D, int8, offset,
+                              gain, ring)
+    opts = dict(ring=ring, softcap=softcap, scale=scale)
+    kv = "int8" if int8 else "bf16"
+    mode = f"{kv} KV" + (", ring past the wrap" if ring else "") + (
+        f", softcap {softcap:g}" if softcap else "") + (
+        f", scale {scale:.6g}" if scale is not None else "") + (
+        f", peaked (q x {gain:g})" if gain != 1 else "")
+    what = f"decode_attention {model} n_q={n_q} n_kv={n_kv} D={D} {mode}"
+    got = decode_attention(*args, **opts)
+    torch.cuda.synchronize()
+    ref = decode_attention_plain(*args, **opts).float()
+    err = (got.float() - ref).abs()
+    over = err - 2 * BF16_ULP * ref.abs()
+    beyond = over.max().item()
+    check(beyond <= DECODE_ATOL and bool(torch.isfinite(got).all()),
+          f"{what}: error {beyond} beyond two bf16 ulps > {DECODE_ATOL}")
+    row = {}
+    if softcap:
+        free = decode_attention_plain(*args, ring=ring, scale=scale).float()
+        row["uncapped_beyond_2_ulps"] = (
+            (got.float() - free).abs() - 2 * BF16_ULP * free.abs()
+        ).max().item()
+        check(row["uncapped_beyond_2_ulps"] > 10 * DECODE_ATOL,
+              f"{what}: the cap does not bind on these inputs")
+    esize = 1 if int8 else 2
+    nbytes = (valid * n_kv * D * esize * 2 + (valid * n_kv * 8 if int8
+                                              else 0)
+              + 2 * B * n_q * D * 2 + 8 * B)
+    # f32 operations: the widened recipe's two dots, per score the cap's
+    # divide, tanh and multiply
+    b, by = bound_ms(nbytes, [(4 * valid * n_q * D, "f32"),
+                              (3 * valid * n_q if softcap else 0, "f32")])
+    lib = None
+    if not int8 and not softcap and not ring:
+        q, k, v, lengths, _, _, starts = args
+        pos = torch.arange(S, device=dev)
+        mask = ((pos[None] < lengths[:, None])
+                & (pos[None] >= starts[:, None]))[:, None, None, :]
+        kt, vt, qb = k.transpose(1, 2), v.transpose(1, 2), q[:, :, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qb, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+        row["library_max_abs_diff"] = (sdpa()[:, :, 0].float()
+                                       - ref).abs().max().item()
+        lib = device_ms(sdpa, 20)
+    row.update(mode=mode,
+               work=f"{model} B={B} S={S} n_q={n_q} n_kv={n_kv} D={D} "
+                    f"{mode}, ragged lengths and starts ({valid} valid "
+                    "rows)" + (f", q and K + {offset:g}" if offset else ""),
+               tolerance=f"2 bf16 ulps of |y| + {DECODE_ATOL}",
+               max_abs_err=err.max().item(), beyond_2_ulps=beyond,
+               share_beyond_2_ulps=(over > 0).float().mean().item(),
+               ms=device_ms(lambda: decode_attention(*args, **opts), 50),
+               plain_ms=device_ms(lambda: decode_attention_plain(*args,
+                                                                 **opts), 5),
+               library_ms=lib,
+               library=("F.scaled_dot_product_attention, bf16, enable_gqa, "
+                        "boolean mask" if lib is not None else "none: " + (
+                            "SDPA has no logit softcap" if softcap
+                            else "SDPA takes no ring positions" if ring
+                            and not int8 else "SDPA takes no per-token K/V "
+                            "scales")),
+               bound_ms=b, bound_by=by)
+    return row
+
+
+def kernel_decode_attention(dev, gen, rows):
+    """Kernel 8 at the decode shapes of the batch-major paths: Mistral-7B's
+    heads (32/8, int8; spread, and peaked with q x 3), Llama-2-7B's with
+    bf16 KV (32/32), Mistral's 4096-slot ring at B=16 read past its wrap,
+    and Gemma-2-9B's (16/8, D=256) with the softcap and its scale, as
+    gemma2 runs under "auto". Returns the Llama bf16 row (the one with a
+    library call)."""
+    rows["decode_attention"] = [
+        decode_row(dev, gen, 64, 512, 32, 8, 128, True, "Mistral-7B"),
+        decode_row(dev, gen, 64, 512, 32, 32, 128, False, "Llama-2-7B"),
+        decode_row(dev, gen, 16, 4096, 32, 8, 128, True, "Mistral-7B",
+                   ring=True),
+        decode_row(dev, gen, 64, 512, 16, 8, 256, True, "Gemma-2-9B",
+                   GEMMA2_SOFTCAP, 256.0 ** -0.5, FLASH_OFFSET),
+        decode_row(dev, gen, 64, 512, 32, 8, 128, True, "Mistral-7B",
+                   gain=PEAK_GAIN)]
+    torch.cuda.empty_cache()
+    return rows["decode_attention"][1]
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-6
 # ---------------------------------------------------------------------------
@@ -757,6 +904,29 @@ def gemma2_9b():
         max_position_embeddings=8192)
 
 
+def mistral_7b():
+    from mixq_tpu_torch.config import ModelConfig
+
+    # the published config.json of mistralai/Mistral-7B-v0.1, in the form
+    # mixq_tpu/models/hf.py:185-201 gives it; all 32 layers
+    return ModelConfig(
+        model_type="mistral", vocab_size=32000, hidden_size=4096,
+        intermediate_size=14336, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8, rms_norm_eps=1e-5,
+        rope_theta=10000.0, hidden_act="silu", tie_word_embeddings=False,
+        sliding_window=4096, max_position_embeddings=32768)
+
+
+def tiny_mistral():
+    """tests/test_torch_mistral.py's mistral at phase 4's tiny widths: a
+    window of 4 on a ring of 8 slots (tests/test_kv_cache.py:110-118)."""
+    from mixq_tpu_torch.config import ModelConfig
+
+    return ModelConfig.tiny(model_type="mistral", sliding_window=4,
+                            hidden_size=256, intermediate_size=512,
+                            num_attention_heads=4, num_key_value_heads=2)
+
+
 def tiny_gemma2():
     """tests/test_torch_gemma2.py's gemma2 fields at phase 4's tiny widths,
     a window no shorter than the cache, and caps that bind without
@@ -777,8 +947,8 @@ def tiny_gemma2():
 
 # launches per layer and forward of each configuration's linears, by weight
 # mode (kernels.launch_counts keys); the gate GEMM adds one of its epilogue
-# (silu, or gemma2's gelu_new), flash_decode one per layer and decode step
-# (and gemma2 one of its softcap mode), and every other count stays 0
+# (silu, or gemma2's gelu_new), the decode attention one per layer and decode
+# step in each of its modes (attn_modes), and every other count stays 0
 PER_LAYER = {
     "W8A8": {"rmsnorm_quant": 2, "mix_gemm": 7, "mix_gemm.w8a8": 7},
     "W4A4": {"rmsnorm_quant": 2, "mix_gemm": 7, "mix_gemm.w4": 5,
@@ -789,25 +959,48 @@ PER_LAYER = {
 }
 
 
-def path_specs(name, group_size=128, outlier_budget=128):
+def path_specs(name, attn_impl="auto", group_size=128, outlier_budget=128):
     """The DecoderSpecs of a configuration: W8A8 on every linear, or the
     reference policy of quantize.resolve_specs (W4A4: q/k/v/up/gate W4A4,
-    o/down W8A8; W8A16: weight-only everywhere)."""
+    o/down W8A8; W8A16: weight-only everywhere), with its attn_impl."""
+    import dataclasses
+
     from mixq_tpu_torch.config import QuantConfig
     from mixq_tpu_torch.models.decoder import DecoderSpecs
     from mixq_tpu_torch.ops.mixed_linear import LinearSpec
     from mixq_tpu_torch.quantize import resolve_specs
 
     if name == "W8A8":
-        return DecoderSpecs.uniform(LinearSpec(w_bit=8, a_bit=8))
-    if name == "W8A16":
-        return resolve_specs(QuantConfig.w8a16())
-    return resolve_specs(QuantConfig.w4a4(
-        outlier_budget=outlier_budget,
-        q_group_size=group_size if name == "W4A4 grouped" else -1))
+        specs = DecoderSpecs.uniform(LinearSpec(w_bit=8, a_bit=8))
+    elif name == "W8A16":
+        specs = resolve_specs(QuantConfig.w8a16())
+    else:
+        specs = resolve_specs(QuantConfig.w4a4(
+            outlier_budget=outlier_budget,
+            q_group_size=group_size if name == "W4A4 grouped" else -1))
+    return dataclasses.replace(specs, attn_impl=attn_impl)
 
 
-def expect_launches(name, cfg, forwards, decode_steps):
+def attn_modes(cfg, specs, kv_dtype, max_seq):
+    """The decode attention's launch-count keys, one launch each per layer
+    and decode step, on the cache layout the engine's policy gives: kernel 3
+    (flash_decode, in its softcap mode for gemma2) on the head-major cache,
+    kernel 8 (decode_attention, by KV type, ring for a uniform window,
+    softcap) on the batch-major one."""
+    from mixq_tpu_torch.kernels.flash_decode import use_head_major_cache
+
+    itemsize = 1 if kv_dtype == "int8" else 2
+    cap = bool(cfg.attn_logit_softcap)
+    if use_head_major_cache(specs.attn_impl, cfg, max_seq, itemsize):
+        return ["flash_decode"] + (["flash_decode.softcap"] if cap else [])
+    ring = cfg.sliding_window is not None and cfg.sliding_window_pattern == 1
+    return (["decode_attention", "decode_attention."
+             + ("int8" if kv_dtype == "int8" else "bf16")]
+            + (["decode_attention.ring"] if ring else [])
+            + (["decode_attention.softcap"] if cap else []))
+
+
+def expect_launches(name, cfg, forwards, decode_steps, attn):
     from mixq_tpu_torch.models.decoder import GATE_FUSE
 
     L = cfg.num_hidden_layers
@@ -815,9 +1008,7 @@ def expect_launches(name, cfg, forwards, decode_steps):
         cfg.hidden_act]
     want = {k: v * L * forwards
             for k, v in {**PER_LAYER[name], gate: 1}.items()}
-    want["flash_decode"] = L * decode_steps
-    if cfg.attn_logit_softcap:
-        want["flash_decode.softcap"] = L * decode_steps
+    want.update({k: L * decode_steps for k in attn})
     return want
 
 
@@ -837,53 +1028,82 @@ def check_launches(counts, want, what):
 # The card first leaves the CPU in the prefill (forward 0) by one bf16 ulp
 # of a block's output, before any flash decode launch, and every flash
 # launch stays within its limit of its plain version on the model's own
-# inputs (Tap); 4-bit activations carry such a flip furthest.
+# inputs (Tap); 4-bit activations carry such a flip furthest. On the
+# batch-major cache (kernel 8): llama W8A8 1.06e-2; 1.73e-2 (its int8-KV
+# prefill attends over the quantized cache, so one int8 entry written
+# differently counts there, where the head-major prefill reads the fp
+# chunk), mistral ring 4.8e-3; 1.96e-2.
 TINY_TOL = {
     ("llama", "W8A8"): 1e-2, ("llama", "W4A4"): 5e-2,
     ("llama", "W4A4 grouped"): 5e-2, ("llama", "W8A16"): 5e-3,
     ("gemma2", "W8A8"): 2.5e-2, ("gemma2", "W4A4"): 1e-1,
-    ("gemma2", "W8A16"): 8e-3}
+    ("gemma2", "W8A16"): 8e-3,
+    ("llama batch-major", "W8A8"): 1.35e-2, ("mistral ring", "W8A8"): 1e-2}
 
 
 class Tap:
     """Records a forward pass layer by layer: each block's output and each
     decode-step attention output (to the host), and on the card, for each
-    flash decode launch, the kernel's distance from its plain version on the
-    same inputs (beyond two bf16 ulps, absolute and in probability levels of
-    its row). Used as `with Tap() as tap:` around the engine's calls."""
+    decode attention launch (kernel 3 or 8), the kernel's distance from its
+    plain version on the same inputs: beyond two bf16 ulps, absolute and,
+    for kernel 3, in probability levels of its row. Used as `with Tap() as
+    tap:` around the engine's calls."""
 
     def __enter__(self):
+        from mixq_tpu_torch.kernels.decode_attention import (
+            decode_attention_plain)
         from mixq_tpu_torch.kernels.flash_decode import (flash_decode_level,
                                                          flash_decode_plain)
         from mixq_tpu_torch.models import decoder as D
 
         self.blocks, self.attn, self.kernel = [], [], []
         self._D = D
-        self._real = D.flash_decode_attention, D.block_core
-        real_fd, real_bc = self._real
+        self._real = (D.flash_decode_attention, D.decode_attention,
+                      D.block_core)
+        real_fd, real_da, real_bc = self._real
 
         def fd(*a, **kw):
             out = real_fd(*a, **kw)
             self.attn.append(out.float().cpu())
             if out.is_cuda:
-                self.kernel.append(beyond_levels(
-                    out, flash_decode_plain(*a, **kw),
-                    flash_decode_level(*a, **kw)))
+                b, lv = beyond_levels(out, flash_decode_plain(*a, **kw),
+                                      flash_decode_level(*a, **kw))
+                self.kernel.append(dict(kernel="flash_decode", beyond=b,
+                                        levels=lv))
+            return out
+
+        def da(*a, **kw):
+            out = real_da(*a, **kw)
+            self.attn.append(out.float().cpu())
+            if out.is_cuda:
+                ref = decode_attention_plain(*a, **kw).float()
+                self.kernel.append(dict(
+                    kernel="decode_attention",
+                    beyond=((out.float() - ref).abs()
+                            - 2 * BF16_ULP * ref.abs()).max().item()))
             return out
 
         def bc(*a, **kw):
             x = real_bc(*a, **kw)
             self.blocks.append(x.float().cpu())
             return x
-        D.flash_decode_attention, D.block_core = fd, bc
+        D.flash_decode_attention, D.decode_attention, D.block_core = (
+            fd, da, bc)
         return self
 
     def __exit__(self, *exc):
-        self._D.flash_decode_attention, self._D.block_core = self._real
+        (self._D.flash_decode_attention, self._D.decode_attention,
+         self._D.block_core) = self._real
         return False
 
+    def worst(self, kernel):
+        """The launch of `kernel` farthest beyond two ulps of its plain
+        version (None if it never launched)."""
+        runs = [r for r in self.kernel if r["kernel"] == kernel]
+        return max(runs, key=lambda r: r["beyond"], default=None)
 
-def first_divergence(cpu, card, L):
+
+def first_divergence(cpu, card, L, prefills):
     """Where the card's run first leaves the CPU's: the first (forward,
     layer) whose block output differs, whether the decode-step attention
     output of that layer already differs, and the kernel's distance from its
@@ -894,25 +1114,27 @@ def first_divergence(cpu, card, L):
             continue
         f, layer = divmod(i, L)
         out = dict(forward=f, layer=layer, block_max_abs_diff=d)
-        if f > 0:                       # a decode step: attention by flash
-            j = (f - 1) * L + layer
+        if f >= prefills:               # a decode step: attention by kernel
+            j = (f - prefills) * L + layer
             out["attention_max_abs_diff"] = (
                 cpu.attn[j] - card.attn[j]).abs().max().item()
-            (out["kernel_beyond_2_ulps"],
-             out["kernel_levels"]) = card.kernel[j]
+            out["kernel"] = card.kernel[j]
         return out
     return None
 
 
-def teacher_forced(eng, toks, kv_start):
-    """Prefill of 8 tokens, then 4 decode steps fed the given tokens:
-    the logits [5, B, V] on the host and the cache."""
-    cache = eng.new_cache(3, 128)
-    logits, cache = eng.prefill(toks[:, :8], cache, kv_start)
-    steps = [logits.float().cpu()]
-    for i in range(4):
-        logits, cache = eng.decode_step(toks[:, 8 + i:9 + i], cache,
-                                        kv_start)
+def teacher_forced(eng, toks, kv_start, slots, prefill):
+    """Prefill in chunks of the given lengths, then one decode step for each
+    remaining token, fed the given tokens, on a cache of `slots` slots: the
+    logits [steps, B, V] on the host and the cache."""
+    cache = eng.new_cache(toks.shape[0], slots)
+    steps, p = [], 0
+    for n in prefill:
+        logits, cache = eng.prefill(toks[:, p:p + n], cache, kv_start)
+        steps.append(logits.float().cpu())
+        p += n
+    for i in range(p, toks.shape[1]):
+        logits, cache = eng.decode_step(toks[:, i:i + 1], cache, kv_start)
         steps.append(logits.float().cpu())
     return torch.stack(steps), cache
 
@@ -920,32 +1142,43 @@ def teacher_forced(eng, toks, kv_start):
 def reference_check(dev):
     """Tiny models (seeded outliers on every MIX linear input) on the card
     through the kernels against the same models on the CPU through their
-    plain versions, bf16 and int8 KV: teacher-forced logits (a prefill and
-    4 decode steps) within TINY_TOL * max|logits|, each limit below the
-    CPU's int8-vs-bf16 KV control; every flash decode launch within its
-    plain version's limit on the model's own inputs; every launch count by
-    mode; and where the card's run first leaves the CPU's (Tap). Llama in
-    W8A8, W4A4 per-channel and with 64-row groups (a divisor of the tiny
-    K/2 = 128 and 256), and W8A16; gemma2 in W8A8, W4A4 and W8A16. Every
-    configuration runs before the checks, so a failing one still shows the
-    others' numbers."""
+    plain versions, bf16 and int8 KV: teacher-forced logits within
+    TINY_TOL * max|logits|, each limit below the CPU's int8-vs-bf16 KV
+    control; every decode attention launch within its plain version's
+    limit on the model's own inputs; every launch count by mode; and where
+    the card's run first leaves the CPU's (Tap). On the head-major cache
+    (attn_impl="flash", kernel 3; a prefill of 8 and 4 decode steps on 128
+    slots): llama in W8A8, W4A4 per-channel and with 64-row groups (a
+    divisor of the tiny K/2 = 128 and 256), and W8A16; gemma2 in W8A8, W4A4
+    and W8A16. On the batch-major cache under attn_impl="auto" (kernel 8):
+    llama W8A8 on 64 slots (a prefill of 8, 4 decode steps), and mistral
+    W8A8 with a window of 4 on a ring of 8 slots (a prefill in two chunks of
+    4, then 12 decode steps: the ring wraps twice). Every configuration runs
+    before the checks, so a failing one still shows the others' numbers."""
     from mixq_tpu_torch.config import EngineConfig, ModelConfig
     from mixq_tpu_torch.convert import params_to
     from mixq_tpu_torch.engine import InferenceEngine
     from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mixq_tpu_torch.kernels.decode_attention import DECODE_ATOL
     from mixq_tpu_torch.models.decoder import init_decoder_params
 
     llama = ModelConfig.tiny(hidden_size=256, intermediate_size=512,
                              num_attention_heads=4, num_key_value_heads=2)
-    toks = torch.randint(1, llama.vocab_size, (3, 12),
-                         generator=torch.Generator().manual_seed(1))
+    toks, long = (torch.randint(1, llama.vocab_size, (3, n),
+                                generator=torch.Generator().manual_seed(1))
+                  for n in (12, 20))
     kv_start = torch.tensor([0, 2, 5], dtype=torch.int32)
+    short = (toks, 128, [8])                  # 8 + 4 steps on 128 slots
+    runs_of = (
+        [("llama", llama, n, "flash", short) for n in PER_LAYER]
+        + [("gemma2", tiny_gemma2(), n, "flash", short)
+           for n in ("W8A8", "W4A4", "W8A16")]
+        + [("llama batch-major", llama, "W8A8", "auto", (toks, 64, [8])),
+           ("mistral ring", tiny_mistral(), "W8A8", "auto",
+            (long, 8, [4, 4]))])
     res, failures = {}, []
-    for family, cfg, name in (
-            [("llama", llama, n) for n in PER_LAYER]
-            + [("gemma2", tiny_gemma2(), n)
-               for n in ("W8A8", "W4A4", "W8A16")]):
-        specs = path_specs(name, group_size=64, outlier_budget=16)
+    for family, cfg, name, attn_impl, (tk, slots, prefill) in runs_of:
+        specs = path_specs(name, attn_impl, group_size=64, outlier_budget=16)
         cpu = init_decoder_params(cfg, specs, torch.Generator().manual_seed(0),
                                   device="cpu", outlier_budget=16)
         card = params_to(cpu, dev)
@@ -959,34 +1192,42 @@ def reference_check(dev):
             for params, d in ((cpu, "cpu"), (card, dev)):
                 eng = InferenceEngine(params, cfg, specs, ecfg, device=d)
                 with Tap() as tap:
-                    logits, cache = teacher_forced(eng, toks, kv_start)
+                    logits, cache = teacher_forced(eng, tk, kv_start, slots,
+                                                   prefill)
                 runs.append((logits, cache, tap))
             counts = launch_counts()
             (ref[kv_dtype], c_cpu, t_cpu), (got, c_card, t_card) = runs
             scale = ref[kv_dtype].abs().max().item()
             err = (got - ref[kv_dtype]).abs().max().item()
             tol = TINY_TOL[family, name] * scale
-            flash = max(t_card.kernel, key=lambda r: r[0],
-                        default=(0.0, 0.0))
             kv_diff = sum(int((a.cpu() != b.cpu()).sum()) for a, b in (
                 (c_cpu.k, c_card.k), (c_cpu.v, c_card.v)))
             key = f"{family} {name} {kv_dtype} KV"
+            attn = attn_modes(cfg, specs, kv_dtype, slots)
             res[key] = dict(
                 max_abs_err=err, share_of_max=err / scale, tolerance=tol,
-                shape=list(got.shape), kv_cache_entries_differing=kv_diff,
-                flash_kernel_beyond_2_ulps=flash[0],
-                flash_kernel_levels=max((r[1] for r in t_card.kernel),
-                                        default=0.0),
-                first_divergence=first_divergence(t_cpu, t_card, L))
+                shape=list(got.shape), head_major=c_card.head_major,
+                kv_cache_entries_differing=kv_diff,
+                first_divergence=first_divergence(t_cpu, t_card, L,
+                                                  len(prefill)))
             if not (bool(torch.isfinite(got).all()) and err <= tol):
                 failures.append(f"tiny {key} card vs CPU: max |dlogits| "
                                 f"{err} > {tol}")
-            if flash[0] > FLASH_ATOL["int8" if kv_dtype == "int8"
-                                     else "bf16"]:
-                failures.append(f"tiny {key}: a flash decode launch is "
-                                f"{flash[0]} beyond two ulps of its plain "
-                                "version")
-            want = expect_launches(name, cfg, 5, 4)
+            for kernel, limit in (
+                    ("flash_decode", FLASH_ATOL["int8" if kv_dtype == "int8"
+                                                else "bf16"]),
+                    ("decode_attention", DECODE_ATOL)):
+                worst = t_card.worst(kernel)
+                if worst is None:
+                    continue
+                res[key][f"{kernel}_worst_launch"] = worst
+                if worst["beyond"] > limit:
+                    failures.append(f"tiny {key}: a {kernel} launch is "
+                                    f"{worst['beyond']} beyond two ulps of "
+                                    "its plain version")
+            steps = tk.shape[1] - sum(prefill)
+            want = expect_launches(name, cfg, len(prefill) + steps, steps,
+                                   attn)
             if {k: v for k, v in counts.items() if v} != want:
                 failures.append(f"tiny {key}: launches {counts} != {want}")
         # the control: what int8 KV moves on the same CPU model
@@ -1003,13 +1244,13 @@ def reference_check(dev):
     return res
 
 
-def serve(dev, params, cfg, specs, name):
+def serve(dev, params, cfg, specs, name, kv_dtype):
     from mixq_tpu_torch.config import EngineConfig
     from mixq_tpu_torch.engine import InferenceEngine
     from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     eng = InferenceEngine(params, cfg, specs, EngineConfig(
-        max_seq_len=2048, prefill_chunk=16, kv_dtype="int8"), device=dev)
+        max_seq_len=2048, prefill_chunk=16, kv_dtype=kv_dtype), device=dev)
     g = torch.Generator().manual_seed(2)
     lens = [5, 9, 13, 17, 21, 26, 30, 37]
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
@@ -1026,9 +1267,11 @@ def serve(dev, params, cfg, specs, name):
     check(shape == (8, new, new), f"{name} generate returned shape {shape}")
     check(all(0 <= t < cfg.vocab_size for r in out for t in r),
           f"{name}: token out of range")
-    # one prefill + (new - 1) decode steps
-    check_launches(counts, expect_launches(name, cfg, new, new - 1),
-                   f"{name} serve")
+    # one prefill + (new - 1) decode steps, on generate's cache of
+    # round_up(48 + 32, 128) slots
+    check_launches(counts, expect_launches(
+        name, cfg, new, new - 1, attn_modes(cfg, specs, kv_dtype, 128)),
+        f"{name} serve")
     return eng, dict(prompts=lens, new_tokens=new, tokens_shape=[8, new],
                      wall_s=wall, launches=counts, first_row=out[0][:8])
 
@@ -1042,15 +1285,25 @@ def tensor_bytes(obj):
     return 0
 
 
+def seed_cache(cache, gen):
+    """Random cache contents (a step's cost does not depend on them): int8
+    values and scales of 0.005-0.02, or N(0, 1) bf16 values."""
+    for buf in (cache.k, cache.v):
+        if cache.quantized:
+            buf.random_(-127, 128, generator=gen)
+        else:
+            buf.normal_(generator=gen)
+    if cache.quantized:
+        for buf in (cache.k_scale, cache.v_scale):
+            buf.uniform_(0.005, 0.02, generator=gen)
+
+
 def decode_timing(dev, eng, cfg, gen, tag, name):
     from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    B, fill, steps, warm = 64, 512, 8, 2
-    cache = eng.new_cache(B, 640)
-    for buf in (cache.k, cache.v):
-        buf.random_(-127, 128, generator=gen)
-    for buf in (cache.k_scale, cache.v_scale):
-        buf.uniform_(0.005, 0.02, generator=gen)
+    B, fill, steps, warm, slots = 64, 512, 8, 2, 640
+    cache = eng.new_cache(B, slots)
+    seed_cache(cache, gen)
     cache.length = fill
     kv_start = torch.zeros(B, dtype=torch.int32, device=dev)
     tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
@@ -1066,8 +1319,10 @@ def decode_timing(dev, eng, cfg, gen, tag, name):
     reset_launch_counts()
     logits, tok = step(tok)
     per_step = {k: v for k, v in launch_counts().items() if v}
-    check_launches(per_step, expect_launches(name, cfg, 1, 1),
-                   f"{tag} decode step")
+    kv_dtype = eng.engine_cfg.kv_dtype
+    check_launches(per_step, expect_launches(
+        name, cfg, 1, 1, attn_modes(cfg, eng.specs, kv_dtype, slots)),
+        f"{tag} decode step")
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -1079,17 +1334,20 @@ def decode_timing(dev, eng, cfg, gen, tag, name):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
     # least time of a step: every weight read once (of an untied embedding
-    # only the B gathered rows), and the valid K/V rows with their f32
-    # scales at the mean length of the timed steps
+    # only the B gathered rows), and the valid K/V rows (int8 with their f32
+    # scales, or bf16) at the mean length of the timed steps
     p = eng.params
     kv_len = fill + warm + (steps + 1) / 2
     unread = (0 if p.lm_head is None else tensor_bytes(p.embed)
               - B * cfg.hidden_size * p.embed.element_size())
+    slot_bytes = (cfg.head_dim_ + 4 if kv_dtype == "int8"
+                  else 2 * cfg.head_dim_)
     nbytes = (tensor_bytes(p) - unread + 2 * cfg.num_hidden_layers
-              * cfg.num_key_value_heads * B * kv_len * (cfg.head_dim_ + 4))
+              * cfg.num_key_value_heads * B * kv_len * slot_bytes)
     check(tuple(logits.shape) == (B, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "decode logits not finite")
-    res = dict(batch=B, kv_filled=fill, steps=steps,
+    res = dict(batch=B, kv_filled=fill, steps=steps, kv_dtype=kv_dtype,
+               head_major=cache.head_major,
                launches_per_step=per_step,
                ms_per_step=wall * 1e3,
                event_ms_per_step=e0.elapsed_time(e1) / steps,
@@ -1132,19 +1390,62 @@ def profile_steps(step, tok, tag, n=3):
                     for e in top])
 
 
+def ring_step(dev, eng, cfg, gen):
+    """One decode step at batch 16 on a window-sized ring (4096 slots)
+    filled past its wrap (length 4096 + 37), every kernel-8 launch held
+    against its plain version on its own inputs (Tap)."""
+    from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mixq_tpu_torch.kernels.decode_attention import DECODE_ATOL
+
+    B, S = 16, cfg.sliding_window
+    cache = eng.new_cache(B, S)
+    check(not cache.head_major and cache.max_seq == S,
+          "Mistral's window-sized cache is not a batch-major ring")
+    seed_cache(cache, gen)
+    cache.length = S + 37
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    kv_start = torch.zeros(B, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    with Tap() as tap:
+        logits, _ = eng.decode_step(tok, cache, kv_start)
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    launches = [r for r in tap.kernel if r["kernel"] == "decode_attention"]
+    L = cfg.num_hidden_layers
+    check(counts.get("decode_attention.ring") == L and len(launches) == L,
+          f"ring step: launches {counts}")
+    worst = max(r["beyond"] for r in launches)
+    check(worst <= DECODE_ATOL and bool(torch.isfinite(logits).all()),
+          f"ring step: a decode_attention launch is {worst} beyond two ulps "
+          "of its plain version")
+    return dict(batch=B, slots=S, length=S + 37, launches=counts,
+                worst_launch_beyond_2_ulps=worst, tolerance=DECODE_ATOL)
+
+
 # the served paths, one after another: (model, configuration, label,
-# profile tag)
+# profile tag, KV type, attn_impl). The Llama and Gemma paths of PRs 1-3
+# stay on the head-major cache (kernel 3): Llama's int8 KV does under
+# "auto", Gemma's by "flash"; Mistral and Llama with bf16 KV take the
+# batch-major cache (kernel 8) under "auto".
 PATHS = [
-    ("Llama-2-7B", "W8A8", "Llama-2-7B W8A8O16", "W8A8O16"),
-    ("Llama-2-7B", "W4A4", "Llama-2-7B W4A4O16", "W4A4O16"),
+    ("Llama-2-7B", "W8A8", "Llama-2-7B W8A8O16", "W8A8O16", "int8", "auto"),
+    ("Llama-2-7B", "W4A4", "Llama-2-7B W4A4O16", "W4A4O16", "int8", "auto"),
     ("Llama-2-7B", "W4A4 grouped", "Llama-2-7B W4A4O16 group_size=128",
-     "W4A4O16_g128"),
-    ("Llama-2-7B", "W8A16", "Llama-2-7B W8A16", "W8A16"),
-    ("Gemma-2-9B", "W8A8", "Gemma-2-9B W8A8O16", "gemma2_W8A8O16"),
-    ("Gemma-2-9B", "W4A4", "Gemma-2-9B W4A4O16", "gemma2_W4A4O16"),
-    ("Gemma-2-9B", "W8A16", "Gemma-2-9B W8A16", "gemma2_W8A16"),
+     "W4A4O16_g128", "int8", "auto"),
+    ("Llama-2-7B", "W8A16", "Llama-2-7B W8A16", "W8A16", "int8", "auto"),
+    ("Gemma-2-9B", "W8A8", "Gemma-2-9B W8A8O16", "gemma2_W8A8O16", "int8",
+     "flash"),
+    ("Gemma-2-9B", "W4A4", "Gemma-2-9B W4A4O16", "gemma2_W4A4O16", "int8",
+     "flash"),
+    ("Gemma-2-9B", "W8A16", "Gemma-2-9B W8A16", "gemma2_W8A16", "int8",
+     "flash"),
+    ("Mistral-7B", "W8A8", "Mistral-7B W8A8O16", "mistral_W8A8O16", "int8",
+     "auto"),
+    ("Llama-2-7B", "W8A8", "Llama-2-7B W8A8O16 bf16 KV", "W8A8O16_bf16kv",
+     "bfloat16", "auto"),
 ]
-MODELS = {"Llama-2-7B": llama2_7b, "Gemma-2-9B": gemma2_9b}
+MODELS = {"Llama-2-7B": llama2_7b, "Gemma-2-9B": gemma2_9b,
+          "Mistral-7B": mistral_7b}
 
 # the kernels line: one entry per ported TPU kernel (a row of PERF.md's
 # table) and per mode a later slice added to a path: (name, source module,
@@ -1173,6 +1474,8 @@ KERNEL_ROWS = [
      ("w8a16.gelu_new",), ("Gemma-2-9B W8A16",)),
     ("flash_decode_softcap", "flash_decode", "REPLACES",
      "flash_decode_softcap", ("flash_decode.softcap",), None),
+    ("decode_attention", "decode_attention", "REPLACES", "decode_attention",
+     ("decode_attention",), None),
 ]
 KERNEL_NOTES = {
     "w8a16_matmul": "launches: the a16 kernel's int8 per-channel mode, "
@@ -1190,6 +1493,10 @@ KERNEL_NOTES = {
                              "W8A16 run's",
     "flash_decode_softcap": "kernel 3 in gemma2's logit-softcap mode; "
                             "launches: the Gemma-2-9B runs'",
+    "decode_attention": "kernel 8 over the batch-major cache; timed row: "
+                        "Llama-2-7B bf16 KV (the one with a library call); "
+                        "launches: the Mistral-7B (int8, ring) and Llama-2-7B "
+                        "bf16-KV runs'",
 }
 
 
@@ -1241,6 +1548,7 @@ def main():
     main_rows["int8_matmul_dequant"] = kernel_int8_matmul(dev, gen, rows)
     main_rows["flash_decode"] = kernel_flash(dev, gen, rows)
     main_rows["flash_decode_softcap"] = kernel_flash_softcap(dev, gen, rows)
+    main_rows["decode_attention"] = kernel_decode_attention(dev, gen, rows)
     (main_rows["gelu_w8a8"], main_rows["gelu_w4"],
      main_rows["gelu_a16"]) = kernel_gemma2_gemms(dev, gen, rows)
     for name, rs in rows.items():
@@ -1252,9 +1560,10 @@ def main():
                   f"plain_ms {r['plain_ms']:.4f} library_ms {lib} "
                   f"max_abs_err {r['max_abs_err']:.3g}"
                   + (f" beyond_2_ulps {r['beyond_2_ulps']:.3g} in a share "
-                     f"{r['share_beyond_2_ulps']:.3g} of outputs, at most "
-                     f"{r['beyond_levels']:.3g} probability levels of a row"
+                     f"{r['share_beyond_2_ulps']:.3g} of outputs"
                      if "beyond_2_ulps" in r else "")
+                  + (f", at most {r['beyond_levels']:.3g} probability levels"
+                     " of a row" if "beyond_levels" in r else "")
                   + f" ({r['tolerance']})",
                   flush=True)
     report["kernels"] = rows
@@ -1263,8 +1572,8 @@ def main():
     report["reference"] = reference_check(dev)
 
     report["paths"] = {}
-    for model, name, label, tag in PATHS:
-        cfg, specs = MODELS[model](), path_specs(name)
+    for model, name, label, tag, kv_dtype, attn_impl in PATHS:
+        cfg, specs = MODELS[model](), path_specs(name, attn_impl)
         t0 = time.perf_counter()
         params = init_decoder_params(cfg, specs, gen, device=dev,
                                      dtype=torch.bfloat16,
@@ -1275,7 +1584,7 @@ def main():
         print(f"init: {label}, {cfg.num_hidden_layers} layers, "
               f"{path['param_gib']:.2f} GiB of parameters, "
               f"{path['init_s']:.1f} s", flush=True)
-        eng, path["serve"] = serve(dev, params, cfg, specs, name)
+        eng, path["serve"] = serve(dev, params, cfg, specs, name, kv_dtype)
         # the f32 head the engine widened once, held for its life
         path["head_f32_gib"] = tensor_bytes(eng.head_f32) / 2 ** 30
         print(f"serve {label}: {path['serve']}", flush=True)
@@ -1283,6 +1592,9 @@ def main():
         decode = {k: v for k, v in path["decode"].items()
                   if k != "top_kernels_us_per_step"}
         print(f"decode {label}: {decode} on {card}", flush=True)
+        if cfg.sliding_window is not None and cfg.sliding_window_pattern == 1:
+            path["ring_step"] = ring_step(dev, eng, cfg, gen)
+            print(f"ring step {label}: {path['ring_step']}", flush=True)
         report["paths"][label] = path
         del eng, params                 # free the model before the next
         gc.collect()

@@ -5,7 +5,8 @@
 //
 // Replaces: mixq_tpu/ops/pallas/flash_decode.py::flash_decode_attention
 // (its main-cache path, with the softcap and the score-scale override of
-// gemma2; no tail window, ALiBi or window start).
+// gemma2; no tail window or ALiBi; a sliding window comes in as the
+// per-row first valid slot).
 // It repeats the Pallas kernel's single-pass whole-row softmax exactly:
 //   int8: q is absmax-quantized per head, s = int32(q_i8 . k) * q_scale *
 //         k_scale * scale; [softcap] s = tanh(s / cap) * cap;
@@ -34,9 +35,9 @@
 // multiply-adds (both exact), the bf16 dots in f32.
 //
 // Launch: grid (n_kv, B), block 128, dynamic shared memory
-// g*S*4 + 4*g*D*4 + g*D*4 + g*D bytes (flash_decode_smem_bytes; gemma2's
-// g=2, D=256 at S=4096, its window: 43,520 bytes). The launcher returns
-// cudaGetLastError(); it allocates nothing and does not synchronize.
+// g*S*4 + 4*g*D*4 + g*D*4 + g*D bytes (kernels/flash_decode.py::smem_bytes;
+// gemma2's g=2, D=256 at S=4096, its window: 43,520 bytes). The launcher
+// returns cudaGetLastError(); it allocates nothing and does not synchronize.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -358,12 +359,6 @@ int dispatch(int g, const void* q, const void* k, const void* v,
 }
 
 }  // namespace
-
-// Largest dynamic shared memory one block may use (bytes), for the wrapper's
-// fit check.
-extern "C" int flash_decode_smem_bytes(int g, int S, int D) {
-  return g * S * 4 + kWarps * g * D * 4 + g * D * 4 + g * D;
-}
 
 // softcap > 0: scores = tanh(scores / softcap) * softcap after the scale.
 extern "C" int flash_decode_launch(const void* q, const void* k,

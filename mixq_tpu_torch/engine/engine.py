@@ -1,4 +1,4 @@
-"""Inference engine over a static head-major KV cache (mirrors
+"""Inference engine over a static KV cache (mirrors
 mixq_tpu/engine/engine.py).
 
     prefill(tokens [B, Tp], cache, kv_start) -> (last logits, cache)
@@ -7,9 +7,12 @@ mixq_tpu/engine/engine.py).
 
 Eager PyTorch: the cache is written in place, and `generate` is a stepwise
 host loop (sample, then the next decode step). The head is widened to f32
-once, when the engine is built (`lm_head_f32`), not on every step. JAX's
-one-program device decode loop and its tail-window flushes are not ported
-(ROADMAP.md).
+once, when the engine is built (`lm_head_f32`), not on every step. The
+cache layout comes from JAX's policy (`use_head_major_cache` on
+`specs.attn_impl`, the KV type and the cache length): head-major for
+kernel 3, batch-major (a ring for a uniform sliding window) for kernel 8.
+JAX's one-program device decode loop and its tail-window staging and
+flushes are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 from mixq_tpu_torch.config import EngineConfig, ModelConfig
 from mixq_tpu_torch.engine.sampling import (SamplingParams, chosen_logprob,
                                             sample)
+from mixq_tpu_torch.kernels.flash_decode import use_head_major_cache
 from mixq_tpu_torch.models.decoder import (DecoderParams, DecoderSpecs,
                                            forward, lm_head_f32)
 from mixq_tpu_torch.models.layers import KVCache
@@ -57,12 +61,17 @@ class InferenceEngine:
         self.head_f32 = lm_head_f32(params, specs)
 
     def new_cache(self, batch: int, max_seq: Optional[int] = None) -> KVCache:
+        """A fresh cache in the layout the policy gives (JAX's new_cache
+        without the tail staging)."""
         mc = self.model_cfg
+        S = max_seq or self.engine_cfg.max_seq_len
+        dtype = _KV_DTYPES[self.engine_cfg.kv_dtype]
         return KVCache.create(
-            mc.num_hidden_layers, batch,
-            max_seq or self.engine_cfg.max_seq_len,
-            mc.num_key_value_heads, mc.head_dim_,
-            dtype=_KV_DTYPES[self.engine_cfg.kv_dtype], device=self.device)
+            mc.num_hidden_layers, batch, S, mc.num_key_value_heads,
+            mc.head_dim_, dtype=dtype,
+            head_major=use_head_major_cache(self.specs.attn_impl, mc, S,
+                                            dtype.itemsize),
+            device=self.device)
 
     def _rows(self, x, B: int) -> torch.Tensor:
         if x is None:
@@ -71,8 +80,8 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def prefill(self, tokens, cache: KVCache, kv_start=None):
-        """Prefill a fresh cache with a [B, Tp] token chunk; returns the
-        last position's logits [B, V] and the cache."""
+        """Prefill a [B, Tp] token chunk (on a head-major cache, a fresh
+        one); returns the last position's logits [B, V] and the cache."""
         tokens = torch.as_tensor(tokens, device=self.device)
         logits, cache = forward(self.params, tokens, cache, self.specs,
                                 self.model_cfg,

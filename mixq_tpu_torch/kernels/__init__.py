@@ -4,11 +4,12 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 module's plain PyTorch version only for CPU tensors. Each keeps a plain
 integer count of its launches in its `launches` attribute, and a wrapper
 with several modes also counts them by mode in `mode_launches` (the GEMMs
-by weight mode and by epilogue, flash decode its softcap launches), so a
-run can show that the main path went through the kernels, in the modes it
+by weight mode and by epilogue, flash decode its softcap launches, decode
+attention its KV type, ring and softcap launches), so a run can show that the main path went through the kernels, in the modes it
 expects.
 """
-from mixq_tpu_torch.kernels import flash_decode, mix_gemm, rmsnorm_quant, w8a16
+from mixq_tpu_torch.kernels import (decode_attention, flash_decode, mix_gemm,
+                                    rmsnorm_quant, w8a16)
 
 # name -> the kernel's module (wrapper, plain version, SOURCE, REPLACES)
 MODULES = {
@@ -16,12 +17,14 @@ MODULES = {
     "mix_gemm": mix_gemm,
     "w8a16": w8a16,
     "flash_decode": flash_decode,
+    "decode_attention": decode_attention,
 }
 WRAPPERS = {
     "rmsnorm_quant": rmsnorm_quant.fused_rmsnorm_quant,
     "mix_gemm": mix_gemm.mix_gemm,
     "w8a16": w8a16.mix_gemm_a16,
     "flash_decode": flash_decode.flash_decode_attention,
+    "decode_attention": decode_attention.decode_attention,
 }
 
 

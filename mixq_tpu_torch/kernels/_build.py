@@ -31,6 +31,7 @@ SOURCES = {
     "mix_gemm": "mix_gemm.cu",
     "flash_decode": "flash_decode.cu",
     "w8a16": "w8a16.cu",
+    "decode_attention": "decode_attention.cu",
 }
 # No --use_fast_math: quantization is round(x / scale), which needs IEEE
 # division, and the softmax needs the accurate expf.

@@ -14,8 +14,14 @@ One difference from the Pallas kernel: a row with no valid slot
 of length 0 and returns an average over masked slots when
 kv_start >= length > 0; the decoder never produces such a row.
 
-Still to port (ROADMAP.md Queue B): ALiBi, sliding-window starts, the
-token-major tail window and T>1 verify.
+A sliding window reaches the kernel as its per-row start: the decoder
+passes max(kv_start, kv_len - W) at T=1, as JAX does. Still to port
+(ROADMAP.md Queue B): ALiBi, the token-major tail window and T>1 verify.
+
+`use_head_major_cache` is JAX's policy for which cache layout serving
+takes (head-major for this kernel, or batch-major for kernel 8), read as on
+the accelerator whatever the device, so the CPU tests take the layout the
+card does.
 
 `flash_decode_attention` launches the kernel for CUDA tensors and runs
 `flash_decode_plain`, the same arithmetic in PyTorch ops, for CPU tensors;
@@ -155,6 +161,53 @@ def flash_decode_level(
     return (top / l[..., 0]).reshape(B, n_q)
 
 
+def smem_bytes(g: int, S: int, D: int) -> int:
+    """Dynamic shared memory of one block (csrc/flash_decode.cu's launch):
+    the row's scores g*S*4, the warps' p.v partials, q in f32 and int8."""
+    return g * S * 4 + 4 * g * D * 4 + g * D * 4 + g * D
+
+
+def flash_decode_supported(g: int, S: int, D: int, kv_itemsize: int) -> bool:
+    """Whether the kernel takes these shapes: a head dim it reads in whole
+    16-byte chunks, and the row's scores in shared memory."""
+    return (D * kv_itemsize in (16, 32, 64, 128, 256, 512)
+            and smem_bytes(g, S, D) <= SMEM_LIMIT)
+
+
+def use_head_major_cache(attn_impl: str, model_cfg, max_seq: int,
+                         kv_itemsize: int) -> bool:
+    """JAX's single policy point (mixq_tpu/ops/pallas/flash_decode.py::
+    use_head_major_cache) for "should serving use the head-major flash
+    cache?", read as on the accelerator:
+      "flash"  opt-in: head-major whenever this kernel takes the shapes;
+               also the only way for sliding-window, ALiBi and gemma2-style
+               models, and a binding alternating window (a cache longer
+               than gemma2's window) stays batch-major;
+      "auto"   (the default) head-major for int8 KV at max_seq >= 128,
+               batch-major otherwise (bf16 KV, short caches, window, ALiBi
+               and gemma2-style models);
+      anything else: batch-major."""
+    if attn_impl not in ("flash", "auto"):
+        return False
+    if ((model_cfg.sliding_window is not None or model_cfg.alibi)
+            and attn_impl != "flash"):
+        return False
+    if (model_cfg.attn_logit_softcap is not None
+            or model_cfg.query_pre_attn_scalar is not None
+            or model_cfg.sliding_window_pattern != 1):
+        if attn_impl != "flash":
+            return False
+        if (model_cfg.sliding_window_pattern != 1
+                and model_cfg.sliding_window is not None
+                and max_seq > model_cfg.sliding_window):
+            return False
+    if attn_impl == "auto" and (kv_itemsize != 1 or max_seq < 128):
+        return False
+    return flash_decode_supported(
+        model_cfg.num_attention_heads // model_cfg.num_key_value_heads,
+        max_seq, model_cfg.head_dim_, kv_itemsize)
+
+
 @functools.cache
 def _lib():
     lib = _build.load("flash_decode")
@@ -163,8 +216,6 @@ def _lib():
                                  ctypes.c_void_p] + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.flash_decode_launch.restype = ctypes.c_int
-    lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.flash_decode_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -233,7 +284,7 @@ def flash_decode_attention(
                 raise ValueError(f"{name} must be a contiguous f32 "
                                  f"{(n_kv, B, Sp)} tensor on {dev}")
     lib = _lib()
-    smem = lib.flash_decode_smem_bytes(g, S, D)
+    smem = smem_bytes(g, S, D)
     if smem > SMEM_LIMIT:
         raise ValueError(f"g*S*4 scores ({smem} bytes of shared memory with "
                          f"the reduction buffers) exceed {SMEM_LIMIT}")

@@ -2,19 +2,30 @@
 mixq_tpu/models/decoder.py).
 
 A model is a plain tensor container (`DecoderParams`) plus `forward`; the
-per-linear precision policy is a static `DecoderSpecs`. Ported: the llama
-family (RMSNorm, gated SiLU MLP, GQA, unscaled neox RoPE) and gemma2 (the
+per-linear precision policy and the decode-attention choice are a static
+`DecoderSpecs`. Ported: the llama family (RMSNorm, gated SiLU MLP, GQA,
+unscaled neox RoPE), mistral (a uniform sliding window) and gemma2 (the
 embedding multiplier, post-attention and post-FFW norms, the GeGLU MLP with
 the tanh-GELU fused into the gate GEMM, the query_pre_attn_scalar score
 scale, the attention and final-logit softcaps, the tied head, and
-alternating sliding windows that never bind) on the python-loop-over-layers
-runtime with a head-major KV cache:
+alternating sliding windows) on the python-loop-over-layers runtime, over
+either KV-cache layout, dispatched on the cache as JAX does:
 
-  prefill (T > 1, fresh cache): attention over the chunk's own k/v (`attend`,
-      plain PyTorch, as JAX computes it in jnp), while the chunk is written
-      into the cache;
-  decode (T = 1): the token is written into the cache, then kernel 3 attends
-      over the cache.
+  batch-major cache (JAX's default; a uniform window writes it as a ring):
+      prefill (T > 1, any chunk, also over a populated cache): the chunk is
+      written, then `attend` over the cache layer with its int8 scales and
+      ring positions (plain PyTorch, as JAX computes it in jnp);
+      decode (T = 1): the token is written, then kernel 8
+      (`decode_attention`) attends over the layer, from the layer's window
+      start max(kv_start, kv_len - W);
+  head-major cache (the flash layout):
+      prefill (T > 1, fresh cache): attention over the chunk's own k/v
+      while the chunk is written into the cache;
+      decode (T = 1): the token is written, then kernel 3 attends over the
+      cache, from the same window start.
+
+Which layout a cache has is the engine's choice, by
+kernels.flash_decode.use_head_major_cache on `DecoderSpecs.attn_impl`.
 
 The precision of each linear slot comes from `DecoderSpecs` (e.g. from
 quantize.resolve_specs). As in JAX, only a MIX linear group (q/k/v, up/gate)
@@ -23,20 +34,21 @@ shares one prepared activation, made by the fused norm + quantization
 block on the card, W8A8: kernel 1 twice, the int8 GEMM seven times (q, k,
 v, o, up, gate+SiLU or gemma2's gate+GELU-tanh, down); W4A4 (reference
 policy): kernel 1 twice, five packed-W4 GEMMs (q, k, v, up, gate) and two
-W8A8 ones (o, down); W8A16: seven a16 GEMMs and no kernel 1; and flash
-decode once per decode step (gemma2: in its softcap mode). The stacked `lax.scan` runtime, continuous
-batching slots, ring caches, uniform (mistral) and binding windows, ALiBi,
-rope scaling and the other families raise NotImplementedError (ROADMAP.md
-Queue A).
+W8A8 ones (o, down); W8A16: seven a16 GEMMs and no kernel 1; and one decode
+attention per decode step (kernel 3 or 8; gemma2: in its softcap mode). The
+stacked `lax.scan` runtime, continuous batching slots, ALiBi, rope scaling
+and the other families raise NotImplementedError (ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from mixq_tpu_torch.config import ModelConfig
+from mixq_tpu_torch.kernels.decode_attention import decode_attention
 from mixq_tpu_torch.kernels.flash_decode import flash_decode_attention
 from mixq_tpu_torch.models.layers import (KVCache, apply_rope, attend,
                                           rmsnorm, rmsnorm_quant,
@@ -88,13 +100,20 @@ class DecoderParams(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class DecoderSpecs:
-    """Static per-linear precision policy, uniform across layers."""
+    """Static per-linear precision policy, uniform across layers, and the
+    decode attention: `attn_impl` "auto" (the default) or "flash" choose
+    the cache layout through kernels.flash_decode.use_head_major_cache
+    (head-major: kernel 3; batch-major: kernel 8), "xla" always takes the
+    batch-major cache. JAX's "pallas" (superseded there) raises as in JAX;
+    "xla_int8" (int8 x int8 attention over the batch-major cache) is not
+    ported."""
 
     wqkv: LinearSpec = LinearSpec(version="FP16", w_bit=16)
     wo: LinearSpec = LinearSpec(version="FP16", w_bit=16)
     up: LinearSpec = LinearSpec(version="FP16", w_bit=16)
     gate: LinearSpec = LinearSpec(version="FP16", w_bit=16)
     down: LinearSpec = LinearSpec(version="FP16", w_bit=16)
+    attn_impl: str = "auto"
 
     @classmethod
     def uniform(cls, spec: LinearSpec) -> "DecoderSpecs":
@@ -124,10 +143,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         "gated_mlp": not gated,
         "hidden_act": cfg.hidden_act not in GATE_FUSE,
         "rope_scaling_type": cfg.rope_scaling_type is not None,
-        # a uniform window (mistral) needs kernel 3's window start; an
-        # alternating one (gemma2) never binds on the head-major cache
-        "sliding_window": (cfg.sliding_window is not None
-                           and cfg.sliding_window_pattern <= 1),
         "alibi": cfg.alibi,
         "attention_bias": cfg.attention_bias,
         "mlp_bias": cfg.mlp_bias,
@@ -135,8 +150,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"model features not ported yet: {bad} (llama and gemma2 "
-            "families only)")
+            f"model features not ported yet: {bad} (llama, mistral and "
+            "gemma2 families only)")
 
 
 def _shares_act(spec: LinearSpec) -> bool:
@@ -218,6 +233,34 @@ def lm_head_f32(params: DecoderParams, specs: DecoderSpecs) -> torch.Tensor:
     return head.to(specs.wqkv.odtype).float()
 
 
+def _check_attn_impl(attn_impl: str) -> None:
+    if attn_impl == "pallas":
+        # JAX's message (decoder.py:558-563)
+        raise ValueError(
+            'attn_impl="pallas" (ops/pallas/decode_attention.py) was '
+            'measured VPU-bound and superseded by attn_impl="flash" '
+            "(ops/pallas/flash_decode.py); the old kernel is kept as a "
+            "tests-only reference implementation")
+    if attn_impl == "xla_int8":
+        raise NotImplementedError(
+            'attn_impl="xla_int8" (int8 x int8 attention over the '
+            "batch-major cache) is not ported")
+    if attn_impl not in ("auto", "flash", "xla"):
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+
+
+def window_start(kv_start: Optional[torch.Tensor], kv_len: int,
+                 window: Optional[int]):
+    """The first position the T=1 query at kv_len - 1 attends on a layer
+    with `window` (attend's mask keeps kv_pos > q_pos - W): max(kv_start,
+    kv_len - W), as JAX passes the flash kernel its start (decoder.py:549-
+    556); kv_start itself without a window."""
+    if window is None:
+        return kv_start
+    ws = max(kv_len - window, 0)
+    return ws if kv_start is None else torch.clamp_min(kv_start, ws)
+
+
 def forward(
     params: DecoderParams,
     tokens: torch.Tensor,          # [B, T] int
@@ -231,25 +274,40 @@ def forward(
     """Run the decoder on a token chunk starting at cache.length.
 
     Returns (logits [B, T, V] f32, the cache, written in place with its
-    length advanced by T). T > 1 is a prefill chunk on a fresh cache; T = 1
-    is a decode step. `head_f32` is the head widened once by the caller
-    (the engine holds it)."""
+    length advanced by T). T = 1 is a decode step; T > 1 is a prefill chunk
+    (on a head-major cache only on a fresh one). `head_f32` is the head
+    widened once by the caller (the engine holds it)."""
     _check_supported(cfg)
-    if (cfg.sliding_window is not None and cfg.sliding_window_pattern != 1
-            and cache.max_seq > cfg.sliding_window):
+    _check_attn_impl(specs.attn_impl)
+    if params.stacked is not None or params.pos_embed is not None:
+        raise NotImplementedError("stacked (scan) params / learned positions")
+    B, T = tokens.shape
+    W, pattern = cfg.sliding_window, cfg.sliding_window_pattern
+    head_major = cache.head_major
+    if (head_major and W is not None and pattern != 1
+            and cache.max_seq > W):
         # JAX's guard for a head-major cache (decoder.py:497-508): kernel 3
         # takes no per-layer window start, so the window must never bind
         raise NotImplementedError(
             "head-major (flash) KV cache: alternating-window (gemma2) "
             f"models need max_seq <= sliding_window ({cache.max_seq} > "
-            f"{cfg.sliding_window})")
-    if params.stacked is not None or params.pos_embed is not None:
-        raise NotImplementedError("stacked (scan) params / learned positions")
-    B, T = tokens.shape
-    if T > 1 and cache.length != 0:
+            f"{W}); create the cache with head_major=False for longer "
+            "contexts")
+    if head_major and T > 1 and cache.length != 0:
         raise NotImplementedError(
-            "a prefill chunk must start on a fresh cache (continuation "
-            "chunks attend over the cache and are not ported)")
+            "a prefill chunk on a head-major cache must start on a fresh "
+            "cache (continuation chunks attend over the batch-major cache)")
+    # a uniform window reclaims slots on the batch-major cache (JAX's ring)
+    ring = W is not None and not head_major and pattern == 1
+    if (ring and T > 1 and cache.length + T > cache.max_seq
+            and cache.max_seq < W + T):
+        # JAX's guard (decoder.py:477-485): a chunk that straddles the wrap
+        # would overwrite positions still inside an in-chunk query's
+        # window. JAX must decide it statically; the host knows the length,
+        # so only a chunk that does reach the wrap raises here
+        raise ValueError(
+            f"ring KV cache needs max_seq >= sliding_window + chunk "
+            f"({cache.max_seq} < {W} + {T})")
     dev = tokens.device
     x = params.embed[tokens].to(specs.wqkv.odtype)
     if cfg.embed_multiplier != 1.0:
@@ -268,29 +326,36 @@ def forward(
     attn_scale = (cfg.query_pre_attn_scalar ** -0.5
                   if cfg.query_pre_attn_scalar is not None else None)
     attn_softcap = cfg.attn_logit_softcap
+    # layer windows: uniform, or on layers i % pattern == 0 (gemma2); the
+    # decode step's first position for each distinct window
+    windows = [W if W is not None and i % pattern == 0 else None
+               for i in range(len(params.blocks))]
+    starts = ({w: window_start(kv_start, kv_len, w) for w in set(windows)}
+              if T == 1 else {})
+    decode = (flash_decode_attention if head_major
+              else functools.partial(decode_attention, ring=ring))
 
     for i, bp in enumerate(params.blocks):
-        # alternating windows: layers with i % pattern == 0 are local
-        win = (cfg.sliding_window
-               if cfg.sliding_window is not None
-               and i % cfg.sliding_window_pattern == 0 else None)
+        win = windows[i]
 
         def kv_apply(q, k, v, i=i, win=win):
-            cache.update_layer(i, k, v)
+            cache.update_layer(i, k, v, ring=ring)
+            k_c, v_c, ks_c, vs_c = cache.layer_kv(i)
             if T == 1:
-                # the window never binds here (guard above), so decode
-                # needs no window start
-                k_c, v_c, ks_c, vs_c = cache.layer_kv(i)
-                out = flash_decode_attention(q[:, 0], k_c, v_c, kv_len, ks_c,
-                                             vs_c, kv_start=kv_start,
-                                             softcap=attn_softcap or 0.0,
-                                             scale=attn_scale)
+                out = decode(q[:, 0], k_c, v_c, kv_len, ks_c, vs_c,
+                             kv_start=starts[win],
+                             softcap=attn_softcap or 0.0, scale=attn_scale)
                 return out[:, None]
-            # fresh-cache prefill: attention over the chunk's own fp k/v
-            # equals attention over the cache
-            return attend(q, k, v, q_slot, kv_len, kv_start=kv_start,
-                          sliding_window=win, scale=attn_scale,
-                          softcap=attn_softcap)
+            if head_major:
+                # fresh-cache prefill: attention over the chunk's own fp
+                # k/v equals attention over the cache
+                return attend(q, k, v, q_slot, kv_len, kv_start=kv_start,
+                              sliding_window=win, scale=attn_scale,
+                              softcap=attn_softcap)
+            # JAX's batch-major prefill: attend over the cache layer
+            return attend(q, k_c, v_c, q_slot, kv_len, kv_start=kv_start,
+                          sliding_window=win, k_scale=ks_c, v_scale=vs_c,
+                          scale=attn_scale, softcap=attn_softcap, ring=ring)
 
         x = block_core(x, bp, kv_apply, cos, sin, specs, cfg)
     cache.advance(T)

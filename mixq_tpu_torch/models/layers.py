@@ -1,17 +1,19 @@
 """Transformer building blocks (mirrors mixq_tpu/models/layers.py).
 
 Ported: rmsnorm, rmsnorm_quant (kernel 1 on the card), unscaled neox RoPE,
-a head-major KV cache written in place, and `attend`, the masked attention
-that serves prefill (plain PyTorch, as JAX computes it in jnp).
+the KV cache in JAX's two layouts (batch-major, with ring writes for
+sliding-window models, and head-major), written in place, and `attend`, the
+masked attention that serves prefill (plain PyTorch, as JAX computes it in
+jnp): over a chunk's own k/v, or over a batch-major cache with its int8
+scales and ring positions.
 
 The JAX cache's token-major tail window and its flush exist because a
 dynamic-offset write into the big head-major cache is a whole-array pass on
 the TPU. On the card a write into a [.., S, D] stripe is an ordinary strided
 copy, so this cache is written in place and keeps no tail; results, not
-layout, are held against the reference. The batch-major layout, ring
-(sliding-window) writes, layernorm, rope scaling and ALiBi are still to be
-ported (ROADMAP.md Queue A). `attend` takes gemma2's score scale, softcap
-and (alternating) sliding window.
+layout, are held against the reference. Layernorm, rope scaling, ALiBi and
+`attend_chunked` are still to be ported (ROADMAP.md Queue A). `attend`
+takes gemma2's score scale, softcap and (alternating) sliding window.
 """
 from __future__ import annotations
 
@@ -93,66 +95,97 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class KVCache:
-    """Preallocated head-major KV cache, updated in place.
+    """Preallocated KV cache, updated in place, in either of JAX's layouts.
 
-    k, v: [L, n_kv, B, S, D] (bf16, or int8 with per-(token, head) scales);
-    k_scale, v_scale: [L, n_kv, B, Sp] f32, Sp = S padded to a multiple of
-    128 as JAX allocates them (pad slots are never written and always
-    masked). `length` is the valid prefix, a host integer: the host loop
-    always knows it, so no step reads it back from the card.
+    batch-major (the default, as in JAX): k, v [L, B, S, n_kv, D] (bf16, or
+    int8 with per-(token, head) scales k_scale, v_scale [L, B, S, n_kv]
+    f32); decode attention over it is kernel 8 (`decode_attention`).
+    head-major (the flash layout): k, v [L, n_kv, B, S, D]; scales
+    [L, n_kv, B, Sp] f32, Sp = S padded to a multiple of 128 as JAX
+    allocates them (pad slots are never written and always masked); decode
+    attention over it is kernel 3 (`flash_decode_attention`).
+
+    `length` is the valid prefix, a host integer: the host loop always knows
+    it, so no step reads it back from the card. With ring writes (a
+    sliding-window model on the batch-major cache) it counts absolute
+    positions, and position p lives in slot p % S.
     """
 
-    head_major = True
-
-    def __init__(self, k, v, k_scale, v_scale, length: int = 0):
+    def __init__(self, k, v, k_scale, v_scale, length: int = 0,
+                 head_major: bool = False):
         self.k, self.v = k, v
         self.k_scale, self.v_scale = k_scale, v_scale
         self.length = length
+        self.head_major = head_major
 
     @classmethod
     def create(cls, n_layers, batch, max_seq, n_kv, head_dim,
-               dtype=torch.bfloat16, device="cuda") -> "KVCache":
-        shape = (n_layers, n_kv, batch, max_seq, head_dim)
-        sc_shape = (n_layers, n_kv, batch, round_up(max_seq, 128))
+               dtype=torch.bfloat16, head_major: bool = False,
+               device="cuda") -> "KVCache":
+        if head_major:
+            shape = (n_layers, n_kv, batch, max_seq, head_dim)
+            sc_shape = (n_layers, n_kv, batch, round_up(max_seq, 128))
+        else:
+            shape = (n_layers, batch, max_seq, n_kv, head_dim)
+            sc_shape = shape[:-1]
         quantized = dtype == torch.int8
         mk = lambda s, dt: torch.zeros(s, dtype=dt, device=device)
-        return cls(
-            mk(shape, dtype), mk(shape, dtype),
-            (torch.ones(sc_shape, dtype=torch.float32, device=device)
-             if quantized else None),
-            (torch.ones(sc_shape, dtype=torch.float32, device=device)
-             if quantized else None))
+        ones = lambda: (torch.ones(sc_shape, dtype=torch.float32,
+                                   device=device) if quantized else None)
+        return cls(mk(shape, dtype), mk(shape, dtype), ones(), ones(),
+                   head_major=head_major)
 
     @property
     def max_seq(self) -> int:
-        return self.k.shape[3]
+        return self.k.shape[3] if self.head_major else self.k.shape[2]
 
     @property
     def batch(self) -> int:
-        return self.k.shape[2]
+        return self.k.shape[2] if self.head_major else self.k.shape[1]
 
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
 
     def update_layer(self, layer: int, k_new: torch.Tensor,
-                     v_new: torch.Tensor) -> "KVCache":
+                     v_new: torch.Tensor, ring: bool = False) -> "KVCache":
         """Write k/v [B, T, n_kv, D] at positions [length, length + T) of
         `layer`, in place (int8 caches quantize per (token, head)). The
-        length advances once per forward, through `advance`."""
+        length advances once per forward, through `advance`.
+
+        ring=True (sliding-window models on the batch-major cache): position
+        p goes to slot p % S, so a window-sized cache serves unbounded
+        decode; a T > 1 chunk that straddles the wrap is scattered slot by
+        slot. Outside ring mode a write past S raises."""
         T = k_new.shape[1]
+        S = self.max_seq
         pos = self.length
-        if pos + T > self.max_seq:
-            raise ValueError(f"cache overflow: {pos} + {T} > {self.max_seq}")
+        if not ring and pos + T > S:
+            raise ValueError(f"cache overflow: {pos} + {T} > {S}")
         if self.quantized:
             qk, sk = Q.quantize_kv(k_new)
             qv, sv = Q.quantize_kv(v_new)
-            self.k_scale[layer, :, :, pos:pos + T] = sk.permute(2, 0, 1)
-            self.v_scale[layer, :, :, pos:pos + T] = sv.permute(2, 0, 1)
         else:
-            qk, qv = k_new, v_new
-        self.k[layer, :, :, pos:pos + T] = qk.permute(2, 0, 1, 3)
-        self.v[layer, :, :, pos:pos + T] = qv.permute(2, 0, 1, 3)
+            qk, qv, sk, sv = k_new, v_new, None, None
+        # the sequence axis of each buffer's layer, and [B, T, n_kv(, D)] in
+        # that buffer's layout
+        axis = 2 if self.head_major else 1
+        kv_form = ((lambda x: x.permute(2, 0, 1, 3)) if self.head_major
+                   else (lambda x: x))
+        sc_form = ((lambda x: x.permute(2, 0, 1)) if self.head_major
+                   else (lambda x: x))
+        writes = [(self.k, kv_form(qk)), (self.v, kv_form(qv))]
+        if self.quantized:
+            writes += [(self.k_scale, sc_form(sk)), (self.v_scale, sc_form(sv))]
+        if ring and (pos % S) + T > S:
+            # the chunk straddles the wrap: per-token slots
+            slots = (pos + torch.arange(T, device=qk.device)) % S
+            for buf, val in writes:
+                buf[layer].index_copy_(axis, slots, val.to(buf.dtype))
+        else:
+            start = pos % S if ring else pos
+            for buf, val in writes:
+                buf[layer].narrow(axis, start, T).copy_(val)
         return self
 
     def layer_kv(self, layer: int):
@@ -171,25 +204,42 @@ class KVCache:
 # Attention
 # ---------------------------------------------------------------------------
 
+def ring_positions(kv_len, S: int, device) -> torch.Tensor:
+    """[B?, S] absolute position held in each slot of a ring cache whose
+    valid length (absolute) is kv_len (an int or [B]): s + S * floor((len -
+    1 - s) / S), negative for a slot never written (JAX's attend)."""
+    s = torch.arange(S, device=device)
+    lens = torch.as_tensor(kv_len, device=device).reshape(-1, 1)
+    return s + S * torch.div(lens - 1 - s, S, rounding_mode="floor")
+
+
 def attend(
     q: torch.Tensor,                # [B, T, n_q, D]
     k: torch.Tensor,                # [B, S, n_kv, D]
     v: torch.Tensor,                # [B, S, n_kv, D]
-    q_slot: torch.Tensor,           # [T] int — cache-slot index of each query
-    kv_valid_len: int,              # number of valid slots
-    kv_start: Optional[torch.Tensor] = None,   # [B] first real slot per row
+    q_slot: torch.Tensor,           # [T] or [B, T] int: absolute position of
+                                    # each query (per row for per-row lengths)
+    kv_valid_len,                   # int or [B]: valid (absolute) length
+    kv_start: Optional[torch.Tensor] = None,   # [B] first real position
     sliding_window: Optional[int] = None,      # keep kv_pos > q_slot - W
+    k_scale: Optional[torch.Tensor] = None,    # [B, S, n_kv] (int8 KV)
+    v_scale: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,             # default 1/sqrt(D) (gemma2:
                                                # query_pre_attn_scalar^-0.5)
     softcap: Optional[float] = None,           # gemma2: tanh(s / cap) * cap
+    ring: bool = False,                        # ring cache: slot s holds
+                                               # ring_positions(len)[s]
 ) -> torch.Tensor:
-    """Masked multi-head attention over an fp KV buffer, GQA by grouping
-    query heads against their kv head, with JAX's options in JAX's order:
-    the scale override replaces 1/sqrt(D), the softcap comes after the
-    scale, and the window masks slots at or before q_slot - W. Operands in
-    f32 (the JAX CPU path's operand type; prefill is not the
-    bandwidth-bound step). The int8-scaled form over a batch-major cache and
-    ALiBi are still to be ported."""
+    """Masked multi-head attention over a KV buffer (a prefill chunk's own
+    k/v, or a batch-major cache layer), GQA by grouping query heads against
+    their kv head, with JAX's options in JAX's order: the scale override
+    replaces 1/sqrt(D), the int8 cache's k_scale multiplies the scores after
+    the contraction, the softcap comes after both, the window masks
+    positions at or before q_slot - W, and v_scale multiplies the
+    normalised probabilities. Masks are taken in absolute positions, so a
+    ring cache is read as JAX reads it. Operands in f32 (the JAX CPU path's
+    operand type; prefill is not the bandwidth-bound step). ALiBi is still
+    to be ported."""
     B, T, n_q, D = q.shape
     S, n_kv = k.shape[1], k.shape[2]
     groups = n_q // n_kv
@@ -198,17 +248,26 @@ def attend(
         scale = 1.0 / torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
     qf = q.float().reshape(B, T, n_kv, groups, D)
     scores = torch.einsum("bthgd,bshd->bhgts", qf, k.float()) * scale
+    if k_scale is not None:
+        scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
-    kv_pos = torch.arange(S, device=q.device)[None, None, :]       # [1,1,S]
-    causal = kv_pos <= q_slot[None, :, None]
-    mask = causal & (kv_pos < kv_valid_len)                        # [1,T,S]
+    q_pos = (q_slot if q_slot.dim() == 2 else q_slot[None])[:, :, None]
+    lens = torch.as_tensor(kv_valid_len, device=q.device).reshape(-1, 1, 1)
+    if ring:
+        kv_pos = ring_positions(kv_valid_len, S, q.device)[:, None, :]
+    else:
+        kv_pos = torch.arange(S, device=q.device)[None, None, :]   # [1,1,S]
+    mask = (kv_pos <= q_pos) & (kv_pos < lens)                     # [B?,T,S]
+    if ring:
+        mask = mask & (kv_pos >= 0)        # never-written slots come out < 0
     if kv_start is not None:
         mask = mask & (kv_pos >= kv_start[:, None, None])          # [B,T,S]
     if sliding_window is not None:
-        mask = mask & (kv_pos > q_slot[None, :, None] - sliding_window)
+        mask = mask & (kv_pos > q_pos - sliding_window)
     scores = torch.where(mask[:, None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.permute(0, 2, 1)[:, :, None, None, :]
     out = torch.einsum("bhgts,bshd->bthgd", probs, v.float())
     return out.reshape(B, T, n_q, D).to(q.dtype)
-

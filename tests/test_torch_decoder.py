@@ -57,7 +57,7 @@ def test_teacher_forced_logits_and_cache(kv_dtype, quantized, config):
     jc = JKVCache.create(L, B, S, nkv, hd, jnp.dtype(kv_dtype),
                          head_major=True, tail_r=0)
     tc = KVCache.create(L, B, S, nkv, hd, getattr(torch, kv_dtype),
-                        device="cpu")
+                        head_major=True, device="cpu")
     chunks = [toks[:, :T]] + [toks[:, T + i:T + i + 1] for i in range(STEPS)]
     head = lm_head_f32(tp, tspecs)
     for chunk in chunks:
@@ -97,7 +97,7 @@ def test_only_mix_linears_share_a_prepared_act(monkeypatch, config,
     monkeypatch.setattr(t_layers, "fused_rmsnorm_quant", counting)
     L = cfg.num_hidden_layers
     tc = KVCache.create(L, 2, 16, cfg.num_key_value_heads, cfg.head_dim_,
-                        torch.int8, device="cpu")
+                        torch.int8, head_major=True, device="cpu")
     logits, _ = forward(tp, torch.ones((2, 5), dtype=torch.int64), tc,
                         tspecs, cfg, head_f32=lm_head_f32(tp, tspecs))
     assert bool(torch.isfinite(logits).all())

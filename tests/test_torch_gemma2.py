@@ -30,9 +30,12 @@ test_torch_models.py) and carried over bit for bit.
   max|logits| on these models, so near-ties flip between the two; seed 13
   is one whose top-2 margins stay above 2e-2 * max|logits| on every step,
   which the test asserts.
-- The guard: a head-major cache longer than the window raises
-  NotImplementedError, in JAX and in the port (forward and generate); a
-  uniform window (mistral) is not ported and raises.
+- The guard: an explicit head-major cache longer than the window raises
+  NotImplementedError, in JAX and in the port. Where the window binds JAX
+  serves the model on the batch-major cache, and so does the port: the
+  engine's policy takes it for generate's 128-slot cache (tokens equal to
+  JAX's engine), and a uniform window (mistral-style) is served over a
+  batch-major ring cache (logits against JAX's forward).
 - convert carries the post-norm scales, and the port's own init makes them.
 """
 import dataclasses
@@ -113,7 +116,8 @@ def _jax_logits(fwd, jp, jspecs, cfg, chunks, kv_dtype, S, kv_start):
 def _port_logits(tp, tspecs, cfg, chunks, kv_dtype, S, kv_start):
     tc = KVCache.create(cfg.num_hidden_layers, chunks[0].shape[0], S,
                         cfg.num_key_value_heads, cfg.head_dim_,
-                        getattr(torch, kv_dtype), device="cpu")
+                        getattr(torch, kv_dtype), head_major=True,
+                        device="cpu")
     head = lm_head_f32(tp, tspecs)
     out = []
     for chunk in chunks:
@@ -201,24 +205,40 @@ def test_binding_window_raises_as_in_jax():
     head = lm_head_f32(tp, tspecs)
     with pytest.raises(NotImplementedError):
         forward(tp, torch.from_numpy(toks),
-                KVCache.create(L, 2, 32, nkv, hd, device="cpu"), tspecs, cfg,
-                head_f32=head)
+                KVCache.create(L, 2, 32, nkv, hd, head_major=True,
+                               device="cpu"), tspecs, cfg, head_f32=head)
     # a cache no longer than the window serves
     logits, _ = forward(tp, torch.from_numpy(toks),
-                        KVCache.create(L, 2, 16, nkv, hd, device="cpu"),
+                        KVCache.create(L, 2, 16, nkv, hd, head_major=True,
+                                       device="cpu"),
                         tspecs, cfg, head_f32=head)
     assert bool(torch.isfinite(logits).all())
-    # generate's cache (rounded up to 128 slots) passes the window
-    eng = InferenceEngine(tp, cfg, tspecs, EngineConfig(
-        max_seq_len=64, prefill_chunk=8), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.generate([[1, 2, 3]], 4)
-    # a uniform window (mistral) needs kernel 3's window start: not ported
-    with pytest.raises(NotImplementedError):
-        forward(tp, torch.from_numpy(toks),
-                KVCache.create(L, 2, 16, nkv, hd, device="cpu"), tspecs,
-                dataclasses.replace(cfg, sliding_window_pattern=1),
-                head_f32=head)
+    # generate's cache (rounded up to 128 slots) passes the window: both
+    # engines take the batch-major cache, where the window binds
+    ecfg = dict(max_seq_len=64, prefill_chunk=8)
+    eng = InferenceEngine(tp, cfg, tspecs, EngineConfig(**ecfg),
+                          device="cpu")
+    jeng = JEngine(jp, cfg, jspecs, JEngineConfig(device_decode_loop=False,
+                                                  **ecfg))
+    assert not eng.new_cache(1, 128).head_major
+    assert not jeng.new_cache(1, 128).head_major
+    prompts = [[3, 9, 27, 81, 5, 15, 45, 7, 21, 63, 11, 33, 99, 2, 6, 18,
+                54, 4], [1, 2, 3]]
+    assert eng.generate(prompts, NEW) == jeng.generate(prompts, NEW)
+    # a uniform window (mistral-style) on a batch-major ring cache: prefill
+    # of 20 tokens (the window of 16 binds) and two decode steps
+    ucfg = dataclasses.replace(cfg, sliding_window_pattern=1)
+    seq = np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (2, 22)).astype(np.int32)
+    jc = JKVCache.create(L, 2, 64, nkv, hd, jnp.bfloat16)
+    tc = KVCache.create(L, 2, 64, nkv, hd, device="cpu")
+    for chunk in (seq[:, :20], seq[:, 20:21], seq[:, 21:]):
+        jl, jc = j_forward(jp, jnp.asarray(chunk), jc, jspecs, ucfg)
+        tl, tc = forward(tp, torch.from_numpy(chunk), tc, tspecs, ucfg,
+                         head_f32=head)
+        jl = np.asarray(jl)
+        np.testing.assert_allclose(tl.numpy(), jl, rtol=0,
+                                   atol=5e-3 * np.abs(jl).max())
 
 
 def test_norms_are_carried_and_made():

@@ -4,8 +4,10 @@ GEMM in its W8, packed-W4 and grouped modes; the a16 GEMM with int8 and
 packed weights, per-channel and grouped scales and outliers; every GEMM
 epilogue: SiLU, exact GELU and tanh GELU; flash decode with gemma2's
 softcap and score scale, up to its 4096-slot window, and on a peaked
-softmax) and the wrappers'
-refusals. The tiny models served on the card against the same
+softmax; decode attention over the batch-major cache with bf16 and int8 KV,
+GQA, per-row lengths and starts, rows with no valid position, a ring read
+past its wrap, gemma2's softcap and scale, and a peaked softmax) and the
+wrappers' refusals. The tiny models served on the card against the same
 models on the CPU are phase 4 of chip_smoke.py.
 
 Every test here needs a CUDA card: the `cuda` fixture decides at run time
@@ -26,12 +28,18 @@ order), bf16 within one ulp; kernel 3 within two bf16 ulps of |y| plus
 FLASH_ATOL, for a probability whose rounding (to int8, or to bf16 in bf16
 mode) an exp() ulp flips; a typical |y| is ~0.1 here, and
 tests/test_torch_flash_decode.py shows that the int8 limit stops a kernel
-that skips the probability quantization. The GELU epilogues call CUDA's
+that skips the probability quantization; kernel 8 within two bf16 ulps of
+|y| plus DECODE_ATOL (f32 throughout on both sides, summed in another
+order: no probability is rounded, so a peaked softmax needs no wider
+limit). The GELU epilogues call CUDA's
 erfcf / tanhf in the kernel and torch's erfc / tanh in the plain version,
 a few f32 ulps apart: inside every limit above."""
 import pytest
 import torch
 
+from mixq_tpu_torch.kernels.decode_attention import (DECODE_ATOL,
+                                                     decode_attention,
+                                                     decode_attention_plain)
 from mixq_tpu_torch.kernels.flash_decode import (flash_decode_attention,
                                                  flash_decode_level,
                                                  flash_decode_plain)
@@ -373,3 +381,107 @@ def test_flash_decode_peaked_softcap(cuda, int8):
     over = ((got.float() - ref).abs() - 2 * BF16_ULP * ref.abs()).amax(-1)
     assert ((over / flash_decode_level(*args, **opts)).max()
             <= PEAK_LEVELS[int8])
+
+
+def _batch_major(cuda, g, B, S, nkv, D, int8, k_offset=0.0):
+    kf = torch.randn(B, S, nkv, D, generator=g, device=cuda) + k_offset
+    vf = torch.randn(B, S, nkv, D, generator=g, device=cuda)
+    if int8:
+        (k, ks), (v, vs) = Q.quantize_kv(kf), Q.quantize_kv(vf)
+        return k, v, ks, vs
+    return kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+
+
+def _assert_decode_close(got, ref):
+    ref = ref.float()
+    assert bool(torch.isfinite(got).all())
+    beyond = (got.float() - ref).abs() - 2 * BF16_ULP * ref.abs()
+    assert beyond.max().item() <= DECODE_ATOL
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nq,nkv,D,S", [(4, 4, 64, 128), (8, 2, 128, 300),
+                                        (32, 8, 128, 512), (2, 2, 32, 64),
+                                        (16, 2, 256, 130)])
+def test_decode_attention(cuda, int8, nq, nkv, D, S):
+    """Per-row lengths (one of 0, one past S), starts, a row with no valid
+    position (JAX's uniform softmax over all S slots), and the scalar
+    length and start of the decoder's call."""
+    g = _gen(nq + D + S + 3)
+    B = 6
+    q = torch.randn(B, nq, D, generator=g, device=cuda).to(torch.bfloat16)
+    k, v, ks, vs = _batch_major(cuda, g, B, S, nkv, D, int8)
+    lengths = torch.tensor([S, S // 2 + 1, 0, 9, 1, S + 7],
+                           dtype=torch.int32, device=cuda)
+    start = torch.tensor([0, 5, 0, 9, 0, 3], dtype=torch.int32, device=cuda)
+    modes = dict(decode_attention.mode_launches)
+    got = decode_attention(q, k, v, lengths, ks, vs, start)
+    torch.cuda.synchronize()
+    kv = "int8" if int8 else "bf16"
+    assert decode_attention.mode_launches[kv] == modes[kv] + 1
+    _assert_decode_close(got, decode_attention_plain(q, k, v, lengths, ks,
+                                                     vs, start))
+    got = decode_attention(q, k, v, S - 3, ks, vs, 2)
+    _assert_decode_close(got, decode_attention_plain(q, k, v, S - 3, ks, vs,
+                                                     2))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nq,nkv", [(4, 4), (32, 8)])
+def test_decode_attention_ring(cuda, int8, nq, nkv):
+    """A ring of 300 slots read at lengths past its wrap (and one before
+    it), from window starts max(start, len - W) with W = 256 and without."""
+    g = _gen(nq + int8 + 5)
+    B, S, D, W = 5, 300, 128, 256
+    q = torch.randn(B, nq, D, generator=g, device=cuda).to(torch.bfloat16)
+    k, v, ks, vs = _batch_major(cuda, g, B, S, nkv, D, int8)
+    lengths = torch.tensor([S + 37, 2 * S + 299, 200, 3 * S, S + 1],
+                           dtype=torch.int32, device=cuda)
+    for start in (torch.zeros_like(lengths),
+                  torch.clamp_min(lengths - W, 0).to(torch.int32)):
+        before = decode_attention.mode_launches["ring"]
+        got = decode_attention(q, k, v, lengths, ks, vs, start, ring=True)
+        torch.cuda.synchronize()
+        assert decode_attention.mode_launches["ring"] == before + 1
+        _assert_decode_close(got, decode_attention_plain(
+            q, k, v, lengths, ks, vs, start, ring=True))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("gain,offset", [(1.0, 2.0), (3.0, 0.0)])
+def test_decode_attention_softcap_and_peaked(cuda, int8, gain, offset):
+    """gemma2-9B's g, D and scale with the softcap of 50: q and K shifted by
+    2 (the cap bends the scores), and q x 3 (a peaked softmax)."""
+    g = _gen(int8 + int(gain) + 17)
+    B, nq, nkv, D, S, cap = 4, 4, 2, 256, 700, 50.0
+    q = (torch.randn(B, nq, D, generator=g, device=cuda) * gain
+         + offset).to(torch.bfloat16)
+    k, v, ks, vs = _batch_major(cuda, g, B, S, nkv, D, int8, offset)
+    lengths = torch.tensor([S, 400, 9, 650], dtype=torch.int32, device=cuda)
+    start = torch.tensor([0, 5, 3, 600], dtype=torch.int32, device=cuda)
+    opts = dict(scale=256.0 ** -0.5, softcap=cap)
+    got = decode_attention(q, k, v, lengths, ks, vs, start, **opts)
+    torch.cuda.synchronize()
+    ref = decode_attention_plain(q, k, v, lengths, ks, vs, start, **opts)
+    _assert_decode_close(got, ref)
+    if offset:
+        free = decode_attention_plain(q, k, v, lengths, ks, vs, start,
+                                      scale=opts["scale"]).float()
+        assert ((got.float() - free).abs()
+                - 2 * BF16_ULP * free.abs()).max() > 10 * DECODE_ATOL
+
+
+def test_decode_attention_refusals(cuda):
+    g = _gen(23)
+    q = torch.randn(2, 4, 64, generator=g, device=cuda).to(torch.bfloat16)
+    k, v, ks, vs = _batch_major(cuda, g, 2, 16, 2, 64, True)
+    with pytest.raises(ValueError):                  # scales missing: bf16
+        decode_attention(q, k, v, 8)                 # K expected
+    with pytest.raises(ValueError):                  # g = 3
+        decode_attention(q[:, :3].contiguous(), k[:, :, :1].contiguous(),
+                         v[:, :, :1].contiguous(), 8,
+                         ks[:, :, :1].contiguous(), vs[:, :, :1].contiguous())
+    with pytest.raises(ValueError):                  # lengths not int32
+        decode_attention(q, k, v, torch.ones(2, device=cuda), ks, vs)
+    with pytest.raises(NotImplementedError):
+        decode_attention(q, k, v, 8, ks, vs, alibi_slopes=torch.ones(4))

@@ -45,8 +45,8 @@ def tiny_cfg() -> ModelConfig:
 def build(seed: int, quantized: bool = True, qcfg: QuantConfig = None,
           cfg: ModelConfig = None):
     """(cfg, JAX params, JAX specs with attn_impl="flash", port params on
-    the CPU, port specs). quantized=False keeps the FP16 (bf16) linears;
-    `cfg` defaults to tiny_cfg()."""
+    the CPU, port specs with attn_impl="flash" too). quantized=False keeps
+    the FP16 (bf16) linears; `cfg` defaults to tiny_cfg()."""
     cfg = cfg or tiny_cfg()
     rng = np.random.default_rng(seed)
     fp = init_decoder_params(jax.random.PRNGKey(seed), cfg,
@@ -56,7 +56,7 @@ def build(seed: int, quantized: bool = True, qcfg: QuantConfig = None,
                                              attn_impl="flash"),
                 decoder_params_from_numpy(jax.tree.map(np.asarray, fp),
                                           device="cpu"),
-                TSpecs.fp16())
+                dataclasses.replace(TSpecs.fp16(), attn_impl="flash"))
     if qcfg is None:
         specs = DecoderSpecs.uniform(LinearSpec(w_bit=8, a_bit=8))
         tspecs = TSpecs.uniform(TLinearSpec(w_bit=8, a_bit=8))
@@ -93,4 +93,4 @@ def build(seed: int, quantized: bool = True, qcfg: QuantConfig = None,
     tparams = decoder_params_from_numpy(jax.tree.map(np.asarray, jparams),
                                         device="cpu")
     return (cfg, jparams, dataclasses.replace(specs, attn_impl="flash"),
-            tparams, tspecs)
+            tparams, dataclasses.replace(tspecs, attn_impl="flash"))
