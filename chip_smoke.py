@@ -15,7 +15,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the same function (`library_ms`): fused RMSNorm + quantization (A8 and
      A4), the int8 GEMM in its W8A8, packed-W4 and grouped modes, the a16
      (weight-only) GEMM with int8 and packed weights, per-channel and
-     grouped, with the w8a16_matmul and int8_matmul_dequant entry points,
+     grouped, with the w8a16_matmul and int8_matmul_dequant entry points
+     (each a16 row with its split-K plan, the clusters the card holds and
+     ptxas's registers and spills; two split-K launches held bit-equal),
      and flash decode; then Gemma-2-9B's: kernel 1 at H=3584 (A8 and A4),
      every linear shape of its block in kernel 2 (W8A8), kernel A (W4 on
      q/k/v/up/gate) and kernel B (W8A16), with the tanh-GELU (gelu_new)
@@ -429,6 +431,39 @@ A16_LIB = ("torch.matmul of x with the pre-dequantized bf16 weight (product "
            "only)")
 
 
+# kernel B's ptxas report by (w4, grouped) instantiation, filled by main()
+A16_PTXAS = {}
+
+
+def ptxas_by_mode(log):
+    """Registers and spills of each w8a16_kernel<W4, GROUPED> in a
+    `ptxas -v` log, keyed (w4, grouped)."""
+    out, key = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln and "w8a16_kernel" in ln:
+            t = ln.split("w8a16_kernelI", 1)[1]
+            key = (t.startswith("Lb1"), t[3:].startswith("ELb1"))
+        elif key is not None and "spill stores" in ln:
+            out.setdefault(key, {})["spills"] = ln.strip()
+        elif key is not None and "Used" in ln and "registers" in ln:
+            out.setdefault(key, {})["registers"] = int(
+                ln.split("Used", 1)[1].split()[0])
+    return out
+
+
+def a16_plan(M, K, N, w4, G):
+    """Kernel B's plan for this call (BN, splits S, blocks), the clusters
+    of S blocks the card holds at once, and the ptxas report of its
+    instantiation."""
+    from mixq_tpu_torch.kernels.w8a16 import _clusters, _sm_count, plan_a16
+
+    clusters = _clusters(0, w4, G > 1)
+    p = plan_a16(M, N, K, w4, G, _sm_count(0), clusters)
+    return dict(bn=p.bn, splits=p.splits, blocks=p.blocks,
+                max_active_clusters=clusters[p.splits - 1],
+                **A16_PTXAS.get((w4, G > 1), {}))
+
+
 def a16_row(dev, gen, M, K, N, fuse, w4, G, gemm_rule=False):
     """Kernel B at one shape: checked against its plain version (under the
     a16 rule, or check_gemm's with `gemm_rule`), then timed over rotated
@@ -453,7 +488,7 @@ def a16_row(dev, gen, M, K, N, fuse, w4, G, gemm_rule=False):
         K * N // (2 if w4 else 1), a16_bound(M, K, N, G, w4, fuse),
         work=f"{mode} M={M} K={K} N={N} fuse={fuse}", mode=mode,
         tolerance=GEMM_TOL if gemm_rule else A16_TOL, max_abs_err=err,
-        library=lib_label(A16_LIB, fuse))
+        library=lib_label(A16_LIB, fuse), plan=a16_plan(M, K, N, w4, G))
 
 
 def kernel_a16(dev, gen, rows):
@@ -484,8 +519,25 @@ def kernel_a16(dev, gen, rows):
              "(q,k,v,o 4096x4096; up, gate+SiLU 4096x11008; down "
              "11008x4096)",
         mode="W8A16", tolerance=A16_TOL, max_abs_err=max(errs),
-        library=A16_LIB)
+        library=A16_LIB,
+        plan={n: a16_plan(M, K, N, False, 1) for n, K, N, _ in BLOCK})
     del seq
+    # split K is summed in rank order inside the cluster: two launches on
+    # the same inputs are bit-equal (down 11008x4096, S = 7, uneven splits,
+    # 128 outlier channels, SiLU; and packed W4 with 128-row groups)
+    # (own generator: the later phases keep their inputs)
+    own = torch.Generator(device=dev).manual_seed(6)
+    for K, N, w4, G in ((11008, 4096, False, 1), (4096, 11008, True, 32)):
+        (x, w, ws), _ = a16_inputs(dev, own, M, K, N, G, w4)
+        xo = torch.randn(M, 128, generator=own, device=dev).to(torch.bfloat16)
+        wo = (torch.randn(128, N, generator=own, device=dev) * 0.02).to(
+            torch.bfloat16)
+        a, b = (mix_gemm_a16(x, w, ws, xo, wo, fuse="silu") for _ in "ab")
+        torch.cuda.synchronize()
+        check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+              f"mix_gemm_a16 {K}x{N} w4={w4}: two launches differ")
+        block.setdefault("bit_equal_launches", []).append(
+            dict(K=K, N=N, w4=w4, G=G, plan=a16_plan(M, K, N, w4, G)))
     rows["mix_gemm_a16"] = out_rows + [block]
     # row 5: the w8a16_matmul entry (int8, per-channel, no epilogue)
     K = N = 4096
@@ -499,7 +551,8 @@ def kernel_a16(dev, gen, rows):
         lambda c: torch.matmul(x, c), w, wd, K * N,
         a16_bound(M, K, N, 1, False),
         work=f"w8a16_matmul entry, M={M} K={K} N={N}", mode="W8A16",
-        tolerance=A16_TOL, max_abs_err=err, library=A16_LIB)
+        tolerance=A16_TOL, max_abs_err=err, library=A16_LIB,
+        plan=a16_plan(M, K, N, False, 1))
     rows["w8a16_matmul"] = [entry]
     return block, entry
 
@@ -1537,6 +1590,17 @@ def main():
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"  {name}: " + " | ".join(sorted(set(regs)))[:400])
+    A16_PTXAS.update(ptxas_by_mode(ptxas.get("w8a16", "")))
+    for (w4, grouped), r in A16_PTXAS.items():    # no spills on the W8 path
+        check(w4 or " 0 bytes spill stores" in r.get("spills", ""),
+              f"w8a16_kernel<W8, grouped={grouped}> spills: {r}")
+    report["w8a16_ptxas"] = {f"w4={k[0]} grouped={k[1]}": v
+                             for k, v in A16_PTXAS.items()}
+    from mixq_tpu_torch.kernels.w8a16 import _clusters
+    report["w8a16_clusters"] = {f"w4={w4} grouped={g}": _clusters(0, w4, g)
+                                for w4 in (False, True) for g in (False, True)}
+    print(f"  w8a16: clusters of 1..8 blocks the card holds at once "
+          f"(cudaOccupancyMaxActiveClusters): {report['w8a16_clusters']}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
@@ -1564,7 +1628,8 @@ def main():
                      if "beyond_2_ulps" in r else "")
                   + (f", at most {r['beyond_levels']:.3g} probability levels"
                      " of a row" if "beyond_levels" in r else "")
-                  + f" ({r['tolerance']})",
+                  + f" ({r['tolerance']})"
+                  + (f" plan {r['plan']}" if "plan" in r else ""),
                   flush=True)
     report["kernels"] = rows
     torch.cuda.empty_cache()

@@ -47,8 +47,9 @@ from mixq_tpu_torch.kernels.mix_gemm import (int8_matmul_dequant, mix_gemm,
                                              mix_gemm_plain)
 from mixq_tpu_torch.kernels.rmsnorm_quant import (fused_rmsnorm_quant,
                                                   rmsnorm_quant_plain)
-from mixq_tpu_torch.kernels.w8a16 import (dequant_weight, mix_gemm_a16,
-                                          w8a16_matmul, w8a16_plain)
+from mixq_tpu_torch.kernels.w8a16 import (_clusters, _sm_count,
+                                          dequant_weight, mix_gemm_a16,
+                                          plan_a16, w8a16_matmul, w8a16_plain)
 from mixq_tpu_torch.ops import quant as Q
 
 pytestmark = pytest.mark.gpu
@@ -217,7 +218,14 @@ def _a16_operands(cuda, g, M, K, N, G, B, w4):
     (1, 256, 384, 0, 0, False), (70, 512, 400, 0, 0, False),
     (64, 4096, 11008, 0, 0, False), (1, 256, 384, 0, 0, True),
     (70, 512, 400, 0, 16, True), (33, 512, 256, 4, 0, False),
-    (16, 256, 384, 8, 16, True), (64, 4096, 11008, 32, 0, True)])
+    (16, 256, 384, 8, 16, True), (64, 4096, 11008, 32, 0, True),
+    # split K on the H100: 7 splits of 172 stages (uneven) at M = 1; 6 of
+    # 224 over three M tiles, the last ragged; W8 groups of 48 rows inside a
+    # stage; W4 groups of 128 straddling the 224-row splits; W4 groups of
+    # 160 straddling the halves (K/2 = 720) and 23 stages over 8 splits
+    (1, 11008, 4096, 0, 0, False), (130, 14336, 1536, 0, 0, False),
+    (33, 1536, 256, 32, 16, False), (64, 3584, 256, 28, 0, True),
+    (70, 1440, 400, 9, 16, True)])
 @pytest.mark.parametrize("fuse", FUSES)
 def test_a16_gemm(cuda, M, K, N, G, B, w4, fuse):
     g = _gen(M + K + N + G + 1)
@@ -242,6 +250,45 @@ def test_a16_gemm(cuda, M, K, N, G, B, w4, fuse):
     assert mix_gemm_a16.launches == before + 1
     assert (got - w8a16_plain(*ops, fuse, torch.float32)).abs().le(
         1e-5 * S).all()
+
+
+@pytest.mark.parametrize("M,K,N,G,w4", [(64, 11008, 4096, 0, False),
+                                        (130, 14336, 2048, 0, False),
+                                        (64, 3584, 256, 28, True)])
+def test_a16_split_k_is_deterministic(cuda, M, K, N, G, w4):
+    """The S partials are summed in rank order inside the cluster: two
+    launches on the same inputs are bit-equal."""
+    ops = _a16_operands(cuda, _gen(M + K), M, K, N, G, 16, w4)
+    plan = plan_a16(M, N, K, w4, G or 1, _sm_count(0),
+                    _clusters(0, w4, G > 1))
+    assert plan.splits > 1
+    for out_dtype in (torch.float32, torch.bfloat16):
+        a = mix_gemm_a16(*ops, "silu", out_dtype)
+        b = mix_gemm_a16(*ops, "silu", out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("M,K,N", [(512, 4096, 11008), (64, 4096, 4096),
+                                   (1, 3584, 2048)])
+def test_a16_one_launch_per_call(cuda, M, K, N):
+    """One launch per call, whatever the plan (S = 1 at prefill's 688
+    tiles, S > 1 at decode, every cluster of the plan on the card at
+    once), and every split count fits the card as a cluster."""
+    x, w, ws, _, _ = _a16_operands(cuda, _gen(M), M, K, N, 0, 0, False)
+    before = mix_gemm_a16.launches
+    modes = dict(mix_gemm_a16.mode_launches)
+    for i in range(3):
+        mix_gemm_a16(x, w, ws)
+        assert mix_gemm_a16.launches == before + i + 1
+    assert mix_gemm_a16.mode_launches["w8"] == modes["w8"] + 3
+    for w4 in (False, True):
+        for grouped in (False, True):
+            clusters = _clusters(0, w4, grouped)
+            assert all(n > 0 for n in clusters)
+            p = plan_a16(M, N, K, w4, 1 + grouped, _sm_count(0), clusters)
+            assert (p.splits == 1) == (M == 512)
+            assert p.splits == 1 or -(-N // 128) <= clusters[p.splits - 1]
 
 
 def test_w8a16_matmul_entry(cuda):
