@@ -5,7 +5,9 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
-  2. build: the five CUDA kernel libraries from mixq_tpu_torch/csrc, timed;
+  2. build: the six CUDA kernel libraries from mixq_tpu_torch/csrc, timed,
+     with kernel 2's and kernel B's registers and spills (ptxas) and the
+     clusters of 1..8 blocks the card holds at once;
   3. kernels: each kernel, in each mode the main paths run, at Llama-2-7B
      main-path shapes against its plain PyTorch version on the same inputs,
      with the stated tolerance, then its device time on the card (CUPTI,
@@ -13,7 +15,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      operations over the data-sheet peak, whichever is larger), its plain
      version's and, where one exists, that of one PyTorch call computing
      the same function (`library_ms`): fused RMSNorm + quantization (A8 and
-     A4), the int8 GEMM in its W8A8, packed-W4 and grouped modes, the a16
+     A4), the int8 GEMM in its W8A8 (kernel 2: each row with its split-K
+     plan, beside the earlier 64 x 32-tile kernel's time; a prefill-shaped
+     row at M=512; three plans held bit-equal), packed-W4 and grouped
+     modes, the a16
      (weight-only) GEMM with int8 and packed weights, per-channel and
      grouped, with the w8a16_matmul and int8_matmul_dequant entry points
      (each a16 row with its split-K plan, the clusters the card holds and
@@ -59,7 +64,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and over three more steps under torch.profiler the device time per
      step, the device's busy share and the top kernels; for Mistral also
      one step at batch 16 on a window-sized (4096-slot) ring filled past
-     its wrap, every kernel-8 launch held against its plain version.
+     its wrap, every kernel-8 launch held against its plain version; and
+     one prefill of 8 prompts x 64 tokens into a fresh cache (512 rows
+     through every linear), its device ms and wall ms.
 It then prints the kernels line (one entry per ported TPU kernel, and one
 per mode a later slice added to a path: the GEMMs' gelu_new epilogue and
 flash decode's softcap) and, last, the device line. Details go to
@@ -208,7 +215,8 @@ BLOCK = [("q", 4096, 4096, "none"), ("k", 4096, 4096, "none"),
          ("down", 11008, 4096, "none")]
 W4_SLOTS = ("q", "k", "v", "up", "gate")        # W4A4 under the policy
 GEMM_TOL = "1 bf16 ulp + 1e-4 max|y|"
-INT_MM = "torch._int_mm over the int8 weight values (product only)"
+INT_MM = ("torch._int_mm over a column-major copy of the int8 weight (the "
+          "kernels read the row-major [K, N] weight; product only)")
 # f32 operations of an epilogue per output (a transcendental counted as one)
 EPILOGUE_OPS = {"none": 0, "silu": 5, "gelu": 4, "gelu_new": 9}
 GELUS = ("gelu", "gelu_new")
@@ -323,6 +331,9 @@ def gemm_cases(dev, gen, M, Bo, cases):
         errs.append(err)
         q_x, _, xs, ws, xo, wo = ins
         epi = lib_epilogue(fuse)
+        kernel2 = {} if w4 or G > 1 else dict(
+            plan=w8a8_plan(M, K, N),
+            previous_ms=PREV_KERNEL2_MS.get((M, K, N, fuse)))
         out_rows.append(timed_gemm(
             lambda w: mix_gemm(q_x, w, xs, ws, xo, wo, fuse=fuse),
             lambda: mix_gemm_plain(*ins, fuse=fuse),
@@ -330,7 +341,7 @@ def gemm_cases(dev, gen, M, Bo, cases):
             K * N // (2 if w4 else 1), gemm_bound(M, K, N, Bo, G, w4, fuse),
             work=f"{mode} M={M} K={K} N={N} fuse={fuse} B={Bo}", mode=mode,
             tolerance=GEMM_TOL, max_abs_err=err,
-            library=lib_label(INT_MM, fuse)))
+            library=lib_label(INT_MM, fuse), **kernel2))
         del ins, lib_w
     return out_rows, errs
 
@@ -353,7 +364,9 @@ def gemm_block(dev, gen, M, Bo, slots, w4, G_of, **row):
 
 def kernel_mix_gemm(dev, gen, rows):
     """Kernel 2, W8A8: each distinct shape of a block alone, then the block
-    of seven linears (~200 MB of weights)."""
+    of seven linears (~200 MB of weights), each with its split-K plan; then
+    (own generator: the later phases keep their inputs) a prefill-shaped
+    gate (M=512) and the check that three plans give the same bits."""
     M, Bo = 64, 128
     out_rows, errs = gemm_cases(dev, gen, M, Bo, [
         (K, N, f, False, 1) for K, N, f in
@@ -363,9 +376,33 @@ def kernel_mix_gemm(dev, gen, rows):
         mode="W8A8", max_abs_err=max(errs),
         work=f"the 7 linears of one Llama-2-7B block at M={M}, {Bo} "
              "outlier channels each (q,k,v,o 4096x4096; up, gate+SiLU "
-             "4096x11008; down 11008x4096)")
-    rows["mix_gemm"] = out_rows + [blk]
+             "4096x11008; down 11008x4096)",
+        plan={n: w8a8_plan(M, K, N) for n, K, N, _ in BLOCK},
+        previous_ms=PREV_KERNEL2_MS.get("block"))
+    own = torch.Generator(device=dev).manual_seed(7)
+    prefill, _ = gemm_cases(dev, own, 512, Bo, [(4096, 11008, "silu", False,
+                                                  1)])
+    blk["bit_equal_plans"] = kernel2_plans_bit_equal(dev, own)
+    rows["mix_gemm"] = out_rows + [blk] + prefill
     return blk
+
+
+def kernel2_plans_bit_equal(dev, gen):
+    """Kernel 2's split partials are int32 and add exactly, and its outlier
+    term runs the same MMAs at any split: the plan's S, S = 1 and S = 2 give
+    the same bits (down 11008x4096 at M=64, 128 outlier channels, SiLU)."""
+    from mixq_tpu_torch.kernels.mix_gemm import _mix_gemm
+
+    M, K, N = 64, 11008, 4096
+    ins, _ = gemm_inputs(dev, gen, M, K, N, 128)
+    plan = w8a8_plan(M, K, N)
+    splits = sorted({1, 2, plan["splits"]})
+    runs = [_mix_gemm(*ins, "silu", torch.bfloat16, splits=S) for S in splits]
+    torch.cuda.synchronize()
+    for S, r in zip(splits[1:], runs[1:]):
+        check(torch.equal(runs[0].view(torch.uint8), r.view(torch.uint8)),
+              f"mix_gemm W8A8 {K}x{N}: S = {S} differs from S = 1")
+    return dict(K=K, N=N, M=M, splits=splits, plan=plan)
 
 
 def kernel_w4_gemm(dev, gen, rows):
@@ -451,14 +488,67 @@ def ptxas_by_mode(log):
     return out
 
 
+# kernel 2's ptxas report (registers, spills), filled by main()
+W8A8_PTXAS = {}
+# Kernel 2's times before its redesign (the 64 x 32-tile kernel that walked
+# all of K in one block, commit fb5c82e), by (M, K, N, fuse), for the block
+# of seven and for the int8_matmul_dequant row. Not measured in the run that
+# prints them: the mean of two runs of this script on fb5c82e's tree, and
+# for M=512 of two runs of time_prefill.py --package on it, in one chip
+# call each beside the redesigned kernel, on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md's kernel-2 table).
+PREV_KERNEL2_MS = {
+    (64, 4096, 4096, "none"): 0.0546,
+    (64, 4096, 11008, "none"): 0.1166,
+    (64, 4096, 11008, "silu"): 0.1176,
+    (64, 11008, 4096, "none"): 0.1350,
+    "block": 0.5901,
+    (64, 3584, 2048, "none"): 0.0479,
+    (64, 3584, 4096, "none"): 0.0483,
+    (64, 3584, 14336, "gelu_new"): 0.2068,
+    (64, 3584, 14336, "none"): 0.2058,
+    (64, 4096, 3584, "none"): 0.0543,
+    (64, 14336, 3584, "none"): 0.1725,
+    (64, 3584, 14336, "gelu"): 0.2065,
+    "int8_matmul_dequant": 0.0520,
+    (512, 4096, 11008, "silu"): 0.8008,
+}
+
+
+def w8a8_ptxas(log):
+    """Registers and spills of mix_gemm_w8_kernel in a `ptxas -v` log."""
+    out, on = {}, False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            on = "mix_gemm_w8_kernel" in ln
+        elif on and "spill stores" in ln:
+            out["spills"] = ln.strip()
+        elif on and "Used" in ln and "registers" in ln:
+            out["registers"] = int(ln.split("Used", 1)[1].split()[0])
+    return out
+
+
+def w8a8_plan(M, K, N):
+    """Kernel 2's plan for this call (BN, splits S, blocks), the clusters of
+    S blocks the card holds at once, and its ptxas report."""
+    from mixq_tpu_torch.kernels import _build
+    from mixq_tpu_torch.kernels.mix_gemm import _clusters_w8a8, plan_w8a8
+
+    clusters = _clusters_w8a8(0)
+    p = plan_w8a8(M, N, K, _build.sm_count(0), clusters)
+    return dict(bn=p.bn, splits=p.splits, blocks=p.blocks,
+                max_active_clusters=clusters[p.splits - 1], **W8A8_PTXAS)
+
+
 def a16_plan(M, K, N, w4, G):
     """Kernel B's plan for this call (BN, splits S, blocks), the clusters
     of S blocks the card holds at once, and the ptxas report of its
     instantiation."""
-    from mixq_tpu_torch.kernels.w8a16 import _clusters, _sm_count, plan_a16
+    from mixq_tpu_torch.kernels import _build
+    from mixq_tpu_torch.kernels.w8a16 import _clusters, plan_a16
 
     clusters = _clusters(0, w4, G > 1)
-    p = plan_a16(M, N, K, w4, G, _sm_count(0), clusters)
+    p = plan_a16(M, N, K, w4, G, _build.sm_count(0), clusters)
     return dict(bn=p.bn, splits=p.splits, blocks=p.blocks,
                 max_active_clusters=clusters[p.splits - 1],
                 **A16_PTXAS.get((w4, G > 1), {}))
@@ -575,7 +665,9 @@ def kernel_int8_matmul(dev, gen, rows):
         lambda c: torch._int_mm(q_x, c), w, lib_w, K * N,
         gemm_bound(M, K, N, 0),
         work=f"int8_matmul_dequant entry, M={M} K={K} N={N}", mode="W8A8",
-        tolerance=GEMM_TOL, max_abs_err=err, library=INT_MM)
+        tolerance=GEMM_TOL, max_abs_err=err, library=INT_MM,
+        plan=w8a8_plan(M, K, N),
+        previous_ms=PREV_KERNEL2_MS.get("int8_matmul_dequant"))
     rows["int8_matmul_dequant"] = [row]
     return row
 
@@ -1297,13 +1389,19 @@ def reference_check(dev):
     return res
 
 
-def serve(dev, params, cfg, specs, name, kv_dtype):
+def new_engine(dev, params, cfg, specs, kv_dtype):
+    """The engine every serve path runs (prompts padded to 16s)."""
     from mixq_tpu_torch.config import EngineConfig
     from mixq_tpu_torch.engine import InferenceEngine
+
+    return InferenceEngine(params, cfg, specs, EngineConfig(
+        max_seq_len=2048, prefill_chunk=16, kv_dtype=kv_dtype), device=dev)
+
+
+def serve(dev, params, cfg, specs, name, kv_dtype):
     from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    eng = InferenceEngine(params, cfg, specs, EngineConfig(
-        max_seq_len=2048, prefill_chunk=16, kv_dtype=kv_dtype), device=dev)
+    eng = new_engine(dev, params, cfg, specs, kv_dtype)
     g = torch.Generator().manual_seed(2)
     lens = [5, 9, 13, 17, 21, 26, 30, 37]
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
@@ -1327,6 +1425,36 @@ def serve(dev, params, cfg, specs, name, kv_dtype):
         f"{name} serve")
     return eng, dict(prompts=lens, new_tokens=new, tokens_shape=[8, new],
                      wall_s=wall, launches=counts, first_row=out[0][:8])
+
+
+def prefill_timing(dev, eng, cfg, B=8, T=64, n=3):
+    """One prefill of B prompts x T tokens (M = B*T = 512 rows through
+    every linear) into a fresh cache: device ms per prefill (CUPTI, over n
+    after a warm-up) and wall ms per prefill (over n more). The tokens come
+    from a generator of their own, so the later phases keep their
+    inputs."""
+    own = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(1, cfg.vocab_size, (B, T), generator=own,
+                           device=dev)
+    cache = eng.new_cache(B, 128)
+    out = {}
+
+    def run():
+        cache.length = 0                # fresh: the prefill writes [0, T)
+        out["logits"], _ = eng.prefill(tokens, cache)
+
+    dev_ms = device_ms(run, n, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    logits = out.pop("logits")
+    check(tuple(logits.shape) == (B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    return dict(batch=B, tokens=T, rows=B * T, device_ms=dev_ms,
+                wall_ms=wall * 1e3)
 
 
 def tensor_bytes(obj):
@@ -1503,7 +1631,8 @@ MODELS = {"Llama-2-7B": llama2_7b, "Gemma-2-9B": gemma2_9b,
 # the kernels line: one entry per ported TPU kernel (a row of PERF.md's
 # table) and per mode a later slice added to a path: (name, source module,
 # REPLACES attribute, phase-3 row key, launch-count keys, the serve runs
-# whose counts are summed: None for all of them)
+# whose counts are summed: None for all of them); the module's SOURCE, or
+# SOURCE_W8 for kernel 2's rows (SOURCE_ATTR)
 KERNEL_ROWS = [
     ("rmsnorm_quant", "rmsnorm_quant", "REPLACES", "rmsnorm_quant",
      ("rmsnorm_quant",), None),
@@ -1530,6 +1659,9 @@ KERNEL_ROWS = [
     ("decode_attention", "decode_attention", "REPLACES", "decode_attention",
      ("decode_attention",), None),
 ]
+SOURCE_ATTR = dict.fromkeys(
+    ("mix_gemm_w8a8", "int8_matmul_dequant", "mix_gemm_w8a8_gelu_new"),
+    "SOURCE_W8")
 KERNEL_NOTES = {
     "w8a16_matmul": "launches: the a16 kernel's int8 per-channel mode, "
                     "which computes this entry's function",
@@ -1601,6 +1733,15 @@ def main():
                                 for w4 in (False, True) for g in (False, True)}
     print(f"  w8a16: clusters of 1..8 blocks the card holds at once "
           f"(cudaOccupancyMaxActiveClusters): {report['w8a16_clusters']}")
+    W8A8_PTXAS.update(w8a8_ptxas(ptxas.get("mix_gemm_w8", "")))
+    if W8A8_PTXAS:               # a library built before reports "(cached)"
+        check(" 0 bytes spill stores" in W8A8_PTXAS.get("spills", ""),
+              f"mix_gemm_w8_kernel spills: {W8A8_PTXAS}")
+    from mixq_tpu_torch.kernels.mix_gemm import _clusters_w8a8
+    report["w8a8_ptxas"] = W8A8_PTXAS
+    report["w8a8_clusters"] = _clusters_w8a8(0)
+    print(f"  mix_gemm_w8: {W8A8_PTXAS}; clusters of 1..8 blocks the card "
+          f"holds at once: {report['w8a8_clusters']}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
@@ -1629,7 +1770,10 @@ def main():
                   + (f", at most {r['beyond_levels']:.3g} probability levels"
                      " of a row" if "beyond_levels" in r else "")
                   + f" ({r['tolerance']})"
-                  + (f" plan {r['plan']}" if "plan" in r else ""),
+                  + (f" plan {r['plan']}" if "plan" in r else "")
+                  + (f" earlier kernel {r['previous_ms']:.4f} ms (fb5c82e,"
+                     " not measured in this run)"
+                     if r.get("previous_ms") else ""),
                   flush=True)
     report["kernels"] = rows
     torch.cuda.empty_cache()
@@ -1653,6 +1797,8 @@ def main():
         # the f32 head the engine widened once, held for its life
         path["head_f32_gib"] = tensor_bytes(eng.head_f32) / 2 ** 30
         print(f"serve {label}: {path['serve']}", flush=True)
+        path["prefill"] = prefill_timing(dev, eng, cfg)
+        print(f"prefill {label}: {path['prefill']} on {card}", flush=True)
         path["decode"] = decode_timing(dev, eng, cfg, gen, tag, name)
         decode = {k: v for k, v in path["decode"].items()
                   if k != "top_kernels_us_per_step"}
@@ -1668,6 +1814,7 @@ def main():
 
     kernels = []
     for name, mod, attr, row, keys, labels in KERNEL_ROWS:
+        source = getattr(MODULES[mod], SOURCE_ATTR.get(name, "SOURCE"))
         r = main_rows[row]
         n = sum(p["serve"]["launches"][k]
                 for label, p in report["paths"].items()
@@ -1675,7 +1822,7 @@ def main():
         check(n > 0, f"{name}: no launch on the main paths")
         kernels.append({
             "name": name, "mode": r["mode"], "route": "cuda",
-            "source": MODULES[mod].SOURCE,
+            "source": source,
             "replaces": getattr(MODULES[mod], attr), "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -1,20 +1,21 @@
-// Int8-activation mixed-precision GEMM with the fused MixQ epilogue, in four
-// modes (a template over <W4, GROUPED>):
-//   per-channel: y = float(sum_k q_x[m,k] * w[k,n]) * x_scale[m] * w_scale[n]
-//   grouped:     y = (sum_g float(acc_g[m,n]) * w_scale[g,n]) * x_scale[m],
+// Int8-activation mixed-precision GEMM with the fused MixQ epilogue (kernel
+// A), a template over <W4, GROUPED> in three modes:
+//   W4 per-channel: y = float(sum_k q_x[m,k] * w[k,n]) * x_scale[m]
+//                   * w_scale[n]
+//   grouped (W4 or W8):
+//                y = (sum_g float(acc_g[m,n]) * w_scale[g,n]) * x_scale[m],
 //                acc_g the exact int32 sum over the K rows of group g
 //   then + sum_b x_out[m,b] * w_out[b,n] (fp outlier channels), the
 //   activation epilogue (none, SiLU, exact GELU or tanh GELU "gelu_new";
 //   csrc/epilogue.cuh), and the cast to bf16 or f32.
 // The weight is int8 [K, N] (W8) or packed int4 uint8 [K/2, N] (W4) in the
 // halves layout of ops/quant.py::pack_int4: packed row p holds K-row p in
-// its low nibble and K-row K/2 + p in its high nibble.
+// its low nibble and K-row K/2 + p in its high nibble. The W8 per-channel
+// mode (kernel 2) is csrc/mix_gemm_w8.cu; mix_gemm_launch refuses it.
 //
 // Replaces: mixq_tpu/ops/pallas/mix_gemm.py::mix_gemm with an int8
-// activation: the W8A8 mode (`_kernel`/`_kernel_outlier` plain dot), the
-// packed-W4 mode (`_unpack_w4`) and grouped scales (`_grouped_int8_dot`),
-// and with them ops/pallas/int8_matmul.py, whose contract is the W8A8
-// subset.
+// activation: the packed-W4 mode (`_unpack_w4`) and grouped scales
+// (`_grouped_int8_dot`).
 //
 // Bound on the card: at decode (M = batch <= a few hundred) the weight read
 // dominates: K*N bytes for W8 (11008 x 4096: 45 MB, 13.5 us at 3.35 TB/s),
@@ -340,7 +341,8 @@ int launch(const void* qx, const void* w, const void* xs, const void* ws,
 
 }  // namespace
 
-// w4: the weight is packed uint8 [K/2, N]; G > 1: w_scale is [G, N];
+// w4: the weight is packed uint8 [K/2, N]; G > 1: w_scale is [G, N] (W8
+// takes only G > 1 here);
 // fuse: the epilogue's code (mixq::Epilogue, csrc/epilogue.cuh).
 extern "C" int mix_gemm_launch(const void* qx, const void* w, const void* xs,
                                const void* ws, const void* xo, const void* wo,
@@ -354,8 +356,7 @@ extern "C" int mix_gemm_launch(const void* qx, const void* w, const void* xs,
                                       gs, fuse, out_f32, st)
                  : launch<true, false>(qx, w, xs, ws, xo, wo, out, M, N, K,
                                        bo, gs, fuse, out_f32, st);
-  return G > 1 ? launch<false, true>(qx, w, xs, ws, xo, wo, out, M, N, K, bo,
-                                     gs, fuse, out_f32, st)
-               : launch<false, false>(qx, w, xs, ws, xo, wo, out, M, N, K, bo,
-                                      gs, fuse, out_f32, st);
+  if (G == 1) return (int)cudaErrorInvalidValue;   // csrc/mix_gemm_w8.cu
+  return launch<false, true>(qx, w, xs, ws, xo, wo, out, M, N, K, bo, gs,
+                             fuse, out_f32, st);
 }

@@ -1,0 +1,647 @@
+// Kernel 2: the W8A8 mix-GEMM (int8 activations, an int8 [K, N] weight,
+// per-channel scales) with the fused MixQ epilogue, for decode:
+//   acc[m,n] = sum_k q_x[m,k] * w[k,n]                   (int32, exact)
+//   y = float(acc) * x_scale[m] * w_scale[n]            (f32, JAX's order)
+//       + sum_b x_out[m,b] * w_out[b,n]   (fp outlier channels, optional;
+//                                          bf16 operands, f32 sum)
+//   then the activation epilogue (none, SiLU, exact GELU or tanh GELU
+//   "gelu_new"; csrc/epilogue.cuh) and the cast to bf16 or f32.
+//
+// Replaces: mixq_tpu/ops/pallas/mix_gemm.py::mix_gemm in its W8A8 mode
+// (int8 activation and weight, [N] scale: the plain int32 dot of
+// `_kernel`/`_kernel_outlier`), and with it
+// mixq_tpu/ops/pallas/int8_matmul.py::int8_matmul_dequant, whose contract
+// is that mode's. The packed-W4 and grouped modes stay in csrc/mix_gemm.cu.
+//
+// Bound on the card: at decode (M = batch <= a few hundred) the weight
+// read, K*N bytes: Llama-2-7B's 4096 x 11008 is 45 MB, 13.5 us at
+// 3.35 TB/s, against 2*M*K*N = 5.8 GOP, 2.9 us at the int8 tensor-core
+// peak for M = 64. So HBM must stay busy: enough weight bytes in flight on
+// every SM, and no serial walk of one block over all of K.
+//
+// Design:
+// - Output tiles of BM x BN = 64 x 128, 8 warps: warp w owns the 32
+//   columns [32 (w & 3), +32) of all live rows, and of each 64-row stage
+//   the k32 step (w >> 2); the two K-halves of the block add in shared
+//   memory (int32, exact). The kernel is instantiated for 1-4 live 16-row
+//   M-tiles, so rows past M cost no MMA (one cluster shares blockIdx.y).
+// - Split-K: the grid is N-tiles x M-tiles x S, and the S blocks of one
+//   output tile form one thread-block cluster (1, 1, S), S <= 8. Split z
+//   walks whole stages: T stages split as T/S, one more for the first
+//   T % S splits (kernels/mix_gemm.py::plan_w8a8 picks S and computes the
+//   same bounds). Each block leaves its int32 partial tile in its own
+//   shared memory. Rank z owns the n8 tiles [16 z / S, 16 (z+1) / S) of
+//   the output tile: after a cluster barrier it sums the S partials there
+//   through distributed shared memory (int32: exact in any order;
+//   |acc| <= 127 * 127 * K < 2^31 for K < 133,000), converts once, scales,
+//   adds the outlier term, applies the epilogue and stores, 4 columns a
+//   thread (16-byte loads, coalesced stores, one copy of the epilogue's
+//   code). One launch, no workspace, no atomics, and the result does not
+//   depend on S. The row and column scales are loaded into registers
+//   before the main loop and staged beside the partial after it.
+// - A 4-stage cp.async ring (16-byte copies, addresses computed once per
+//   block), one barrier per stage. A stage holds KSTEP = 128 weight rows
+//   w[k0 : k0 + 128, n0 : n0 + 128], whole 128-byte lines at a 144-byte
+//   pitch, and the A tile q_x[m0 : m0 + 64, k0 : k0 + 128] at a 144-byte
+//   pitch (ldmatrix rows on 8 distinct bank quads). 3 stages ahead: 48 KB
+//   of weight in flight per block, one block per SM (162 KB of shared
+//   memory). Chosen over 64-row stages (two blocks per SM, 24 KB each in
+//   flight) by the time measured at decode shapes under the same plan
+//   rule (PERF.md): the deeper stages halve the barriers per byte, and the
+//   plan lands on fewer splits, so less partial tile crosses the cluster.
+//   At prefill (M = 512) the 64-row stages were faster.
+// - MMA: mma.sync.m16n8k32.s32.s8.s8.s32; A fragments by ldmatrix.x4. The
+//   weight is N-major ([K, N] row-major, the JAX layout) while the MMA
+//   wants 4 consecutive k of one n in a register, and ldmatrix.trans moves
+//   only 16-bit elements. So a warp's four n8 tiles are interleaved (tile
+//   j, column n -> 32 (w & 3) + 4 n + j): one 32-bit load of a weight row
+//   gives a thread its column in all four tiles, and four rows (k..k+3)
+//   through a 4x4 byte transpose (8 prmt) give one B register for each
+//   tile, which feeds every live M-tile. The 16-byte chunks of rows 8-15
+//   of every 16 are stored with chunk index ^ 2, so those loads hit 32
+//   distinct banks.
+// - The outlier term: x_out [live rows, 128] and rank z's columns of
+//   w_out [128, n8 tiles of z] load with the ring's third cp.async group
+//   (in the first, they held up the first stage at decode shapes).
+//   After the main loop, before the cluster barrier (while the other ranks
+//   finish their splits), each warp takes (M-tile, n8 tile) units of its
+//   rank's share and runs mma.sync.m16n8k16 bf16 -> f32 over the channels
+//   (ldmatrix.x4, ldmatrix.x2.trans), in the same order whatever S is, and
+//   leaves the f32 result in a staging tile over the outlier tiles. A
+//   budget above 128 channels goes in chunks of 128 through the same
+//   tiles, loaded after the main loop.
+// - The scales in JAX's order with non-contractible multiplies/adds
+//   (__fmul_rn, __fadd_rn), so the epilogue rounds as the f32 reference.
+//
+// Requirements (checked by the Python wrapper): K % 16 == 0, N % 16 == 0,
+// Bo % 16 == 0, 16-byte aligned operands, 1 <= S <= 8. M, N edges and a K
+// tail inside the last stage are masked by zero-filled loads and guarded
+// stores. The launcher returns cudaGetLastError(); it allocates nothing
+// and does not synchronize.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
+#include "epilogue.cuh"
+#include "launch.cuh"
+
+using mixq::cp_async16;
+using mixq::cp_async_commit;
+using mixq::cp_async_wait;
+
+namespace {
+
+// KSTEP: K-rows of one ring stage, a multiple of 64 (each warp quad takes
+// half of every stage's k32 steps); mirrored with BM, BN, STAGES,
+// MAX_SPLITS and the blocks an SM holds (MIN_BLOCKS) in kernels/mix_gemm.py
+// (W8_*).
+constexpr int BM = 64, BN = 128, KSTEP = 128, STAGES = 4;
+constexpr int THREADS = 256, MAX_SPLITS = 8;
+constexpr int OB = 128;                   // outlier channels per chunk
+constexpr int A_PITCH = KSTEP + 16;       // bytes
+constexpr int W_PITCH = BN + 16;          // bytes
+constexpr int C_PITCH = BN + 4;           // int32: the partial tile
+constexpr int O_PITCH = 128 + 8;          // bf16: x_out and w_out tiles
+constexpr int Y_PITCH = BN + 8;           // f32: the outlier results
+constexpr int A_BYTES = BM * A_PITCH;
+constexpr int STAGE = A_BYTES + KSTEP * W_PITCH;
+constexpr int RING = STAGES * STAGE;
+constexpr int PARTIAL = BM * C_PITCH * 4;
+constexpr int XO_BYTES = BM * O_PITCH * 2;
+constexpr int SMEM = RING + XO_BYTES + OB * O_PITCH * 2;
+// blocks an SM holds: 228 KB of shared memory, 1 KB of it reserved a block
+constexpr int MIN_BLOCKS = 1;
+static_assert(2 * (SMEM + 1024) > 228 * 1024, "two blocks would fit an SM");
+static_assert(KSTEP % 64 == 0, "a stage is whole k32 steps of both quads");
+static_assert(OB == 128 && BN == 128, "the outlier tiles share O_PITCH");
+static_assert(PARTIAL + (BM + BN) * 4 <= RING,
+              "the partial tile and the scales reuse the ring");
+static_assert(BM * Y_PITCH * 4 <= SMEM - RING,
+              "the outlier results reuse the outlier tiles");
+
+struct Args {
+  const int8_t* qx;         // [M, K]
+  const int8_t* w;          // [K, N]
+  const float* xs;          // [M]
+  const float* ws;          // [N]
+  const __nv_bfloat16* xo;  // [M, Bo] / null
+  const __nv_bfloat16* wo;  // [Bo, N] / null
+  void* out;                // [M, N]
+  int M, N, K, Bo, fuse, out_f32;
+};
+
+// This thread's share of every stage's copies, addressed once per block:
+// A chunk t % ACH of rows t / ACH + AROWS i (rows past the MT live M-tiles
+// are never read and not copied), weight chunk t & 7 of rows t / 8 + 32 i.
+template <int MT>
+struct Loader {
+  static constexpr int ACH = KSTEP / 16;            // 16-byte chunks a row
+  static constexpr int AROWS = THREADS / ACH;
+  static constexpr int ACOPIES = (MT * 16 + AROWS - 1) / AROWS;
+  static constexpr int WCOPIES = KSTEP / (THREADS / 8);
+  const int8_t* qx;
+  const int8_t* w;
+  const int8_t* a_src;      // row t / ACH (or row 0 past M), chunk t % ACH
+  const int8_t* w_src;      // row t / 8, columns n0 + 16 (t & 7)
+  int a_k, a_row, w_row, w_dst, M, N, K;
+  bool w_ok;
+
+  __device__ __forceinline__ Loader(const Args& a, int m0, int n0)
+      : qx(a.qx), w(a.w), M(a.M - m0), N(a.N), K(a.K) {
+    const int t = threadIdx.x, ch = t & 7;
+    a_row = t / ACH;
+    a_k = (t % ACH) * 16;
+    a_src = a.qx + (size_t)m0 * K + a_k;
+    w_row = t / 8;
+    w_ok = n0 + ch * 16 < N;
+    w_src = a.w + (size_t)w_row * N + n0 + ch * 16;
+    // chunk index ^ 2 in rows 8-15 of every 16 (bit 3 of the row)
+    w_dst = A_BYTES + w_row * W_PITCH + ((ch ^ ((w_row >> 2) & 2)) * 16);
+  }
+
+  __device__ __forceinline__ void issue(unsigned char* st, int s) const {
+    const bool k_ok = s + a_k < K;
+#pragma unroll
+    for (int i = 0; i < ACOPIES; ++i) {
+      const int r = a_row + AROWS * i;
+      if (r < MT * 16) {
+        const bool ok = k_ok && r < M;
+        cp_async16(st + r * A_PITCH + a_k,
+                   ok ? a_src + (size_t)r * K + s : qx, ok);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WCOPIES; ++i) {
+      const bool ok = w_ok && s + w_row + 32 * i < K;
+      cp_async16(st + w_dst + 32 * i * W_PITCH,
+                 ok ? w_src + (size_t)(s + 32 * i) * N : w, ok);
+    }
+  }
+};
+
+// x_out[m0 : m0 + 16 MT, c0 : c0 + 128] and w_out[c0 : c0 + 128, the n8
+// tiles [lo, hi) of the output tile] into their tiles (a chunk of fewer
+// channels at the budget's end), as cp.async copies of this thread.
+template <int MT>
+__device__ __forceinline__ void load_outliers(const Args& a,
+                                              __nv_bfloat16* XOs,
+                                              __nv_bfloat16* WOs, int m0,
+                                              int n0, int lo, int hi,
+                                              int c0) {
+  const int cb = min(OB, a.Bo - c0), bch = cb / 8;
+  for (int i = threadIdx.x; i < MT * 16 * bch; i += THREADS) {
+    const int r = i / bch, ch = i % bch;
+    const bool ok = m0 + r < a.M;
+    cp_async16(XOs + r * O_PITCH + ch * 8,
+               ok ? a.xo + (size_t)(m0 + r) * a.Bo + c0 + ch * 8 : a.xo, ok);
+  }
+  const int nch = hi - lo;
+  for (int i = threadIdx.x; i < cb * nch; i += THREADS) {
+    const int b = i / nch, nt = lo + i % nch;
+    const bool ok = n0 + nt * 8 < a.N;
+    cp_async16(WOs + b * O_PITCH + nt * 8,
+               ok ? a.wo + (size_t)(c0 + b) * a.N + n0 + nt * 8 : a.wo, ok);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* smem) {
+  const unsigned p = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
+                                                  const void* smem) {
+  const unsigned p = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(p));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The cluster barrier in two halves, so work can go between them: arrive
+// releases this thread's shared-memory accesses, wait acquires every
+// thread's in the cluster.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of shared-memory address `at` in cluster rank `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t at, int rank) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d)
+               : "r"(at), "r"(rank));
+  return d;
+}
+
+// 16 bytes of a cluster rank's shared memory when `pred`, else zeros.
+__device__ __forceinline__ int4 ld_cluster_if(bool pred, uint32_t at) {
+  int4 v = make_int4(0, 0, 0, 0);
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %4, 0;\n"
+      " @p ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%5];\n}\n"
+      : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w)
+      : "r"((int)pred), "r"(at));
+  return v;
+}
+
+// {bf16(lo), bf16(hi)}, each rounded to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// The B fragments of one k16 half for this thread's four n8 tiles: u[i] is
+// weight row 4q + i at the thread's 4 interleaved columns (byte j: tile
+// j); b[j] gets byte j of u[0..3], i.e. rows 4q..4q+3 of tile j's column.
+__device__ __forceinline__ void transpose4x4(const uint32_t (&u)[4],
+                                             uint32_t (&b)[4]) {
+  const uint32_t lo01 = __byte_perm(u[0], u[1], 0x5140);
+  const uint32_t hi01 = __byte_perm(u[0], u[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(u[2], u[3], 0x5140);
+  const uint32_t hi23 = __byte_perm(u[2], u[3], 0x7362);
+  b[0] = __byte_perm(lo01, lo23, 0x5410);
+  b[1] = __byte_perm(lo01, lo23, 0x7632);
+  b[2] = __byte_perm(hi01, hi23, 0x5410);
+  b[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// A thread's chunks of the staging tile through the epilogue FUSE into
+// out: chunk k is tile row r0 + k * rpp (row gm0 + k * rpp of out),
+// columns [c, c + 4) (gn .. gn + 3 of out).
+template <int FUSE>
+__device__ __forceinline__ void finish(const Args& a, const float* Ys,
+                                       int gm0, int r0, int rpp, int nk,
+                                       int gn, int c) {
+  for (int k = 0; k < nk; ++k) {
+    const float4 v = *reinterpret_cast<const float4*>(
+        Ys + (r0 + k * rpp) * Y_PITCH + c);
+    float y[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[e] = mixq::apply_epilogue(y[e], FUSE);
+    const size_t idx = (size_t)(gm0 + k * rpp) * a.N + gn;
+    if (a.out_f32) {
+      *reinterpret_cast<float4*>(reinterpret_cast<float*>(a.out) + idx) =
+          make_float4(y[0], y[1], y[2], y[3]);
+    } else {
+      uint2 o;
+      o.x = pack_bf16(y[0], y[1]);
+      o.y = pack_bf16(y[2], y[3]);
+      *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(a.out) +
+                                idx) = o;
+    }
+  }
+}
+
+// One output tile's split, MT live 16-row M-tiles (1-4).
+template <int MT>
+__device__ __forceinline__ void gemm_tile(const Args& a,
+                                          unsigned char* smem) {
+  const int S = gridDim.z, z = blockIdx.z;   // the cluster is (1, 1, S)
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wn = warp & 3, wk = warp >> 2;
+  const int g = lane >> 2, q = lane & 3;
+
+  // this split's stages: T / S each, one more for the first T % S
+  const int T = (a.K + KSTEP - 1) / KSTEP;
+  const int first = z * (T / S) + min(z, T % S);
+  const int count = T / S + (z < T % S ? 1 : 0);
+  // this rank's n8 tiles of the output tile (reduction and outlier term)
+  const int lo = z * (BN / 8) / S, hi = (z + 1) * (BN / 8) / S;
+  __nv_bfloat16* XOs = reinterpret_cast<__nv_bfloat16*>(smem + RING);
+  __nv_bfloat16* WOs = XOs + BM * O_PITCH;
+  const bool has_out = a.xo != nullptr && a.Bo > 0;
+
+  // x_scale of tile row t (t < BM) or w_scale of tile column t - BM, held
+  // through the main loop (its load latency hides there)
+  float scale = 0.f;
+  {
+    const int t = threadIdx.x;
+    if (t < BM) {
+      if (m0 + t < a.M) scale = a.xs[m0 + t];
+    } else if (t < BM + BN && n0 + t - BM < a.N) {
+      scale = a.ws[n0 + t - BM];
+    }
+  }
+  const Loader<MT> ld(a, m0, n0);
+  // stages 0..2, a cp.async group each; the outlier tiles join the third,
+  // so the first stage's wait does not include them
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < count) ld.issue(smem + i * STAGE, (first + i) * KSTEP);
+    if (i == STAGES - 2 && has_out)
+      load_outliers<MT>(a, XOs, WOs, m0, n0, lo, hi, 0);
+    cp_async_commit();
+  }
+
+  int acc[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0;
+
+  // the thread's 4 interleaved columns, in the swizzled chunk of its rows
+  // (rows 4q..4q+3 have bit 3 = bit 1 of q)
+  const int wcol = (32 * wn + 4 * g) ^ ((q & 2) << 4);
+  for (int kt = 0; kt < count; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();      // stage kt landed; slot (kt - 1) % STAGES is free
+    const int nk = kt + STAGES - 1;
+    if (nk < count)
+      ld.issue(smem + (nk % STAGES) * STAGE, (first + nk) * KSTEP);
+    cp_async_commit();
+
+    const unsigned char* st = smem + (kt % STAGES) * STAGE;
+#pragma unroll
+    for (int h2 = 0; h2 < KSTEP / 64; ++h2) {
+      const int ks = wk * (KSTEP / 64) + h2;     // this warp's k32 step
+      uint32_t b[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned char* p =
+            st + A_BYTES + (32 * ks + 16 * h + 4 * q) * W_PITCH + wcol;
+        uint32_t u[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          u[i] = *reinterpret_cast<const uint32_t*>(p + i * W_PITCH);
+        transpose4x4(u, b[h]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t af[4];
+        ldmatrix_x4(af, st + (mt * 16 + (lane & 15)) * A_PITCH + 32 * ks +
+                            (lane >> 4) * 16);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8(acc[mt][j], af, b[0][j], b[1][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();            // the ring is free: the partial goes there
+
+  // the block's partial: K-half 0 + K-half 1, in shared memory, and beside
+  // it the scales of the tile's rows and columns. Tile j's column n is
+  // column 32 wn + 4 n + j, so acc[mt][0..3][e] are 4 adjacent columns:
+  // one 16-byte store (the 132-word pitch puts a quarter-warp's stores on
+  // 32 distinct banks).
+  int* Cs = reinterpret_cast<int*>(smem);
+  float* Ss = reinterpret_cast<float*>(smem + PARTIAL);
+  if (threadIdx.x < BM + BN) Ss[threadIdx.x] = scale;
+  for (int pass = 1; pass >= 0; --pass) {
+    if (wk == pass) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int4* c = reinterpret_cast<int4*>(
+              Cs + (mt * 16 + g + 8 * (e >> 1)) * C_PITCH + wn * 32 + 8 * q +
+              4 * (e & 1));
+          int4 v = make_int4(acc[mt][0][e], acc[mt][1][e], acc[mt][2][e],
+                             acc[mt][3][e]);
+          if (!pass) {
+            const int4 h = *c;
+            v.x += h.x;
+            v.y += h.y;
+            v.z += h.z;
+            v.w += h.w;
+          }
+          *c = v;
+        }
+    }
+    if (pass) __syncthreads();
+  }
+  if (S > 1) cluster_arrive();  // barrier 1: my partial is in place
+
+  // The outlier term of this rank's share, while the other ranks finish
+  // their splits: unit u is M-tile u % MT of n8 tile lo + u / MT, on warp
+  // u % 8; its f32 result goes to the staging tile (over the outlier
+  // tiles: f32 [BM][Y_PITCH], the share's results before the epilogue).
+  float* Ys = reinterpret_cast<float*>(smem + RING);
+  if (has_out) {
+    constexpr int MAX_UNITS = 2 * MT;          // a warp's units at S = 1
+    const int units = MT * (hi - lo);
+    float o[MAX_UNITS][4];
+#pragma unroll
+    for (int i = 0; i < MAX_UNITS; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+    for (int c0 = 0; c0 < a.Bo; c0 += OB) {    // channel chunks of 128
+      if (c0 > 0) {
+        __syncthreads();      // every warp is done with the last chunk
+        load_outliers<MT>(a, XOs, WOs, m0, n0, lo, hi, c0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      const int kbs = min(OB, a.Bo - c0) / 16;
+#pragma unroll
+      for (int i = 0; i < MAX_UNITS; ++i) {
+        const int u = warp + 8 * i;
+        if (u < units) {
+          const int mt = u % MT, nt = lo + u / MT;
+          for (int kb = 0; kb < kbs; ++kb) {
+            uint32_t af[4], b0, b1;
+            ldmatrix_x4(af, XOs + (mt * 16 + (lane & 15)) * O_PITCH +
+                                kb * 16 + (lane >> 4) * 8);
+            ldmatrix_x2_trans(b0, b1,
+                              WOs + (kb * 16 + (lane & 15)) * O_PITCH +
+                                  nt * 8);
+            mma_bf16(o[i], af, b0, b1);
+          }
+        }
+      }
+    }
+    __syncthreads();          // every warp is past the outlier tiles
+#pragma unroll
+    for (int i = 0; i < MAX_UNITS; ++i) {
+      const int u = warp + 8 * i;
+      if (u < units) {
+        float* y = Ys + ((u % MT) * 16 + g) * Y_PITCH + (lo + u / MT) * 8 +
+                   2 * q;
+        *reinterpret_cast<float2*>(y) = make_float2(o[i][0], o[i][1]);
+        *reinterpret_cast<float2*>(y + 8 * Y_PITCH) =
+            make_float2(o[i][2], o[i][3]);
+      }
+    }
+  }
+  __syncthreads();            // the staging tile (and at S = 1 the partial)
+  if (S > 1) cluster_wait();  // every rank's partial is in place
+
+  // Rank z's share, 4 columns a thread: chunk k of this thread is row
+  // r0 + k * rpp, columns [c, c + 4). The S partials of each chunk summed
+  // (int32, exact) through distributed shared memory, rank by rank with
+  // all the thread's chunks in flight; then converted once, scaled in JAX's
+  // order, plus the outlier term, into the staging tile; then, the peers'
+  // tiles released, the epilogue and the store.
+  constexpr int MAX_CHUNKS = 2 * MT;           // a thread's chunks at S = 1
+  const int cols4 = (hi - lo) * 2;             // 4-column chunks a row
+  const int rpp = THREADS / cols4;             // rows a pass
+  const int r0 = threadIdx.x / cols4, c = lo * 8 + (threadIdx.x % cols4) * 4;
+  const int live = min(MT * 16, a.M - m0);
+  const int nk = threadIdx.x < rpp * cols4 && r0 < live
+                     ? (live - r0 + rpp - 1) / rpp : 0;
+  // chunk k's sum of partials, converted, scaled, plus the outlier term,
+  // into the staging tile
+  auto stage = [&](int k, const int4& sum) {
+    const int r = r0 + k * rpp;
+    const float xsv = Ss[r];
+    const float4 wsv = *reinterpret_cast<const float4*>(Ss + BM + c);
+    float4* y = reinterpret_cast<float4*>(Ys + r * Y_PITCH + c);
+    float4 v = make_float4(__fmul_rn(__fmul_rn((float)sum.x, xsv), wsv.x),
+                           __fmul_rn(__fmul_rn((float)sum.y, xsv), wsv.y),
+                           __fmul_rn(__fmul_rn((float)sum.z, xsv), wsv.z),
+                           __fmul_rn(__fmul_rn((float)sum.w, xsv), wsv.w));
+    if (has_out) {
+      const float4 o = *y;
+      v.x = __fadd_rn(v.x, o.x);
+      v.y = __fadd_rn(v.y, o.y);
+      v.z = __fadd_rn(v.z, o.z);
+      v.w = __fadd_rn(v.w, o.w);
+    }
+    *y = v;
+  };
+  const int* mine = Cs + r0 * C_PITCH + c;
+  if (S == 1) {
+#pragma unroll
+    for (int k = 0; k < MAX_CHUNKS; ++k)
+      if (k < nk)
+        stage(k, *reinterpret_cast<const int4*>(mine + k * rpp * C_PITCH));
+  } else {
+    // S > 1 leaves a thread at most 4 chunks. Predicated loads keep four
+    // ranks' loads in flight at once (a branch per load would wait on
+    // each; all eight ranks unrolled spill at two blocks an SM's 128
+    // registers).
+    constexpr int KS = MAX_CHUNKS < 4 ? MAX_CHUNKS : 4;
+    int4 sum[KS];
+#pragma unroll
+    for (int k = 0; k < KS; ++k) sum[k] = make_int4(0, 0, 0, 0);
+    const uint32_t at = (uint32_t)__cvta_generic_to_shared(mine);
+#pragma unroll 4
+    for (int p = 0; p < MAX_SPLITS; ++p) {
+      const uint32_t base = map_rank(at, p < S ? p : 0);
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        const int4 v = ld_cluster_if(p < S && k < nk,
+                                     base + k * rpp * C_PITCH * 4);
+        sum[k].x += v.x;
+        sum[k].y += v.y;
+        sum[k].z += v.z;
+        sum[k].w += v.w;
+      }
+    }
+    cluster_arrive();         // barrier 2: done reading the peers' tiles
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      if (k < nk) stage(k, sum[k]);
+  }
+  if (n0 + c < a.N) {
+    // one branch a block: an epilogue switched per element is if-converted,
+    // and every element would pay for expf, erfcf and tanhf
+    const int gm0 = m0 + r0, gn = n0 + c;
+    switch (a.fuse) {
+      case mixq::kSilu:
+        finish<mixq::kSilu>(a, Ys, gm0, r0, rpp, nk, gn, c);
+        break;
+      case mixq::kGelu:
+        finish<mixq::kGelu>(a, Ys, gm0, r0, rpp, nk, gn, c);
+        break;
+      case mixq::kGeluNew:
+        finish<mixq::kGeluNew>(a, Ys, gm0, r0, rpp, nk, gn, c);
+        break;
+      default:
+        finish<mixq::kNone>(a, Ys, gm0, r0, rpp, nk, gn, c);
+    }
+  }
+  if (S > 1) cluster_wait();  // the peers are done reading my tile
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+mix_gemm_w8_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  switch (min(BM, a.M - (int)blockIdx.y * BM + 15) / 16) {
+    case 1: gemm_tile<1>(a, smem); break;
+    case 2: gemm_tile<2>(a, smem); break;
+    case 3: gemm_tile<3>(a, smem); break;
+    default: gemm_tile<4>(a, smem); break;
+  }
+}
+
+cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                      int S) {
+  static unsigned long long smem_set = 0;     // a bit per device
+  cudaError_t e = mixq::allow_smem(mix_gemm_w8_kernel, SMEM, smem_set);
+  if (e != cudaSuccess) return e;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = S;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// fuse: the epilogue's code (mixq::Epilogue, csrc/epilogue.cuh); splits: S,
+// the split-K factor of kernels/mix_gemm.py::plan_w8a8 (the cluster size).
+extern "C" int mix_gemm_w8_launch(const void* qx, const void* w,
+                                  const void* xs, const void* ws,
+                                  const void* xo, const void* wo, void* out,
+                                  int M, int N, int K, int Bo, int fuse,
+                                  int out_f32, int splits, void* stream) {
+  if (splits < 1 || splits > MAX_SPLITS) return (int)cudaErrorInvalidValue;
+  const Args a{(const int8_t*)qx, (const int8_t*)w, (const float*)xs,
+               (const float*)ws, (const __nv_bfloat16*)xo,
+               (const __nv_bfloat16*)wo, out, M, N, K, xo ? Bo : 0, fuse,
+               out_f32};
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure(cfg, attr, splits);
+  if (e != cudaSuccess) return (int)e;
+  cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  cfg.stream = (cudaStream_t)stream;
+  e = cudaLaunchKernelEx(&cfg, mix_gemm_w8_kernel, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of `splits` blocks the card holds at once
+// (cudaOccupancyMaxActiveClusters) into *n; returns the CUDA error.
+extern "C" int mix_gemm_w8_max_active_clusters(int splits, int* n) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure(cfg, attr, splits);
+  if (e != cudaSuccess) return (int)e;
+  cfg.gridDim = dim3(1, 1, splits);
+  return (int)cudaOccupancyMaxActiveClusters(n, mix_gemm_w8_kernel, &cfg);
+}

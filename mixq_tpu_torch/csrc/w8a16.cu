@@ -85,6 +85,7 @@
 
 #include "cp_async.cuh"
 #include "epilogue.cuh"
+#include "launch.cuh"
 
 namespace cg = cooperative_groups;
 using mixq::cp_async16;
@@ -455,14 +456,12 @@ __global__ void __launch_bounds__(THREADS, 2) w8a16_kernel(const Args a) {
 template <bool W4, bool GROUPED>
 cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
                       int S) {
-  static int smem_limit = 48 * 1024;   // per instantiation
+  static unsigned long long smem_set = 0;   // per instantiation and device
   const int smem = Layout<W4, GROUPED>::SMEM;
-  if (smem > smem_limit) {
-    cudaError_t e = cudaFuncSetAttribute(
-        w8a16_kernel<W4, GROUPED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > 48 * 1024) {
+    cudaError_t e = mixq::allow_smem(w8a16_kernel<W4, GROUPED>, smem,
+                                     smem_set);
     if (e != cudaSuccess) return e;
-    smem_limit = smem;
   }
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;

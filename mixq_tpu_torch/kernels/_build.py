@@ -15,12 +15,13 @@ on a machine with no `nvcc`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +30,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 SOURCES = {
     "rmsnorm_quant": "rmsnorm_quant.cu",
     "mix_gemm": "mix_gemm.cu",
+    "mix_gemm_w8": "mix_gemm_w8.cu",
     "flash_decode": "flash_decode.cu",
     "w8a16": "w8a16.cu",
     "decode_attention": "decode_attention.cu",
@@ -176,3 +178,76 @@ def scale_groups(w_scale: torch.Tensor, K: int, halves: bool,
             f"{what}: {G} scale groups over K={K} need group_size = K/G a "
             f"multiple of 16{' dividing K/2' if halves else ''}")
     return G
+
+
+# ---------------------------------------------------------------------------
+# The split-K rule shared by the cluster GEMMs (kernel 2, kernel B)
+# ---------------------------------------------------------------------------
+
+MAX_SPLITS = 8                  # a portable cluster holds at most 8 blocks
+
+
+class SplitPlan(NamedTuple):
+    """A cluster GEMM's launch plan (kernels/w8a16.py::plan_a16,
+    kernels/mix_gemm.py::plan_w8a8)."""
+    bm: int
+    bn: int
+    splits: int                # S: blocks (one cluster) per output tile
+    stages: int                # depth of the cp.async ring
+    stage_rows: int            # stored weight rows per stage (W4: packed)
+    bounds: Tuple[Tuple[int, int], ...]   # each split's stored rows [a, b)
+    blocks: int                # the grid: N-tiles x M-tiles x S
+
+
+def split_k(tiles: int, stages: int, sm_count: int,
+            clusters: Optional[Sequence[int]] = None, per_sm: int = 2
+            ) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
+    """How a cluster GEMM splits K, and each split's stages [first, end).
+
+    The output tiles come first; K is then split S ways, S <= MAX_SPLITS
+    and at most one split per stage, with S the largest split whose
+    clusters of S blocks all fit on the card at once: `clusters[S - 1]` is
+    how many the card holds (cudaOccupancyMaxActiveClusters), by default
+    the kernel's `per_sm` blocks per SM packed perfectly
+    (per_sm * sm_count // S). A second wave
+    costs a whole block's time again, more than the shorter splits save.
+    When the tiles alone fill the card, S = 1. The `stages` stages split as
+    stages // S, one more for the first stages % S splits, as the kernels
+    compute them."""
+    if clusters is None:
+        clusters = [per_sm * sm_count // s
+                    for s in range(1, MAX_SPLITS + 1)]
+    S = max([s for s in range(1, min(MAX_SPLITS, stages) + 1)
+             if tiles <= clusters[s - 1]], default=1)
+    base, extra = divmod(stages, S)
+    bounds = []
+    for z in range(S):
+        first = z * base + min(z, extra)
+        bounds.append((first, first + base + (z < extra)))
+    return S, tuple(bounds)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def cluster_table(lib: str, symbol: str, index: int,
+                  *mode: int) -> Tuple[int, ...]:
+    """How many clusters of 1..MAX_SPLITS blocks of a cluster GEMM device
+    `index` holds at once (cudaOccupancyMaxActiveClusters), from the
+    library's export `int symbol(int splits, int *mode, int* n)`, which
+    returns the CUDA error. A 0 would mean that plan cannot launch."""
+    fn = getattr(load(lib), symbol)
+    fn.argtypes = [ctypes.c_int] * (1 + len(mode)) + [
+        ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = []
+    with torch.cuda.device(index):
+        for s in range(1, MAX_SPLITS + 1):
+            n = ctypes.c_int(0)
+            check(fn(s, *mode, ctypes.byref(n)), symbol)
+            out.append(n.value)
+    return tuple(out)

@@ -1,17 +1,23 @@
 """Int8-activation mixed-precision GEMM with the fused dequant/outlier/SiLU
 epilogue (kernel 2 and kernel A).
 
-Replaces mixq_tpu/ops/pallas/mix_gemm.py::mix_gemm with the CUDA kernel in
-mixq_tpu_torch/csrc/mix_gemm.cu, in the Pallas kernel's int8-activation
-modes, chosen as JAX chooses them, from dtypes and shapes:
+Replaces mixq_tpu/ops/pallas/mix_gemm.py::mix_gemm with two CUDA kernels,
+in the Pallas kernel's int8-activation modes, chosen as JAX chooses them,
+from dtypes and shapes:
 
-    w int8 [K, N]           W8   (kernel 2; mode "w8a8")
-    w uint8 [K/2, N]        packed W4, halves layout (kernel A; mode "w4")
+    w int8 [K, N]           W8
+    w uint8 [K/2, N]        packed W4, halves layout ("w4")
     w_scale [N]             per-channel: y = float(q_x @ w) * x_scale * w_scale
     w_scale [G, N], G > 1   grouped: y = (sum_g float(acc_g) * w_scale[g])
-                            * x_scale (kernel A; "w8a8_grouped", "w4_grouped")
+                            * x_scale ("w8a8_grouped", "w4_grouped")
     (+ x_outlier @ w_outlier in f32); the epilogue `fuse` ("silu", "gelu",
     "gelu_new"; _build.apply_epilogue); cast to out_dtype
+
+W8 per-channel ("w8a8") is kernel 2, mixq_tpu_torch/csrc/mix_gemm_w8.cu: it
+splits K over a thread-block cluster when the output tiles alone would not
+fill the card, and `plan_w8a8` chooses the split and gives the bounds the
+kernel walks, so the plan can be checked on the CPU. The other three modes
+are kernel A, mixq_tpu_torch/csrc/mix_gemm.cu.
 
 A bf16 activation is the a16 (weight-only) mode, which runs on kernel B
 (kernels/w8a16.py); `mix_gemm` hands it over, as the Pallas kernel
@@ -29,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -37,12 +43,39 @@ from mixq_tpu_torch.kernels import _build
 from mixq_tpu_torch.kernels.w8a16 import mix_gemm_a16
 from mixq_tpu_torch.ops.quant import grouped_int8_matmul_dequant, unpack_int4
 
-SOURCE = "mixq_tpu_torch/csrc/mix_gemm.cu"
+SOURCE = "mixq_tpu_torch/csrc/mix_gemm.cu"           # kernel A
+SOURCE_W8 = "mixq_tpu_torch/csrc/mix_gemm_w8.cu"     # kernel 2
 REPLACES = "mixq_tpu/ops/pallas/mix_gemm.py:140"
 REPLACES_W4 = "mixq_tpu/ops/pallas/mix_gemm.py:43"     # _unpack_w4, grouped
 REPLACES_INT8_MATMUL = "mixq_tpu/ops/pallas/int8_matmul.py:53"
 MODES = ("w8a8", "w8a8_grouped", "w4", "w4_grouped")
 EPILOGUES = _build.FUSES[1:]              # "silu", "gelu", "gelu_new"
+# kernel 2's tiling (csrc/mix_gemm_w8.cu): an output tile, the K-rows of one
+# stage of the cp.async ring, the ring's depth, the blocks an SM holds
+W8_BM, W8_BN, W8_KSTEP, W8_STAGES, W8_BLOCKS_PER_SM = 64, 128, 128, 4, 1
+
+
+@functools.lru_cache(maxsize=1024)       # every decode step asks again
+def plan_w8a8(M: int, N: int, K: int, sm_count: int,
+              clusters: Optional[Sequence[int]] = None) -> _build.SplitPlan:
+    """Kernel 2's launch plan: the output tiles (W8_BM x W8_BN), then K
+    split over a cluster by `_build.split_k`'s rule (`clusters[S - 1]`:
+    the card's clusters of S blocks at once, `_clusters_w8a8`),
+    each split whole stages of W8_KSTEP K-rows. The result does not depend
+    on the plan: the splits' int32 partials add exactly. `clusters`, when
+    given, is a tuple (the plan is cached)."""
+    tiles = -(-M // W8_BM) * -(-N // W8_BN)
+    S, stages = _build.split_k(tiles, -(-K // W8_KSTEP), sm_count, clusters,
+                               W8_BLOCKS_PER_SM)
+    bounds = tuple((a * W8_KSTEP, min(b * W8_KSTEP, K)) for a, b in stages)
+    return _build.SplitPlan(W8_BM, W8_BN, S, W8_STAGES, W8_KSTEP, bounds,
+                            tiles * S)
+
+
+def _clusters_w8a8(index: int) -> Tuple[int, ...]:
+    """The card's clusters of 1..8 kernel-2 blocks at once."""
+    return _build.cluster_table("mix_gemm_w8",
+                                "mix_gemm_w8_max_active_clusters", index)
 
 
 def _mode(w4: bool, G: int) -> str:
@@ -83,6 +116,15 @@ def _launcher():
     return fn
 
 
+@functools.cache
+def _launcher_w8():
+    fn = _build.load("mix_gemm_w8").mix_gemm_w8_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def mix_gemm(
     q_x: torch.Tensor,                        # int8 [M, K] | bf16 (a16)
     w: torch.Tensor,                          # int8 [K, N] | uint8 [K/2, N]
@@ -94,6 +136,15 @@ def mix_gemm(
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Returns y [M, N] in out_dtype (bf16 or f32)."""
+    return _mix_gemm(q_x, w, x_scale, w_scale, x_outlier, w_outlier, fuse,
+                     out_dtype)
+
+
+def _mix_gemm(q_x, w, x_scale, w_scale, x_outlier, w_outlier, fuse,
+              out_dtype, splits: Optional[int] = None) -> torch.Tensor:
+    """`mix_gemm`; `splits` forces kernel 2's split-K factor S (1-8)
+    instead of plan_w8a8's, so a card test can hold the result bit-equal
+    across plans."""
     if q_x.dtype != torch.int8:               # the a16 mode: kernel B
         return mix_gemm_a16(q_x, w, w_scale, x_outlier, w_outlier, fuse,
                             out_dtype)
@@ -131,12 +182,20 @@ def mix_gemm(
         _build.require(w_outlier, torch.bfloat16, (Bo, N), "w_outlier", dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _launcher()(
-        q_x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
-        x_outlier.data_ptr() if has_out else None,
-        w_outlier.data_ptr() if has_out else None, out.data_ptr(),
-        M, N, K, Bo, G, int(w4), fuse_code,
-        int(out_dtype == torch.float32), stream)
+    ptrs = (q_x.data_ptr(), w.data_ptr(), x_scale.data_ptr(),
+            w_scale.data_ptr(), x_outlier.data_ptr() if has_out else None,
+            w_outlier.data_ptr() if has_out else None, out.data_ptr())
+    out_f32 = int(out_dtype == torch.float32)
+    if w4 or G > 1:                           # kernel A
+        rc = _launcher()(*ptrs, M, N, K, Bo, G, int(w4), fuse_code, out_f32,
+                         stream)
+    else:                                     # kernel 2
+        if splits is None:
+            index = q_x.get_device()
+            splits = plan_w8a8(M, N, K, _build.sm_count(index),
+                               _clusters_w8a8(index)).splits
+        rc = _launcher_w8()(*ptrs, M, N, K, Bo, fuse_code, out_f32, splits,
+                            stream)
     _build.check(rc, "mix_gemm")
     mix_gemm.launches += 1
     mix_gemm.mode_launches[_mode(w4, G)] += 1

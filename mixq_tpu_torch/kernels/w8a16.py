@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -48,66 +48,34 @@ REPLACES_W8A16 = "mixq_tpu/ops/pallas/w8a16.py:30"
 MODES = ("w8", "w8_grouped", "w4", "w4_grouped")
 EPILOGUES = _build.FUSES[1:]              # "silu", "gelu", "gelu_new"
 # the kernel's tiling (csrc/w8a16.cu): an output tile, the K-rows of one
-# stage of the cp.async ring, the ring's depth, the most splits (a portable
-# cluster holds at most 8 blocks)
-BM, BN, KSTEP, STAGES, MAX_SPLITS = 64, 128, 64, 4, 8
-
-
-class A16Plan(NamedTuple):
-    bm: int
-    bn: int
-    splits: int                # S: blocks (one cluster) per output tile
-    stages: int                # depth of the cp.async ring
-    stage_rows: int            # stored weight rows per stage (W4: packed)
-    bounds: Tuple[Tuple[int, int], ...]   # each split's stored rows [a, b)
-    blocks: int                # the grid: N-tiles x M-tiles x S
+# stage of the cp.async ring, the ring's depth
+BM, BN, KSTEP, STAGES = 64, 128, 64, 4
+MAX_SPLITS = _build.MAX_SPLITS
 
 
 @functools.lru_cache(maxsize=1024)       # every decode step asks again
 def plan_a16(M: int, N: int, K: int, w4: bool, G: int, sm_count: int,
-             clusters: Optional[Sequence[int]] = None) -> A16Plan:
-    """Kernel B's launch plan. The output tiles (BM x BN) come first; K is
-    then split S ways, S <= 8 and at most one split per stage, with S the
-    largest split whose clusters of S blocks all fit on the card at once:
-    `clusters[S - 1]` is how many the card holds
-    (cudaOccupancyMaxActiveClusters, `max_active_clusters`), by default
-    two blocks per SM packed perfectly (2 * sm_count // S). A second wave
-    costs a whole block's time again, more than the shorter splits save.
-    When the tiles alone fill the card, S = 1. A split walks whole stages
-    of the stored rows (K-rows, or packed rows [0, K/2) for W4, each
-    holding K-rows p and K/2 + p): T stages split as T // S, one more for
-    the first T % S splits, as the kernel computes them. Grouped scales
-    (G > 1) ride with each stage and do not change the plan. `clusters`,
-    when given, is a tuple (the plan is cached)."""
+             clusters: Optional[Sequence[int]] = None) -> _build.SplitPlan:
+    """Kernel B's launch plan: the output tiles (BM x BN), then K split
+    over a cluster by `_build.split_k`'s rule (`clusters[S - 1]`: the
+    card's clusters of S blocks at once, `_clusters`). A split
+    walks whole stages of the stored rows (K-rows, or packed rows [0, K/2)
+    for W4, each holding K-rows p and K/2 + p). Grouped scales (G > 1)
+    ride with each stage and do not change the plan. `clusters`, when
+    given, is a tuple (the plan is cached)."""
     del G
     srows = KSTEP // 2 if w4 else KSTEP
     rows = K // 2 if w4 else K
-    T = -(-rows // srows)
     tiles = -(-M // BM) * -(-N // BN)
-    if clusters is None:
-        clusters = [2 * sm_count // s for s in range(1, MAX_SPLITS + 1)]
-    S = max([s for s in range(1, min(MAX_SPLITS, T) + 1)
-             if tiles <= clusters[s - 1]], default=1)
-    base, extra = divmod(T, S)
-    bounds = []
-    for z in range(S):
-        first = z * base + min(z, extra)
-        count = base + (z < extra)
-        bounds.append((first * srows, min((first + count) * srows, rows)))
-    return A16Plan(BM, BN, S, STAGES, srows, tuple(bounds), tiles * S)
+    S, stages = _build.split_k(tiles, -(-rows // srows), sm_count, clusters)
+    bounds = tuple((a * srows, min(b * srows, rows)) for a, b in stages)
+    return _build.SplitPlan(BM, BN, S, STAGES, srows, bounds, tiles * S)
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.cache
 def _clusters(index: int, w4: bool, grouped: bool) -> Tuple[int, ...]:
     """The card's clusters of 1..8 blocks of one weight mode at once."""
-    with torch.cuda.device(index):
-        return tuple(max_active_clusters(s, w4, grouped)
-                     for s in range(1, MAX_SPLITS + 1))
+    return _build.cluster_table("w8a16", "w8a16_max_active_clusters", index,
+                                int(w4), int(grouped))
 
 
 def dequant_weight(w: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
@@ -145,19 +113,6 @@ def _launcher():
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def max_active_clusters(splits: int, w4: bool, grouped: bool) -> int:
-    """How many clusters of `splits` blocks of one weight mode the card
-    holds at once (cudaOccupancyMaxActiveClusters); 0 would mean that plan
-    cannot launch."""
-    fn = _build.load("w8a16").w8a16_max_active_clusters
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    n = ctypes.c_int(0)
-    _build.check(fn(splits, int(w4), int(grouped), ctypes.byref(n)),
-                 "w8a16_max_active_clusters")
-    return n.value
 
 
 def _mode(w4: bool, G: int) -> str:
@@ -206,7 +161,7 @@ def mix_gemm_a16(
         _build.require(x_outlier, torch.bfloat16, (M, Bo), "x_outlier", dev)
         _build.require(w_outlier, torch.bfloat16, (Bo, N), "w_outlier", dev)
     index = x.get_device()
-    plan = plan_a16(M, N, K, w4, G, _sm_count(index),
+    plan = plan_a16(M, N, K, w4, G, _build.sm_count(index),
                     _clusters(index, w4, G > 1))
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

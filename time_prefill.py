@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Prefill timing of the PyTorch port, for comparing two trees in one run.
+
+    python3 time_prefill.py [--package DIR] [--tag NAME]   # one CUDA card
+
+Through the public API only, so that DIR may hold another tree of this
+repository (its mixq_tpu_torch is then built and imported instead of the
+one beside this script; the helpers come from the chip_smoke.py beside it):
+  - kernel 2 (mix_gemm, W8A8) at a prefill shape: M=512 rows of
+    Llama-2-7B's up/gate (4096x11008) with the SiLU epilogue and 128
+    outlier channels, the inputs of chip_smoke.py's prefill row, checked
+    against its plain version and timed as chip_smoke.py times its phase-3
+    rows (CUPTI, rotated weight copies), beside torch._int_mm;
+  - for each of chip_smoke.py's serve paths, one prefill of 8 prompts x 64
+    tokens into a fresh cache (chip_smoke.prefill_timing).
+Prints one JSON object as its last line and writes it to
+chiprun_out/time_prefill_<tag>.json.
+"""
+import argparse
+import gc
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--package", help="a tree of this repository whose "
+                    "mixq_tpu_torch to time (default: the one beside this "
+                    "script)")
+    ap.add_argument("--tag", default="tree", help="names the output file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_prefill: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs            # from this script's directory
+
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
+    import mixq_tpu_torch
+    from mixq_tpu_torch.kernels import _build
+    from mixq_tpu_torch.kernels.mix_gemm import mix_gemm, mix_gemm_plain
+    from mixq_tpu_torch.models.decoder import init_decoder_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    _build.build_all()
+    pkg = os.path.dirname(os.path.abspath(mixq_tpu_torch.__file__))
+    res = {"card": card, "tag": args.tag, "package": pkg}
+
+    M, K, N, Bo, fuse = 512, 4096, 11008, 128, "silu"
+    gen = torch.Generator(device=dev).manual_seed(7)   # as chip_smoke's row
+    ins, lib_w = cs.gemm_inputs(dev, gen, M, K, N, Bo)
+    got = mix_gemm(*ins, fuse=fuse)
+    torch.cuda.synchronize()
+    err = cs.check_gemm(got, mix_gemm_plain(*ins, fuse=fuse),
+                        f"mix_gemm W8A8 {K}x{N} {fuse} at M={M}")
+    q_x, _, xs, ws, xo, wo = ins
+    epi = cs.lib_epilogue(fuse)
+    res["kernel2_prefill"] = cs.timed_gemm(
+        lambda w: mix_gemm(q_x, w, xs, ws, xo, wo, fuse=fuse),
+        lambda: mix_gemm_plain(*ins, fuse=fuse),
+        lambda w: epi(torch._int_mm(q_x, w)), ins[1], lib_w, K * N,
+        cs.gemm_bound(M, K, N, Bo, fuse=fuse),
+        work=f"W8A8 M={M} K={K} N={N} fuse={fuse} B={Bo}",
+        tolerance=cs.GEMM_TOL, max_abs_err=err)
+    print(f"kernel 2 prefill: {res['kernel2_prefill']}", flush=True)
+    del ins, lib_w, got
+
+    res["paths"] = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for model, name, label, _, kv_dtype, attn_impl in cs.PATHS:
+        cfg, specs = cs.MODELS[model](), cs.path_specs(name, attn_impl)
+        params = init_decoder_params(cfg, specs, gen, device=dev,
+                                     dtype=torch.bfloat16,
+                                     outlier_budget=128)
+        eng = cs.new_engine(dev, params, cfg, specs, kv_dtype)
+        res["paths"][label] = cs.prefill_timing(dev, eng, cfg)
+        print(f"prefill {label}: {res['paths'][label]}", flush=True)
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    os.makedirs(cs.OUT_DIR, exist_ok=True)
+    with open(os.path.join(cs.OUT_DIR, f"time_prefill_{args.tag}.json"),
+              "w") as f:
+        json.dump(res, f, indent=1)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
