@@ -5,9 +5,10 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
-  2. build: the six CUDA kernel libraries from mixq_tpu_torch/csrc, timed,
-     with kernel 2's and kernel B's registers and spills (ptxas) and the
-     clusters of 1..8 blocks the card holds at once;
+  2. build: the five CUDA kernel libraries from mixq_tpu_torch/csrc, timed,
+     with each instantiation's registers and spills (ptxas) of the
+     int8-activation GEMM (kernels 2 and A; a spill in any fails) and of
+     kernel B, and the clusters of 1..8 blocks the card holds at once;
   3. kernels: each kernel, in each mode the main paths run, at Llama-2-7B
      main-path shapes against its plain PyTorch version on the same inputs,
      with the stated tolerance, then its device time on the card (CUPTI,
@@ -15,10 +16,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      operations over the data-sheet peak, whichever is larger), its plain
      version's and, where one exists, that of one PyTorch call computing
      the same function (`library_ms`): fused RMSNorm + quantization (A8 and
-     A4), the int8 GEMM in its W8A8 (kernel 2: each row with its split-K
-     plan, beside the earlier 64 x 32-tile kernel's time; a prefill-shaped
-     row at M=512; three plans held bit-equal), packed-W4 and grouped
-     modes, the a16
+     A4), the int8 GEMM in its W8A8 (kernel 2) and its packed-W4 and
+     grouped modes (kernel A), each row with its split-K plan and beside
+     the earlier 64 x 32-tile kernel's time (not measured in the run), and
+     as whole blocks (W8A8, W4, W4 g128, and the g128 path's seven); a
+     prefill-shaped W8A8 row at M=512; three plans held bit-equal in W8A8
+     and in W4; the a16
      (weight-only) GEMM with int8 and packed weights, per-channel and
      grouped, with the w8a16_matmul and int8_matmul_dequant entry points
      (each a16 row with its split-K plan, the clusters the card holds and
@@ -331,9 +334,6 @@ def gemm_cases(dev, gen, M, Bo, cases):
         errs.append(err)
         q_x, _, xs, ws, xo, wo = ins
         epi = lib_epilogue(fuse)
-        kernel2 = {} if w4 or G > 1 else dict(
-            plan=w8a8_plan(M, K, N),
-            previous_ms=PREV_KERNEL2_MS.get((M, K, N, fuse)))
         out_rows.append(timed_gemm(
             lambda w: mix_gemm(q_x, w, xs, ws, xo, wo, fuse=fuse),
             lambda: mix_gemm_plain(*ins, fuse=fuse),
@@ -341,20 +341,29 @@ def gemm_cases(dev, gen, M, Bo, cases):
             K * N // (2 if w4 else 1), gemm_bound(M, K, N, Bo, G, w4, fuse),
             work=f"{mode} M={M} K={K} N={N} fuse={fuse} B={Bo}", mode=mode,
             tolerance=GEMM_TOL, max_abs_err=err,
-            library=lib_label(INT_MM, fuse), **kernel2))
+            library=lib_label(INT_MM, fuse), plan=mix_plan(M, K, N, w4, G),
+            **previous(M, K, N, fuse, w4, G)))
         del ins, lib_w
     return out_rows, errs
 
 
-def gemm_block(dev, gen, M, Bo, slots, w4, G_of, **row):
-    """Kernels 2 and A over the named linears of one block, as the decode
-    step runs them (distinct weights, back to back)."""
+def block_linears(names, w4, G_of, w8_names=()):
+    """(name, K, N, fuse, w4, G) of the named linears of a Llama-2-7B block
+    in one weight mode, and of `w8_names` in W8 with the same scales."""
+    return [(n, K, N, f, w4 and n not in w8_names, G_of(K))
+            for n, K, N, f in BLOCK if n in names]
+
+
+def gemm_block(dev, gen, M, Bo, linears, **row):
+    """The int8-activation GEMM (kernels 2 and A) over the linears (name,
+    K, N, fuse, w4, G) of one block, as the decode step runs them (distinct
+    weights, back to back)."""
     from mixq_tpu_torch.kernels.mix_gemm import mix_gemm, mix_gemm_plain
 
-    seq = [gemm_inputs(dev, gen, M, K, N, Bo, G_of(K), w4) + (fuse,)
-           for n, K, N, fuse in BLOCK if n in slots]
-    bounds = [gemm_bound(M, K, N, Bo, G_of(K), w4)
-              for n, K, N, _ in BLOCK if n in slots]
+    seq = [gemm_inputs(dev, gen, M, K, N, Bo, G, w4) + (fuse,)
+           for _, K, N, fuse, w4, G in linears]
+    bounds = [gemm_bound(M, K, N, Bo, G, w4)
+              for _, K, N, _, w4, G in linears]
     return block_row(
         lambda: [mix_gemm(*s[0], fuse=s[2]) for s in seq],
         lambda: [mix_gemm_plain(*s[0], fuse=s[2]) for s in seq],
@@ -371,45 +380,76 @@ def kernel_mix_gemm(dev, gen, rows):
     out_rows, errs = gemm_cases(dev, gen, M, Bo, [
         (K, N, f, False, 1) for K, N, f in
         sorted({(K, N, f) for _, K, N, f in BLOCK})])
+    linears = block_linears([n for n, *_ in BLOCK], False, lambda K: 1)
     blk = gemm_block(
-        dev, gen, M, Bo, [n for n, *_ in BLOCK], False, lambda K: 1,
-        mode="W8A8", max_abs_err=max(errs),
+        dev, gen, M, Bo, linears, mode="W8A8", max_abs_err=max(errs),
         work=f"the 7 linears of one Llama-2-7B block at M={M}, {Bo} "
              "outlier channels each (q,k,v,o 4096x4096; up, gate+SiLU "
              "4096x11008; down 11008x4096)",
-        plan={n: w8a8_plan(M, K, N) for n, K, N, _ in BLOCK},
-        previous_ms=PREV_KERNEL2_MS.get("block"))
+        plan=block_plans(M, linears), **previous("block"))
     own = torch.Generator(device=dev).manual_seed(7)
     prefill, _ = gemm_cases(dev, own, 512, Bo, [(4096, 11008, "silu", False,
                                                   1)])
-    blk["bit_equal_plans"] = kernel2_plans_bit_equal(dev, own)
+    blk["bit_equal_plans"] = plans_bit_equal(dev, own)
     rows["mix_gemm"] = out_rows + [blk] + prefill
     return blk
 
 
-def kernel2_plans_bit_equal(dev, gen):
-    """Kernel 2's split partials are int32 and add exactly, and its outlier
-    term runs the same MMAs at any split: the plan's S, S = 1 and S = 2 give
-    the same bits (down 11008x4096 at M=64, 128 outlier channels, SiLU)."""
+def plans_bit_equal(dev, gen):
+    """The per-channel modes' split partials are int32 and add exactly, and
+    the outlier term runs the same MMAs at any split: the plan's S, S = 1
+    and S = 2 give the same bits, in kernel 2 (down 11008x4096) and in
+    kernel A's W4 (q 4096x4096, A4 activations), at M=64 with 128 outlier
+    channels and SiLU."""
     from mixq_tpu_torch.kernels.mix_gemm import _mix_gemm
 
-    M, K, N = 64, 11008, 4096
-    ins, _ = gemm_inputs(dev, gen, M, K, N, 128)
-    plan = w8a8_plan(M, K, N)
-    splits = sorted({1, 2, plan["splits"]})
-    runs = [_mix_gemm(*ins, "silu", torch.bfloat16, splits=S) for S in splits]
-    torch.cuda.synchronize()
-    for S, r in zip(splits[1:], runs[1:]):
-        check(torch.equal(runs[0].view(torch.uint8), r.view(torch.uint8)),
-              f"mix_gemm W8A8 {K}x{N}: S = {S} differs from S = 1")
-    return dict(K=K, N=N, M=M, splits=splits, plan=plan)
+    M, out = 64, []
+    for K, N, w4 in ((11008, 4096, False), (4096, 4096, True)):
+        ins, _ = gemm_inputs(dev, gen, M, K, N, 128, w4=w4)
+        plan = mix_plan(M, K, N, w4)
+        splits = sorted({1, 2, plan["splits"]})
+        runs = [_mix_gemm(*ins, "silu", torch.bfloat16, splits=S)
+                for S in splits]
+        torch.cuda.synchronize()
+        for S, r in zip(splits[1:], runs[1:]):
+            check(torch.equal(runs[0].view(torch.uint8), r.view(torch.uint8)),
+                  f"mix_gemm {'W4' if w4 else 'W8A8'} {K}x{N}: S = {S} "
+                  "differs from S = 1")
+        out.append(dict(K=K, N=N, M=M, w4=w4, splits=splits, plan=plan))
+    return out
+
+
+def kernel_a_blocks(gs=128):
+    """Kernel A's blocks at decode, as the W4A4 paths run them: (key, mode,
+    linears, what) for the five W4 linears of a block, per-channel and with
+    gs-row scale groups, and the seven of the grouped path's block (the W4
+    five and its W8A8 o/down, all grouped)."""
+    def g(K):
+        return K // gs
+
+    five = ("(q,k,v 4096x4096; up, gate+SiLU 4096x11008)")
+    return [
+        ("block W4", "W4", block_linears(W4_SLOTS, True, lambda K: 1),
+         f"the five W4 linears of one Llama-2-7B W4A4 block {five}"),
+        ("block W4 g128", f"W4 grouped group_size={gs}",
+         block_linears(W4_SLOTS, True, g),
+         f"the five W4 grouped linears of one Llama-2-7B W4A4 block {five}"),
+        ("block g128 path", f"W4 and W8A8 grouped group_size={gs}",
+         block_linears([n for n, *_ in BLOCK], True, g, ("o", "down")),
+         "the seven linears of one Llama-2-7B W4A4 group_size=128 block as "
+         "its path runs them (q,k,v 4096x4096, up, gate+SiLU 4096x11008 W4 "
+         "grouped; o 4096x4096, down 11008x4096 W8A8 grouped)")]
+
+
+def block_plans(M, linears):
+    return {n: mix_plan(M, K, N, w4, G) for n, K, N, _, w4, G in linears}
 
 
 def kernel_w4_gemm(dev, gen, rows):
     """Kernel A: the packed-W4 linears of a W4A4 block (q, k, v, up, gate+
     SiLU), per-channel and with 128-row scale groups, and the grouped W8A8
     o/down of the grouped W4A4 path; each shape alone over rotated weight
-    copies, then each block of five as the decode step runs it."""
+    copies, then each block as the decode step runs it (kernel_a_blocks)."""
     M, Bo, gs = 64, 128, 128
     w4_shapes = sorted({(K, N, f) for n, K, N, f in BLOCK if n in W4_SLOTS})
     out_rows, errs = gemm_cases(dev, gen, M, Bo, (
@@ -418,15 +458,16 @@ def kernel_w4_gemm(dev, gen, rows):
         + [(K, N, f, False, K // gs) for n, K, N, f in BLOCK
            if n in ("o", "down")]))
     n = len(w4_shapes)
+    # the g128 path's block on its own generator: the later phases keep
+    # their inputs
+    own = torch.Generator(device=dev).manual_seed(8)
     blocks = [gemm_block(
-        dev, gen, M, Bo, W4_SLOTS, True,
-        (lambda K: K // gs) if grouped else (lambda K: 1),
-        mode="W4" + (f" grouped group_size={gs}" if grouped else ""),
-        max_abs_err=max(errs[n:2 * n] if grouped else errs[:n]),
-        work=f"the five W4{' grouped' if grouped else ''} linears of one "
-             f"Llama-2-7B W4A4 block at M={M}, {Bo} outlier channels each "
-             "(q,k,v 4096x4096; up, gate+SiLU 4096x11008)")
-        for grouped in (False, True)]
+        dev, gen if i < 2 else own, M, Bo, linears, mode=mode,
+        max_abs_err=max(errs[:n] if i == 0 else errs[n:2 * n] if i == 1
+                        else errs[n:]),
+        work=f"{what} at M={M}, {Bo} outlier channels each",
+        plan=block_plans(M, linears), **previous(key))
+        for i, (key, mode, linears, what) in enumerate(kernel_a_blocks(gs))]
     rows["mix_gemm_w4_grouped"] = out_rows + blocks
     return blocks[0]
 
@@ -468,18 +509,22 @@ A16_LIB = ("torch.matmul of x with the pre-dequantized bf16 weight (product "
            "only)")
 
 
-# kernel B's ptxas report by (w4, grouped) instantiation, filled by main()
+# ptxas reports by (w4, grouped) instantiation, filled by main(): kernel B's
+# and the int8-activation GEMM's (kernels 2 and A)
 A16_PTXAS = {}
+MIX_PTXAS = {}
 
 
-def ptxas_by_mode(log):
-    """Registers and spills of each w8a16_kernel<W4, GROUPED> in a
-    `ptxas -v` log, keyed (w4, grouped)."""
+def ptxas_by_mode(log, kernel):
+    """Registers and spills of each `kernel`<W4, GROUPED> (w8a16_kernel,
+    mix_gemm_kernel) in a `ptxas -v` log, keyed (w4, grouped)."""
     out, key = {}, None
     for ln in log.splitlines():
-        if "Compiling entry function" in ln and "w8a16_kernel" in ln:
-            t = ln.split("w8a16_kernelI", 1)[1]
-            key = (t.startswith("Lb1"), t[3:].startswith("ELb1"))
+        if "Compiling entry function" in ln:
+            key = None
+            if f"{kernel}I" in ln:
+                t = ln.split(f"{kernel}I", 1)[1]
+                key = (t.startswith("Lb1"), t[3:].startswith("ELb1"))
         elif key is not None and "spill stores" in ln:
             out.setdefault(key, {})["spills"] = ln.strip()
         elif key is not None and "Used" in ln and "registers" in ln:
@@ -488,8 +533,6 @@ def ptxas_by_mode(log):
     return out
 
 
-# kernel 2's ptxas report (registers, spills), filled by main()
-W8A8_PTXAS = {}
 # Kernel 2's times before its redesign (the 64 x 32-tile kernel that walked
 # all of K in one block, commit fb5c82e), by (M, K, N, fuse), for the block
 # of seven and for the int8_matmul_dequant row. Not measured in the run that
@@ -515,29 +558,61 @@ PREV_KERNEL2_MS = {
 }
 
 
-def w8a8_ptxas(log):
-    """Registers and spills of mix_gemm_w8_kernel in a `ptxas -v` log."""
-    out, on = {}, False
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            on = "mix_gemm_w8_kernel" in ln
-        elif on and "spill stores" in ln:
-            out["spills"] = ln.strip()
-        elif on and "Used" in ln and "registers" in ln:
-            out["registers"] = int(ln.split("Used", 1)[1].split()[0])
-    return out
+# Kernel A's times before its redesign (the 64 x 32-tile WMMA kernel that
+# walked all of K in one block, commit 99187cf), by (M, K, N, fuse, w4, G)
+# and by block (kernel_a_blocks). Not measured in the run that prints them:
+# the means of two runs of this script on 99187cf's tree (the g128 path's
+# block: of two runs of time_prefill.py --package on it), in one chip call
+# beside the redesigned kernel, on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md's kernel-A table).
+PREV_KERNEL_A_MS = {
+    (64, 4096, 4096, "none", True, 1): 0.0697,
+    (64, 4096, 11008, "none", True, 1): 0.1057,
+    (64, 4096, 11008, "silu", True, 1): 0.1064,
+    (64, 4096, 4096, "none", True, 32): 0.0849,
+    (64, 4096, 11008, "none", True, 32): 0.1245,
+    (64, 4096, 11008, "silu", True, 32): 0.1246,
+    (64, 4096, 4096, "none", False, 32): 0.1013,
+    (64, 11008, 4096, "none", False, 86): 0.2757,
+    "block W4": 0.4345,
+    "block W4 g128": 0.5238,
+    "block g128 path": 0.9040,
+    (64, 3584, 2048, "none", True, 1): 0.0619,
+    (64, 3584, 4096, "none", True, 1): 0.0611,
+    (64, 3584, 14336, "gelu_new", True, 1): 0.1768,
+    (64, 3584, 14336, "none", True, 1): 0.1742,
+}
 
 
-def w8a8_plan(M, K, N):
-    """Kernel 2's plan for this call (BN, splits S, blocks), the clusters of
-    S blocks the card holds at once, and its ptxas report."""
+def previous(*key):
+    """The earlier kernel's time for a row, by a gemm_cases key (M, K, N,
+    fuse, w4, G) or a row's name, with the commit it ran on; nothing for
+    a row without one."""
+    if len(key) == 1:                     # a name
+        key = key[0]
+    if key in PREV_KERNEL_A_MS:
+        return dict(previous_ms=PREV_KERNEL_A_MS[key],
+                    previous_from="99187cf")
+    k2 = key
+    if len(key) == 6:
+        k2 = None if key[4] or key[5] > 1 else key[:4]
+    if k2 in PREV_KERNEL2_MS:
+        return dict(previous_ms=PREV_KERNEL2_MS[k2], previous_from="fb5c82e")
+    return {}
+
+
+def mix_plan(M, K, N, w4=False, G=1):
+    """The int8-activation GEMM's plan for this call (BN, splits S,
+    blocks), the clusters of S blocks the card holds at once, and the
+    ptxas report of its instantiation."""
     from mixq_tpu_torch.kernels import _build
-    from mixq_tpu_torch.kernels.mix_gemm import _clusters_w8a8, plan_w8a8
+    from mixq_tpu_torch.kernels.mix_gemm import _clusters, plan_mix
 
-    clusters = _clusters_w8a8(0)
-    p = plan_w8a8(M, N, K, _build.sm_count(0), clusters)
+    clusters = _clusters(0, w4, G > 1)
+    p = plan_mix(M, N, K, w4, G, _build.sm_count(0), clusters)
     return dict(bn=p.bn, splits=p.splits, blocks=p.blocks,
-                max_active_clusters=clusters[p.splits - 1], **W8A8_PTXAS)
+                max_active_clusters=clusters[p.splits - 1],
+                **MIX_PTXAS.get((w4, G > 1), {}))
 
 
 def a16_plan(M, K, N, w4, G):
@@ -666,8 +741,7 @@ def kernel_int8_matmul(dev, gen, rows):
         gemm_bound(M, K, N, 0),
         work=f"int8_matmul_dequant entry, M={M} K={K} N={N}", mode="W8A8",
         tolerance=GEMM_TOL, max_abs_err=err, library=INT_MM,
-        plan=w8a8_plan(M, K, N),
-        previous_ms=PREV_KERNEL2_MS.get("int8_matmul_dequant"))
+        plan=mix_plan(M, K, N), **previous("int8_matmul_dequant"))
     rows["int8_matmul_dequant"] = [row]
     return row
 
@@ -1631,8 +1705,7 @@ MODELS = {"Llama-2-7B": llama2_7b, "Gemma-2-9B": gemma2_9b,
 # the kernels line: one entry per ported TPU kernel (a row of PERF.md's
 # table) and per mode a later slice added to a path: (name, source module,
 # REPLACES attribute, phase-3 row key, launch-count keys, the serve runs
-# whose counts are summed: None for all of them); the module's SOURCE, or
-# SOURCE_W8 for kernel 2's rows (SOURCE_ATTR)
+# whose counts are summed: None for all of them); the module's SOURCE
 KERNEL_ROWS = [
     ("rmsnorm_quant", "rmsnorm_quant", "REPLACES", "rmsnorm_quant",
      ("rmsnorm_quant",), None),
@@ -1659,9 +1732,6 @@ KERNEL_ROWS = [
     ("decode_attention", "decode_attention", "REPLACES", "decode_attention",
      ("decode_attention",), None),
 ]
-SOURCE_ATTR = dict.fromkeys(
-    ("mix_gemm_w8a8", "int8_matmul_dequant", "mix_gemm_w8a8_gelu_new"),
-    "SOURCE_W8")
 KERNEL_NOTES = {
     "w8a16_matmul": "launches: the a16 kernel's int8 per-channel mode, "
                     "which computes this entry's function",
@@ -1722,26 +1792,33 @@ def main():
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"  {name}: " + " | ".join(sorted(set(regs)))[:400])
-    A16_PTXAS.update(ptxas_by_mode(ptxas.get("w8a16", "")))
+    A16_PTXAS.update(ptxas_by_mode(ptxas.get("w8a16", ""), "w8a16_kernel"))
     for (w4, grouped), r in A16_PTXAS.items():    # no spills on the W8 path
         check(w4 or " 0 bytes spill stores" in r.get("spills", ""),
               f"w8a16_kernel<W8, grouped={grouped}> spills: {r}")
     report["w8a16_ptxas"] = {f"w4={k[0]} grouped={k[1]}": v
                              for k, v in A16_PTXAS.items()}
-    from mixq_tpu_torch.kernels.w8a16 import _clusters
-    report["w8a16_clusters"] = {f"w4={w4} grouped={g}": _clusters(0, w4, g)
-                                for w4 in (False, True) for g in (False, True)}
-    print(f"  w8a16: clusters of 1..8 blocks the card holds at once "
-          f"(cudaOccupancyMaxActiveClusters): {report['w8a16_clusters']}")
-    W8A8_PTXAS.update(w8a8_ptxas(ptxas.get("mix_gemm_w8", "")))
-    if W8A8_PTXAS:               # a library built before reports "(cached)"
-        check(" 0 bytes spill stores" in W8A8_PTXAS.get("spills", ""),
-              f"mix_gemm_w8_kernel spills: {W8A8_PTXAS}")
-    from mixq_tpu_torch.kernels.mix_gemm import _clusters_w8a8
-    report["w8a8_ptxas"] = W8A8_PTXAS
-    report["w8a8_clusters"] = _clusters_w8a8(0)
-    print(f"  mix_gemm_w8: {W8A8_PTXAS}; clusters of 1..8 blocks the card "
-          f"holds at once: {report['w8a8_clusters']}")
+    from mixq_tpu_torch.kernels import mix_gemm, w8a16
+    # no instantiation of the int8-activation GEMM spills (a library built
+    # before, in this process's checkout, reports "(cached)")
+    MIX_PTXAS.update(ptxas_by_mode(ptxas.get("mix_gemm", ""),
+                                   "mix_gemm_kernel"))
+    check(ptxas.get("mix_gemm") == "(cached)" or len(MIX_PTXAS) == 4,
+          f"mix_gemm: ptxas reported {len(MIX_PTXAS)} instantiations")
+    for (w4, grouped), r in MIX_PTXAS.items():
+        check(" 0 bytes spill stores" in r.get("spills", ""),
+              f"mix_gemm_kernel<W4={w4}, grouped={grouped}> spills: {r}")
+    for name, mod, log in (("w8a16", w8a16, A16_PTXAS),
+                           ("mix_gemm", mix_gemm, MIX_PTXAS)):
+        report[f"{name}_ptxas"] = {f"w4={k[0]} grouped={k[1]}": v
+                                   for k, v in log.items()}
+        report[f"{name}_clusters"] = {
+            f"w4={w4} grouped={g}": mod._clusters(0, w4, g)
+            for w4 in (False, True) for g in (False, True)}
+        print(f"  {name}: {report[f'{name}_ptxas']}; clusters of 1..8 "
+              "blocks the card holds at once "
+              f"(cudaOccupancyMaxActiveClusters): "
+              f"{report[f'{name}_clusters']}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
@@ -1771,8 +1848,8 @@ def main():
                      " of a row" if "beyond_levels" in r else "")
                   + f" ({r['tolerance']})"
                   + (f" plan {r['plan']}" if "plan" in r else "")
-                  + (f" earlier kernel {r['previous_ms']:.4f} ms (fb5c82e,"
-                     " not measured in this run)"
+                  + (f" earlier kernel {r['previous_ms']:.4f} ms "
+                     f"({r['previous_from']}, not measured in this run)"
                      if r.get("previous_ms") else ""),
                   flush=True)
     report["kernels"] = rows
@@ -1814,7 +1891,7 @@ def main():
 
     kernels = []
     for name, mod, attr, row, keys, labels in KERNEL_ROWS:
-        source = getattr(MODULES[mod], SOURCE_ATTR.get(name, "SOURCE"))
+        source = MODULES[mod].SOURCE
         r = main_rows[row]
         n = sum(p["serve"]["launches"][k]
                 for label, p in report["paths"].items()

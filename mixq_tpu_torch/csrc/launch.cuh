@@ -1,4 +1,5 @@
-// Host-side launch helpers shared by the cluster GEMMs (kernels 2 and B).
+// Host-side launch helpers shared by the cluster GEMMs (csrc/mix_gemm.cu,
+// csrc/w8a16.cu).
 #pragma once
 #include <cuda_runtime.h>
 

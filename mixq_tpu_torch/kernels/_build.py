@@ -30,7 +30,6 @@ CSRC_DIR = PKG_DIR / "csrc"
 SOURCES = {
     "rmsnorm_quant": "rmsnorm_quant.cu",
     "mix_gemm": "mix_gemm.cu",
-    "mix_gemm_w8": "mix_gemm_w8.cu",
     "flash_decode": "flash_decode.cu",
     "w8a16": "w8a16.cu",
     "decode_attention": "decode_attention.cu",
@@ -181,7 +180,7 @@ def scale_groups(w_scale: torch.Tensor, K: int, halves: bool,
 
 
 # ---------------------------------------------------------------------------
-# The split-K rule shared by the cluster GEMMs (kernel 2, kernel B)
+# The split-K rule shared by the cluster GEMMs (kernels 2 and A, kernel B)
 # ---------------------------------------------------------------------------
 
 MAX_SPLITS = 8                  # a portable cluster holds at most 8 blocks
@@ -189,7 +188,7 @@ MAX_SPLITS = 8                  # a portable cluster holds at most 8 blocks
 
 class SplitPlan(NamedTuple):
     """A cluster GEMM's launch plan (kernels/w8a16.py::plan_a16,
-    kernels/mix_gemm.py::plan_w8a8)."""
+    kernels/mix_gemm.py::plan_mix)."""
     bm: int
     bn: int
     splits: int                # S: blocks (one cluster) per output tile

@@ -1,8 +1,9 @@
 """Int8-activation mixed-precision GEMM with the fused dequant/outlier/SiLU
 epilogue (kernel 2 and kernel A).
 
-Replaces mixq_tpu/ops/pallas/mix_gemm.py::mix_gemm with two CUDA kernels,
-in the Pallas kernel's int8-activation modes, chosen as JAX chooses them,
+Replaces mixq_tpu/ops/pallas/mix_gemm.py::mix_gemm in its int8-activation
+modes with one CUDA kernel, mixq_tpu_torch/csrc/mix_gemm.cu, a template
+over <W4, GROUPED> whose instantiation is chosen as JAX chooses the mode,
 from dtypes and shapes:
 
     w int8 [K, N]           W8
@@ -13,11 +14,10 @@ from dtypes and shapes:
     (+ x_outlier @ w_outlier in f32); the epilogue `fuse` ("silu", "gelu",
     "gelu_new"; _build.apply_epilogue); cast to out_dtype
 
-W8 per-channel ("w8a8") is kernel 2, mixq_tpu_torch/csrc/mix_gemm_w8.cu: it
-splits K over a thread-block cluster when the output tiles alone would not
-fill the card, and `plan_w8a8` chooses the split and gives the bounds the
-kernel walks, so the plan can be checked on the CPU. The other three modes
-are kernel A, mixq_tpu_torch/csrc/mix_gemm.cu.
+W8 per-channel ("w8a8") is kernel 2, the other three modes kernel A. The
+kernel splits K over a thread-block cluster when the output tiles alone
+would not fill the card, and `plan_mix` chooses the split and gives the
+bounds the kernel walks, so the plan can be checked on the CPU.
 
 A bf16 activation is the a16 (weight-only) mode, which runs on kernel B
 (kernels/w8a16.py); `mix_gemm` hands it over, as the Pallas kernel
@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -43,39 +44,47 @@ from mixq_tpu_torch.kernels import _build
 from mixq_tpu_torch.kernels.w8a16 import mix_gemm_a16
 from mixq_tpu_torch.ops.quant import grouped_int8_matmul_dequant, unpack_int4
 
-SOURCE = "mixq_tpu_torch/csrc/mix_gemm.cu"           # kernel A
-SOURCE_W8 = "mixq_tpu_torch/csrc/mix_gemm_w8.cu"     # kernel 2
+SOURCE = "mixq_tpu_torch/csrc/mix_gemm.cu"          # kernels 2 and A
 REPLACES = "mixq_tpu/ops/pallas/mix_gemm.py:140"
 REPLACES_W4 = "mixq_tpu/ops/pallas/mix_gemm.py:43"     # _unpack_w4, grouped
 REPLACES_INT8_MATMUL = "mixq_tpu/ops/pallas/int8_matmul.py:53"
 MODES = ("w8a8", "w8a8_grouped", "w4", "w4_grouped")
 EPILOGUES = _build.FUSES[1:]              # "silu", "gelu", "gelu_new"
-# kernel 2's tiling (csrc/mix_gemm_w8.cu): an output tile, the K-rows of one
-# stage of the cp.async ring, the ring's depth, the blocks an SM holds
-W8_BM, W8_BN, W8_KSTEP, W8_STAGES, W8_BLOCKS_PER_SM = 64, 128, 128, 4, 1
+# the kernel's tiling (csrc/mix_gemm.cu): an output tile, the stored weight
+# rows of one stage of the cp.async ring (W4: packed rows), the ring's
+# depth, the blocks an SM holds
+BM, BN, KSTEP, STAGES, BLOCKS_PER_SM = 64, 128, 128, 4, 1
 
 
 @functools.lru_cache(maxsize=1024)       # every decode step asks again
-def plan_w8a8(M: int, N: int, K: int, sm_count: int,
-              clusters: Optional[Sequence[int]] = None) -> _build.SplitPlan:
-    """Kernel 2's launch plan: the output tiles (W8_BM x W8_BN), then K
-    split over a cluster by `_build.split_k`'s rule (`clusters[S - 1]`:
-    the card's clusters of S blocks at once, `_clusters_w8a8`),
-    each split whole stages of W8_KSTEP K-rows. The result does not depend
-    on the plan: the splits' int32 partials add exactly. `clusters`, when
-    given, is a tuple (the plan is cached)."""
-    tiles = -(-M // W8_BM) * -(-N // W8_BN)
-    S, stages = _build.split_k(tiles, -(-K // W8_KSTEP), sm_count, clusters,
-                               W8_BLOCKS_PER_SM)
-    bounds = tuple((a * W8_KSTEP, min(b * W8_KSTEP, K)) for a, b in stages)
-    return _build.SplitPlan(W8_BM, W8_BN, S, W8_STAGES, W8_KSTEP, bounds,
-                            tiles * S)
+def plan_mix(M: int, N: int, K: int, w4: bool, G: int, sm_count: int,
+             clusters: Optional[Sequence[int]] = None) -> _build.SplitPlan:
+    """The kernel's launch plan: the output tiles (BM x BN), then K split
+    over a cluster by `_build.split_k`'s rule (`clusters[S - 1]`: the
+    card's clusters of S blocks at once, `_clusters`). A split walks whole
+    stages of KSTEP stored rows (K-rows, or for W4 packed rows of [0, K/2),
+    each holding K-rows p and K/2 + p, so a split covers both halves).
+    Per-channel, the splits' int32 partials add exactly and the result
+    does not depend on the plan. Grouped (G > 1), K is split in units of
+    lcm(KSTEP, K/G) stored rows, so every split bound is a group boundary
+    and no group's int32 sum is cut in two. `clusters`, when given, is a
+    tuple (the plan is cached)."""
+    rows = K // 2 if w4 else K
+    unit = KSTEP
+    if G > 1:
+        gs = K // G
+        unit = KSTEP * gs // math.gcd(KSTEP, gs)
+    tiles = -(-M // BM) * -(-N // BN)
+    S, units = _build.split_k(tiles, -(-rows // unit), sm_count, clusters,
+                              BLOCKS_PER_SM)
+    bounds = tuple((a * unit, min(b * unit, rows)) for a, b in units)
+    return _build.SplitPlan(BM, BN, S, STAGES, KSTEP, bounds, tiles * S)
 
 
-def _clusters_w8a8(index: int) -> Tuple[int, ...]:
-    """The card's clusters of 1..8 kernel-2 blocks at once."""
-    return _build.cluster_table("mix_gemm_w8",
-                                "mix_gemm_w8_max_active_clusters", index)
+def _clusters(index: int, w4: bool, grouped: bool) -> Tuple[int, ...]:
+    """The card's clusters of 1..8 blocks of one weight mode at once."""
+    return _build.cluster_table("mix_gemm", "mix_gemm_max_active_clusters",
+                                index, int(w4), int(grouped))
 
 
 def _mode(w4: bool, G: int) -> str:
@@ -110,16 +119,7 @@ def mix_gemm_plain(
 @functools.cache
 def _launcher():
     fn = _build.load("mix_gemm").mix_gemm_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _launcher_w8():
-    fn = _build.load("mix_gemm_w8").mix_gemm_w8_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -142,9 +142,8 @@ def mix_gemm(
 
 def _mix_gemm(q_x, w, x_scale, w_scale, x_outlier, w_outlier, fuse,
               out_dtype, splits: Optional[int] = None) -> torch.Tensor:
-    """`mix_gemm`; `splits` forces kernel 2's split-K factor S (1-8)
-    instead of plan_w8a8's, so a card test can hold the result bit-equal
-    across plans."""
+    """`mix_gemm`; `splits` forces the split-K factor S (1-8) instead of
+    plan_mix's, so a card test can hold the result across plans."""
     if q_x.dtype != torch.int8:               # the a16 mode: kernel B
         return mix_gemm_a16(q_x, w, w_scale, x_outlier, w_outlier, fuse,
                             out_dtype)
@@ -185,17 +184,12 @@ def _mix_gemm(q_x, w, x_scale, w_scale, x_outlier, w_outlier, fuse,
     ptrs = (q_x.data_ptr(), w.data_ptr(), x_scale.data_ptr(),
             w_scale.data_ptr(), x_outlier.data_ptr() if has_out else None,
             w_outlier.data_ptr() if has_out else None, out.data_ptr())
-    out_f32 = int(out_dtype == torch.float32)
-    if w4 or G > 1:                           # kernel A
-        rc = _launcher()(*ptrs, M, N, K, Bo, G, int(w4), fuse_code, out_f32,
-                         stream)
-    else:                                     # kernel 2
-        if splits is None:
-            index = q_x.get_device()
-            splits = plan_w8a8(M, N, K, _build.sm_count(index),
-                               _clusters_w8a8(index)).splits
-        rc = _launcher_w8()(*ptrs, M, N, K, Bo, fuse_code, out_f32, splits,
-                            stream)
+    if splits is None:
+        index = q_x.get_device()
+        splits = plan_mix(M, N, K, w4, G, _build.sm_count(index),
+                          _clusters(index, w4, G > 1)).splits
+    rc = _launcher()(*ptrs, M, N, K, Bo, G, int(w4), fuse_code,
+                     int(out_dtype == torch.float32), splits, stream)
     _build.check(rc, "mix_gemm")
     mix_gemm.launches += 1
     mix_gemm.mode_launches[_mode(w4, G)] += 1

@@ -1,15 +1,15 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version at small shapes (edges, outliers, GQA, ragged lengths; the int8
-GEMM in its W8, packed-W4 and grouped modes, kernel 2 bit-equal across
-its split-K plans; the a16 GEMM with int8 and
-packed weights, per-channel and grouped scales and outliers; every GEMM
-epilogue: SiLU, exact GELU and tanh GELU; flash decode with gemma2's
-softcap and score scale, up to its 4096-slot window, and on a peaked
-softmax; decode attention over the batch-major cache with bf16 and int8 KV,
-GQA, per-row lengths and starts, rows with no valid position, a ring read
-past its wrap, gemma2's softcap and scale, and a peaked softmax) and the
-wrappers' refusals. The tiny models served on the card against the same
-models on the CPU are phase 4 of chip_smoke.py.
+GEMM in its W8, packed-W4 and grouped modes, kernel 2 and W4 per-channel
+bit-equal across their split-K plans, grouped deterministic at each; the
+a16 GEMM with int8 and packed weights, per-channel and grouped scales and
+outliers; every GEMM epilogue: SiLU, exact GELU and tanh GELU; flash
+decode with gemma2's softcap and score scale, up to its 4096-slot window,
+and on a peaked softmax; decode attention over the batch-major cache with
+bf16 and int8 KV, GQA, per-row lengths and starts, rows with no valid
+position, a ring read past its wrap, gemma2's softcap and scale, and a
+peaked softmax) and the wrappers' refusals. The tiny models served on the
+card against the same models on the CPU are phase 4 of chip_smoke.py.
 
 Every test here needs a CUDA card: the `cuda` fixture decides at run time
 and skips with a reason elsewhere. This file imports neither JAX nor the
@@ -45,9 +45,10 @@ from mixq_tpu_torch.kernels.decode_attention import (DECODE_ATOL,
 from mixq_tpu_torch.kernels.flash_decode import (flash_decode_attention,
                                                  flash_decode_level,
                                                  flash_decode_plain)
-from mixq_tpu_torch.kernels.mix_gemm import (_clusters_w8a8, _mix_gemm,
-                                             int8_matmul_dequant, mix_gemm,
-                                             mix_gemm_plain, plan_w8a8)
+from mixq_tpu_torch.kernels.mix_gemm import _clusters as _clusters_mix
+from mixq_tpu_torch.kernels.mix_gemm import (_mix_gemm, int8_matmul_dequant,
+                                             mix_gemm, mix_gemm_plain,
+                                             plan_mix)
 from mixq_tpu_torch.kernels.rmsnorm_quant import (fused_rmsnorm_quant,
                                                   rmsnorm_quant_plain)
 from mixq_tpu_torch.kernels.w8a16 import (_clusters, dequant_weight,
@@ -193,9 +194,9 @@ def test_w8a8_one_launch_per_call(cuda, M, K, N):
     assert mix_gemm.launches == before + 4
     assert mix_gemm.mode_launches["w8a8"] == modes["w8a8"] + 4
     assert mix_gemm.mode_launches["gelu_new"] == modes["gelu_new"] + 3
-    clusters = _clusters_w8a8(0)
+    clusters = _clusters_mix(0, False, False)
     assert all(n > 0 for n in clusters)
-    p = plan_w8a8(M, N, K, _build.sm_count(0), clusters)
+    p = plan_mix(M, N, K, False, 1, _build.sm_count(0), clusters)
     assert (p.splits == 1) == (M == 512)
     assert p.splits == 1 or -(-N // 128) <= clusters[p.splits - 1]
 
@@ -269,6 +270,80 @@ def test_mix_gemm_w4_and_grouped(cuda, M, K, N, G, B, w4, fuse):
             tol = tol + BF16_ULP * ref.float().abs()
         assert (got.float() - ref.float()).abs().le(tol).all()
     assert mix_gemm.mode_launches[mode] == before + 2
+
+
+def test_w4_bit_equal_across_plans(cuda):
+    """W4 per-channel: the splits' int32 partials add exactly and the
+    outlier term runs the same MMAs whatever the split, so S = 1, 2, the
+    plan's S and 8 (uneven splits of 16 stages, each over both halves of
+    its packed rows) and two launches give the same bits, at 4096x4096
+    with A4 activations, 128 outlier channels and SiLU."""
+    M, K, N = 64, 4096, 4096
+    ops = _w4_gemm_operands(cuda, _gen(12), M, K, N, 0, 128, True)
+    plan = plan_mix(M, N, K, True, 1, _build.sm_count(0),
+                    _clusters_mix(0, True, False))
+    assert plan.splits > 1
+    for out_dtype in (torch.float32, torch.bfloat16):
+        runs = [_mix_gemm(*ops, "silu", out_dtype, splits=S)
+                for S in (1, 2, plan.splits, 8, 8)]
+        runs.append(mix_gemm(*ops, "silu", out_dtype))
+        torch.cuda.synchronize()
+        for r in runs[1:]:
+            assert torch.equal(runs[0].view(torch.uint8), r.view(torch.uint8))
+        ref = mix_gemm_plain(*ops, "silu", out_dtype)
+        assert (runs[0].float() - ref.float()).abs().le(
+            BF16_ULP * ref.float().abs() + 1e-4).all()
+
+
+@pytest.mark.parametrize("M,K,N,G,w4", [
+    (64, 4096, 4096, 32, True), (64, 11008, 4096, 86, False),
+    (17, 1536, 400, 48, True), (33, 1056, 256, 22, False),
+    (33, 2048, 256, 4, False), (1, 16384, 128, 2, True)])
+def test_grouped_split_k(cuda, M, K, N, G, w4):
+    """Grouped: the splits' f32 partials add in rank order, so two launches
+    at one S are bit-equal, and at every S (1, 2, 3, the plan's, 8) the
+    result is within the G-ulp limit of test_mix_gemm_w4_and_grouped of
+    the plain version. Groups of 128 (the served o/down and W4 g128: one
+    fold per stage), of 32 over W4 halves and of 48, which ends inside a
+    k32 step and makes a split unit of 3 stages (a fold check per k-step),
+    and of 512 (W8, a group over 4 stages) and 8192 (W4, a whole split:
+    forced splits past the first are empty)."""
+    ops = _w4_gemm_operands(cuda, _gen(M + K + G), M, K, N, G, 128, w4)
+    plan = plan_mix(M, N, K, w4, G, _build.sm_count(0),
+                    _clusters_mix(0, w4, True))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        ref = mix_gemm_plain(*ops, "silu", out_dtype)
+        tol = 1e-4 * ref.float().abs() + 1e-4 + _group_sum_atol(*ops[:4])
+        if out_dtype == torch.bfloat16:
+            tol = tol + BF16_ULP * ref.float().abs()
+        for S in sorted({1, 2, 3, plan.splits, 8}):
+            a, b = (_mix_gemm(*ops, "silu", out_dtype, splits=S) for _ in "ab")
+            torch.cuda.synchronize()
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            assert (a.float() - ref.float()).abs().le(tol).all(), S
+
+
+@pytest.mark.parametrize("w4,G", [(True, 1), (True, 32), (False, 32)])
+def test_kernel_a_one_launch_per_call(cuda, w4, G):
+    """One launch per call in each of kernel A's modes, counted once by
+    weight mode and once by epilogue, at decode (S > 1) and prefill (S = 1)
+    shapes; every split count of the mode fits the card as a cluster."""
+    mode = ("w4" if w4 else "w8a8") + ("_grouped" if G > 1 else "")
+    clusters = _clusters_mix(0, w4, G > 1)
+    assert all(n > 0 for n in clusters)
+    for M in (64, 512):
+        ops = _w4_gemm_operands(cuda, _gen(M), M, 4096, 4096, G if G > 1
+                                else 0, 16, w4)
+        before = mix_gemm.launches
+        modes = dict(mix_gemm.mode_launches)
+        for i in range(3):
+            mix_gemm(*ops, "gelu_new")
+            assert mix_gemm.launches == before + i + 1
+        assert mix_gemm.mode_launches[mode] == modes[mode] + 3
+        assert mix_gemm.mode_launches["gelu_new"] == modes["gelu_new"] + 3
+        p = plan_mix(M, 4096, 4096, w4, G, _build.sm_count(0), clusters)
+        assert (p.splits == 1) == (M == 512)
+        assert p.splits == 1 or 32 <= clusters[p.splits - 1]
 
 
 def _a16_operands(cuda, g, M, K, N, G, B, w4):

@@ -1,6 +1,6 @@
 """PyTorch port, kernel 2's launch plan and its split-K recipe on the CPU.
 
-`kernels/mix_gemm.py::plan_w8a8` on every W8A8 linear shape the served
+`kernels/mix_gemm.py::plan_mix` on every W8A8 linear shape the served
 paths give kernel 2 (Llama-2-7B and Mistral-7B q/k/v/o, up/gate and down;
 Gemma-2-9B q, k/v, o, up/gate and down; the W4A4 paths' o and down are the
 same shapes), at decode (M = 1, 64) and prefill (M = 512), on 132 SMs, with
@@ -30,8 +30,7 @@ from mixq_tpu.ops.pallas.int8_matmul import int8_matmul_dequant as j_int8mm
 from mixq_tpu.ops.pallas.mix_gemm import mix_gemm as j_mix_gemm
 from mixq_tpu_torch.convert import tensor_from_numpy
 from mixq_tpu_torch.kernels import _build
-from mixq_tpu_torch.kernels.mix_gemm import (W8_KSTEP, mix_gemm_plain,
-                                             plan_w8a8)
+from mixq_tpu_torch.kernels.mix_gemm import KSTEP, mix_gemm_plain, plan_mix
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SMS = 132
@@ -52,18 +51,18 @@ def t(a):
 
 
 def forced(M, N, K, S):
-    """plan_w8a8 with S splits: a cluster table on which S is the largest
-    split that fits."""
+    """plan_mix (W8 per-channel) with S splits: a cluster table on which S
+    is the largest split that fits."""
     tiles = -(-M // 64) * -(-N // 128)
-    return plan_w8a8(M, N, K, SMS, (tiles,) * S + (0,) * (8 - S))
+    return plan_mix(M, N, K, False, 1, SMS, (tiles,) * S + (0,) * (8 - S))
 
 
 @pytest.mark.parametrize("M", [1, 64, 512])
 @pytest.mark.parametrize("K,N", SERVE_SHAPES)
 def test_plan_on_serve_shapes(K, N, M):
     for clusters in (H100_CLUSTERS, None):
-        p = plan_w8a8(M, N, K, SMS, clusters)
-        assert p.stage_rows == W8_KSTEP == 128 and (p.bm, p.bn) == (64, 128)
+        p = plan_mix(M, N, K, False, 1, SMS, clusters)
+        assert p.stage_rows == KSTEP == 128 and (p.bm, p.bn) == (64, 128)
         assert 1 <= p.splits <= 8 and len(p.bounds) == p.splits
         # the splits cover [0, K) in order, none empty, none overlapping,
         # each starting on a stage, their stage counts within one
@@ -89,7 +88,7 @@ def test_plan_examples():
     """Plans at M = 64 on the H100 (N-tiles, splits): the largest split
     whose clusters all fit at once."""
     def tiles_splits(K, N):
-        p = plan_w8a8(64, N, K, SMS, H100_CLUSTERS)
+        p = plan_mix(64, N, K, False, 1, SMS, H100_CLUSTERS)
         return -(-N // p.bn), p.splits
 
     assert tiles_splits(4096, 4096) == (32, 3)      # 4 would need 32 > 30
@@ -99,10 +98,11 @@ def test_plan_examples():
     assert tiles_splits(3584, 2048) == (16, 6)
     assert tiles_splits(14336, 3584) == (28, 4)
     assert tiles_splits(4096, 1024) == (8, 8)
-    p = plan_w8a8(64, 4096, 11008, SMS, H100_CLUSTERS)
+    p = plan_mix(64, 4096, 11008, False, 1, SMS, H100_CLUSTERS)
     assert [-(-(b - a) // 128) for a, b in p.bounds] == [29, 29, 28]
     # prefill: 688 tiles fill the card alone
-    assert plan_w8a8(512, 11008, 4096, SMS, H100_CLUSTERS).splits == 1
+    assert plan_mix(512, 11008, 4096, False, 1, SMS,
+                    H100_CLUSTERS).splits == 1
     # the forced plans of the tests below
     assert [(b - a) // 128 for a, b in forced(9, 256, 1040, 6).bounds] == [
         2, 2, 2, 1, 1, 0]

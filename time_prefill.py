@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Prefill timing of the PyTorch port, for comparing two trees in one run.
+"""Prefill and GEMM timing of the PyTorch port, for comparing two trees in
+one run.
 
     python3 time_prefill.py [--package DIR] [--tag NAME]   # one CUDA card
 
 Through the public API only, so that DIR may hold another tree of this
 repository (its mixq_tpu_torch is then built and imported instead of the
 one beside this script; the helpers come from the chip_smoke.py beside it):
-  - kernel 2 (mix_gemm, W8A8) at a prefill shape: M=512 rows of
+  - the int8-activation GEMM (mix_gemm) at a prefill shape: M=512 rows of
     Llama-2-7B's up/gate (4096x11008) with the SiLU epilogue and 128
-    outlier channels, the inputs of chip_smoke.py's prefill row, checked
-    against its plain version and timed as chip_smoke.py times its phase-3
-    rows (CUPTI, rotated weight copies), beside torch._int_mm;
+    outlier channels, in W8A8 (kernel 2; the inputs of chip_smoke.py's
+    prefill row) and in kernel A's W4, per-channel and with 128-row scale
+    groups, each checked against its plain version and timed as
+    chip_smoke.py times its phase-3 rows (CUPTI, rotated weight copies),
+    beside torch._int_mm;
+  - kernel A at decode (M=64, 128 outlier channels): the blocks of
+    chip_smoke.kernel_a_blocks as the decode step runs them, and
+    Gemma-2-9B's W4 gate (3584x14336) with the gelu_new epilogue;
   - for each of chip_smoke.py's serve paths, one prefill of 8 prompts x 64
     tokens into a fresh cache (chip_smoke.prefill_timing).
 Prints one JSON object as its last line and writes it to
@@ -55,24 +61,43 @@ def main():
     pkg = os.path.dirname(os.path.abspath(mixq_tpu_torch.__file__))
     res = {"card": card, "tag": args.tag, "package": pkg}
 
-    M, K, N, Bo, fuse = 512, 4096, 11008, 128, "silu"
-    gen = torch.Generator(device=dev).manual_seed(7)   # as chip_smoke's row
-    ins, lib_w = cs.gemm_inputs(dev, gen, M, K, N, Bo)
-    got = mix_gemm(*ins, fuse=fuse)
-    torch.cuda.synchronize()
-    err = cs.check_gemm(got, mix_gemm_plain(*ins, fuse=fuse),
-                        f"mix_gemm W8A8 {K}x{N} {fuse} at M={M}")
-    q_x, _, xs, ws, xo, wo = ins
-    epi = cs.lib_epilogue(fuse)
-    res["kernel2_prefill"] = cs.timed_gemm(
-        lambda w: mix_gemm(q_x, w, xs, ws, xo, wo, fuse=fuse),
-        lambda: mix_gemm_plain(*ins, fuse=fuse),
-        lambda w: epi(torch._int_mm(q_x, w)), ins[1], lib_w, K * N,
-        cs.gemm_bound(M, K, N, Bo, fuse=fuse),
-        work=f"W8A8 M={M} K={K} N={N} fuse={fuse} B={Bo}",
-        tolerance=cs.GEMM_TOL, max_abs_err=err)
+    Bo = 128
+
+    def gemm_row(M, K, N, fuse, w4, G, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        ins, lib_w = cs.gemm_inputs(dev, gen, M, K, N, Bo, G, w4)
+        mode = ("W4" if w4 else "W8A8") + (f" grouped G={G}" if G > 1
+                                            else "")
+        got = mix_gemm(*ins, fuse=fuse)
+        torch.cuda.synchronize()
+        err = cs.check_gemm(got, mix_gemm_plain(*ins, fuse=fuse),
+                            f"mix_gemm {mode} {K}x{N} {fuse} at M={M}")
+        q_x, _, xs, ws, xo, wo = ins
+        epi = cs.lib_epilogue(fuse)
+        return cs.timed_gemm(
+            lambda w: mix_gemm(q_x, w, xs, ws, xo, wo, fuse=fuse),
+            lambda: mix_gemm_plain(*ins, fuse=fuse),
+            lambda w: epi(torch._int_mm(q_x, w)), ins[1], lib_w,
+            K * N // (2 if w4 else 1), cs.gemm_bound(M, K, N, Bo, G, w4, fuse),
+            work=f"{mode} M={M} K={K} N={N} fuse={fuse} B={Bo}",
+            tolerance=cs.GEMM_TOL, max_abs_err=err)
+
+    # kernel 2's row: chip_smoke.py's prefill row (its generator's seed)
+    res["kernel2_prefill"] = gemm_row(512, 4096, 11008, "silu", False, 1, 7)
     print(f"kernel 2 prefill: {res['kernel2_prefill']}", flush=True)
-    del ins, lib_w, got
+    res["kernel_a_prefill"] = [gemm_row(512, 4096, 11008, "silu", True, G, 8)
+                               for G in (1, 32)]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    res["kernel_a_decode"] = [
+        cs.gemm_block(dev, gen, 64, Bo, linears, key=key, mode=mode,
+                      work=f"{what} at M=64, {Bo} outlier channels each")
+        for key, mode, linears, what in cs.kernel_a_blocks()]
+    res["kernel_a_decode"].append(
+        gemm_row(64, 3584, 14336, "gelu_new", True, 1, 10))
+    for r in res["kernel_a_prefill"] + res["kernel_a_decode"]:
+        print(f"kernel A {r['work']}: {r['ms']:.4f} ms", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     res["paths"] = {}
     gen = torch.Generator(device=dev).manual_seed(0)
