@@ -7,8 +7,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
   2. build: the five CUDA kernel libraries from mixq_tpu_torch/csrc, timed,
      with each instantiation's registers and spills (ptxas) of the
-     int8-activation GEMM (kernels 2 and A; a spill in any fails) and of
-     kernel B, and the clusters of 1..8 blocks the card holds at once;
+     int8-activation GEMM (kernels 2 and A), of flash decode (its 16
+     instantiations, g x int8 x softcap; a spill in any of these fails)
+     and of kernel B, and the clusters of 1..8 blocks the card holds at
+     once;
   3. kernels: each kernel, in each mode the main paths run, at Llama-2-7B
      main-path shapes against its plain PyTorch version on the same inputs,
      with the stated tolerance, then its device time on the card (CUPTI,
@@ -26,16 +28,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      grouped, with the w8a16_matmul and int8_matmul_dequant entry points
      (each a16 row with its split-K plan, the clusters the card holds and
      ptxas's registers and spills; two split-K launches held bit-equal),
-     and flash decode; then Gemma-2-9B's: kernel 1 at H=3584 (A8 and A4),
+     and flash decode (each row with its cluster plan, R and blocks, the
+     clusters of R blocks the card holds, its instantiation's load
+     pipeline, registers and spills, two launches of the plan held
+     bit-equal, and the parent tree's time, not measured in the run); then
+     Gemma-2-9B's:
+     kernel 1 at H=3584 (A8 and A4),
      every linear shape of its block in kernel 2 (W8A8), kernel A (W4 on
      q/k/v/up/gate) and kernel B (W8A16), with the tanh-GELU (gelu_new)
      epilogue on the gate, and the gate once with the exact GELU (no serve
      path runs it yet); flash decode with the logit softcap at its decode
      shape, int8 and bf16 KV, with a spread and a peaked softmax, and with
-     Gemma-2-27B's score scale; and decode attention over the batch-major
-     cache (kernel 8) at Mistral-7B's heads (int8, spread and peaked), at
-     Llama-2-7B's (bf16, beside SDPA), on Mistral's 4096-slot ring read
-     past its wrap, and at Gemma-2-9B's with the softcap;
+     Gemma-2-27B's score scale, and at generate's batch (B=8), where its
+     rows split over clusters, at each cluster size; and decode attention
+     over the batch-major cache (kernel 8) at Mistral-7B's heads (int8,
+     spread and peaked), at Llama-2-7B's (bf16, beside SDPA), on Mistral's
+     4096-slot ring read past its wrap, and at Gemma-2-9B's with the
+     softcap;
   4. reference: tiny W8A8, W4A4 (per-channel and grouped) and W8A16 llama
      models, and tiny W8A8, W4A4 and W8A16 gemma2 models (caps that bind
      without saturating), on the head-major cache (attn_impl="flash"); a
@@ -65,7 +74,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (asserted), ms/step, tok/s, peak device memory, the memory of the f32
      head the engine holds, the step's byte bound from the model's tensors,
      and over three more steps under torch.profiler the device time per
-     step, the device's busy share and the top kernels; for Mistral also
+     step, its attention kernels' (kernel 3 or 8) device time per step,
+     the device's busy share and the top kernels; for Mistral also
      one step at batch 16 on a window-sized (4096-slot) ring filled past
      its wrap, every kernel-8 launch held against its plain version; and
      one prefill of 8 prompts x 64 tokens into a fresh cache (512 rows
@@ -76,9 +86,11 @@ flash decode's softcap) and, last, the device line. Details go to
 OUT_DIR/chip_smoke.json. Without a CUDA card, or without the package beside
 it, the script exits non-zero and prints no result.
 """
+import functools
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -510,27 +522,54 @@ A16_LIB = ("torch.matmul of x with the pre-dequantized bf16 weight (product "
 
 
 # ptxas reports by (w4, grouped) instantiation, filled by main(): kernel B's
-# and the int8-activation GEMM's (kernels 2 and A)
+# and the int8-activation GEMM's (kernels 2 and A); flash decode's by
+# (g, int8, softcap)
 A16_PTXAS = {}
 MIX_PTXAS = {}
+FLASH_PTXAS = {}
 
 
 def ptxas_by_mode(log, kernel):
-    """Registers and spills of each `kernel`<W4, GROUPED> (w8a16_kernel,
-    mix_gemm_kernel) in a `ptxas -v` log, keyed (w4, grouped)."""
+    """Registers and spills of each instantiation of `kernel` in a `ptxas
+    -v` log, keyed by its template arguments (ints and bools, from the
+    mangled name): (w4, grouped) for w8a16_kernel and mix_gemm_kernel,
+    (g, int8, softcap) for flash_decode_kernel."""
     out, key = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             key = None
             if f"{kernel}I" in ln:
-                t = ln.split(f"{kernel}I", 1)[1]
-                key = (t.startswith("Lb1"), t[3:].startswith("ELb1"))
+                args = ln.split(f"{kernel}I", 1)[1].split("EE", 1)[0] + "E"
+                key = tuple(int(v) if t == "i" else v == "1" for t, v in
+                            re.findall(r"L([ib])(\d+)E", args))
         elif key is not None and "spill stores" in ln:
             out.setdefault(key, {})["spills"] = ln.strip()
         elif key is not None and "Used" in ln and "registers" in ln:
             out.setdefault(key, {})["registers"] = int(
                 ln.split("Used", 1)[1].split()[0])
     return out
+
+
+# Kernel 3's times before its redesign (one block of 4 warps per (kv head,
+# batch row) walking the whole row, commit 234e8be), by phase-3 row at B=64
+# (model, n_q, n_kv, D, mode). Not measured in the run that prints them:
+# the mean of two runs of this script on 234e8be's tree in one chip call
+# (run F of PERF.md's findings on this redesign), in turns with the new one,
+# on an NVIDIA H100 80GB HBM3 at 700.00 W.
+PREV_KERNEL3_MS = {
+    ("Llama-2-7B", 32, 32, 128, "int8 KV"): 0.0931,
+    ("Llama-2-7B", 32, 32, 128, "bf16 KV"): 0.1302,
+    ("Llama-2-7B", 32, 8, 128, "int8 KV"): 0.0810,
+    ("Gemma-2-9B", 16, 8, 256, "int8 KV"): 0.1147,
+    ("Gemma-2-9B", 16, 8, 256, "int8 KV, softcap 50, scale 0.0625"): 0.1239,
+    ("Gemma-2-9B", 16, 8, 256, "bf16 KV, softcap 50, scale 0.0625"): 0.1959,
+    ("Gemma-2-9B", 16, 8, 256,
+     "int8 KV, softcap 50, scale 0.0625, peaked (q x 3)"): 0.1267,
+    ("Gemma-2-9B", 16, 8, 256,
+     "bf16 KV, softcap 50, scale 0.0625, peaked (q x 3)"): 0.1921,
+    ("Gemma-2-27B", 32, 16, 128,
+     "int8 KV, softcap 50, scale 0.0833333"): 0.0727,
+}
 
 
 # Kernel 2's times before its redesign (the 64 x 32-tile kernel that walked
@@ -780,18 +819,20 @@ def beyond_levels(got, ref, level):
 
 
 def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
-              offset=0.0, model="Llama-2-7B", gain=1.0):
+              offset=0.0, model="Llama-2-7B", gain=1.0, sweep=False):
     """Kernel 3 on one case against its plain version, then timed. The
     limit is two bf16 ulps of |y| plus FLASH_ATOL; for a peaked case
     (gain > 1) it is two ulps plus PEAK_LEVELS of its row's probability
     level (flash_decode_level). With a softcap the case also shows that the
     cap binds: the uncapped plain version lies beyond the limit by a
-    margin."""
+    margin. With `sweep`, the row is also held to its limit and timed at
+    every cluster size R (`ms_by_splits`)."""
     from mixq_tpu_torch.kernels.flash_decode import (flash_decode_attention,
                                                      flash_decode_level,
                                                      flash_decode_plain)
     import torch.nn.functional as F
 
+    from mixq_tpu_torch.kernels import flash_decode as FD
     q, k, v, ks, vs, lengths, starts = flash_case(dev, gen, B, S, n_q, n_kv,
                                                   D, int8, offset, gain)
     args = (q, k, v, lengths, ks, vs, starts, 0)
@@ -802,23 +843,32 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
         f", peaked (q x {gain:g})" if gain != 1 else "")
     what = f"flash_decode {model} n_q={n_q} n_kv={n_kv} D={D} {mode}"
     got = flash_decode_attention(*args, **opts)
+    again = flash_decode_attention(*args, **opts)
     torch.cuda.synchronize()
+    check(torch.equal(got, again),
+          f"{what}: two launches of one plan differ")
     ref = flash_decode_plain(*args, **opts).float()
     level = flash_decode_level(*args, **opts)
+    plan = flash_plan(B, S, n_q, n_kv, D, int8, softcap)
     err = (got.float() - ref).abs()
-    beyond, levels = beyond_levels(got, ref, level)
     share = ((err - 2 * BF16_ULP * ref.abs()) > 0).float().mean().item()
     by_level = gain != 1
     atol, max_levels = FLASH_ATOL[kv], PEAK_LEVELS[kv]
     if by_level:
-        check(levels <= max_levels and bool(torch.isfinite(got).all()),
-              f"{what}: error beyond two bf16 ulps is {levels} probability "
-              f"levels of its row > {max_levels}")
         tolerance = f"2 bf16 ulps of |y| + {max_levels:g} levels of its row"
     else:
-        check(beyond <= atol and bool(torch.isfinite(got).all()),
-              f"{what}: error {beyond} beyond two bf16 ulps > {atol}")
         tolerance = f"2 bf16 ulps of |y| + {atol}"
+
+    def held(out, how):
+        """Holds one output of the kernel to the row's limit."""
+        beyond, levels = beyond_levels(out, ref, level)
+        check(bool(torch.isfinite(out).all())
+              and (levels <= max_levels if by_level else beyond <= atol),
+              f"{what}{how}: error beyond two bf16 ulps is {beyond} "
+              f"({levels} probability levels of its row) > {tolerance}")
+        return beyond, levels
+
+    beyond, levels = held(got, "")
     row = {}
     if softcap:
         free = flash_decode_plain(*args, scale=scale).float()
@@ -861,8 +911,33 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
                         is not None else "none: " + (
                             "SDPA has no logit softcap" if softcap
                             else "no PyTorch call attends over int8 K/V")),
-               bound_ms=b, bound_by=by)
+               bound_ms=b, bound_by=by, plan=plan)
+    if sweep:
+        row["ms_by_splits"] = {}
+        for R in FD.SPLITS:
+            fn = functools.partial(FD._flash, *args, softcap, scale, splits=R)
+            held(fn(), f" at R = {R}")
+            row["ms_by_splits"][R] = device_ms(fn, 50)
+    key = (model, n_q, n_kv, D, mode)
+    if B == 64 and key in PREV_KERNEL3_MS:
+        row.update(previous_ms=PREV_KERNEL3_MS[key], previous_from="234e8be")
     return row
+
+
+def flash_plan(B, S, n_q, n_kv, D, int8, softcap):
+    """Kernel 3's plan for this call (R, blocks, shared memory), the
+    clusters of R blocks the card holds at once, and the ptxas report of
+    its instantiation."""
+    from mixq_tpu_torch.kernels import _build
+    from mixq_tpu_torch.kernels import flash_decode as FD
+
+    g = n_q // n_kv
+    clusters = FD._clusters(0, int8, g, softcap > 0, S, D)
+    p = FD.plan_flash(B, n_kv, g, S, D, int8, _build.sm_count(0), clusters)
+    return dict(splits=p.splits, blocks=p.blocks, smem=p.smem,
+                max_active_clusters=clusters[p.splits - 1],
+                loads="ring" if FD.uses_ring(g, int8) else "registers",
+                **FLASH_PTXAS.get((g, int8, softcap > 0), {}))
 
 
 def kernel_flash(dev, gen, rows):
@@ -877,6 +952,32 @@ def kernel_flash(dev, gen, rows):
             ("Llama-2-7B", 32, 8, 128, True),
             ("Gemma-2-9B", 16, 8, 256, True))]
     return rows["flash_decode"][0]
+
+
+def kernel_flash_small_batch(dev, rows):
+    """Kernel 3 at generate's batch (B=8) and S=512, where the rows are
+    split over clusters: Llama-2-7B int8, the GQA 32/8 int8, Gemma-2-9B
+    int8 and bf16 with the softcap, each also timed at R = 1, 2, 4 and 8
+    (the inputs from a generator of their own, so the other phases' inputs
+    stay as they were)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows["flash_decode_b8"] = [
+        flash_row(dev, gen, 8, 512, n_q, n_kv, D, int8, cap, scale, offset,
+                  model, sweep=True)
+        for model, n_q, n_kv, D, int8, cap, scale, offset in (
+            ("Llama-2-7B", 32, 32, 128, True, 0.0, None, 0.0),
+            ("Llama-2-7B", 32, 8, 128, True, 0.0, None, 0.0),
+            ("Gemma-2-9B", 16, 8, 256, True, GEMMA2_SOFTCAP, 256.0 ** -0.5,
+             FLASH_OFFSET),
+            ("Gemma-2-9B", 16, 8, 256, False, GEMMA2_SOFTCAP, 256.0 ** -0.5,
+             FLASH_OFFSET))]
+
+
+# the served models' attention heads (n_q, n_kv, head_dim, softcap):
+# Llama-2-7B, the GQA 32/8 of Mistral-7B, Gemma-2-9B, Gemma-2-27B
+FLASH_SHAPES = {"llama": (32, 32, 128, False), "gqa": (32, 8, 128, False),
+                "gemma2-9b": (16, 8, 256, True),
+                "gemma2-27b": (32, 16, 128, True)}
 
 
 # gemma2's attention: the published logit softcap and query_pre_attn_scalar
@@ -1637,8 +1738,13 @@ def profile_steps(step, tok, tag, n=3):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"profile_{tag}.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
+    attn_us = sum(e.self_device_time_total for e in ka
+                  if e.device_type == DeviceType.CUDA
+                  and ("flash_decode_kernel" in e.key
+                       or "decode_attention_kernel" in e.key))
     return dict(profiled_steps=n, profiled_wall_us=wall_us, device_us=dev_us,
                 device_ms_per_step=dev_us / n / 1e3,
+                attention_ms_per_step=attn_us / n / 1e3,
                 device_busy_share=dev_us / wall_us,
                 top_kernels_us_per_step=[
                     (e.key[:60], e.count, e.self_device_time_total / n)
@@ -1783,6 +1889,7 @@ def main():
           flush=True)
     report = {"card": card, "kind": kind}
 
+    from mixq_tpu_torch.kernels import flash_decode as FD
     t0 = time.perf_counter()
     ptxas = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
@@ -1808,6 +1915,19 @@ def main():
     for (w4, grouped), r in MIX_PTXAS.items():
         check(" 0 bytes spill stores" in r.get("spills", ""),
               f"mix_gemm_kernel<W4={w4}, grouped={grouped}> spills: {r}")
+    # no instantiation of flash decode spills
+    log = ptxas.get("flash_decode", "")
+    FLASH_PTXAS.update(ptxas_by_mode(log, "flash_decode_kernel"))
+    check(log == "(cached)" or len(FLASH_PTXAS) == 16,
+          f"flash_decode: ptxas reported {len(FLASH_PTXAS)} instantiations")
+    for (g, int8, cap), r in FLASH_PTXAS.items():
+        check(" 0 bytes spill stores" in r.get("spills", ""),
+              f"flash_decode_kernel<{g}, int8={int8}, softcap={cap}> "
+              f"spills: {r}")
+    report["flash_decode_ptxas"] = {
+        f"g={k[0]} int8={k[1]} softcap={k[2]}": v
+        for k, v in sorted(FLASH_PTXAS.items())}
+    print(f"  flash_decode: {report['flash_decode_ptxas']}")
     for name, mod, log in (("w8a16", w8a16, A16_PTXAS),
                            ("mix_gemm", mix_gemm, MIX_PTXAS)):
         report[f"{name}_ptxas"] = {f"w4={k[0]} grouped={k[1]}": v
@@ -1819,6 +1939,14 @@ def main():
               "blocks the card holds at once "
               f"(cudaOccupancyMaxActiveClusters): "
               f"{report[f'{name}_clusters']}")
+
+    report["flash_decode_clusters"] = {
+        f"{name} int8={int8} S={S}": FD._clusters(0, int8, n_q // n_kv, cap,
+                                                  S, D)
+        for name, (n_q, n_kv, D, cap) in FLASH_SHAPES.items()
+        for int8 in (True, False) for S in (128, 640, 4096)}
+    print(f"  flash_decode: clusters of 1..8 blocks the card holds at once "
+          f"at the served heads: {report['flash_decode_clusters']}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
@@ -1833,6 +1961,7 @@ def main():
     main_rows["decode_attention"] = kernel_decode_attention(dev, gen, rows)
     (main_rows["gelu_w8a8"], main_rows["gelu_w4"],
      main_rows["gelu_a16"]) = kernel_gemma2_gemms(dev, gen, rows)
+    kernel_flash_small_batch(dev, rows)
     for name, rs in rows.items():
         for r in rs:
             lib = ("-" if r.get("library_ms") is None
@@ -1848,6 +1977,8 @@ def main():
                      " of a row" if "beyond_levels" in r else "")
                   + f" ({r['tolerance']})"
                   + (f" plan {r['plan']}" if "plan" in r else "")
+                  + (f" by R {r['ms_by_splits']}" if "ms_by_splits" in r
+                     else "")
                   + (f" earlier kernel {r['previous_ms']:.4f} ms "
                      f"({r['previous_from']}, not measured in this run)"
                      if r.get("previous_ms") else ""),

@@ -1,4 +1,5 @@
-// cp.async helpers shared by the GEMM kernels (sm_80+; built for sm_90a).
+// cp.async helpers shared by the GEMM and attention kernels (sm_80+; built
+// for sm_90a).
 #pragma once
 #include <cuda_runtime.h>
 
@@ -12,6 +13,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n));
+}
+// 4-byte global -> shared copy (both 4-byte aligned)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

@@ -119,13 +119,18 @@
 
 #include <type_traits>
 
+#include "cluster.cuh"
 #include "cp_async.cuh"
 #include "epilogue.cuh"
 #include "launch.cuh"
 
+using mixq::cluster_arrive;
+using mixq::cluster_wait;
 using mixq::cp_async16;
 using mixq::cp_async_commit;
 using mixq::cp_async_wait;
+using mixq::ld_cluster_if;
+using mixq::map_rank;
 
 namespace {
 
@@ -300,36 +305,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The cluster barrier in two halves, so work can go between them: arrive
-// releases this thread's shared-memory accesses, wait acquires every
-// thread's in the cluster.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The address of shared-memory address `at` in cluster rank `rank`.
-__device__ __forceinline__ uint32_t map_rank(uint32_t at, int rank) {
-  uint32_t d;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(d)
-               : "r"(at), "r"(rank));
-  return d;
-}
-
-// 16 bytes of a cluster rank's shared memory when `pred`, else zeros.
-__device__ __forceinline__ int4 ld_cluster_if(bool pred, uint32_t at) {
-  int4 v = make_int4(0, 0, 0, 0);
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %4, 0;\n"
-      " @p ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%5];\n}\n"
-      : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w)
-      : "r"((int)pred), "r"(at));
-  return v;
 }
 
 // {bf16(lo), bf16(hi)}, each rounded to nearest even

@@ -23,6 +23,12 @@ takes (head-major for this kernel, or batch-major for kernel 8), read as on
 the accelerator whatever the device, so the CPU tests take the layout the
 card does.
 
+The kernel splits each (kv head, batch row)'s valid slots over a
+thread-block cluster of R blocks; `plan_flash` chooses R from static shapes
+and the card's cluster occupancy (never from `lengths`, so a captured
+decode step keeps its plan), and `rank_bounds` is the run-time cut of a
+row's slots between the ranks, as the kernel computes it.
+
 `flash_decode_attention` launches the kernel for CUDA tensors and runs
 `flash_decode_plain`, the same arithmetic in PyTorch ops, for CPU tensors;
 `flash_decode_level` sizes one flipped probability level per output row,
@@ -35,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -45,7 +51,19 @@ SOURCE = "mixq_tpu_torch/csrc/flash_decode.cu"
 REPLACES = "mixq_tpu/ops/pallas/flash_decode.py:442"
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 SMEM_LIMIT = 227 * 1024          # H100 dynamic shared memory per block
+LAUNCH_SMEM = 226 * 1024         # a launch: room left for static smem
 GROUPS = (1, 2, 4, 8)
+# the kernel's shape (csrc/flash_decode.cu): warps a block, the cluster
+# sizes R it is planned at, the blocks an SM holds for the default cluster
+# table (the card's own table replaces it)
+WARPS, SPLITS, BLOCKS_PER_SM = 4, (1, 2, 4, 8), 8
+# block steps a rank walks at least, on a row that fills the cache: under
+# it a rank's fixed costs (q, the reductions, the cluster barriers) outweigh
+# its share of the stream (chip_smoke.py's small-batch rows time R = 1-8)
+MIN_STEPS = 4
+# its load pipelines: a per-lane cp.async ring in shared memory of
+# RING_STAGES stages of 2 rows, or 4 rows a lane in registers
+RING_STAGES = 4
 
 Rows = Union[int, torch.Tensor, None]
 
@@ -161,17 +179,118 @@ def flash_decode_level(
     return (top / l[..., 0]).reshape(B, n_q)
 
 
-def smem_bytes(g: int, S: int, D: int) -> int:
-    """Dynamic shared memory of one block (csrc/flash_decode.cu's launch):
-    the row's scores g*S*4, the warps' p.v partials, q in f32 and int8."""
-    return g * S * 4 + 4 * g * D * 4 + g * D * 4 + g * D
+def uses_ring(g: int, int8: bool) -> bool:
+    """Whether an instantiation reads through the cp.async ring (else
+    registers): the pipeline measured faster for it on the H100
+    (csrc/flash_decode.cu::uses_ring)."""
+    return not int8 or g >= 4
+
+
+def unroll(ring: bool) -> int:
+    """Rows a lane reads at once: a ring stage's, or its registers'."""
+    return 2 if ring else 4
+
+
+def rows_per_step(D: int, kv_itemsize: int) -> int:
+    """Cache rows a warp reads at once: one 16-byte chunk a lane."""
+    return 32 // (D * kv_itemsize // 16)
+
+
+def rank_bounds(start: int, length: int, unit: int,
+                R: int) -> List[Tuple[int, int]]:
+    """Each cluster rank's part [a, b) of a row's valid slots
+    [start, length) (csrc/cluster.cuh::rank_part): ceil(n / unit) whole
+    units of `unit` slots split R ways as kernels 2, A and B split their
+    stages, the first n_units % R ranks one unit more, the last part cut at
+    `length`; an empty range gives every rank an empty part."""
+    n = -(-(length - start) // unit) if length > start else 0
+    base, extra = divmod(n, R)
+    out = []
+    for r in range(R):
+        first = r * base + min(r, extra)
+        a = start + first * unit
+        b = start + (first + base + (r < extra)) * unit
+        out.append((min(a, length), min(b, length)))
+    return out
+
+
+def part_rows(S: int, rpw: int, R: int) -> int:
+    """The longest part of S slots a rank takes: whole warp steps."""
+    steps = -(-S // rpw)
+    return -(-steps // R) * rpw
+
+
+def smem_bytes(g: int, S: int, D: int, kv_itemsize: int = 1,
+               splits: int = 1) -> int:
+    """Dynamic shared memory of one block at R = `splits`
+    (csrc/flash_decode.cu's launch): the cp.async ring, q in
+    f32 and int8, the warps' p.v partials, the part's scores g*P*4 and,
+    int8, its k and v scales."""
+    P = part_rows(S, rows_per_step(D, kv_itemsize), splits)
+    ring = uses_ring(g, kv_itemsize == 1)
+    ring_bytes = 128 * unroll(True) * RING_STAGES * 16 if ring else 0
+    return (ring_bytes + g * D * 4 + g * D + WARPS * g * D * 4 + g * P * 4
+            + (2 * P * 4 if kv_itemsize == 1 else 0))
+
+
+def _row_smem(g: int, S: int, D: int) -> int:
+    """Shared memory of a block holding a whole row's scores g*S*4, the
+    warps' p.v partials and q: the gate on which shapes the kernel takes
+    (and so which serving takes the head-major cache)."""
+    return g * S * 4 + WARPS * g * D * 4 + g * D * 4 + g * D
 
 
 def flash_decode_supported(g: int, S: int, D: int, kv_itemsize: int) -> bool:
     """Whether the kernel takes these shapes: a head dim it reads in whole
-    16-byte chunks, and the row's scores in shared memory."""
+    16-byte chunks, and a whole row's scores in shared memory."""
     return (D * kv_itemsize in (16, 32, 64, 128, 256, 512)
-            and smem_bytes(g, S, D) <= SMEM_LIMIT)
+            and _row_smem(g, S, D) <= SMEM_LIMIT)
+
+
+class FlashPlan(NamedTuple):
+    """Kernel 3's launch plan (plan_flash)."""
+    splits: int                # R: blocks (one cluster) per (kv head, row)
+    blocks: int                # the grid: n_kv * B * R
+    step: int                  # slots a block reads at once
+    smem: int                  # dynamic shared memory of a block
+
+
+@functools.lru_cache(maxsize=1024)       # every decode step asks again
+def plan_flash(B: int, n_kv: int, g: int, S: int, D: int, int8: bool,
+               sm_count: int, clusters: Optional[Sequence[int]] = None
+               ) -> FlashPlan:
+    """The kernel's launch plan from static shapes only (never the rows'
+    lengths): the tiles are the n_kv * B (kv head, batch row) stripes, the
+    stages S's chunks of MIN_STEPS block steps (a block step: WARPS *
+    rows_per_step * unroll slots), and R is `_build.split_k`'s rule over
+    the cluster sizes SPLITS: the largest R, at most one chunk a rank,
+    whose clusters of R blocks all fit on the card at once
+    (`clusters[R - 1]`: the card's count, `_clusters`; by default
+    BLOCKS_PER_SM blocks per SM packed perfectly), and R = 1 when the
+    stripes alone fill the card. Then the smallest R at least that whose
+    part's scores fit in shared memory. `clusters`, when given, is a tuple
+    (the plan is cached)."""
+    esize = 1 if int8 else 2
+    rpw = rows_per_step(D, esize)
+    step = WARPS * rpw * unroll(uses_ring(g, int8))
+    if clusters is None:
+        clusters = [BLOCKS_PER_SM * sm_count // s
+                    for s in range(1, _build.MAX_SPLITS + 1)]
+    tiles, stages = n_kv * B, max(1, S // (MIN_STEPS * step))
+    R = max([r for r in SPLITS if r <= stages and tiles <= clusters[r - 1]],
+            default=1)
+    R = next((r for r in SPLITS if r >= R
+              and smem_bytes(g, S, D, esize, r) <= LAUNCH_SMEM), SPLITS[-1])
+    return FlashPlan(R, tiles * R, step, smem_bytes(g, S, D, esize, R))
+
+
+def _clusters(index: int, int8: bool, g: int, softcap: bool, S: int,
+              D: int) -> Tuple[int, ...]:
+    """The card's clusters of 1..8 blocks of one instantiation at S slots
+    of head dim D (its shared memory) at once."""
+    return _build.cluster_table("flash_decode",
+                                "flash_decode_max_active_clusters", index,
+                                int(int8), g, int(softcap), S, D)
 
 
 def use_head_major_cache(attn_impl: str, model_cfg, max_seq: int,
@@ -214,7 +333,8 @@ def _lib():
     lib.flash_decode_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p,
                                  ctypes.c_void_p] + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
     lib.flash_decode_launch.restype = ctypes.c_int
     return lib
 
@@ -244,6 +364,14 @@ def flash_decode_attention(
     scale: Optional[float] = None,            # score scale; None: 1/sqrt(D)
 ) -> torch.Tensor:
     """Returns the attention output [B, n_q, D] in q.dtype."""
+    return _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer,
+                  softcap, scale)
+
+
+def _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap,
+           scale, splits: Optional[int] = None) -> torch.Tensor:
+    """`flash_decode_attention`; `splits` forces R (1, 2, 4 or 8) instead
+    of plan_flash's, so a card test can hold the result across plans."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, k_scale, v_scale,
                                   kv_start, layer, softcap, scale)
@@ -264,8 +392,10 @@ def flash_decode_attention(
     dev = q.device
     if softcap < 0:
         raise ValueError(f"softcap {softcap} must be >= 0 (0: none)")
-    if q.dtype != torch.bfloat16 or not q.is_contiguous():
-        raise ValueError("q must be a contiguous bf16 tensor")
+    if (q.dtype != torch.bfloat16 or not q.is_contiguous()
+            or q.data_ptr() % 16):
+        raise ValueError("q must be a contiguous, 16-byte aligned bf16 "
+                         "tensor")
     for t, name in ((k, "k"), (v, "v")):
         if (t.device != dev or t.dtype != kv_dtype or t.shape != k.shape
                 or not t.is_contiguous() or t.data_ptr() % 16):
@@ -283,11 +413,21 @@ def flash_decode_attention(
                     or not t.is_contiguous()):
                 raise ValueError(f"{name} must be a contiguous f32 "
                                  f"{(n_kv, B, Sp)} tensor on {dev}")
+    if _row_smem(g, S, D) > SMEM_LIMIT:
+        raise ValueError(f"a row's g*S*4 scores ({_row_smem(g, S, D)} bytes "
+                         f"of shared memory with the reduction buffers) "
+                         f"exceed {SMEM_LIMIT}")
+    if splits is None:
+        index = q.get_device()
+        splits = plan_flash(B, n_kv, g, S, D, quantized,
+                            _build.sm_count(index),
+                            _clusters(index, quantized, g, softcap > 0, S,
+                                      D)).splits
+    if (splits not in SPLITS
+            or smem_bytes(g, S, D, esize, splits) > LAUNCH_SMEM):
+        raise ValueError(f"{splits} splits: R must be one of {SPLITS} with "
+                         f"the part's scores in {LAUNCH_SMEM} bytes")
     lib = _lib()
-    smem = smem_bytes(g, S, D)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"g*S*4 scores ({smem} bytes of shared memory with "
-                         f"the reduction buffers) exceed {SMEM_LIMIT}")
     len_t = _device_rows(lengths, B, dev, "lengths")
     st_t = _device_rows(kv_start, B, dev, "kv_start")
     if isinstance(kv_start, int) and kv_start:      # kept alive past launch
@@ -302,7 +442,7 @@ def flash_decode_attention(
         lengths if len_t is None else 0,
         None if st_t is None else st_t.data_ptr(), out.data_ptr(),
         B, n_kv, g, S, Sp, D, _score_scale(scale, D), softcap,
-        int(quantized), stream)
+        int(quantized), splits, stream)
     _build.check(rc, "flash_decode")
     flash_decode_attention.launches += 1
     if softcap:

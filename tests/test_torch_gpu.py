@@ -8,8 +8,11 @@ decode with gemma2's softcap and score scale, up to its 4096-slot window,
 and on a peaked softmax; decode attention over the batch-major cache with
 bf16 and int8 KV, GQA, per-row lengths and starts, rows with no valid
 position, a ring read past its wrap, gemma2's softcap and scale, and a
-peaked softmax) and the wrappers' refusals. The tiny models served on the
-card against the same models on the CPU are phase 4 of chip_smoke.py.
+peaked softmax; flash decode split over clusters of 1, 2, 4 and 8 blocks,
+bit-equal across two launches of a plan, and its peaked Gemma-2-9B case
+over 8 seeds) and the wrappers' refusals. The
+tiny models served on the card against the same models on the CPU are
+phase 4 of chip_smoke.py.
 
 Every test here needs a CUDA card: the `cuda` fixture decides at run time
 and skips with a reason elsewhere. This file imports neither JAX nor the
@@ -576,6 +579,118 @@ def test_flash_decode_peaked_softcap(cuda, int8):
     over = ((got.float() - ref).abs() - 2 * BF16_ULP * ref.abs()).amax(-1)
     assert ((over / flash_decode_level(*args, **opts)).max()
             <= PEAK_LEVELS[int8])
+
+
+FLASH_CASES = [(nq, nkv, D, S, 0.0, None)
+               for nq, nkv, D, S in ((4, 4, 64, 128), (8, 2, 128, 200),
+                                     (32, 8, 128, 512), (2, 2, 32, 64))] + [
+    (4, 2, 256, 300, 50.0, 24.0 ** -0.5), (4, 2, 256, 4096, 50.0, None),
+    (4, 2, 128, 200, 50.0, 144.0 ** -0.5)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nq,nkv,D,S,cap,scale", FLASH_CASES)
+def test_flash_decode_forced_splits(cuda, int8, nq, nkv, D, S, cap, scale,
+                                    splits):
+    """Kernel 3 with its rows split over a cluster of R = `splits` blocks
+    (int8 with g <= 2 loading to registers, the rest through the cp.async
+    ring), on test_flash_decode's and the softcap test's shapes and ragged
+    rows
+    (lengths S, S/2 + 1, 0, 9 and 1; the second row's window start 5, the
+    fourth's 3): within the limit of the plain version, one launch per
+    call, and two launches of one plan bit-equal."""
+    from mixq_tpu_torch.kernels.flash_decode import _flash
+    g = _gen(nq + D + S + splits)
+    B = 5
+    q = (torch.randn(B, nq, D, generator=g, device=cuda)
+         + (2 if cap else 0)).to(torch.bfloat16)
+    k, v, ks, vs = _cache(cuda, g, 1, nkv, B, S, D, int8, pad=S % 128 != 0,
+                          k_offset=2.0 if cap else 0.0)
+    lengths = torch.tensor([S, S // 2 + 1, 0, 9, 1], dtype=torch.int32,
+                           device=cuda)
+    start = torch.tensor([0, 5, 0, 3, 0], dtype=torch.int32, device=cuda)
+    args = (q, k, v, lengths, ks, vs, start, 0, cap, scale)
+    ref = flash_decode_plain(*args[:8], softcap=cap, scale=scale)
+    before = flash_decode_attention.launches
+    got = _flash(*args, splits=splits)
+    again = _flash(*args, splits=splits)
+    torch.cuda.synchronize()
+    assert flash_decode_attention.launches == before + 2
+    _assert_flash_close(got, ref, int8)
+    assert torch.equal(got, again) and (got[2] == 0).all()
+
+
+def test_flash_decode_plan_launch(cuda):
+    """The wrapper's own plan (plan_flash on the card's cluster table): one
+    launch per call, bit-equal on a second call, R = 1 where the stripes
+    fill the card (B = 64 at 8 kv heads) and R > 1 at B = 2."""
+    from mixq_tpu_torch.kernels import flash_decode as F
+    g = _gen(5)
+    for B, want_split in ((64, False), (2, True)):
+        q = torch.randn(B, 32, 128, generator=g,
+                        device=cuda).to(torch.bfloat16)
+        k, v, ks, vs = _cache(cuda, g, 1, 8, B, 640, 128, True, pad=True)
+        clusters = F._clusters(0, True, 4, False, 640, 128)
+        plan = F.plan_flash(B, 8, 4, 640, 128, True, _build.sm_count(0),
+                            clusters)
+        assert (plan.splits > 1) == want_split, plan
+        before = flash_decode_attention.launches
+        got = flash_decode_attention(q, k, v, 600, ks, vs, layer=0)
+        again = flash_decode_attention(q, k, v, 600, ks, vs, layer=0)
+        torch.cuda.synchronize()
+        assert flash_decode_attention.launches == before + 2
+        assert torch.equal(got, again)
+        _assert_flash_close(got, flash_decode_plain(q, k, v, 600, ks, vs,
+                                                    layer=0), True)
+    with pytest.raises(ValueError):               # R must be 1, 2, 4 or 8
+        F._flash(q, k, v, 600, ks, vs, None, 0, 0.0, None, splits=3)
+
+
+def test_flash_decode_peaked_over_seeds(cuda, record_property):
+    """The peaked Gemma-2-9B int8 softcap case (16/8 heads of 256, q x 3,
+    its scale, cap 50; B=64, S=512, ragged lengths and window starts as
+    chip_smoke.py's phase 3 makes them) over 8 seeds: every output row
+    within PEAK_LEVELS of its probability level of the plain version run
+    on the CPU copy of the inputs, whose f32 divisions round as the
+    kernel's and Pallas's do (IEEE). The largest, in levels, is recorded
+    (`peak_levels_max`), and beside it the largest against the plain
+    version run on the card (`peak_levels_card_plain_max`), which is not
+    held here: PyTorch on CUDA divides by a Python number as a multiply by
+    its reciprocal, so that reference can move a p_i8 level of its own."""
+    worst = card_worst = 0.0
+    for seed in range(8):
+        g = _gen(100 + seed)
+        B, S, nq, nkv, D, cap = 64, 512, 16, 8, 256, 50.0
+        q = (torch.randn(B, nq, D, generator=g, device=cuda) * 3).to(
+            torch.bfloat16)
+        k, v, ks, vs = _cache(cuda, g, 1, nkv, B, S, D, True, pad=False)
+        lengths = torch.randint(S // 2, S + 1, (B,), generator=g,
+                                device=cuda, dtype=torch.int32)
+        start = torch.minimum(
+            torch.randint(0, 32, (B,), generator=g, device=cuda,
+                          dtype=torch.int32), lengths - 1)
+        args = (q, k, v, lengths, ks, vs, start, 0)
+        opts = dict(softcap=cap, scale=256.0 ** -0.5)
+        got = flash_decode_attention(*args, **opts).float().cpu()
+        cpu_args = tuple(t.cpu() for t in args[:-1]) + (0,)
+
+        def levels_beyond(ref, level):
+            over = ((got - ref).abs() - 2 * BF16_ULP * ref.abs()).amax(-1)
+            return (over / level.cpu()).max().item()
+
+        levels = levels_beyond(flash_decode_plain(*cpu_args, **opts).float(),
+                               flash_decode_level(*cpu_args, **opts))
+        card_worst = max(card_worst, levels_beyond(
+            flash_decode_plain(*args, **opts).float().cpu(),
+            flash_decode_level(*args, **opts)))
+        worst = max(worst, levels)
+        assert levels <= PEAK_LEVELS[True], (seed, levels)
+    record_property("peak_levels_max", worst)
+    record_property("peak_levels_card_plain_max", card_worst)
+    print(f"peaked Gemma-2-9B int8 softcap, 8 seeds: at most {worst:.3f} "
+          f"probability levels of a row (limit {PEAK_LEVELS[True]}); "
+          f"{card_worst:.3f} against the plain version on the card")
 
 
 def _batch_major(cuda, g, B, S, nkv, D, int8, k_offset=0.0):

@@ -14,6 +14,9 @@ one beside this script; the helpers come from the chip_smoke.py beside it):
     groups, each checked against its plain version and timed as
     chip_smoke.py times its phase-3 rows (CUPTI, rotated weight copies),
     beside torch._int_mm;
+  - kernel 2 at decode (M=64, 128 outlier channels): Gemma-2-9B's gate
+    (3584x14336) with the gelu_new epilogue, in a fresh process and
+    before any other kernel, so that two trees time it in the same order;
   - kernel A at decode (M=64, 128 outlier channels): the blocks of
     chip_smoke.kernel_a_blocks as the decode step runs them, and
     Gemma-2-9B's W4 gate (3584x14336) with the gelu_new epilogue;
@@ -82,6 +85,10 @@ def main():
             work=f"{mode} M={M} K={K} N={N} fuse={fuse} B={Bo}",
             tolerance=cs.GEMM_TOL, max_abs_err=err)
 
+    res["kernel2_gemma_gate"] = gemm_row(64, 3584, 14336, "gelu_new", False,
+                                         1, 11)
+    print(f"kernel 2 Gemma-2-9B gate: {res['kernel2_gemma_gate']['ms']:.4f} "
+          "ms", flush=True)
     # kernel 2's row: chip_smoke.py's prefill row (its generator's seed)
     res["kernel2_prefill"] = gemm_row(512, 4096, 11008, "silu", False, 1, 7)
     print(f"kernel 2 prefill: {res['kernel2_prefill']}", flush=True)
