@@ -46,6 +46,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from mixq_tpu_torch.kernels import _build
+from mixq_tpu_torch.utils.arith import true_div
 
 SOURCE = "mixq_tpu_torch/csrc/flash_decode.cu"
 REPLACES = "mixq_tpu/ops/pallas/flash_decode.py:442"
@@ -109,8 +110,8 @@ def _softmax_parts(q, k, v, lengths, k_scale, v_scale, kv_start, layer,
     kt = k.permute(1, 0, 3, 2)                       # [B, n_kv, D, S]
     quantized = k_scale is not None
     if quantized:
-        q_scale = torch.clamp_min(qf.abs().amax(-1, keepdim=True) / 127.0,
-                                  1e-8)
+        q_scale = torch.clamp_min(
+            true_div(qf.abs().amax(-1, keepdim=True), 127.0), 1e-8)
         q_i8 = torch.clamp(torch.round(qf / q_scale), -127, 127)
         acc = torch.matmul(q_i8.double(), kt.double()).float()
         ks = k_scale[..., :S].permute(1, 0, 2)[:, :, None, :]
@@ -118,7 +119,7 @@ def _softmax_parts(q, k, v, lengths, k_scale, v_scale, kv_start, layer,
     else:
         qk = torch.matmul(qf, kt.float()) * scale
     if softcap:
-        qk = torch.tanh(qk / softcap) * softcap
+        qk = torch.tanh(true_div(qk, softcap)) * softcap
     qk = torch.where(valid[:, None, None, :], qk, MASK_VALUE)
     m = qk.amax(-1, keepdim=True)
     p = torch.exp(qk - m)
@@ -142,7 +143,8 @@ def flash_decode_plain(
     if quantized:
         vs = v_scale[..., :S].permute(1, 0, 2)[:, :, None, :]
         p2 = p * vs
-        p_scale = torch.clamp_min(p2.amax(-1, keepdim=True) / 127.0, 1e-20)
+        p_scale = torch.clamp_min(true_div(p2.amax(-1, keepdim=True), 127.0),
+                                  1e-20)
         p_i8 = torch.round(p2 / p_scale)
         pv = torch.matmul(p_i8.double(), vv.double()).float() * p_scale
     else:

@@ -25,6 +25,7 @@ from mixq_tpu_torch.kernels.rmsnorm_quant import fused_rmsnorm_quant
 from mixq_tpu_torch.ops import quant as Q
 from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
                                              QuantizedAct)
+from mixq_tpu_torch.utils.arith import true_div
 from mixq_tpu_torch.utils.shapes import round_up
 
 
@@ -251,7 +252,7 @@ def attend(
     if k_scale is not None:
         scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     if softcap is not None:
-        scores = torch.tanh(scores / softcap) * softcap
+        scores = torch.tanh(true_div(scores, softcap)) * softcap
     q_pos = (q_slot if q_slot.dim() == 2 else q_slot[None])[:, :, None]
     lens = torch.as_tensor(kv_valid_len, device=q.device).reshape(-1, 1, 1)
     if ring:

@@ -652,12 +652,10 @@ def test_flash_decode_peaked_over_seeds(cuda, record_property):
     its scale, cap 50; B=64, S=512, ragged lengths and window starts as
     chip_smoke.py's phase 3 makes them) over 8 seeds: every output row
     within PEAK_LEVELS of its probability level of the plain version run
-    on the CPU copy of the inputs, whose f32 divisions round as the
-    kernel's and Pallas's do (IEEE). The largest, in levels, is recorded
-    (`peak_levels_max`), and beside it the largest against the plain
-    version run on the card (`peak_levels_card_plain_max`), which is not
-    held here: PyTorch on CUDA divides by a Python number as a multiply by
-    its reciprocal, so that reference can move a p_i8 level of its own."""
+    on the card and of the same plain version run on the CPU copy of the
+    inputs (both divide in IEEE f32, as the kernel and Pallas do). The
+    largest of each, in levels, is recorded (`peak_levels_card_plain_max`,
+    `peak_levels_max`)."""
     worst = card_worst = 0.0
     for seed in range(8):
         g = _gen(100 + seed)
@@ -681,16 +679,16 @@ def test_flash_decode_peaked_over_seeds(cuda, record_property):
 
         levels = levels_beyond(flash_decode_plain(*cpu_args, **opts).float(),
                                flash_decode_level(*cpu_args, **opts))
-        card_worst = max(card_worst, levels_beyond(
-            flash_decode_plain(*args, **opts).float().cpu(),
-            flash_decode_level(*args, **opts)))
-        worst = max(worst, levels)
+        card = levels_beyond(flash_decode_plain(*args, **opts).float().cpu(),
+                             flash_decode_level(*args, **opts))
+        worst, card_worst = max(worst, levels), max(card_worst, card)
         assert levels <= PEAK_LEVELS[True], (seed, levels)
+        assert card <= PEAK_LEVELS[True], (seed, card)
     record_property("peak_levels_max", worst)
     record_property("peak_levels_card_plain_max", card_worst)
     print(f"peaked Gemma-2-9B int8 softcap, 8 seeds: at most {worst:.3f} "
-          f"probability levels of a row (limit {PEAK_LEVELS[True]}); "
-          f"{card_worst:.3f} against the plain version on the card")
+          f"probability levels of a row against the plain version on the "
+          f"CPU, {card_worst:.3f} on the card (limit {PEAK_LEVELS[True]})")
 
 
 def _batch_major(cuda, g, B, S, nkv, D, int8, k_offset=0.0):
