@@ -7,10 +7,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
   2. build: the five CUDA kernel libraries from mixq_tpu_torch/csrc, timed,
      with each instantiation's registers and spills (ptxas) of the
-     int8-activation GEMM (kernels 2 and A), of flash decode (its 16
-     instantiations, g x int8 x softcap; a spill in any of these fails)
-     and of kernel B, and the clusters of 1..8 blocks the card holds at
-     once;
+     int8-activation GEMM (kernels 2 and A), of flash decode and of
+     decode attention (16 instantiations each, g x int8 x softcap; a spill
+     in any of these fails) and of kernel B, and the clusters of 1..8
+     blocks the card holds at once (kernels 3 and 8 at the served heads);
   3. kernels: each kernel, in each mode the main paths run, at Llama-2-7B
      main-path shapes against its plain PyTorch version on the same inputs,
      with the stated tolerance, then its device time on the card (CUPTI,
@@ -44,7 +44,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      over the batch-major cache (kernel 8) at Mistral-7B's heads (int8,
      spread and peaked), at Llama-2-7B's (bf16, beside SDPA), on Mistral's
      4096-slot ring read past its wrap, and at Gemma-2-9B's with the
-     softcap;
+     softcap (also held to the plain version on a CPU copy of its inputs),
+     each row with its cluster plan (R, blocks, the clusters of R the card
+     holds, its load pipeline, registers and spills), two launches of the
+     plan held bit-equal, and the parent tree's time (not measured in the
+     run); and at generate's batch (B=8) at Mistral's and Llama's heads,
+     each held to its limit and timed at every cluster size; then kernel
+     8's Mistral row beside kernel 3's GQA 32/8 int8 row (the same heads and
+     bytes in the head-major layout);
   4. reference: tiny W8A8, W4A4 (per-channel and grouped) and W8A16 llama
      models, and tiny W8A8, W4A4 and W8A16 gemma2 models (caps that bind
      without saturating), on the head-major cache (attn_impl="flash"); a
@@ -74,7 +81,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (asserted), ms/step, tok/s, peak device memory, the memory of the f32
      head the engine holds, the step's byte bound from the model's tensors,
      and over three more steps under torch.profiler the device time per
-     step, its attention kernels' (kernel 3 or 8) device time per step,
+     step, its attention kernels' (kernel 3 or 8) device time per step
+     (kernel 8's beside the parent tree's, not measured in the run),
      the device's busy share and the top kernels; for Mistral also
      one step at batch 16 on a window-sized (4096-slot) ring filled past
      its wrap, every kernel-8 launch held against its plain version; and
@@ -527,13 +535,15 @@ A16_LIB = ("torch.matmul of x with the pre-dequantized bf16 weight (product "
 A16_PTXAS = {}
 MIX_PTXAS = {}
 FLASH_PTXAS = {}
+DECODE_PTXAS = {}
 
 
 def ptxas_by_mode(log, kernel):
     """Registers and spills of each instantiation of `kernel` in a `ptxas
     -v` log, keyed by its template arguments (ints and bools, from the
     mangled name): (w4, grouped) for w8a16_kernel and mix_gemm_kernel,
-    (g, int8, softcap) for flash_decode_kernel."""
+    (g, int8, softcap) for flash_decode_kernel and
+    decode_attention_kernel."""
     out, key = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -570,6 +580,25 @@ PREV_KERNEL3_MS = {
     ("Gemma-2-27B", 32, 16, 128,
      "int8 KV, softcap 50, scale 0.0833333"): 0.0727,
 }
+
+
+# Kernel 8's times before its redesign (one block of 4 warps per (kv head,
+# batch row) walking the whole row in f32, commit 171275c), by phase-3 row
+# (model, n_q, n_kv, D, mode, B), and its device ms per decode step on the
+# batch-major serve paths. Not measured in the run that prints them: the
+# means of two runs of this script on 171275c's tree in one chip call, in
+# turns with the redesigned kernel, on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md's kernel-8 findings).
+PREV_KERNEL8_MS = {
+    ("Mistral-7B", 32, 8, 128, "int8 KV", 64): 0.1078,
+    ("Llama-2-7B", 32, 32, 128, "bf16 KV", 64): 0.1413,
+    ("Mistral-7B", 32, 8, 128, "int8 KV, ring past the wrap", 16): 0.4960,
+    ("Gemma-2-9B", 16, 8, 256, "int8 KV, softcap 50, scale 0.0625", 64):
+        0.1126,
+    ("Mistral-7B", 32, 8, 128, "int8 KV, peaked (q x 3)", 64): 0.1072,
+}
+PREV_KERNEL8_STEP_MS = {"Mistral-7B W8A8O16": 4.837,
+                        "Llama-2-7B W8A8O16 bf16 KV": 6.147}
 
 
 # Kernel 2's times before its redesign (the 64 x 32-tile kernel that walked
@@ -980,6 +1009,12 @@ FLASH_SHAPES = {"llama": (32, 32, 128, False), "gqa": (32, 8, 128, False),
                 "gemma2-27b": (32, 16, 128, True)}
 
 
+# the heads kernel 8 serves (n_q, n_kv, head_dim, softcap): Mistral-7B,
+# Llama-2-7B with bf16 KV, Gemma-2-9B under "auto"
+DECODE_SHAPES = {"mistral": (32, 8, 128, False), "llama": (32, 32, 128, False),
+                 "gemma2-9b": (16, 8, 256, True)}
+
+
 # gemma2's attention: the published logit softcap and query_pre_attn_scalar
 GEMMA2_SOFTCAP = 50.0
 # Spread case: q and K are shifted by 2 in every element, so that each row's
@@ -1097,11 +1132,19 @@ def decode_case(dev, gen, B, S, n_q, n_kv, D, int8, offset=0.0, gain=1.0,
 
 
 def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
-               scale=None, offset=0.0, gain=1.0, ring=False):
+               scale=None, offset=0.0, gain=1.0, ring=False, sweep=False,
+               cpu_ref=False):
     """Kernel 8 on one case against its plain version (two bf16 ulps of |y|
-    plus DECODE_ATOL), then timed; with a softcap the uncapped plain version
-    lies beyond the limit. The library call, for bf16 KV without softcap or
-    ring, is SDPA (enable_gqa) over the same cache with the same mask."""
+    plus DECODE_ATOL), two launches of its plan bit-equal, then timed; with a
+    softcap the uncapped plain version lies beyond the limit, and with
+    `cpu_ref` the kernel is also held to the plain version run on a CPU copy
+    of the inputs. The library call, for bf16 KV without softcap or ring, is
+    SDPA (enable_gqa) over the same cache with the same mask. With `sweep`
+    the row is also held to its limit and then timed at every cluster size
+    R (`ms_by_splits`). Each row carries its plan (R, blocks, the card's
+    clusters of R, the load pipeline, ptxas registers and spills)."""
+    from mixq_tpu_torch.kernels import _build
+    from mixq_tpu_torch.kernels import decode_attention as DA
     from mixq_tpu_torch.kernels.decode_attention import (
         DECODE_ATOL, decode_attention, decode_attention_plain)
     import torch.nn.functional as F
@@ -1114,16 +1157,31 @@ def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
         f", softcap {softcap:g}" if softcap else "") + (
         f", scale {scale:.6g}" if scale is not None else "") + (
         f", peaked (q x {gain:g})" if gain != 1 else "")
-    what = f"decode_attention {model} n_q={n_q} n_kv={n_kv} D={D} {mode}"
+    what = (f"decode_attention {model} B={B} n_q={n_q} n_kv={n_kv} D={D} "
+            f"{mode}")
     got = decode_attention(*args, **opts)
+    again = decode_attention(*args, **opts)
     torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{what}: two launches of one plan differ")
     ref = decode_attention_plain(*args, **opts).float()
+
+    def held(out, ref, how):
+        """Holds one output of the kernel to the row's limit."""
+        over = (out.float() - ref).abs() - 2 * BF16_ULP * ref.abs()
+        beyond = over.max().item()
+        check(beyond <= DECODE_ATOL and bool(torch.isfinite(out).all()),
+              f"{what}{how}: error {beyond} beyond two bf16 ulps > "
+              f"{DECODE_ATOL}")
+        return beyond, over
+
+    beyond, over = held(got, ref, "")
     err = (got.float() - ref).abs()
-    over = err - 2 * BF16_ULP * ref.abs()
-    beyond = over.max().item()
-    check(beyond <= DECODE_ATOL and bool(torch.isfinite(got).all()),
-          f"{what}: error {beyond} beyond two bf16 ulps > {DECODE_ATOL}")
     row = {}
+    if cpu_ref:
+        cpu_args = tuple(x.cpu() if torch.is_tensor(x) else x for x in args)
+        row["beyond_2_ulps_cpu_plain"] = held(
+            got.cpu(), decode_attention_plain(*cpu_args, **opts).float(),
+            " against the plain version on the CPU")[0]
     if softcap:
         free = decode_attention_plain(*args, ring=ring, scale=scale).float()
         row["uncapped_beyond_2_ulps"] = (
@@ -1151,6 +1209,10 @@ def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
         row["library_max_abs_diff"] = (sdpa()[:, :, 0].float()
                                        - ref).abs().max().item()
         lib = device_ms(sdpa, 20)
+    g = n_q // n_kv
+    clusters = DA._clusters(0, int8, g, softcap > 0, D)
+    plan = DA.plan_decode(B, n_kv, g, S, D, int8, softcap > 0,
+                          _build.sm_count(0), clusters)
     row.update(mode=mode,
                work=f"{model} B={B} S={S} n_q={n_q} n_kv={n_kv} D={D} "
                     f"{mode}, ragged lengths and starts ({valid} valid "
@@ -1168,7 +1230,24 @@ def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
                             else "SDPA takes no ring positions" if ring
                             and not int8 else "SDPA takes no per-token K/V "
                             "scales")),
-               bound_ms=b, bound_by=by)
+               bound_ms=b, bound_by=by,
+               plan=dict(splits=plan.splits, blocks=plan.blocks,
+                         stage_rows=plan.stage,
+                         smem=DA.launch_smem(int8, g, D),
+                         max_active_clusters=clusters[plan.splits - 1],
+                         loads="cp.async ring (csrc/decode_attention.cu::"
+                               "stages)",
+                         **DECODE_PTXAS.get((g, int8, softcap > 0), {})))
+    if sweep:
+        row["ms_by_splits"] = {}
+        for R in DA.SPLITS:
+            fn = functools.partial(DA._decode, *args, ring, scale, softcap,
+                                   splits=R)
+            held(fn(), ref, f" at R = {R}")
+            row["ms_by_splits"][R] = device_ms(fn, 50)
+    key = (model, n_q, n_kv, D, mode, B)
+    if key in PREV_KERNEL8_MS:
+        row.update(previous_ms=PREV_KERNEL8_MS[key], previous_from="171275c")
     return row
 
 
@@ -1177,19 +1256,34 @@ def kernel_decode_attention(dev, gen, rows):
     heads (32/8, int8; spread, and peaked with q x 3), Llama-2-7B's with
     bf16 KV (32/32), Mistral's 4096-slot ring at B=16 read past its wrap,
     and Gemma-2-9B's (16/8, D=256) with the softcap and its scale, as
-    gemma2 runs under "auto". Returns the Llama bf16 row (the one with a
-    library call)."""
+    gemma2 runs under "auto" (also held to the plain version on a CPU copy
+    of its inputs). Returns the Llama bf16 row (the one with a library
+    call)."""
     rows["decode_attention"] = [
         decode_row(dev, gen, 64, 512, 32, 8, 128, True, "Mistral-7B"),
         decode_row(dev, gen, 64, 512, 32, 32, 128, False, "Llama-2-7B"),
         decode_row(dev, gen, 16, 4096, 32, 8, 128, True, "Mistral-7B",
                    ring=True),
         decode_row(dev, gen, 64, 512, 16, 8, 256, True, "Gemma-2-9B",
-                   GEMMA2_SOFTCAP, 256.0 ** -0.5, FLASH_OFFSET),
+                   GEMMA2_SOFTCAP, 256.0 ** -0.5, FLASH_OFFSET, cpu_ref=True),
         decode_row(dev, gen, 64, 512, 32, 8, 128, True, "Mistral-7B",
                    gain=PEAK_GAIN)]
     torch.cuda.empty_cache()
     return rows["decode_attention"][1]
+
+
+def kernel_decode_small_batch(dev, rows):
+    """Kernel 8 at generate's batch (B=8) and S=512, where the plan may
+    split the rows over clusters: Mistral-7B's int8 heads and Llama-2-7B's
+    bf16 heads, each held to its limit and timed at R = 1, 2, 4 and 8 (the
+    inputs from a generator of their own, so the other phases' inputs stay
+    as they were)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rows["decode_attention_b8"] = [
+        decode_row(dev, gen, 8, 512, 32, 8, 128, True, "Mistral-7B",
+                   sweep=True),
+        decode_row(dev, gen, 8, 512, 32, 32, 128, False, "Llama-2-7B",
+                   sweep=True)]
 
 
 # ---------------------------------------------------------------------------
@@ -1928,6 +2022,20 @@ def main():
         f"g={k[0]} int8={k[1]} softcap={k[2]}": v
         for k, v in sorted(FLASH_PTXAS.items())}
     print(f"  flash_decode: {report['flash_decode_ptxas']}")
+    # no instantiation of decode attention (kernel 8) spills
+    log = ptxas.get("decode_attention", "")
+    DECODE_PTXAS.update(ptxas_by_mode(log, "decode_attention_kernel"))
+    check(log == "(cached)" or len(DECODE_PTXAS) == 16,
+          f"decode_attention: ptxas reported {len(DECODE_PTXAS)} "
+          "instantiations")
+    for (g, int8, cap), r in DECODE_PTXAS.items():
+        check(" 0 bytes spill stores" in r.get("spills", ""),
+              f"decode_attention_kernel<{g}, int8={int8}, softcap={cap}> "
+              f"spills: {r}")
+    report["decode_attention_ptxas"] = {
+        f"g={k[0]} int8={k[1]} softcap={k[2]}": v
+        for k, v in sorted(DECODE_PTXAS.items())}
+    print(f"  decode_attention: {report['decode_attention_ptxas']}")
     for name, mod, log in (("w8a16", w8a16, A16_PTXAS),
                            ("mix_gemm", mix_gemm, MIX_PTXAS)):
         report[f"{name}_ptxas"] = {f"w4={k[0]} grouped={k[1]}": v
@@ -1947,6 +2055,13 @@ def main():
         for int8 in (True, False) for S in (128, 640, 4096)}
     print(f"  flash_decode: clusters of 1..8 blocks the card holds at once "
           f"at the served heads: {report['flash_decode_clusters']}")
+    from mixq_tpu_torch.kernels import decode_attention as DA
+    report["decode_attention_clusters"] = {
+        f"{name} int8={int8}": DA._clusters(0, int8, n_q // n_kv, cap, D)
+        for name, (n_q, n_kv, D, cap) in DECODE_SHAPES.items()
+        for int8 in (True, False)}
+    print(f"  decode_attention: clusters of 1..8 blocks the card holds at "
+          f"once at the served heads: {report['decode_attention_clusters']}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
@@ -1962,6 +2077,7 @@ def main():
     (main_rows["gelu_w8a8"], main_rows["gelu_w4"],
      main_rows["gelu_a16"]) = kernel_gemma2_gemms(dev, gen, rows)
     kernel_flash_small_batch(dev, rows)
+    kernel_decode_small_batch(dev, rows)
     for name, rs in rows.items():
         for r in rs:
             lib = ("-" if r.get("library_ms") is None
@@ -1983,6 +2099,15 @@ def main():
                      f"({r['previous_from']}, not measured in this run)"
                      if r.get("previous_ms") else ""),
                   flush=True)
+    # the yardstick: kernel 8 at Mistral's int8 heads beside kernel 3 at the
+    # same heads and bytes in the head-major layout
+    k8, k3 = rows["decode_attention"][0], rows["flash_decode"][2]
+    report["kernel8_vs_kernel3"] = dict(kernel8_ms=k8["ms"],
+                                        kernel3_ms=k3["ms"],
+                                        ratio=k8["ms"] / k3["ms"])
+    print(f"yardstick: kernel 8 [{k8['work']}] {k8['ms']:.4f} ms beside "
+          f"kernel 3 [{k3['work']}] {k3['ms']:.4f} ms: "
+          f"{k8['ms'] / k3['ms']:.3f}x on {card}", flush=True)
     report["kernels"] = rows
     torch.cuda.empty_cache()
 
@@ -2008,6 +2133,10 @@ def main():
         path["prefill"] = prefill_timing(dev, eng, cfg)
         print(f"prefill {label}: {path['prefill']} on {card}", flush=True)
         path["decode"] = decode_timing(dev, eng, cfg, gen, tag, name)
+        if label in PREV_KERNEL8_STEP_MS:
+            path["decode"].update(
+                previous_attention_ms_per_step=PREV_KERNEL8_STEP_MS[label],
+                previous_from="171275c")
         decode = {k: v for k, v in path["decode"].items()
                   if k != "top_kernels_us_per_step"}
         print(f"decode {label}: {decode} on {card}", flush=True)

@@ -20,6 +20,22 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
 }
+// 4-byte global -> shared copy; `valid == false` zero-fills the 4 bytes
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+// 8-byte global -> shared copy; `valid == false` zero-fills the 8 bytes
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -198,26 +198,36 @@ class SplitPlan(NamedTuple):
     blocks: int                # the grid: N-tiles x M-tiles x S
 
 
+def split_size(tiles: int, chunks: int, sm_count: int,
+               clusters: Optional[Sequence[int]] = None, per_sm: int = 2,
+               sizes: Optional[Sequence[int]] = None) -> int:
+    """The split rule of every cluster kernel: each of `tiles` tiles is
+    split S ways, S the largest of `sizes` (by default 1..MAX_SPLITS), at
+    most one of the tile's `chunks` a split, whose clusters of S blocks all
+    fit on the card at once: `clusters[S - 1]` is how many the card holds
+    (cudaOccupancyMaxActiveClusters), by default the kernel's `per_sm`
+    blocks per SM packed perfectly (per_sm * sm_count // S). A second wave
+    costs a whole block's time again, more than the shorter splits save.
+    When the tiles alone fill the card, S = 1."""
+    if clusters is None:
+        clusters = [per_sm * sm_count // s
+                    for s in range(1, MAX_SPLITS + 1)]
+    if sizes is None:
+        sizes = range(1, MAX_SPLITS + 1)
+    return max([s for s in sizes
+                if s <= chunks and tiles <= clusters[s - 1]], default=1)
+
+
 def split_k(tiles: int, stages: int, sm_count: int,
             clusters: Optional[Sequence[int]] = None, per_sm: int = 2
             ) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
     """How a cluster GEMM splits K, and each split's stages [first, end).
 
-    The output tiles come first; K is then split S ways, S <= MAX_SPLITS
-    and at most one split per stage, with S the largest split whose
-    clusters of S blocks all fit on the card at once: `clusters[S - 1]` is
-    how many the card holds (cudaOccupancyMaxActiveClusters), by default
-    the kernel's `per_sm` blocks per SM packed perfectly
-    (per_sm * sm_count // S). A second wave
-    costs a whole block's time again, more than the shorter splits save.
-    When the tiles alone fill the card, S = 1. The `stages` stages split as
+    The output tiles come first; K is then split S ways by `split_size`'s
+    rule, the stages being the chunks. The `stages` stages split as
     stages // S, one more for the first stages % S splits, as the kernels
     compute them."""
-    if clusters is None:
-        clusters = [per_sm * sm_count // s
-                    for s in range(1, MAX_SPLITS + 1)]
-    S = max([s for s in range(1, min(MAX_SPLITS, stages) + 1)
-             if tiles <= clusters[s - 1]], default=1)
+    S = split_size(tiles, stages, sm_count, clusters, per_sm)
     base, extra = divmod(stages, S)
     bounds = []
     for z in range(S):

@@ -30,6 +30,14 @@ The scale is 1/sqrt(D) rounded as `attend` computes it (the f32 reciprocal
 of the f32 sqrt, the function the decoder replaces); the Pallas kernel
 rounds the Python double 1/D**0.5 to f32, at most one f32 ulp away.
 
+The kernel splits each (kv head, batch row)'s valid positions over a
+thread-block cluster of R blocks, each with an online softmax over tiles of
+its part, merged in rank order; `plan_decode` chooses R from static shapes
+and the card's cluster occupancy (never from `kv_len` or `kv_start`, so a
+captured decode step keeps its plan), and `kernels.flash_decode.
+rank_bounds` is the run-time cut of a row's positions between the ranks,
+in units of UNIT positions.
+
 `decode_attention` launches the kernel for CUDA tensors and runs
 `decode_attention_plain`, which is `attend` at T=1 (PyTorch ops), for CPU
 tensors. Besides its total `launches` the wrapper counts its
@@ -40,7 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -51,14 +59,77 @@ REPLACES = "mixq_tpu/ops/pallas/decode_attention.py:85"
 GROUPS = (1, 2, 4, 8)
 # The kernel against its plain version: two bf16 ulps of |y| plus this
 # much. Both sides compute in f32 from the same widened operands and round
-# once to bf16, so they differ by the f32 summation order (tiles of an
-# online softmax against one whole-row softmax) and by an ulp of expf or
-# tanhf: ~1e-6 of max|v| on the inputs here, which may flip a bf16 rounding
-# (the two ulps). A kernel that quantizes the probabilities to int8, as
-# kernel 3's recipe does, misses by more than 1.5x this
-# (tests/test_torch_decode_attention.py).
+# once to bf16, so they differ by the f32 summation order (tensor-core dots,
+# and the tiles and ranks of an online softmax, against one whole-row
+# softmax), by p's split into two bf16 halves in the kernel's p . v (2^-17
+# of p) and by an ulp of expf or tanhf: ~1e-6 of max|v| on the inputs here,
+# which may flip a bf16 rounding (the two ulps). A kernel that quantizes the
+# probabilities to int8, as kernel 3's recipe does, misses by more than 1.5x
+# this (tests/test_torch_decode_attention.py).
 DECODE_ATOL = 1e-4
 Rows = Union[int, torch.Tensor, None]
+
+# The kernel's shape (csrc/decode_attention.cu): warps a block, the cluster
+# sizes R it is planned at, the blocks an SM holds for the default cluster
+# table (the card's own table replaces it), the positions of the rank cut
+# (kUnit), and the head-dim values of a warp's p . v slice (kSlice).
+WARPS, SPLITS, BLOCKS_PER_SM, UNIT, SLICE = 4, (1, 2, 4, 8), 4, 16, 128
+# stages a rank walks at least (K and V alike), on a row that fills the
+# cache: under it a rank's fixed costs (q's fragments, the merge, the cluster
+# barriers) outweigh its share of the stream
+MIN_STAGES = 2
+
+
+def stage_rows(D: int) -> int:
+    """Positions a ring stage holds (stage_rows): 16 for each warp on one
+    of the D / SLICE head-dim slices of a V row."""
+    return 16 * WARPS // max(1, D // SLICE)
+
+
+class DecodePlan(NamedTuple):
+    """Kernel 8's launch plan (plan_decode)."""
+    splits: int                # R: blocks (one cluster) per (kv head, row)
+    blocks: int                # the grid: n_kv * B * R
+    stage: int                 # positions a ring stage holds
+
+
+@functools.lru_cache(maxsize=1024)       # every decode step asks again
+def plan_decode(B: int, n_kv: int, g: int, S: int, D: int, int8: bool,
+                softcap: bool, sm_count: int,
+                clusters: Optional[Sequence[int]] = None) -> DecodePlan:
+    """The kernel's launch plan from static shapes only (never the rows'
+    lengths or starts), by `_build.split_size`'s rule as kernel 3's
+    `plan_flash`: the tiles are the n_kv * B (kv head, batch row) stripes,
+    the chunks S's runs of MIN_STAGES ring stages, and R is the largest of
+    SPLITS, at most one chunk a rank, whose clusters of R blocks all fit on
+    the card at once (`clusters[R - 1]`: the card's count for this
+    instantiation, `_clusters`; by default BLOCKS_PER_SM blocks per SM
+    packed perfectly); R = 1 when the stripes alone fill the card. The
+    online softmax keeps one tile of scores, so neither S nor R bounds the
+    launch's shared memory (`launch_smem`). `int8` and `softcap` name the
+    instantiation whose table `clusters` is; `clusters`, when given, is a
+    tuple (the plan is cached)."""
+    del int8, softcap
+    P = stage_rows(D)
+    tiles, chunks = n_kv * B, max(1, S // (MIN_STAGES * P))
+    R = _build.split_size(tiles, chunks, sm_count, clusters, BLOCKS_PER_SM,
+                          SPLITS)
+    return DecodePlan(R, tiles * R, P)
+
+
+def launch_smem(int8: bool, g: int, D: int) -> int:
+    """The dynamic shared memory of one block of the instantiation at head
+    dim D, as the library's launch takes it (decode_attention_smem_bytes)."""
+    return _lib().decode_attention_smem_bytes(int(int8), g, D)
+
+
+def _clusters(index: int, int8: bool, g: int, softcap: bool,
+              D: int) -> Tuple[int, ...]:
+    """The card's clusters of 1..8 blocks of one instantiation at head dim
+    D (its shared memory) at once."""
+    return _build.cluster_table("decode_attention",
+                                "decode_attention_max_active_clusters",
+                                index, int(int8), g, int(softcap), D)
 
 
 def decode_attention_plain(
@@ -89,9 +160,11 @@ def _lib():
         [ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_void_p] + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
     lib.decode_attention_launch.restype = ctypes.c_int
+    lib.decode_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.decode_attention_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -124,6 +197,15 @@ def decode_attention(
     alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns the attention output [B, n_q, D] in q.dtype."""
+    return _decode(q, k, v, kv_len, k_scale, v_scale, kv_start, ring, scale,
+                   softcap, alibi_slopes)
+
+
+def _decode(q, k, v, kv_len, k_scale, v_scale, kv_start, ring, scale,
+            softcap, alibi_slopes=None,
+            splits: Optional[int] = None) -> torch.Tensor:
+    """`decode_attention`; `splits` forces R (1, 2, 4 or 8) instead of
+    plan_decode's, so a card test can hold the result across plans."""
     if alibi_slopes is not None:
         raise NotImplementedError("decode_attention: ALiBi is not ported")
     if softcap < 0:
@@ -156,6 +238,15 @@ def decode_attention(
                                  f"{(B, S, n_kv)} tensor on {dev}")
     if scale is None:             # attend's f32 1 / sqrt(D)
         scale = float(1.0 / torch.sqrt(torch.tensor(float(D))))
+    g = n_q // n_kv
+    if splits is None:
+        index = q.get_device()
+        splits = plan_decode(B, n_kv, g, S, D, quantized, softcap > 0,
+                             _build.sm_count(index),
+                             _clusters(index, quantized, g, softcap > 0,
+                                       D)).splits
+    if splits not in SPLITS:
+        raise ValueError(f"{splits} splits: R must be one of {SPLITS}")
     len_p, len_all = _device_rows(kv_len, B, dev, "kv_len")
     st_p, st_all = _device_rows(kv_start, B, dev, "kv_start")
     out = torch.empty_like(q)
@@ -165,8 +256,8 @@ def decode_attention(
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         len_p, len_all, st_p, st_all, out.data_ptr(),
-        B, S, n_kv, n_q // n_kv, D, scale, softcap,
-        int(quantized), int(ring), stream)
+        B, S, n_kv, g, D, scale, softcap, int(quantized), int(ring), splits,
+        stream)
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1
     modes = decode_attention.mode_launches

@@ -264,7 +264,7 @@ def plan_flash(B: int, n_kv: int, g: int, S: int, D: int, int8: bool,
     """The kernel's launch plan from static shapes only (never the rows'
     lengths): the tiles are the n_kv * B (kv head, batch row) stripes, the
     stages S's chunks of MIN_STEPS block steps (a block step: WARPS *
-    rows_per_step * unroll slots), and R is `_build.split_k`'s rule over
+    rows_per_step * unroll slots), and R is `_build.split_size`'s rule over
     the cluster sizes SPLITS: the largest R, at most one chunk a rank,
     whose clusters of R blocks all fit on the card at once
     (`clusters[R - 1]`: the card's count, `_clusters`; by default
@@ -275,12 +275,9 @@ def plan_flash(B: int, n_kv: int, g: int, S: int, D: int, int8: bool,
     esize = 1 if int8 else 2
     rpw = rows_per_step(D, esize)
     step = WARPS * rpw * unroll(uses_ring(g, int8))
-    if clusters is None:
-        clusters = [BLOCKS_PER_SM * sm_count // s
-                    for s in range(1, _build.MAX_SPLITS + 1)]
     tiles, stages = n_kv * B, max(1, S // (MIN_STEPS * step))
-    R = max([r for r in SPLITS if r <= stages and tiles <= clusters[r - 1]],
-            default=1)
+    R = _build.split_size(tiles, stages, sm_count, clusters, BLOCKS_PER_SM,
+                          SPLITS)
     R = next((r for r in SPLITS if r >= R
               and smem_bytes(g, S, D, esize, r) <= LAUNCH_SMEM), SPLITS[-1])
     return FlashPlan(R, tiles * R, step, smem_bytes(g, S, D, esize, R))

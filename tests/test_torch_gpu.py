@@ -8,9 +8,10 @@ decode with gemma2's softcap and score scale, up to its 4096-slot window,
 and on a peaked softmax; decode attention over the batch-major cache with
 bf16 and int8 KV, GQA, per-row lengths and starts, rows with no valid
 position, a ring read past its wrap, gemma2's softcap and scale, and a
-peaked softmax; flash decode split over clusters of 1, 2, 4 and 8 blocks,
-bit-equal across two launches of a plan, and its peaked Gemma-2-9B case
-over 8 seeds) and the wrappers' refusals. The
+peaked softmax; flash decode and decode attention split over clusters of
+1, 2, 4 and 8 blocks, bit-equal across two launches of a plan, and flash
+decode's peaked Gemma-2-9B case over 8 seeds against the plain version on
+the card and on the CPU) and the wrappers' refusals. The
 tiny models served on the card against the same models on the CPU are
 phase 4 of chip_smoke.py.
 
@@ -701,10 +702,18 @@ def _batch_major(cuda, g, B, S, nkv, D, int8, k_offset=0.0):
 
 
 def _assert_decode_close(got, ref):
-    ref = ref.float()
+    ref = ref.float().to(got.device)
     assert bool(torch.isfinite(got).all())
     beyond = (got.float() - ref).abs() - 2 * BF16_ULP * ref.abs()
     assert beyond.max().item() <= DECODE_ATOL
+
+
+def _decode_plain_on_cpu(*args, **opts):
+    """decode_attention_plain on a CPU copy of the inputs: the reference
+    whose arithmetic does not depend on how the card's PyTorch runs a
+    division."""
+    return decode_attention_plain(*[a.cpu() if torch.is_tensor(a) else a
+                                    for a in args], **opts)
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -759,7 +768,8 @@ def test_decode_attention_ring(cuda, int8, nq, nkv):
 @pytest.mark.parametrize("gain,offset", [(1.0, 2.0), (3.0, 0.0)])
 def test_decode_attention_softcap_and_peaked(cuda, int8, gain, offset):
     """gemma2-9B's g, D and scale with the softcap of 50: q and K shifted by
-    2 (the cap bends the scores), and q x 3 (a peaked softmax)."""
+    2 (the cap bends the scores), and q x 3 (a peaked softmax); held to the
+    plain version run on the card and on a CPU copy of the inputs."""
     g = _gen(int8 + int(gain) + 17)
     B, nq, nkv, D, S, cap = 4, 4, 2, 256, 700, 50.0
     q = (torch.randn(B, nq, D, generator=g, device=cuda) * gain
@@ -772,11 +782,111 @@ def test_decode_attention_softcap_and_peaked(cuda, int8, gain, offset):
     torch.cuda.synchronize()
     ref = decode_attention_plain(q, k, v, lengths, ks, vs, start, **opts)
     _assert_decode_close(got, ref)
+    _assert_decode_close(got, _decode_plain_on_cpu(q, k, v, lengths, ks, vs,
+                                                   start, **opts))
     if offset:
         free = decode_attention_plain(q, k, v, lengths, ks, vs, start,
                                       scale=opts["scale"]).float()
         assert ((got.float() - free).abs()
                 - 2 * BF16_ULP * free.abs()).max() > 10 * DECODE_ATOL
+
+
+DECODE_CASES = [
+    # (n_q, n_kv, D, S, ring, softcap, scale): Mistral's heads, Llama's,
+    # gemma2's with the softcap, a ring read past its wrap, small heads
+    (32, 8, 128, 512, False, 0.0, None), (32, 32, 128, 300, False, 0.0, None),
+    (16, 8, 256, 700, False, 50.0, 256.0 ** -0.5),
+    (32, 8, 128, 600, True, 0.0, None), (8, 2, 64, 200, True, 0.0, None),
+    (2, 2, 32, 64, False, 0.0, None)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B", [1, 8, 16])
+@pytest.mark.parametrize("nq,nkv,D,S,ring,cap,scale", DECODE_CASES)
+def test_decode_attention_forced_splits(cuda, B, int8, nq, nkv, D, S, ring,
+                                        cap, scale, splits):
+    """Kernel 8 with each row's positions split over a cluster of R =
+    `splits` blocks, on ragged rows (full, one position, past S for a
+    ring, a window start, no valid position when B > 1): within the limit
+    of the plain version (with the softcap, also of the plain version run
+    on a CPU copy of the inputs), one launch per call, and two launches of
+    one plan bit-equal."""
+    from mixq_tpu_torch.kernels.decode_attention import _decode
+    g = _gen(nq + D + S + B + splits + 7 * int8)
+    off = 2.0 if cap else 0.0
+    q = (torch.randn(B, nq, D, generator=g, device=cuda) + off).to(
+        torch.bfloat16)
+    k, v, ks, vs = _batch_major(cuda, g, B, S, nkv, D, int8, off)
+    if ring:
+        lengths = torch.randint(S + 1, 3 * S, (B,), generator=g, device=cuda,
+                                dtype=torch.int32)
+        starts = torch.clamp_min(lengths - S + 17, 0).to(torch.int32)
+    else:
+        lengths = torch.randint(1, S + 1, (B,), generator=g, device=cuda,
+                                dtype=torch.int32)
+        starts = torch.minimum(torch.randint(0, 40, (B,), generator=g,
+                                             device=cuda, dtype=torch.int32),
+                               lengths - 1)
+    lengths[0] = 3 * S if ring else S
+    starts[0] = 0
+    if B > 1:
+        lengths[1], starts[1] = (S + 1, S) if ring else (1, 0)
+    if B > 2:
+        starts[2] = lengths[2]                   # no valid position
+    opts = dict(ring=ring, softcap=cap, scale=scale)
+    ref = decode_attention_plain(q, k, v, lengths, ks, vs, starts, **opts)
+    before = decode_attention.launches
+    args = (q, k, v, lengths, ks, vs, starts, ring, scale, cap)
+    got = _decode(*args, splits=splits)
+    again = _decode(*args, splits=splits)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    _assert_decode_close(got, ref)
+    if cap:                     # the softcap's division, run on the CPU too
+        _assert_decode_close(got, _decode_plain_on_cpu(
+            q, k, v, lengths, ks, vs, starts, **opts))
+    assert torch.equal(got, again)
+
+
+def test_decode_attention_plan_launch(cuda):
+    """The wrapper's own plan (plan_decode on the card's cluster table):
+    one launch per call, bit-equal on a second call, R = 1 where the
+    stripes fill the card (B = 64 at 8 kv heads) and R > 1 at B = 8."""
+    from mixq_tpu_torch.kernels import decode_attention as DA
+    g = _gen(11)
+    for B, want_split in ((64, False), (8, True)):
+        q = torch.randn(B, 32, 128, generator=g,
+                        device=cuda).to(torch.bfloat16)
+        k, v, ks, vs = _batch_major(cuda, g, B, 640, 8, 128, True)
+        clusters = DA._clusters(0, True, 4, False, 128)
+        plan = DA.plan_decode(B, 8, 4, 640, 128, True, False,
+                              _build.sm_count(0), clusters)
+        assert (plan.splits > 1) == want_split, plan
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, 600, ks, vs)
+        again = decode_attention(q, k, v, 600, ks, vs)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 2
+        assert torch.equal(got, again)
+        _assert_decode_close(got, decode_attention_plain(q, k, v, 600, ks,
+                                                         vs))
+    with pytest.raises(ValueError):               # R must be 1, 2, 4 or 8
+        DA._decode(q, k, v, 600, ks, vs, None, False, None, 0.0, splits=3)
+
+
+@pytest.mark.parametrize("nq,nkv,D,int8,cap", [
+    (32, 8, 128, True, False), (32, 32, 128, False, False),
+    (16, 8, 256, True, True)])
+def test_decode_attention_smem_on_served_heads(cuda, nq, nkv, D, int8, cap):
+    """At the heads kernel 8 serves (Mistral-7B int8, Llama-2-7B bf16,
+    Gemma-2-9B int8 with the softcap) a block's shared memory, the
+    library's own figure, is within a launch's limit, and the card holds
+    at least 4 blocks an SM."""
+    from mixq_tpu_torch.kernels import decode_attention as DA
+    g = nq // nkv
+    assert 0 < DA.launch_smem(int8, g, D) <= 224 * 1024
+    assert DA._clusters(0, int8, g, cap, D)[0] >= 4 * _build.sm_count(0)
 
 
 def test_decode_attention_refusals(cuda):
