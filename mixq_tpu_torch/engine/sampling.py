@@ -9,6 +9,8 @@ from typing import Optional
 
 import torch
 
+from mixq_tpu_torch.utils.arith import true_div
+
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
@@ -26,7 +28,7 @@ def sample(
     if params.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
-    logits = logits / params.temperature
+    logits = true_div(logits, params.temperature)
     if params.top_k > 0:
         kth = torch.topk(logits, params.top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits < kth, float("-inf"), logits)

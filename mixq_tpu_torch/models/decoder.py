@@ -57,6 +57,7 @@ from mixq_tpu_torch.ops import quant as Q
 from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
                                              from_float, mixed_linear,
                                              mixed_linear_prepared)
+from mixq_tpu_torch.utils.arith import true_div
 
 
 class AttnParams(NamedTuple):
@@ -366,7 +367,7 @@ def forward(
     logits = torch.matmul(x.to(specs.wqkv.odtype).float(), head_f32)
     if cfg.final_logit_softcap is not None:        # gemma2
         cap = cfg.final_logit_softcap
-        logits = torch.tanh(logits / cap) * cap
+        logits = torch.tanh(true_div(logits, cap)) * cap
     return logits, cache
 
 

@@ -68,8 +68,8 @@ def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float = 10000.0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """f32 cos/sin tables for the given positions: ([..., dim/2] x 2).
     Unscaled rope only (rope_scaling is still to be ported)."""
-    exps = torch.arange(0, dim, 2, dtype=torch.float32,
-                        device=positions.device) / dim
+    exps = true_div(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=positions.device), dim)
     inv_freq = 1.0 / (theta ** exps)
     angles = positions.float()[..., None] * inv_freq
     return torch.cos(angles), torch.sin(angles)

@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from mixq_tpu_torch.utils.arith import true_div
+
 
 # ---------------------------------------------------------------------------
 # Weight quantization (offline, per output channel)
@@ -28,7 +30,7 @@ def quantize_weight_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     w: [K, N] (in-dim, out-dim). Returns (q_w int8 [K, N], scale f32 [N])
     with scale = max|w|/127."""
     w = w.float()
-    scale = torch.clamp_min(w.abs().amax(dim=0) / 127.0, 1e-8)
+    scale = torch.clamp_min(true_div(w.abs().amax(dim=0), 127.0), 1e-8)
     q = torch.clamp(torch.round(w / scale[None, :]), -127, 127).to(torch.int8)
     return q, scale
 
@@ -40,7 +42,8 @@ def quantize_weight_int4(
     scale = max|w| / clip_scale_denom, values clamped to [-8, 7].
     Returns (q_w int8 [K, N], scale f32 [N])."""
     w = w.float()
-    scale = torch.clamp_min(w.abs().amax(dim=0) / clip_scale_denom, 1e-8)
+    scale = torch.clamp_min(
+        true_div(w.abs().amax(dim=0), clip_scale_denom), 1e-8)
     q = torch.clamp(torch.round(w / scale[None, :]), -8, 7).to(torch.int8)
     return q, scale
 
@@ -56,7 +59,8 @@ def quantize_weight_grouped(
         raise ValueError(f"K={K} not divisible by group {group_size}")
     qmax = 127.0 if bits == 8 else 7.0
     wg = w.float().reshape(K // group_size, group_size, N)
-    scale = torch.clamp_min(wg.abs().amax(dim=1) / qmax, 1e-8)   # [G, N]
+    scale = torch.clamp_min(true_div(wg.abs().amax(dim=1), qmax),
+                            1e-8)                              # [G, N]
     q = torch.clamp(torch.round(wg / scale[:, None, :]), -qmax - 1, qmax)
     return q.reshape(K, N).to(torch.int8), scale
 
@@ -117,7 +121,7 @@ def quantize_act_per_token(
     x: [..., K] -> (q int8 [..., K], scale f32 [..., 1])."""
     qmax = 127.0 if bits == 8 else 7.0
     absmax = x.float().abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp_min(absmax / qmax, 1e-8)
+    scale = torch.clamp_min(true_div(absmax, qmax), 1e-8)
     q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
     return q, scale
 
@@ -126,7 +130,7 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(token, head) absmax int8 quant for KV-cache writes.
     x: [..., hd] -> (int8 [..., hd], scale f32 [...])."""
     xf = x.float()
-    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    scale = torch.clamp_min(true_div(xf.abs().amax(dim=-1), 127.0), 1e-8)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 

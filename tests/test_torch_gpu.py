@@ -108,6 +108,59 @@ def test_rmsnorm_quant(cuda, M, H, n_out, a_bits):
         assert (q[:, oset.ind.long()] == 0).all()
 
 
+def test_quantizers_divide_as_the_cpu(cuda, record_property):
+    """quantize_act_per_token (A8 and A4), quantize_kv and prepare_act on
+    the card give the bits they give on a CPU copy of the same inputs: each
+    divides through true_div, where PyTorch on CUDA would run a division by
+    a Python number as a multiply by the reciprocal. How many rows that
+    multiply would have moved is recorded (`rows_off_by_reciprocal`), not
+    held."""
+    from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
+                                                 prepare_act)
+
+    g = _gen(11)
+    x = (torch.randn(2048, 4096, generator=g, device=cuda) * 3).to(
+        torch.bfloat16)
+    off = 0
+    for bits in (8, 4):
+        q, s = Q.quantize_act_per_token(x, bits)
+        qc, sc = Q.quantize_act_per_token(x.cpu(), bits)
+        assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+        qmax = 2 ** (bits - 1) - 1
+        absmax = x.float().abs().amax(-1, keepdim=True)
+        s_mul = torch.clamp_min(absmax * (1.0 / qmax), 1e-8)
+        off += int((s_mul != s).sum())
+    kv = torch.randn(64, 512, 8, 128, generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, s = Q.quantize_kv(kv)
+    qc, sc = Q.quantize_kv(kv.cpu())
+    assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    s_mul = torch.clamp_min(kv.float().abs().amax(-1) * (1.0 / 127.0), 1e-8)
+    off += int((s_mul != s).sum())
+    H = 11008
+    oset = Q.outlier_set_from_indices(
+        torch.randperm(H, generator=g, device=cuda)[:128], H, 128,
+        device=cuda)
+    xd = (torch.randn(256, H, generator=g, device=cuda) * 3).to(
+        torch.bfloat16)
+    cpu_oset = Q.OutlierSet(*(t.cpu() for t in oset))
+
+    def act_of(xx, o, spec):
+        p = MixLinearParams(
+            q_weight=torch.zeros((H, 8), dtype=torch.int8, device=xx.device),
+            w_scale=torch.ones(8, device=xx.device), out_ind=o.ind,
+            out_mask=o.mask, k_mask=o.k_mask, out_count=o.count)
+        return prepare_act(xx, p, spec)
+
+    for spec in (LinearSpec(), LinearSpec(w_bit=4, a_bit=4)):
+        card = act_of(xd, oset, spec)
+        for a, b in zip(card, act_of(xd.cpu(), cpu_oset, spec)):
+            assert torch.equal(a.cpu(), b)
+    record_property("rows_off_by_reciprocal", off)
+    print(f"a multiply by the reciprocal would move {off} scales of "
+          f"{2 * 2048 + 64 * 512 * 8} rows")
+
+
 @pytest.mark.parametrize("M,K,N,B", [
     (1, 256, 384, 0), (7, 512, 256, 0), (64, 256, 640, 32),
     (33, 384, 400, 16), (130, 4096, 4096, 128),
