@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build: the five CUDA kernel libraries from mixq_tpu_torch/csrc, timed,
      with each instantiation's registers and spills (ptxas) of the
      int8-activation GEMM (kernels 2 and A), of flash decode and of
-     decode attention (16 instantiations each, g x int8 x softcap; a spill
-     in any of these fails) and of kernel B, and the clusters of 1..8
+     decode attention (16 instantiations each, g x int8 x softcap), of
+     kernel 1's register kernel (512 threads of one chunk, 256 of two; a
+     spill in any of these fails) and of kernel B, and the clusters of 1..8
      blocks the card holds at once (kernels 3 and 8 at the served heads);
   3. kernels: each kernel, in each mode the main paths run, at Llama-2-7B
      main-path shapes against its plain PyTorch version on the same inputs,
@@ -17,8 +18,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      through torch.profiler) beside its bound (bytes over 3.35 TB/s or
      operations over the data-sheet peak, whichever is larger), its plain
      version's and, where one exists, that of one PyTorch call computing
-     the same function (`library_ms`): fused RMSNorm + quantization (A8 and
-     A4), the int8 GEMM in its W8A8 (kernel 2) and its packed-W4 and
+     the same function (`library_ms`): fused RMSNorm + quantization (kernel
+     1; A8 and A4 at M=64 and M=8, A8 at M=512, at Llama-2-7B's and
+     Gemma-2-9B's widths; q_x, x_scale and x_out also held bit-equal to the
+     plain quantizer and gather fed the kernel's own y; each row timed at
+     each instantiation that takes it, beside a trivial launch and the
+     parent tree's time, not measured in the run), the int8 GEMM in its W8A8 (kernel 2) and its packed-W4 and
      grouped modes (kernel A), each row with its split-K plan and beside
      the earlier 64 x 32-tile kernel's time (not measured in the run), and
      as whole blocks (W8A8, W4, W4 g128, and the g128 path's seven); a
@@ -33,7 +38,6 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      pipeline, registers and spills, two launches of the plan held
      bit-equal, and the parent tree's time, not measured in the run); then
      Gemma-2-9B's:
-     kernel 1 at H=3584 (A8 and A4),
      every linear shape of its block in kernel 2 (W8A8), kernel A (W4 on
      q/k/v/up/gate) and kernel B (W8A16), with the tanh-GELU (gelu_new)
      epilogue on the gate, and the gate once with the exact GELU (no serve
@@ -185,48 +189,88 @@ def rotating(fns):
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_rmsnorm(dev, gen, rows):
-    """A8 (the W8A8 paths and o/down) and A4 (q/k/v, up/gate of W4A4) at
-    Llama-2-7B's width (H=4096) and at Gemma-2-9B's (H=3584)."""
-    from mixq_tpu_torch.kernels.rmsnorm_quant import (fused_rmsnorm_quant,
-                                                      rmsnorm_quant_plain)
+# Kernel 1's phase-3 rows, (M, H, a_bits): the decode step's M=64 at
+# Llama-2-7B's and Gemma-2-9B's widths, A8 (W8A8 paths, o/down) and A4
+# (q/k/v, up/gate of W4A4); generate's M=8; a prefill of 8 x 64 at M=512
+KERNEL1_ROWS = [(64, 4096, 8), (64, 4096, 4), (64, 3584, 8), (64, 3584, 4),
+                (8, 4096, 8), (8, 4096, 4), (8, 3584, 8), (8, 3584, 4),
+                (512, 4096, 8)]
+KERNEL1_TOL = ("y within 1 bf16 ulp, q_x within 1 LSB, x_scale rtol 1e-5 of "
+               "the plain version; q_x, x_scale, x_out bit-equal to the "
+               "plain quantizer and gather fed the kernel's own y")
+
+
+def trivial_launch_ms(dev):
+    """The floor no launch can beat: a one-element zero_() on the card,
+    timed as the kernels are."""
+    z = torch.zeros(1, device=dev)
+    return device_ms(z.zero_, 200)
+
+
+def rmsnorm_row(dev, gen, M, H, a_bits, floor_ms, Bo=128):
+    """Kernel 1 at M rows of H channels with Bo outlier channels, A8 or A4:
+    held to its plain version and, where the tree has `quantize_normed`
+    (trees before the redesign do not), bit-equal to the plain quantizer
+    and gather fed the kernel's own y; then timed beside its bound, its
+    plain version and `floor_ms`, and, where the tree can force a plan
+    (`_rmsnorm`), timed at every instantiation that takes the shape."""
+    from mixq_tpu_torch.kernels import rmsnorm_quant as RQ
     from mixq_tpu_torch.ops import quant as Q
 
-    M, Bo = 64, 128
-    out_rows = []
-    for H, a_bits in ((4096, 8), (4096, 4), (3584, 8), (3584, 4)):
-        x = (torch.randn(M, H, generator=gen, device=dev) * 3).to(
-            torch.bfloat16)
-        gamma = 1 + 0.1 * torch.randn(H, generator=gen, device=dev)
-        oset = Q.outlier_set_from_indices(
-            torch.randperm(H, generator=gen, device=dev)[:Bo], H, Bo,
-            device=dev)
-        args = (x, gamma, oset.k_mask, 1e-5, a_bits, oset.ind, oset.mask)
-        y, q, s, xo = fused_rmsnorm_quant(*args)
-        torch.cuda.synchronize()
-        yp, qp, sp, xop = rmsnorm_quant_plain(*args)
-        dy = (y.float() - yp.float()).abs()
-        dq = (q.int() - qp.int()).abs().max().item()
-        ds = ((s - sp).abs() / sp).max().item()
-        dxo = (xo.float() - xop.float()).abs()
-        ok = (bool((dy <= BF16_ULP * yp.float().abs()).all()) and dq <= 1
-              and ds <= 1e-5
-              and q.abs().max().item() <= 2 ** (a_bits - 1) - 1
-              and bool((dxo <= BF16_ULP * xop.float().abs()).all()))
-        check(ok, f"rmsnorm_quant H={H} a{a_bits} disagrees: dy "
-                  f"{dy.max().item()} dq {dq} ds {ds}")
-        nbytes = (M * H * 2 + 2 * H * 4 + Bo * 8 + M * H * 3 + M * 4
-                  + M * Bo * 2)
-        b, by = bound_ms(nbytes, [(8 * M * H, "f32")])
-        out_rows.append(dict(
-            mode=f"A{a_bits}",
-            work=f"M={M} H={H}, {Bo} outlier channels, A{a_bits}",
-            tolerance="y within 1 bf16 ulp, q_x within 1 LSB, x_scale "
-                      "rtol 1e-5",
-            max_abs_err=dy.max().item(), q_lsb_err=dq,
-            ms=device_ms(lambda: fused_rmsnorm_quant(*args), 200),
-            plain_ms=device_ms(lambda: rmsnorm_quant_plain(*args), 10),
-            bound_ms=b, bound_by=by, library_ms=None))
+    x = (torch.randn(M, H, generator=gen, device=dev) * 3).to(torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn(H, generator=gen, device=dev)
+    oset = Q.outlier_set_from_indices(
+        torch.randperm(H, generator=gen, device=dev)[:Bo], H, Bo, device=dev)
+    args = (x, gamma, oset.k_mask, 1e-5, a_bits, oset.ind, oset.mask)
+    what = f"rmsnorm_quant M={M} H={H} A{a_bits}"
+    y, q, s, xo = RQ.fused_rmsnorm_quant(*args)
+    torch.cuda.synchronize()
+    yp, qp, sp, xop = RQ.rmsnorm_quant_plain(*args)
+    dy = (y.float() - yp.float()).abs()
+    dq = (q.int() - qp.int()).abs().max().item()
+    ds = ((s - sp).abs() / sp).max().item()
+    dxo = (xo.float() - xop.float()).abs()
+    ok = (bool((dy <= BF16_ULP * yp.float().abs()).all()) and dq <= 1
+          and ds <= 1e-5 and q.abs().max().item() <= 2 ** (a_bits - 1) - 1
+          and bool((dxo <= BF16_ULP * xop.float().abs()).all()))
+    check(ok, f"{what} disagrees: dy {dy.max().item()} dq {dq} ds {ds}")
+    exact = None
+    if hasattr(RQ, "quantize_normed"):
+        own = RQ.quantize_normed(y, oset.k_mask, a_bits, oset.ind, oset.mask)
+        exact = all(torch.equal(a, b) for a, b in zip((q, s, xo), own))
+        check(exact, f"{what}: q_x, x_scale or x_out is not the plain "
+                     "quantizer's on the kernel's own y")
+    nbytes = (M * H * 2 + 2 * H * 4 + Bo * 8 + M * H * 3 + M * 4
+              + M * Bo * 2)
+    b, by = bound_ms(nbytes, [(8 * M * H, "f32")])
+    row = dict(
+        mode=f"A{a_bits}", work=f"M={M} H={H}, {Bo} outlier channels, "
+                                f"A{a_bits}",
+        tolerance=KERNEL1_TOL, max_abs_err=dy.max().item(), q_lsb_err=dq,
+        exact_from_own_y=exact,
+        ms=device_ms(lambda: RQ.fused_rmsnorm_quant(*args), 200),
+        plain_ms=device_ms(lambda: RQ.rmsnorm_quant_plain(*args), 10),
+        bound_ms=b, bound_by=by, library_ms=None, trivial_launch_ms=floor_ms)
+    if hasattr(RQ, "_rmsnorm"):
+        row["plan"] = RQ.plan_rmsnorm(M, H)
+        register = row["plan"][1] != 0
+        row["ms_by_plan"] = {
+            str(plan): device_ms(lambda: RQ._rmsnorm(*args, plan=plan), 200)
+            for plan in RQ.INSTANTIATIONS if plan[1] == 0 or register}
+    key = (M, H, a_bits)
+    if key in PREV_KERNEL1_MS:
+        row.update(previous_ms=PREV_KERNEL1_MS[key], previous_from="64bb7fb")
+    return row
+
+
+def kernel_rmsnorm(dev, gen, rows):
+    """KERNEL1_ROWS, beside the trivial-launch floor: the M=64 rows draw
+    from the phase's generator (in the order the earlier phase 3 drew, so
+    the later phases keep their inputs), the others from their own."""
+    floor = trivial_launch_ms(dev)
+    own = torch.Generator(device=dev).manual_seed(12)
+    out_rows = [rmsnorm_row(dev, gen if M == 64 else own, M, H, a, floor)
+                for M, H, a in KERNEL1_ROWS]
     rows["rmsnorm_quant"] = out_rows
     return out_rows[0]
 
@@ -534,6 +578,7 @@ A16_LIB = ("torch.matmul of x with the pre-dequantized bf16 weight (product "
 # (g, int8, softcap)
 A16_PTXAS = {}
 MIX_PTXAS = {}
+RMS_PTXAS = {}
 FLASH_PTXAS = {}
 DECODE_PTXAS = {}
 
@@ -543,7 +588,7 @@ def ptxas_by_mode(log, kernel):
     -v` log, keyed by its template arguments (ints and bools, from the
     mangled name): (w4, grouped) for w8a16_kernel and mix_gemm_kernel,
     (g, int8, softcap) for flash_decode_kernel and
-    decode_attention_kernel."""
+    decode_attention_kernel, (threads, chunks) for rmsnorm_quant_regs."""
     out, key = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -579,6 +624,25 @@ PREV_KERNEL3_MS = {
      "bf16 KV, softcap 50, scale 0.0625, peaked (q x 3)"): 0.1921,
     ("Gemma-2-27B", 32, 16, 128,
      "int8 KV, softcap 50, scale 0.0833333"): 0.0727,
+}
+
+
+# Kernel 1's times before its redesign (one block of 256 threads a row,
+# three passes with 2-byte loads, commit 64bb7fb), by phase-3 row (M, H,
+# a_bits). Not measured in the run that prints them: the means of two runs
+# of time_prefill.py --kernel1 on 64bb7fb's package in one chip call, in
+# turns with the redesigned kernel, on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md's kernel-1 findings, run F).
+PREV_KERNEL1_MS = {
+    (64, 4096, 8): 0.00609,
+    (64, 4096, 4): 0.00621,
+    (64, 3584, 8): 0.00644,
+    (64, 3584, 4): 0.00674,
+    (8, 4096, 8): 0.00634,
+    (8, 4096, 4): 0.00623,
+    (8, 3584, 8): 0.00650,
+    (8, 3584, 4): 0.00666,
+    (512, 4096, 8): 0.00942,
 }
 
 
@@ -1434,19 +1498,21 @@ def check_launches(counts, want, what):
 # tiny model card vs CPU: max |dlogits| over max |logits|, per family and
 # configuration. Each limit lies between what the card reads (the larger of
 # bf16 and int8 KV) and the control, the same CPU model with int8 KV
-# against bf16 KV, near their geometric mean; the check asserts the control
-# on every run, so a card path that lost as much precision as an int8 KV
-# cache would fail. On an H100 (card; control): llama W8A8 5.4e-3; 1.9e-2,
-# W4A4 3.1e-2; 7.9e-2, W4A4 grouped 3.4e-2; 6.5e-2, W8A16 3.6e-3; 7.1e-3;
-# gemma2 W8A8 1.7e-2; 4.0e-2, W4A4 7.2e-2; 1.36e-1, W8A16 5.3e-3; 1.3e-2.
-# The card first leaves the CPU in the prefill (forward 0) by one bf16 ulp
-# of a block's output, before any flash decode launch, and every flash
-# launch stays within its limit of its plain version on the model's own
-# inputs (Tap); 4-bit activations carry such a flip furthest. On the
-# batch-major cache (kernel 8): llama W8A8 1.06e-2; 1.73e-2 (its int8-KV
-# prefill attends over the quantized cache, so one int8 entry written
-# differently counts there, where the head-major prefill reads the fp
-# chunk), mistral ring 4.8e-3; 1.96e-2.
+# against bf16 KV; the check asserts the control on every run, so a card
+# path that lost as much precision as an int8 KV cache would fail. The
+# controls on an H100: llama W8A8 1.9e-2, W4A4 7.9e-2, W4A4 grouped 6.5e-2,
+# W8A16 7.1e-3; gemma2 W8A8 4.0e-2, W4A4 1.36e-1, W8A16 1.3e-2; on the
+# batch-major cache llama W8A8 1.73e-2, mistral ring 1.96e-2. With every
+# quantizer dividing in IEEE f32 on the card as on the CPU, the card's run
+# of a W8A8 or W4A4 model equals the CPU's block by block (at most 4.5e-7
+# of max|logits|, llama batch-major int8 KV included); W8A16 reads 3.6e-3
+# (llama) and 4.3e-3 (gemma2), where the a16 GEMM sums in another order,
+# llama batch-major with bf16 KV 1.07e-2 and the mistral ring 8.1e-3, where
+# kernel 8 sums in another order. When the card's quantizers multiplied by
+# the reciprocal, the card left the CPU in the prefill by one bf16 ulp of a
+# block's output and read up to 5.4e-3 (llama W8A8), 3.4e-2 (W4A4), 1.7e-2
+# (gemma2 W8A8), 7.2e-2 (gemma2 W4A4) and, with 39 int8 KV entries written
+# differently, 1.06e-2 (llama batch-major int8 KV).
 TINY_TOL = {
     ("llama", "W8A8"): 1e-2, ("llama", "W4A4"): 5e-2,
     ("llama", "W4A4 grouped"): 5e-2, ("llama", "W8A16"): 5e-3,
@@ -2009,6 +2075,18 @@ def main():
     for (w4, grouped), r in MIX_PTXAS.items():
         check(" 0 bytes spill stores" in r.get("spills", ""),
               f"mix_gemm_kernel<W4={w4}, grouped={grouped}> spills: {r}")
+    # no instantiation of kernel 1's register kernel spills
+    log = ptxas.get("rmsnorm_quant", "")
+    RMS_PTXAS.update(ptxas_by_mode(log, "rmsnorm_quant_regs"))
+    check(log == "(cached)" or len(RMS_PTXAS) == 2,
+          f"rmsnorm_quant: ptxas reported {len(RMS_PTXAS)} instantiations")
+    for key, r in RMS_PTXAS.items():
+        check(" 0 bytes spill stores" in r.get("spills", ""),
+              f"rmsnorm_quant_regs<{key}> spills: {r}")
+    report["rmsnorm_quant_ptxas"] = {
+        f"threads={k[0]} chunks={k[1]}": v
+        for k, v in sorted(RMS_PTXAS.items())}
+    print(f"  rmsnorm_quant: {report['rmsnorm_quant_ptxas']}")
     # no instantiation of flash decode spills
     log = ptxas.get("flash_decode", "")
     FLASH_PTXAS.update(ptxas_by_mode(log, "flash_decode_kernel"))
@@ -2095,6 +2173,10 @@ def main():
                   + (f" plan {r['plan']}" if "plan" in r else "")
                   + (f" by R {r['ms_by_splits']}" if "ms_by_splits" in r
                      else "")
+                  + (f" by plan {r['ms_by_plan']}" if "ms_by_plan" in r
+                     else "")
+                  + (f" trivial launch {r['trivial_launch_ms']:.4f} ms"
+                     if "trivial_launch_ms" in r else "")
                   + (f" earlier kernel {r['previous_ms']:.4f} ms "
                      f"({r['previous_from']}, not measured in this run)"
                      if r.get("previous_ms") else ""),

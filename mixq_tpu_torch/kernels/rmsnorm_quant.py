@@ -14,6 +14,11 @@ a rounding boundary.
 
 `fused_rmsnorm_quant` launches the kernel for a CUDA tensor and runs
 `rmsnorm_quant_plain`, the same arithmetic in PyTorch ops, for a CPU tensor.
+On the card `plan_rmsnorm` picks the instantiation: a block holds its row
+in registers, in 16-byte chunks of 8 channels, for H up to 4096 in
+multiples of 8 with 16-byte aligned operands (512 threads of one chunk at
+decode, 256 of two at prefill); any other row goes to the looping kernel,
+one row a block through shared memory.
 """
 from __future__ import annotations
 
@@ -31,6 +36,29 @@ REPLACES = "mixq_tpu/ops/pallas/rmsnorm_quant.py:41"
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
+# the source's chunk width (csrc/rmsnorm_quant.cu kChunk), the (threads a
+# block, chunks a thread holds) it instantiates (chunks 0: the looping
+# kernel) and the widest row the register kernel holds (both of its
+# instantiations hold 512 chunks)
+CHUNK = 8
+INSTANTIATIONS = ((512, 1), (256, 2), (256, 0))
+REGS_MAX_H = 4096
+# up to this many rows, 512 threads a row (decode: each row has an SM of its
+# own, and more warps hide its latency); past it, 256 threads with two
+# chunks each (prefill: rows share SMs, and fewer threads a row issue fewer
+# instructions)
+WIDE_MAX_M = 256
+
+
+def plan_rmsnorm(M: int, H: int, aligned: bool = True) -> Tuple[int, int]:
+    """(threads a block, chunks of 8 channels a thread holds in registers)
+    for M rows of H channels: the register kernel for H <= 4096 in
+    multiples of 8 with 16-byte aligned operands, else the looping kernel
+    (256, 0)."""
+    if aligned and H % CHUNK == 0 and H <= REGS_MAX_H:
+        return (512, 1) if M <= WIDE_MAX_M else (256, 2)
+    return 256, 0
+
 
 def rmsnorm_quant_plain(
     x: torch.Tensor, gamma: torch.Tensor,
@@ -43,19 +71,31 @@ def rmsnorm_quant_plain(
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+    return (y, *quantize_normed(y, k_mask, a_bits, out_ind, out_mask))
+
+
+def quantize_normed(
+    y: torch.Tensor, k_mask: Optional[torch.Tensor] = None, a_bits: int = 8,
+    out_ind: Optional[torch.Tensor] = None,
+    out_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version's second half on a normed bf16 row y: (q_x,
+    x_scale, x_out). Fed the kernel's own y, it gives the kernel's q_x,
+    x_scale and x_out bit for bit (the card tests hold that)."""
     y_in = y if k_mask is None else y * k_mask.to(y.dtype)
     q_x, x_scale = quantize_act_per_token(y_in, bits=a_bits)
     x_out = None
     if out_ind is not None:
         x_out = torch.index_select(y, -1, out_ind) * out_mask.to(y.dtype)
-    return y, q_x, x_scale, x_out
+    return q_x, x_scale, x_out
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("rmsnorm_quant").rmsnorm_quant_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -75,6 +115,14 @@ def fused_rmsnorm_quant(
 ) -> Result:
     """Returns (y bf16 [..., H], q_x int8 [..., H], x_scale f32 [..., 1],
     x_out bf16 [..., B] or None)."""
+    return _rmsnorm(x, gamma, k_mask, eps, a_bits, out_ind, out_mask)
+
+
+def _rmsnorm(x, gamma, k_mask, eps, a_bits, out_ind, out_mask,
+             plan: Optional[Tuple[int, int]] = None) -> Result:
+    """`fused_rmsnorm_quant`; `plan` forces (threads, chunks) instead of
+    plan_rmsnorm's, so a card test can hold the instantiations against
+    each other."""
     if x.device.type == "cpu":
         return rmsnorm_quant_plain(x, gamma, k_mask, eps, a_bits, out_ind,
                                    out_mask)
@@ -104,12 +152,18 @@ def fused_rmsnorm_quant(
     x_scale = torch.empty((*lead, 1), dtype=torch.float32, device=x.device)
     x_out = (None if out_ind is None else torch.empty(
         (*lead, out_ind.shape[0]), dtype=torch.bfloat16, device=x.device))
+    if plan is None:
+        aligned = all(t is None or t.data_ptr() % 16 == 0
+                      for t in (x, gamma, k_mask))
+        plan = plan_rmsnorm(M, H, aligned)
+    if plan not in INSTANTIATIONS:
+        raise ValueError(f"plan {plan} is not one of {INSTANTIATIONS}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _launcher()(
         x.data_ptr(), gamma.data_ptr(), _ptr(k_mask), _ptr(out_ind),
         _ptr(out_mask), y.data_ptr(), q_x.data_ptr(), x_scale.data_ptr(),
         _ptr(x_out), M, H, 0 if out_ind is None else out_ind.shape[0],
-        eps, float(2 ** (a_bits - 1) - 1), stream)
+        eps, float(2 ** (a_bits - 1) - 1), *plan, stream)
     _build.check(rc, "rmsnorm_quant")
     fused_rmsnorm_quant.launches += 1
     return y, q_x, x_scale, x_out

@@ -1,6 +1,8 @@
 """Arithmetic that rounds the same way on every device."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -12,4 +14,13 @@ def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     reciprocal, which is an ulp off now and then; the CUDA kernels, the
     Pallas kernels and PyTorch's CPU run divide. So the divisor goes in as
     a 0-dim tensor on x's own device."""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+    return x / _divisor(float(d), x.dtype, x.device)
+
+
+@functools.lru_cache(maxsize=64)
+def _divisor(d: float, dtype: torch.dtype, device: torch.device
+             ) -> torch.Tensor:
+    """The 0-dim tensor d on `device`, made once: a fresh one would cost a
+    fill kernel on the card at every call (the quantizers call true_div in
+    every layer of every step). Only read, never written."""
+    return torch.full((), d, dtype=dtype, device=device)

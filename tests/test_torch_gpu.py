@@ -1,5 +1,10 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version at small shapes (edges, outliers, GQA, ragged lengths; the int8
+version at small shapes (edges, outliers, GQA, ragged lengths; kernel 1 at
+decode and prefill rows, Llama's and Gemma-2's widths, a width that is not
+a multiple of 8 and widths past its register kernel, in each of its
+instantiations, its q_x, x_scale and x_out bit-equal to the plain quantizer
+and gather fed its own y; the quantizers on the card bit-equal to the CPU's;
+the int8
 GEMM in its W8, packed-W4 and grouped modes, kernel 2 and W4 per-channel
 bit-equal across their split-K plans, grouped deterministic at each; the
 a16 GEMM with int8 and packed weights, per-channel and grouped scales and
@@ -22,7 +27,8 @@ JAX package, so it also runs on a machine without them:
 (`--noconftest` because tests/conftest.py imports JAX).
 
 Tolerances: y of kernel 1 within one bf16 ulp (2**-7 relative; the row's
-sum of squares is added in another order), q_x within 1 LSB; kernel 2 f32
+sum of squares is added in another order), q_x within 1 LSB (and exact from
+the kernel's own y); kernel 2 f32
 outputs within 1e-4 (the outlier dot accumulates on tensor cores), bf16
 outputs within one ulp; in the W4 and grouped modes f32 within 1e-4 |y| +
 1e-4 plus G f32 ulps of S = x_scale * sum_g |float(acc_g) * w_scale[g]|
@@ -53,7 +59,9 @@ from mixq_tpu_torch.kernels.mix_gemm import _clusters as _clusters_mix
 from mixq_tpu_torch.kernels.mix_gemm import (_mix_gemm, int8_matmul_dequant,
                                              mix_gemm, mix_gemm_plain,
                                              plan_mix)
-from mixq_tpu_torch.kernels.rmsnorm_quant import (fused_rmsnorm_quant,
+from mixq_tpu_torch.kernels.rmsnorm_quant import (INSTANTIATIONS, _rmsnorm,
+                                                  fused_rmsnorm_quant,
+                                                  quantize_normed,
                                                   rmsnorm_quant_plain)
 from mixq_tpu_torch.kernels.w8a16 import (_clusters, dequant_weight,
                                           mix_gemm_a16, plan_a16,
@@ -80,32 +88,74 @@ def _gen(seed):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-@pytest.mark.parametrize("a_bits", [8, 4])
-@pytest.mark.parametrize("M,H,n_out", [(1, 64, 0), (7, 4096, 128),
-                                       (64, 4096, 0), (5, 11008, 16)])
-def test_rmsnorm_quant(cuda, M, H, n_out, a_bits):
+def _rmsnorm_case(cuda, M, H, n_out, a_bits, offset=0):
+    """Inputs of kernel 1 (x starts `offset` elements into its buffer)."""
     g = _gen(M + H)
-    x = (torch.randn(M, H, generator=g, device=cuda) * 3).to(torch.bfloat16)
+    x = (torch.randn(M * H + offset, generator=g, device=cuda) * 3).to(
+        torch.bfloat16)[offset:].view(M, H)
     gamma = 1 + 0.1 * torch.randn(H, generator=g, device=cuda)
     oset = None
     if n_out:
         idx = torch.randperm(H, generator=g, device=cuda)[:n_out]
         oset = Q.outlier_set_from_indices(idx, H, n_out, device=cuda)
-    args = (x, gamma, None if oset is None else oset.k_mask, 1e-5, a_bits,
+    return (x, gamma, None if oset is None else oset.k_mask, 1e-5, a_bits,
             None if oset is None else oset.ind,
             None if oset is None else oset.mask)
-    y, q, s, xo = fused_rmsnorm_quant(*args)
-    torch.cuda.synchronize()
+
+
+def _assert_rmsnorm(args, got):
+    """Kernel 1's outputs against the plain version (y within one bf16 ulp,
+    q_x within 1 LSB, x_scale rtol 1e-5, x_out within one ulp) and, exactly,
+    against the plain quantizer and gather fed the kernel's own y."""
+    x, gamma, k_mask, eps, a_bits, ind, mask = args
+    y, q, s, xo = got
     yp, qp, sp, xop = rmsnorm_quant_plain(*args)
     assert (y.float() - yp.float()).abs().le(
         BF16_ULP * yp.float().abs()).all()
     assert (q.int() - qp.int()).abs().max() <= 1
     assert q.abs().max() <= 2 ** (a_bits - 1) - 1
     torch.testing.assert_close(s, sp, rtol=1e-5, atol=0)
-    if n_out:
+    own = quantize_normed(y, k_mask, a_bits, ind, mask)
+    assert torch.equal(q, own[0]) and torch.equal(s, own[1])
+    if ind is not None:
         assert (xo.float() - xop.float()).abs().le(
             BF16_ULP * xop.float().abs()).all()
-        assert (q[:, oset.ind.long()] == 0).all()
+        assert torch.equal(xo, own[2])
+        assert (q[:, ind.long()] == 0).all()
+
+
+@pytest.mark.parametrize("a_bits", [8, 4])
+@pytest.mark.parametrize("M,H,n_out", [
+    (1, 64, 0), (7, 4096, 128), (64, 4096, 0), (5, 11008, 16),
+    # prefill rows; Gemma-2's width (ragged last chunks); a width that is
+    # not a multiple of 8; widths past the register kernel, the second
+    # past 48 KB of shared memory
+    (512, 4096, 128), (8, 3584, 128), (3, 1003, 8), (2, 16384, 128),
+    (2, 28672, 16)])
+def test_rmsnorm_quant(cuda, M, H, n_out, a_bits):
+    args = _rmsnorm_case(cuda, M, H, n_out, a_bits)
+    before = fused_rmsnorm_quant.launches
+    got = fused_rmsnorm_quant(*args)
+    torch.cuda.synchronize()
+    assert fused_rmsnorm_quant.launches == before + 1
+    _assert_rmsnorm(args, got)
+
+
+@pytest.mark.parametrize("M,H", [(64, 4096), (9, 3584), (512, 4096)])
+def test_rmsnorm_quant_plans(cuda, M, H):
+    """Every instantiation on the same rows (512 threads of one chunk, 256
+    of two, the looping kernel), each held as test_rmsnorm_quant holds it;
+    an x off 16-byte alignment takes the looping kernel, and the register
+    kernel refuses it."""
+    args = _rmsnorm_case(cuda, M, H, 128, 8)
+    for plan in INSTANTIATIONS:
+        _assert_rmsnorm(args, _rmsnorm(*args, plan=plan))
+    odd = _rmsnorm_case(cuda, M, H, 128, 8, offset=1)
+    assert odd[0].data_ptr() % 16
+    _assert_rmsnorm(odd, fused_rmsnorm_quant(*odd))
+    for plan in INSTANTIATIONS[:2]:
+        with pytest.raises(RuntimeError):
+            _rmsnorm(*odd, plan=plan)
 
 
 def test_quantizers_divide_as_the_cpu(cuda, record_property):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Prefill and GEMM timing of the PyTorch port, for comparing two trees in
-one run.
+one run (one CUDA card).
 
-    python3 time_prefill.py [--package DIR] [--tag NAME]   # one CUDA card
+    python3 time_prefill.py [--package DIR] [--tag NAME] [--kernel1]
 
 Through the public API only, so that DIR may hold another tree of this
 repository (its mixq_tpu_torch is then built and imported instead of the
@@ -22,6 +22,9 @@ one beside this script; the helpers come from the chip_smoke.py beside it):
     Gemma-2-9B's W4 gate (3584x14336) with the gelu_new epilogue;
   - for each of chip_smoke.py's serve paths, one prefill of 8 prompts x 64
     tokens into a fresh cache (chip_smoke.prefill_timing).
+With --kernel1 it times only kernel 1 (fused RMSNorm + quantization) at
+chip_smoke.py's phase-3 rows, on the same inputs and beside the same
+trivial-launch floor (chip_smoke.kernel_rmsnorm).
 Prints one JSON object as its last line and writes it to
 chiprun_out/time_prefill_<tag>.json.
 """
@@ -41,6 +44,8 @@ def main():
                     "mixq_tpu_torch to time (default: the one beside this "
                     "script)")
     ap.add_argument("--tag", default="tree", help="names the output file")
+    ap.add_argument("--kernel1", action="store_true",
+                    help="time kernel 1's phase-3 rows only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_prefill: no CUDA device", file=sys.stderr)
@@ -63,6 +68,17 @@ def main():
     _build.build_all()
     pkg = os.path.dirname(os.path.abspath(mixq_tpu_torch.__file__))
     res = {"card": card, "tag": args.tag, "package": pkg}
+
+    if args.kernel1:
+        rows = {}
+        # the smoke's phase-3 generator: kernel 1 draws first from it
+        cs.kernel_rmsnorm(dev, torch.Generator(device=dev).manual_seed(0),
+                          rows)
+        res["kernel1"] = rows["rmsnorm_quant"]
+        for r in res["kernel1"]:
+            print(f"kernel 1 {r['work']}: {r['ms']:.4f} ms (trivial launch "
+                  f"{r['trivial_launch_ms']:.4f})", flush=True)
+        return finish(res, args.tag, cs.OUT_DIR)
 
     Bo = 128
 
@@ -120,9 +136,12 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
 
-    os.makedirs(cs.OUT_DIR, exist_ok=True)
-    with open(os.path.join(cs.OUT_DIR, f"time_prefill_{args.tag}.json"),
-              "w") as f:
+    return finish(res, args.tag, cs.OUT_DIR)
+
+
+def finish(res, tag, out_dir):
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"time_prefill_{tag}.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(json.dumps(res))
     return 0
