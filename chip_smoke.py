@@ -207,25 +207,23 @@ def trivial_launch_ms(dev):
     return device_ms(z.zero_, 200)
 
 
-def rmsnorm_row(dev, gen, M, H, a_bits, floor_ms, Bo=128):
-    """Kernel 1 at M rows of H channels with Bo outlier channels, A8 or A4:
-    held to its plain version and, where the tree has `quantize_normed`
-    (trees before the redesign do not), bit-equal to the plain quantizer
-    and gather fed the kernel's own y; then timed beside its bound, its
-    plain version and `floor_ms`, and, where the tree can force a plan
-    (`_rmsnorm`), timed at every instantiation that takes the shape."""
-    from mixq_tpu_torch.kernels import rmsnorm_quant as RQ
+def kernel1_inputs(dev, gen, M, H, a_bits, Bo=128):
+    """Kernel 1's arguments at M rows of H channels with Bo outlier
+    channels, A8 or A4, drawn from `gen`."""
     from mixq_tpu_torch.ops import quant as Q
 
     x = (torch.randn(M, H, generator=gen, device=dev) * 3).to(torch.bfloat16)
     gamma = 1 + 0.1 * torch.randn(H, generator=gen, device=dev)
     oset = Q.outlier_set_from_indices(
         torch.randperm(H, generator=gen, device=dev)[:Bo], H, Bo, device=dev)
-    args = (x, gamma, oset.k_mask, 1e-5, a_bits, oset.ind, oset.mask)
-    what = f"rmsnorm_quant M={M} H={H} A{a_bits}"
-    y, q, s, xo = RQ.fused_rmsnorm_quant(*args)
-    torch.cuda.synchronize()
-    yp, qp, sp, xop = RQ.rmsnorm_quant_plain(*args)
+    return (x, gamma, oset.k_mask, 1e-5, a_bits, oset.ind, oset.mask)
+
+
+def kernel1_close(got, ref, a_bits):
+    """Kernel 1's outputs `got` against its plain version's `ref` (on one
+    device) under KERNEL1_TOL's limits: (ok, max |dy|, q_x's largest LSB
+    distance, x_scale's largest relative distance)."""
+    (y, q, s, xo), (yp, qp, sp, xop) = got, ref
     dy = (y.float() - yp.float()).abs()
     dq = (q.int() - qp.int()).abs().max().item()
     ds = ((s - sp).abs() / sp).max().item()
@@ -233,30 +231,65 @@ def rmsnorm_row(dev, gen, M, H, a_bits, floor_ms, Bo=128):
     ok = (bool((dy <= BF16_ULP * yp.float().abs()).all()) and dq <= 1
           and ds <= 1e-5 and q.abs().max().item() <= 2 ** (a_bits - 1) - 1
           and bool((dxo <= BF16_ULP * xop.float().abs()).all()))
-    check(ok, f"{what} disagrees: dy {dy.max().item()} dq {dq} ds {ds}")
-    exact = None
-    if hasattr(RQ, "quantize_normed"):
-        own = RQ.quantize_normed(y, oset.k_mask, a_bits, oset.ind, oset.mask)
-        exact = all(torch.equal(a, b) for a, b in zip((q, s, xo), own))
-        check(exact, f"{what}: q_x, x_scale or x_out is not the plain "
-                     "quantizer's on the kernel's own y")
+    return ok, dy.max().item(), dq, ds
+
+
+def kernel1_held(got, args, what):
+    """Holds kernel 1's outputs to KERNEL1_TOL on the card and on a CPU copy
+    of its inputs: within the plain version's limits, and q_x, x_scale and
+    x_out bit-equal to the plain quantizer and gather fed the kernel's own
+    y. Returns the card's (max |dy|, q_x's LSB distance)."""
+    from mixq_tpu_torch.kernels import rmsnorm_quant as RQ
+
+    a_bits = args[4]
+    cpu = tuple(t.cpu() if torch.is_tensor(t) else t for t in args)
+    found = {}
+    for where, a in (("card", args), ("CPU", cpu)):
+        mine = tuple(t.to(a[0].device) for t in got)
+        ok, dy, dq, ds = kernel1_close(mine, RQ.rmsnorm_quant_plain(*a),
+                                      a_bits)
+        check(ok, f"{what} disagrees with the plain version on the {where}: "
+                  f"dy {dy} dq {dq} ds {ds}")
+        own = RQ.quantize_normed(mine[0], a[2], a_bits, a[5], a[6])
+        check(all(torch.equal(m, o) for m, o in zip(mine[1:], own)),
+              f"{what}: q_x, x_scale or x_out is not the plain quantizer's "
+              f"on the kernel's own y on the {where}")
+        found[where] = (dy, dq)
+    return found["card"]
+
+
+def rmsnorm_row(dev, gen, M, H, a_bits, floor_ms, Bo=128):
+    """Kernel 1 at M rows of H channels with Bo outlier channels, A8 or A4:
+    held to KERNEL1_TOL (kernel1_held), then timed beside its bound, its
+    plain version and `floor_ms`; each instantiation that takes the shape
+    is held the same way, then timed."""
+    from mixq_tpu_torch.kernels import rmsnorm_quant as RQ
+
+    args = kernel1_inputs(dev, gen, M, H, a_bits, Bo)
+    what = f"rmsnorm_quant M={M} H={H} A{a_bits}"
+    got = RQ.fused_rmsnorm_quant(*args)
+    torch.cuda.synchronize()
+    dy, dq = kernel1_held(got, args, what)
     nbytes = (M * H * 2 + 2 * H * 4 + Bo * 8 + M * H * 3 + M * 4
               + M * Bo * 2)
     b, by = bound_ms(nbytes, [(8 * M * H, "f32")])
     row = dict(
         mode=f"A{a_bits}", work=f"M={M} H={H}, {Bo} outlier channels, "
                                 f"A{a_bits}",
-        tolerance=KERNEL1_TOL, max_abs_err=dy.max().item(), q_lsb_err=dq,
-        exact_from_own_y=exact,
+        tolerance=KERNEL1_TOL, max_abs_err=dy, q_lsb_err=dq,
+        exact_from_own_y=True,
         ms=device_ms(lambda: RQ.fused_rmsnorm_quant(*args), 200),
         plain_ms=device_ms(lambda: RQ.rmsnorm_quant_plain(*args), 10),
-        bound_ms=b, bound_by=by, library_ms=None, trivial_launch_ms=floor_ms)
-    if hasattr(RQ, "_rmsnorm"):
-        row["plan"] = RQ.plan_rmsnorm(M, H)
-        register = row["plan"][1] != 0
-        row["ms_by_plan"] = {
-            str(plan): device_ms(lambda: RQ._rmsnorm(*args, plan=plan), 200)
-            for plan in RQ.INSTANTIATIONS if plan[1] == 0 or register}
+        bound_ms=b, bound_by=by, library_ms=None, trivial_launch_ms=floor_ms,
+        plan=RQ.plan_rmsnorm(H), ms_by_plan={})
+    for plan in RQ.INSTANTIATIONS:
+        if plan[1] and not row["plan"][1]:
+            continue                      # the register kernel refuses H
+        forced = RQ._rmsnorm(*args, plan=plan)
+        torch.cuda.synchronize()
+        kernel1_held(forced, args, f"{what} plan {plan}")
+        row["ms_by_plan"][str(plan)] = device_ms(
+            lambda: RQ._rmsnorm(*args, plan=plan), 200)
     key = (M, H, a_bits)
     if key in PREV_KERNEL1_MS:
         row.update(previous_ms=PREV_KERNEL1_MS[key], previous_from="64bb7fb")
@@ -1512,11 +1545,13 @@ def check_launches(counts, want, what):
 # the reciprocal, the card left the CPU in the prefill by one bf16 ulp of a
 # block's output and read up to 5.4e-3 (llama W8A8), 3.4e-2 (W4A4), 1.7e-2
 # (gemma2 W8A8), 7.2e-2 (gemma2 W4A4) and, with 39 int8 KV entries written
-# differently, 1.06e-2 (llama batch-major int8 KV).
+# differently, 1.06e-2 (llama batch-major int8 KV). So the W8A8 and W4A4
+# limits on the head-major cache are 1e-5, about 20x the card's reading: a
+# quantizer that rounds apart from the CPU's again fails them.
 TINY_TOL = {
-    ("llama", "W8A8"): 1e-2, ("llama", "W4A4"): 5e-2,
-    ("llama", "W4A4 grouped"): 5e-2, ("llama", "W8A16"): 5e-3,
-    ("gemma2", "W8A8"): 2.5e-2, ("gemma2", "W4A4"): 1e-1,
+    ("llama", "W8A8"): 1e-5, ("llama", "W4A4"): 1e-5,
+    ("llama", "W4A4 grouped"): 1e-5, ("llama", "W8A16"): 5e-3,
+    ("gemma2", "W8A8"): 1e-5, ("gemma2", "W4A4"): 1e-5,
     ("gemma2", "W8A16"): 8e-3,
     ("llama batch-major", "W8A8"): 1.35e-2, ("mistral ring", "W8A8"): 1e-2}
 
@@ -2075,10 +2110,10 @@ def main():
     for (w4, grouped), r in MIX_PTXAS.items():
         check(" 0 bytes spill stores" in r.get("spills", ""),
               f"mix_gemm_kernel<W4={w4}, grouped={grouped}> spills: {r}")
-    # no instantiation of kernel 1's register kernel spills
+    # kernel 1's register kernel (one instantiation) does not spill
     log = ptxas.get("rmsnorm_quant", "")
     RMS_PTXAS.update(ptxas_by_mode(log, "rmsnorm_quant_regs"))
-    check(log == "(cached)" or len(RMS_PTXAS) == 2,
+    check(log == "(cached)" or len(RMS_PTXAS) == 1,
           f"rmsnorm_quant: ptxas reported {len(RMS_PTXAS)} instantiations")
     for key, r in RMS_PTXAS.items():
         check(" 0 bytes spill stores" in r.get("spills", ""),

@@ -36,13 +36,13 @@
 // - The IEEE divisions of the quantizer are the costliest instructions of
 //   the row; a zero dividend (each masked outlier channel) would take the
 //   division's slow path, so zeros skip it.
-// At decode (up to 256 rows) the block has 512 threads with one chunk each:
-// more warps to hide the row's latency on an SM of its own. From 257 rows
-// on, 256 threads with two chunks each: four rows share an SM and the
-// smaller block issues fewer instructions a row. The plan is
-// kernels/rmsnorm_quant.py::plan_rmsnorm. No cluster split: one SM fetches
-// an 8 KB row in one round trip, and a DSMEM exchange would add to the
-// chain.
+// The block has 512 threads with one chunk each, for every M: at decode
+// each row has an SM of its own, and more warps hide its latency. (A second
+// instantiation of 256 threads with two chunks each saved ~1 us a launch
+// at M=512, a share of a prefill the end-to-end times cannot resolve.) The
+// plan is kernels/rmsnorm_quant.py::plan_rmsnorm. No cluster split: one SM
+// fetches an 8 KB row in one round trip, and a DSMEM exchange would add to
+// the chain.
 //
 // Any other H (not a multiple of 8, past 4096, or an operand not 16-byte
 // aligned) runs rmsnorm_quant_loop: one row a block of 256 threads, x read
@@ -357,8 +357,8 @@ cudaError_t launch_loop(const void* x, const void* gamma, const void* kmask,
 }  // namespace
 
 // threads: the block (512 or 256); chunks: chunks of 8 channels a thread
-// holds in registers (1 at 512 threads, 2 at 256), or 0 for the looping
-// kernel (256 threads). The plan is kernels/rmsnorm_quant.py::plan_rmsnorm.
+// holds in registers (1 at 512 threads), or 0 for the looping kernel (256
+// threads). The plan is kernels/rmsnorm_quant.py::plan_rmsnorm.
 extern "C" int rmsnorm_quant_launch(const void* x, const void* gamma,
                                     const void* kmask, const void* out_ind,
                                     const void* out_mask, void* y, void* qx,
@@ -370,7 +370,6 @@ extern "C" int rmsnorm_quant_launch(const void* x, const void* gamma,
                   Bo, eps, qmax, s
   cudaError_t e = cudaErrorInvalidValue;
   if (threads == 512 && chunks == 1) e = launch_regs<512, 1>(MIXQ_ARGS);
-  else if (threads == 256 && chunks == 2) e = launch_regs<256, 2>(MIXQ_ARGS);
   else if (threads == 256 && chunks == 0) e = launch_loop(MIXQ_ARGS);
 #undef MIXQ_ARGS
   return (int)e;

@@ -15,10 +15,9 @@ a rounding boundary.
 `fused_rmsnorm_quant` launches the kernel for a CUDA tensor and runs
 `rmsnorm_quant_plain`, the same arithmetic in PyTorch ops, for a CPU tensor.
 On the card `plan_rmsnorm` picks the instantiation: a block holds its row
-in registers, in 16-byte chunks of 8 channels, for H up to 4096 in
-multiples of 8 with 16-byte aligned operands (512 threads of one chunk at
-decode, 256 of two at prefill); any other row goes to the looping kernel,
-one row a block through shared memory.
+in registers, 512 threads of one 16-byte chunk of 8 channels each, for H
+up to 4096 in multiples of 8 with 16-byte aligned operands; any other row
+goes to the looping kernel, one row a block through shared memory.
 """
 from __future__ import annotations
 
@@ -38,25 +37,19 @@ Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
 # the source's chunk width (csrc/rmsnorm_quant.cu kChunk), the (threads a
 # block, chunks a thread holds) it instantiates (chunks 0: the looping
-# kernel) and the widest row the register kernel holds (both of its
-# instantiations hold 512 chunks)
+# kernel) and the widest row the register kernel holds (512 chunks)
 CHUNK = 8
-INSTANTIATIONS = ((512, 1), (256, 2), (256, 0))
+INSTANTIATIONS = ((512, 1), (256, 0))
 REGS_MAX_H = 4096
-# up to this many rows, 512 threads a row (decode: each row has an SM of its
-# own, and more warps hide its latency); past it, 256 threads with two
-# chunks each (prefill: rows share SMs, and fewer threads a row issue fewer
-# instructions)
-WIDE_MAX_M = 256
 
 
-def plan_rmsnorm(M: int, H: int, aligned: bool = True) -> Tuple[int, int]:
+def plan_rmsnorm(H: int, aligned: bool = True) -> Tuple[int, int]:
     """(threads a block, chunks of 8 channels a thread holds in registers)
-    for M rows of H channels: the register kernel for H <= 4096 in
+    for rows of H channels: the register kernel (512, 1) for H <= 4096 in
     multiples of 8 with 16-byte aligned operands, else the looping kernel
     (256, 0)."""
     if aligned and H % CHUNK == 0 and H <= REGS_MAX_H:
-        return (512, 1) if M <= WIDE_MAX_M else (256, 2)
+        return 512, 1
     return 256, 0
 
 
@@ -155,7 +148,7 @@ def _rmsnorm(x, gamma, k_mask, eps, a_bits, out_ind, out_mask,
     if plan is None:
         aligned = all(t is None or t.data_ptr() % 16 == 0
                       for t in (x, gamma, k_mask))
-        plan = plan_rmsnorm(M, H, aligned)
+        plan = plan_rmsnorm(H, aligned)
     if plan not in INSTANTIATIONS:
         raise ValueError(f"plan {plan} is not one of {INSTANTIATIONS}")
     stream = torch.cuda.current_stream(x.device).cuda_stream

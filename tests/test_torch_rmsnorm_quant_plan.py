@@ -2,8 +2,9 @@
 (kernels/rmsnorm_quant.py::plan_rmsnorm): every (M, H) that the served
 models, chip_smoke.py and the card tests give the kernel maps to an
 instantiation that csrc/rmsnorm_quant.cu compiles, the served widths to the
-register kernel (512 threads at decode, 256 at prefill), and every other
-width or an operand off 16-byte alignment to the looping kernel. The plan
+register kernel (512 threads of one chunk each, at decode and prefill), and
+every other width or an operand off 16-byte alignment to the looping
+kernel. The plan
 mirrors the source's constants, checked here against the source text."""
 import re
 from pathlib import Path
@@ -40,27 +41,30 @@ def test_constants_match_the_source():
 @pytest.mark.parametrize("M", SERVED_M)
 @pytest.mark.parametrize("H", [LLAMA, GEMMA])
 def test_served_widths_take_the_register_kernel(M, H):
-    threads, chunks = RQ.plan_rmsnorm(M, H)
-    assert (threads, chunks) in RQ.INSTANTIATIONS and chunks
-    assert threads == (512 if M <= RQ.WIDE_MAX_M else 256)
-    # every chunk of the row has a thread; at Gemma-2's width the last
-    # threads hold one chunk fewer (448 chunks)
+    threads, chunks = RQ.plan_rmsnorm(H)
+    assert (threads, chunks) == (512, 1)
+    assert (threads, chunks) in RQ.INSTANTIATIONS
+    # every chunk of the row has a thread; at Gemma-2's width (448 chunks)
+    # the last 64 threads hold none
     n = H // RQ.CHUNK
     assert (chunks - 1) * threads < n <= chunks * threads
 
 
 @pytest.mark.parametrize("M,H", [(m, TINY) for m in TINY_M] + CARD)
 def test_every_shape_maps_to_an_instantiation(M, H):
-    plan = RQ.plan_rmsnorm(M, H)
+    plan = RQ.plan_rmsnorm(H)
     assert plan in RQ.INSTANTIATIONS
     register = H % RQ.CHUNK == 0 and H <= RQ.REGS_MAX_H
     assert (plan[1] > 0) == register
     # off 16-byte alignment, the looping kernel
-    assert RQ.plan_rmsnorm(M, H, aligned=False) == (256, 0)
+    assert RQ.plan_rmsnorm(H, aligned=False) == (256, 0)
 
 
 def test_block_size_on_both_sides_of_the_cut():
-    cut = RQ.WIDE_MAX_M
-    assert RQ.plan_rmsnorm(cut, LLAMA) == (512, 1)
-    assert RQ.plan_rmsnorm(cut + 1, LLAMA) == (256, 2)
-    assert RQ.plan_rmsnorm(cut + 1, 11008) == (256, 0)
+    """The register kernel up to its widest row, the looping kernel's
+    256-thread block one chunk past it and at a width off the chunk."""
+    cut = RQ.REGS_MAX_H
+    assert RQ.plan_rmsnorm(cut) == (512, 1)
+    assert RQ.plan_rmsnorm(cut + RQ.CHUNK) == (256, 0)
+    assert RQ.plan_rmsnorm(cut - 1) == (256, 0)
+    assert RQ.plan_rmsnorm(11008) == (256, 0)

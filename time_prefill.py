@@ -24,7 +24,10 @@ one beside this script; the helpers come from the chip_smoke.py beside it):
     tokens into a fresh cache (chip_smoke.prefill_timing).
 With --kernel1 it times only kernel 1 (fused RMSNorm + quantization) at
 chip_smoke.py's phase-3 rows, on the same inputs and beside the same
-trivial-launch floor (chip_smoke.kernel_rmsnorm).
+trivial-launch floor (chip_smoke.kernel_rmsnorm), each held first to the
+tree's plain version under chip_smoke.KERNEL1_TOL's limits; through
+fused_rmsnorm_quant and rmsnorm_quant_plain only, which every tree since
+the port began has.
 Prints one JSON object as its last line and writes it to
 chiprun_out/time_prefill_<tag>.json.
 """
@@ -70,11 +73,26 @@ def main():
     res = {"card": card, "tag": args.tag, "package": pkg}
 
     if args.kernel1:
-        rows = {}
-        # the smoke's phase-3 generator: kernel 1 draws first from it
-        cs.kernel_rmsnorm(dev, torch.Generator(device=dev).manual_seed(0),
-                          rows)
-        res["kernel1"] = rows["rmsnorm_quant"]
+        from mixq_tpu_torch.kernels import rmsnorm_quant as RQ
+
+        floor = cs.trivial_launch_ms(dev)
+        # the smoke's generators: its phase-3 one, from which the M=64 rows
+        # draw first, and the one of the other rows (kernel_rmsnorm)
+        gens = {True: torch.Generator(device=dev).manual_seed(0),
+                False: torch.Generator(device=dev).manual_seed(12)}
+        res["kernel1"] = []
+        for M, H, a_bits in cs.KERNEL1_ROWS:
+            ins = cs.kernel1_inputs(dev, gens[M == 64], M, H, a_bits)
+            work = f"M={M} H={H}, 128 outlier channels, A{a_bits}"
+            ok, dy, dq, ds = cs.kernel1_close(
+                RQ.fused_rmsnorm_quant(*ins), RQ.rmsnorm_quant_plain(*ins),
+                a_bits)
+            cs.check(ok, f"kernel 1 {work} disagrees with its plain "
+                         f"version: dy {dy} dq {dq} ds {ds}")
+            res["kernel1"].append(dict(
+                work=work, max_abs_err=dy, q_lsb_err=dq,
+                ms=cs.device_ms(lambda: RQ.fused_rmsnorm_quant(*ins), 200),
+                trivial_launch_ms=floor))
         for r in res["kernel1"]:
             print(f"kernel 1 {r['work']}: {r['ms']:.4f} ms (trivial launch "
                   f"{r['trivial_launch_ms']:.4f})", flush=True)
