@@ -77,17 +77,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      attn_impl="auto", which puts them on the batch-major cache (Mistral's
      a ring), kernel 8; random weights from a seed, 128 outlier channels
      per MIX linear input, 8 left-padded prompts, 32 greedy tokens through
-     InferenceEngine.generate, with every kernel's launch count asserted by
-     mode (launch counts set to 0 just before each generate, read just
-     after);
-  6. timing: for each configuration the decode step at batch 64 with the
-     KV cache filled to 512 positions: one step's launch counts by mode
-     (asserted), ms/step, tok/s, peak device memory, the memory of the f32
-     head the engine holds, the step's byte bound from the model's tensors,
-     and over three more steps under torch.profiler the device time per
-     step, its attention kernels' (kernel 3 or 8) device time per step
-     (kernel 8's beside the parent tree's, not measured in the run),
-     the device's busy share and the top kernels; for Mistral also
+     InferenceEngine.generate, its default device decode loop: one eager
+     step, then the step's CUDA graph captured once and replayed 30 times
+     (counted), under torch.profiler: the kernels the card ran, by name
+     (kernels.executed_counts), asserted by mode against one prefill and
+     31 decode steps, and the wrappers' launch counts (set to 0 just
+     before each generate, read just after: the prefill, the eager step
+     and the captured one) asserted by mode; the tokens held equal to the
+     same generate unprofiled (timed) and to a stepwise generate
+     (device_decode_loop=False) on the same engine;
+  6. timing: for each configuration the device loop's decode step at batch
+     64 with the KV cache filled to 512 positions, eagerly and as replays
+     of its CUDA graph, each run from the same state: one eager step's
+     launch counts by mode (asserted) under
+     torch.cuda.set_sync_debug_mode("error"); 8 replays' logits and tokens
+     held bit-equal to 8 eager steps'; the capture's host time; 8 steps
+     timed eager, graph, graph, eager (wall ms/step, CUDA-event ms/step,
+     tok/s); peak device memory, the memory of the f32 head the engine
+     holds, the step's byte bound from the model's tensors, and over 8
+     more steps of each under torch.profiler (device activity only) the
+     kernels the card ran by name (asserted: 8 steps' worth), the device
+     time per step, its attention kernels' (kernel 3 or 8) device time per
+     step (kernel 8's beside the parent tree's, not measured in the run),
+     the device's busy share (device time over the wall time of that same
+     window, asserted <= 1) and the top kernels; for Mistral also
      one step at batch 16 on a window-sized (4096-slot) ring filled past
      its wrap, every kernel-8 launch held against its plain version; and
      one prefill of 8 prompts x 64 tokens into a fresh cache (512 rows
@@ -142,11 +155,14 @@ def bound_ms(nbytes, ops):
 
 def _device_us(prof):
     """Total duration of the work that ran on the card (kernels, copies,
-    memsets) in a torch.profiler window, in microseconds."""
+    memsets) in a window of kernels.card_trace, in microseconds, without
+    the spin kernel the window runs after its block."""
     from torch.autograd import DeviceType
 
+    from mixq_tpu_torch.kernels import SPIN
+
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+               if e.device_type == DeviceType.CUDA and SPIN not in e.key)
 
 
 def device_ms(fn, iters, warmup=2):
@@ -154,7 +170,7 @@ def device_ms(fn, iters, warmup=2):
     calls ran on the card (CUPTI, through torch.profiler), over `iters`.
     The host's gaps between kernels are left out, so a small kernel
     launched from Python is timed, not its launch."""
-    from torch.profiler import ProfilerActivity, profile
+    from mixq_tpu_torch.kernels import card_trace
 
     for _ in range(warmup):
         fn()
@@ -163,10 +179,9 @@ def device_ms(fn, iters, warmup=2):
     # all (seen once on the H100, in a library call); a window that sees
     # none three times fails
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with card_trace() as prof:
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
         us = _device_us(prof)
         if us > 0:
             return us / iters / 1e3
@@ -1528,6 +1543,27 @@ def check_launches(counts, want, what):
     check(got == want, f"{what}: launch counts {got} != {want}")
 
 
+def ran_on_card(prof):
+    """The port's kernels the card ran in a torch.profiler window, by
+    launch-count key, read from the kernel names of its device events
+    (kernels.executed_counts)."""
+    from torch.autograd import DeviceType
+
+    from mixq_tpu_torch.kernels import executed_counts
+
+    return executed_counts((e.key, e.count) for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA)
+
+
+def check_executed(ran, want, what):
+    """`ran` (ran_on_card) against launch counts `want` on the keys a
+    kernel's name shows."""
+    from mixq_tpu_torch.kernels import UNNAMED
+
+    check_launches(ran, {k: v for k, v in want.items() if k not in UNNAMED},
+                   f"{what} (kernels the card ran)")
+
+
 # tiny model card vs CPU: max |dlogits| over max |logits|, per family and
 # configuration. Each limit lies between what the card reads (the larger of
 # bf16 and int8 KV) and the control, the same CPU model with int8 KV
@@ -1768,33 +1804,106 @@ def new_engine(dev, params, cfg, specs, kv_dtype):
         max_seq_len=2048, prefill_chunk=16, kv_dtype=kv_dtype), device=dev)
 
 
+class Replays:
+    """Counts the device loop's captures and graph replays while it is
+    entered (`with Replays() as r:`)."""
+
+    def __enter__(self):
+        from mixq_tpu_torch.engine.engine import DecodeLoop
+
+        self.captures = self.replays = 0
+        self._cls = DecodeLoop
+        self._real = DecodeLoop.capture, DecodeLoop.replay
+        capture, replay = self._real
+
+        def counted_capture(loop):
+            self.captures += 1
+            return capture(loop)
+
+        def counted_replay(loop, n=1):
+            self.replays += n
+            return replay(loop, n)
+
+        DecodeLoop.capture, DecodeLoop.replay = counted_capture, counted_replay
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.capture, self._cls.replay = self._real
+        return False
+
+
+def stepwise_engine(eng):
+    """The same engine (its parameters and head) with the device loop off:
+    generate's stepwise host loop."""
+    import copy
+    import dataclasses
+
+    other = copy.copy(eng)
+    other.engine_cfg = dataclasses.replace(eng.engine_cfg,
+                                           device_decode_loop=False)
+    return other
+
+
 def serve(dev, params, cfg, specs, name, kv_dtype):
-    from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mixq_tpu_torch.kernels import (card_trace, launch_counts,
+                                        reset_launch_counts)
 
     eng = new_engine(dev, params, cfg, specs, kv_dtype)
+    check(eng.engine_cfg.device_decode_loop, "the device loop is off")
     g = torch.Generator().manual_seed(2)
     lens = [5, 9, 13, 17, 21, 26, 30, 37]
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
                for n in lens]
     new = 32
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.generate(prompts, max_new_tokens=new)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
+    # the main path: generate under the profiler, which sees the kernels
+    # the graph's replays run (a window that sees no device event at all,
+    # seen once on the H100, is run again)
+    for _ in range(3):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with Replays() as graph, card_trace() as prof:
+            out = eng.generate(prompts, max_new_tokens=new)
+        counts = launch_counts()
+        ran = ran_on_card(prof)
+        if any(ran.values()):
+            break
     shape = (len(out), min(len(r) for r in out), max(len(r) for r in out))
     check(shape == (8, new, new), f"{name} generate returned shape {shape}")
     check(all(0 <= t < cfg.vocab_size for r in out for t in r),
           f"{name}: token out of range")
-    # one prefill + (new - 1) decode steps, on generate's cache of
-    # round_up(48 + 32, 128) slots
-    check_launches(counts, expect_launches(
-        name, cfg, new, new - 1, attn_modes(cfg, specs, kv_dtype, 128)),
-        f"{name} serve")
+    # the decode steps ran as one eager step and new - 2 graph replays
+    check((graph.captures, graph.replays) == (1, new - 2),
+          f"{name}: {graph.captures} captures, {graph.replays} replays")
+    # the card ran one prefill + (new - 1) decode steps, on generate's
+    # cache of round_up(48 + 32, 128) slots; the wrappers launched the
+    # prefill, the eager step and the captured step
+    attn = attn_modes(cfg, specs, kv_dtype, 128)
+    check_executed(ran, expect_launches(name, cfg, new, new - 1, attn),
+                   f"{name} serve")
+    check_launches(counts, expect_launches(name, cfg, 3, 2, attn),
+                   f"{name} serve (wrapper launches)")
+    # the same generate unprofiled, timed; then the stepwise host loop on
+    # the same engine: the same tokens
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(again == out, f"{name}: two graph generates differ")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = stepwise_engine(eng).generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall_stepwise = time.perf_counter() - t0
+    differ = [i for i, (a, b) in enumerate(zip(out, ref)) if a != b]
+    check(not differ, f"{name}: graph generate rows {differ} differ from "
+          "the stepwise generate's")
     return eng, dict(prompts=lens, new_tokens=new, tokens_shape=[8, new],
-                     wall_s=wall, launches=counts, first_row=out[0][:8])
+                     wall_s=wall, stepwise_wall_s=wall_stepwise,
+                     graph_replays=graph.replays,
+                     executed={k: v for k, v in ran.items() if v},
+                     launches={k: v for k, v in counts.items() if v},
+                     tokens_equal_stepwise=True, first_row=out[0][:8])
 
 
 def prefill_timing(dev, eng, cfg, B=8, T=64, n=3):
@@ -1810,7 +1919,7 @@ def prefill_timing(dev, eng, cfg, B=8, T=64, n=3):
     out = {}
 
     def run():
-        cache.length = 0                # fresh: the prefill writes [0, T)
+        cache.set_length(0)             # fresh: the prefill writes [0, T)
         out["logits"], _ = eng.prefill(tokens, cache)
 
     dev_ms = device_ms(run, n, warmup=1)
@@ -1850,85 +1959,154 @@ def seed_cache(cache, gen):
 
 
 def decode_timing(dev, eng, cfg, gen, tag, name):
+    """The decode step at B=64 with 512 filled positions (of 640 slots): the
+    device loop's step (the forward, greedy sampling, the buffer writes),
+    eagerly and as replays of its CUDA graph, each run from the same state
+    (length 512, the same tokens). One eager step's launches by mode
+    (asserted) and host syncs (none: set_sync_debug_mode("error")); 8
+    eager steps against the capture and 8 replays, logits and tokens held
+    bit-equal; the capture's host time; then 8 steps timed eager, graph,
+    graph, eager (wall clock and CUDA events), and 8 of each under
+    torch.profiler (the kernels the card ran, asserted; device ms,
+    attention ms, busy share, top kernels)."""
+    from mixq_tpu_torch.engine.engine import DecodeLoop
+    from mixq_tpu_torch.engine.sampling import SamplingParams
     from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     B, fill, steps, warm, slots = 64, 512, 8, 2, 640
     cache = eng.new_cache(B, slots)
     seed_cache(cache, gen)
-    cache.length = fill
     kv_start = torch.zeros(B, dtype=torch.int32, device=dev)
-    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    tok0 = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
     torch.cuda.reset_peak_memory_stats()
+    loop = DecodeLoop(eng, cache, kv_start, tok0, 1 + steps,
+                      SamplingParams(), None)
 
-    def step(tok):
-        logits, _ = eng.decode_step(tok, cache, kv_start)
-        return logits, torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    def rewind():
+        cache.set_length(fill)
+        loop.tok.copy_(tok0[:, None])
+        loop.col.fill_(1)
 
-    for _ in range(warm - 1):
-        logits, tok = step(tok)
-    # the last warm-up step's launches: one decode step's, by mode
+    def eager(n):
+        for _ in range(n):
+            loop.step()
+
+    rewind()
+    eager(warm - 1)
+    # the last warm-up step's launches: one decode step's, by mode; and no
+    # host sync in it
     reset_launch_counts()
-    logits, tok = step(tok)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager(1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     per_step = {k: v for k, v in launch_counts().items() if v}
     kv_dtype = eng.engine_cfg.kv_dtype
-    check_launches(per_step, expect_launches(
-        name, cfg, 1, 1, attn_modes(cfg, eng.specs, kv_dtype, slots)),
-        f"{tag} decode step")
+    want = expect_launches(name, cfg, 1, 1,
+                           attn_modes(cfg, eng.specs, kv_dtype, slots))
+    check_launches(per_step, want, f"{tag} decode step")
+
+    # the graph against the eager step, from the same state
+    rewind()
+    ref = [loop.step().clone() for _ in range(steps)]
+    ref_tokens = loop.tokens.clone()
+    rewind()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.capture()
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    got = []
+    for _ in range(steps):
+        loop.replay()
+        got.append(loop.logits.clone())
+    unequal = [i for i, (a, b) in enumerate(zip(ref, got))
+               if not torch.equal(a, b)]
+    diff = max((a - b).abs().max().item() for a, b in zip(ref, got))
+    check(not unequal and torch.equal(ref_tokens, loop.tokens),
+          f"{tag}: graph replay logits differ from the eager step's at "
+          f"steps {unequal} (max |d| {diff})")
+    logits = got[-1]
+    check(tuple(logits.shape) == (B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "decode logits not finite")
+    # the peak below is the step's, not that of the logits held above
+    del ref, got, ref_tokens, logits
+    torch.cuda.reset_peak_memory_stats()
+
+    # in turns, each run from the same state
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    e0.record()
-    for _ in range(steps):
-        logits, tok = step(tok)
-    e1.record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / steps
+    runs = {"eager": eager, "graph": loop.replay}
+    timed = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        rewind()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        runs[mode](steps)
+        e1.record()
+        torch.cuda.synchronize()
+        timed[mode].append(((time.perf_counter() - t0) * 1e3 / steps,
+                            e0.elapsed_time(e1) / steps))
     # least time of a step: every weight read once (of an untied embedding
     # only the B gathered rows), and the valid K/V rows (int8 with their f32
     # scales, or bf16) at the mean length of the timed steps
     p = eng.params
-    kv_len = fill + warm + (steps + 1) / 2
+    kv_len = fill + (steps + 1) / 2
     unread = (0 if p.lm_head is None else tensor_bytes(p.embed)
               - B * cfg.hidden_size * p.embed.element_size())
     slot_bytes = (cfg.head_dim_ + 4 if kv_dtype == "int8"
                   else 2 * cfg.head_dim_)
     nbytes = (tensor_bytes(p) - unread + 2 * cfg.num_hidden_layers
               * cfg.num_key_value_heads * B * kv_len * slot_bytes)
-    check(tuple(logits.shape) == (B, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()), "decode logits not finite")
     res = dict(batch=B, kv_filled=fill, steps=steps, kv_dtype=kv_dtype,
-               head_major=cache.head_major,
-               launches_per_step=per_step,
-               ms_per_step=wall * 1e3,
-               event_ms_per_step=e0.elapsed_time(e1) / steps,
-               tok_per_s=B / wall,
+               head_major=cache.head_major, launches_per_step=per_step,
                bound_ms=bound_ms(nbytes, [])[0],
-               max_memory_allocated_gib=torch.cuda.max_memory_allocated()
-               / 2 ** 30)
-    res.update(profile_steps(step, tok, tag))
+               graph_capture_ms=capture_ms,
+               graph_logits_bit_equal_steps=steps)
+    for mode in ("eager", "graph"):
+        rewind()
+        prof = profile_steps(runs[mode], f"{tag}_{mode}", steps)
+        check_executed(prof.pop("ran"),
+                       {k: v * steps for k, v in want.items()},
+                       f"{tag} {mode} steps")
+        wall = [w for w, _ in timed[mode]]
+        mean = sum(wall) / len(wall)
+        res[mode] = dict(
+            ms_per_step=wall,
+            event_ms_per_step=[e for _, e in timed[mode]],
+            tok_per_s=B / mean * 1e3, **prof)
+    res["max_memory_allocated_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30)
     return res
 
 
-def profile_steps(step, tok, tag, n=3):
-    """Device time per step, the device's busy share and the top kernels
-    over n decode steps; the profiler's table goes to
-    chiprun_out/profile_<tag>.txt."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            _, tok = step(tok)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+def profile_steps(run, tag, n):
+    """Over `run(n)`, n decode steps under torch.profiler (device activity
+    only): the port's kernels the card ran (`ran`, by launch-count key),
+    the device time per step, the device's busy share (the device time
+    over the wall time of the same window) and the top kernels; the
+    profiler's table goes to chiprun_out/profile_<tag>.txt."""
     from torch.autograd import DeviceType
 
+    from mixq_tpu_torch.kernels import SPIN, card_trace
+
+    torch.cuda.synchronize()
+    with card_trace() as prof:
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
     ka = prof.key_averages()
     dev_us = _device_us(prof)
-    top = sorted((e for e in ka if e.device_type == DeviceType.CUDA),
+    # one stream: the kernels' durations cannot add up to more than the
+    # window
+    check(0 < dev_us <= wall_us, f"{tag}: device time {dev_us} us in a "
+          f"window of {wall_us} us")
+    top = sorted((e for e in ka if e.device_type == DeviceType.CUDA
+                  and SPIN not in e.key),
                  key=lambda e: -e.self_device_time_total)[:15]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"profile_{tag}.txt"), "w") as f:
@@ -1937,7 +2115,8 @@ def profile_steps(step, tok, tag, n=3):
                   if e.device_type == DeviceType.CUDA
                   and ("flash_decode_kernel" in e.key
                        or "decode_attention_kernel" in e.key))
-    return dict(profiled_steps=n, profiled_wall_us=wall_us, device_us=dev_us,
+    return dict(ran=ran_on_card(prof), profiled_steps=n,
+                profiled_wall_ms_per_step=wall_us / n / 1e3,
                 device_ms_per_step=dev_us / n / 1e3,
                 attention_ms_per_step=attn_us / n / 1e3,
                 device_busy_share=dev_us / wall_us,
@@ -1958,7 +2137,7 @@ def ring_step(dev, eng, cfg, gen):
     check(not cache.head_major and cache.max_seq == S,
           "Mistral's window-sized cache is not a batch-major ring")
     seed_cache(cache, gen)
-    cache.length = S + 37
+    cache.set_length(S + 37)
     tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
     kv_start = torch.zeros(B, dtype=torch.int32, device=dev)
     reset_launch_counts()
@@ -2006,7 +2185,10 @@ MODELS = {"Llama-2-7B": llama2_7b, "Gemma-2-9B": gemma2_9b,
 # the kernels line: one entry per ported TPU kernel (a row of PERF.md's
 # table) and per mode a later slice added to a path: (name, source module,
 # REPLACES attribute, phase-3 row key, launch-count keys, the serve runs
-# whose counts are summed: None for all of them); the module's SOURCE
+# whose counts are summed: None for all of them); the module's SOURCE.
+# An entry's launches are the kernels the card ran in those runs, read by
+# name (ran_on_card); wrapper_launches are the wrappers' counts (the
+# prefill, the eager step, the captured step)
 KERNEL_ROWS = [
     ("rmsnorm_quant", "rmsnorm_quant", "REPLACES", "rmsnorm_quant",
      ("rmsnorm_quant",), None),
@@ -2033,6 +2215,12 @@ KERNEL_ROWS = [
     ("decode_attention", "decode_attention", "REPLACES", "decode_attention",
      ("decode_attention",), None),
 ]
+# entries whose mode is a runtime argument (the gelu_new epilogue), which
+# a kernel's name does not show: the card's runs are counted by the
+# instantiation that serves it
+EXECUTED_AS = {"mix_gemm_w8a8_gelu_new": ("mix_gemm.w8a8",),
+               "mix_gemm_w4_gelu_new": ("mix_gemm.w4",),
+               "mix_gemm_a16_gelu_new": ("w8a16.w8",)}
 KERNEL_NOTES = {
     "w8a16_matmul": "launches: the a16 kernel's int8 per-channel mode, "
                     "which computes this entry's function",
@@ -2040,13 +2228,19 @@ KERNEL_NOTES = {
                            "this entry's function",
     "mix_gemm_w8a8_gelu_new": "kernel 2 (W8A8) with the gelu_new epilogue, "
                               "Gemma-2-9B's gate; launches: the Gemma-2-9B "
-                              "W8A8O16 run's",
+                              "W8A8O16 run's kernel-2 W8A8 runs (the "
+                              "epilogue is not in the kernel's name), "
+                              "wrapper_launches its gelu_new launches",
     "mix_gemm_w4_gelu_new": "kernel A (packed W4) with the gelu_new "
                             "epilogue, Gemma-2-9B's gate; launches: the "
-                            "Gemma-2-9B W4A4O16 run's",
+                            "Gemma-2-9B W4A4O16 run's kernel-A runs (the "
+                            "epilogue is not in the kernel's name), "
+                            "wrapper_launches its gelu_new launches",
     "mix_gemm_a16_gelu_new": "kernel B (W8A16) with the gelu_new epilogue, "
                              "Gemma-2-9B's gate; launches: the Gemma-2-9B "
-                             "W8A16 run's",
+                             "W8A16 run's kernel-B W8 runs (the epilogue is "
+                             "not in the kernel's name), wrapper_launches "
+                             "its gelu_new launches",
     "flash_decode_softcap": "kernel 3 in gemma2's logit-softcap mode; "
                             "launches: the Gemma-2-9B runs'",
     "decode_attention": "kernel 8 over the batch-major cache; timed row: "
@@ -2254,8 +2448,11 @@ def main():
             path["decode"].update(
                 previous_attention_ms_per_step=PREV_KERNEL8_STEP_MS[label],
                 previous_from="171275c")
-        decode = {k: v for k, v in path["decode"].items()
-                  if k != "top_kernels_us_per_step"}
+        decode = {k: ({m: x for m, x in v.items()
+                       if m != "top_kernels_us_per_step"}
+                      if isinstance(v, dict) and k != "launches_per_step"
+                      else v)
+                  for k, v in path["decode"].items()}
         print(f"decode {label}: {decode} on {card}", flush=True)
         if cfg.sliding_window is not None and cfg.sliding_window_pattern == 1:
             path["ring_step"] = ring_step(dev, eng, cfg, gen)
@@ -2270,14 +2467,18 @@ def main():
     for name, mod, attr, row, keys, labels in KERNEL_ROWS:
         source = MODULES[mod].SOURCE
         r = main_rows[row]
-        n = sum(p["serve"]["launches"][k]
-                for label, p in report["paths"].items()
-                if labels is None or label in labels for k in keys)
-        check(n > 0, f"{name}: no launch on the main paths")
+        runs = [p["serve"] for label, p in report["paths"].items()
+                if labels is None or label in labels]
+        n = sum(r["executed"].get(k, 0) for r in runs
+                for k in EXECUTED_AS.get(name, keys))
+        calls = sum(r["launches"].get(k, 0) for r in runs for k in keys)
+        check(n > 0 and calls > 0, f"{name}: {n} runs on the card and "
+              f"{calls} wrapper launches on the main paths")
         kernels.append({
             "name": name, "mode": r["mode"], "route": "cuda",
             "source": source,
             "replaces": getattr(MODULES[mod], attr), "launches": n,
+            "wrapper_launches": calls,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -3,8 +3,10 @@
 Mirrors mixq_tpu/config.py field for field (a copy, so the port never
 imports the JAX package): a config serialized by either package loads in
 the other. Some EngineConfig fields describe JAX-side machinery (meshes,
-device decode loops, tail windows) that the port does not run yet; they are
-kept so that JSON round-trips unchanged.
+tail windows, continuous batching) that the port does not run yet; they
+are kept so that JSON round-trips unchanged. `device_decode_loop` drives
+the port's device decode loop (engine.DecodeLoop: a CUDA graph of the
+decode step on the card).
 
 Replaces the reference's scattered config surface (quant_config.json dict at
 models/base.py:249-255, magic numbers in Cache.py:6-22, policy tables in
@@ -205,9 +207,11 @@ class EngineConfig:
     # batch during decode) while heads stay TP-sharded over 'model'
     ring_prefill_axis: Optional[str] = None
     ring_prefill_min_t: int = 1024
-    # multi-token decode as ONE lax.while_loop program: sampling + EOS check
-    # on device, early exit when every row hit EOS — no host round-trip per
-    # token (the stepwise path fetches sampled tokens every step)
+    # multi-token decode on the device (JAX: ONE lax.while_loop program;
+    # the port: replays of a CUDA graph of the decode step): sampling + EOS
+    # check on device, early exit when every row hit EOS — no host
+    # round-trip per token (the stepwise path fetches sampled tokens every
+    # step)
     device_decode_loop: bool = True
     # CB decode-window length (steps per step_window dispatch). 0 = the
     # flash tail default (DEFAULT_TAIL_R=8). For head-major caches this is

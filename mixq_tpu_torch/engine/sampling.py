@@ -1,7 +1,11 @@
 """Token sampling (mirrors mixq_tpu/engine/sampling.py): greedy, temperature,
-top-k and top-p. Random draws come from an explicit torch.Generator, so a
-sampled (non-greedy) token stream differs from JAX's at the same seed;
-greedy decoding is deterministic on both sides."""
+top-k and top-p. A sampled token is drawn as jax.random.categorical draws
+it, by the Gumbel-max rule, from uniforms of an explicit torch.Generator:
+the same function of other random bits, so a sampled token stream differs
+from JAX's at the same seed; greedy decoding is deterministic on both
+sides. Nothing here reads the device on the host, so a CUDA graph of the
+decode step holds the sampling too (the generator registered with the
+graph); torch.multinomial would check its input on the host."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,9 +43,10 @@ def sample(
         cutoff_idx = torch.sum(cum < params.top_p, dim=-1, keepdim=True)
         cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
         logits = torch.where(logits < cutoff, float("-inf"), logits)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    # Gumbel-max: argmax(logits - log(-log u)), u uniform in [tiny, 1)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min_(torch.finfo(u.dtype).tiny)))
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
 
 
 def chosen_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:

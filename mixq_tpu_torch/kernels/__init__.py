@@ -7,7 +7,19 @@ with several modes also counts them by mode in `mode_launches` (the GEMMs
 by weight mode and by epilogue, flash decode its softcap launches, decode
 attention its KV type, ring and softcap launches), so a run can show that the main path went through the kernels, in the modes it
 expects.
+
+The counts are the wrappers' launches: an eager launch, and a launch
+recorded into a CUDA graph while it is captured, count once each. A
+graph's replays run no Python and are not counted; what the card executed
+is read from a profiler's kernel events by name (`executed_counts`), in
+a window that `card_trace` opens.
 """
+import contextlib
+import re
+import time
+
+import torch
+
 from mixq_tpu_torch.kernels import (decode_attention, flash_decode, mix_gemm,
                                     rmsnorm_quant, w8a16)
 
@@ -45,4 +57,83 @@ def launch_counts() -> dict:
         out[name] = fn.launches
         for mode, n in getattr(fn, "mode_launches", {}).items():
             out[f"{name}.{mode}"] = n
+    return out
+
+
+# each wrapper's kernels as a profiler names them (demangled), with the
+# template arguments that carry a mode: <W4, GROUPED> of the GEMMs, <G,
+# int8, softcap> of the decode attentions
+_SYMBOL = re.compile(
+    r"\b(?:(?P<gemm>mix_gemm|w8a16)_kernel<(?P<w4>true|false), "
+    r"(?P<grouped>true|false)>"
+    r"|(?P<attn>flash_decode|decode_attention)_kernel<\d+, "
+    r"(?P<int8>true|false), (?P<softcap>true|false)>"
+    r"|(?P<norm>rmsnorm_quant)_(?:regs|loop)\b)")
+_BASES = ("mix_gemm_kernel", "w8a16_kernel", "flash_decode_kernel",
+          "decode_attention_kernel", "rmsnorm_quant_regs",
+          "rmsnorm_quant_loop")
+# the launch-count keys a kernel's name does not show: the GEMMs'
+# epilogues and decode attention's ring are runtime arguments
+UNNAMED = frozenset([f"mix_gemm.{e}" for e in mix_gemm.EPILOGUES]
+                    + [f"w8a16.{e}" for e in w8a16.EPILOGUES]
+                    + ["decode_attention.ring"])
+
+
+def _keys_of(m) -> list:
+    if m["gemm"]:
+        mod = mix_gemm if m["gemm"] == "mix_gemm" else w8a16
+        return [m["gemm"], m["gemm"] + "." + mod._mode(
+            m["w4"] == "true", 2 if m["grouped"] == "true" else 1)]
+    if m["attn"] == "flash_decode":
+        return ["flash_decode"] + (["flash_decode.softcap"]
+                                   if m["softcap"] == "true" else [])
+    if m["attn"]:
+        return (["decode_attention", "decode_attention."
+                 + ("int8" if m["int8"] == "true" else "bf16")]
+                + (["decode_attention.softcap"] if m["softcap"] == "true"
+                   else []))
+    return ["rmsnorm_quant"]
+
+
+# the kernel of torch.cuda._sleep, which card_trace runs around the block
+SPIN = "spin_kernel"
+
+
+@contextlib.contextmanager
+def card_trace():
+    """A torch.profiler window (device activity only) over the block,
+    yielding the profiler. Before and after the block the card is
+    synchronized, a spin kernel (SPIN) runs and the host pauses 50 ms:
+    windows on the H100 that opened and closed right at their work lost
+    kernels (the last ~3 ms of a graph replay; four of 8 eager steps')."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def margin():
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 22)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        margin()
+        yield prof
+        margin()
+
+
+def executed_counts(events) -> dict:
+    """The port's kernels that ran on the card, from (kernel name, count)
+    pairs of a profiler's device events: {key: executions} over the keys
+    of launch_counts() that a kernel's name shows (all but UNNAMED). Other
+    kernels are skipped; a name of one of the port's kernels that does not
+    parse raises ValueError."""
+    out = dict.fromkeys((k for k in launch_counts() if k not in UNNAMED), 0)
+    for name, n in events:
+        m = _SYMBOL.search(name)
+        if m is None:
+            if any(b in name for b in _BASES):
+                raise ValueError(f"a kernel of the port's with an unknown "
+                                 f"name: {name!r}")
+            continue
+        for key in _keys_of(m):
+            out[key] += n
     return out

@@ -57,7 +57,7 @@ from mixq_tpu_torch.ops import quant as Q
 from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
                                              from_float, mixed_linear,
                                              mixed_linear_prepared)
-from mixq_tpu_torch.utils.arith import true_div
+from mixq_tpu_torch.utils.arith import constant, true_div
 
 
 class AttnParams(NamedTuple):
@@ -250,16 +250,24 @@ def _check_attn_impl(attn_impl: str) -> None:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
 
 
-def window_start(kv_start: Optional[torch.Tensor], kv_len: int,
+def window_start(kv_start: Optional[torch.Tensor], kv_len: torch.Tensor,
                  window: Optional[int]):
-    """The first position the T=1 query at kv_len - 1 attends on a layer
-    with `window` (attend's mask keeps kv_pos > q_pos - W): max(kv_start,
-    kv_len - W), as JAX passes the flash kernel its start (decoder.py:549-
-    556); kv_start itself without a window."""
+    """The first position the T=1 query at kv_len - 1 ([B] int32) attends on
+    a layer with `window` (attend's mask keeps kv_pos > q_pos - W):
+    max(kv_start, kv_len - W, 0), as JAX passes the flash kernel its start
+    (decoder.py:549-556), on the device; kv_start itself without a
+    window."""
     if window is None:
         return kv_start
-    ws = max(kv_len - window, 0)
-    return ws if kv_start is None else torch.clamp_min(kv_start, ws)
+    ws = torch.clamp_min(kv_len - window, 0)
+    return ws if kv_start is None else torch.maximum(kv_start, ws)
+
+
+def writes_ring(cfg: ModelConfig, cache: KVCache) -> bool:
+    """Whether a forward writes `cache` as a ring: a uniform window
+    reclaims slots on the batch-major cache (JAX's ring)."""
+    return (cfg.sliding_window is not None and not cache.head_major
+            and cfg.sliding_window_pattern == 1)
 
 
 def forward(
@@ -294,13 +302,12 @@ def forward(
             f"models need max_seq <= sliding_window ({cache.max_seq} > "
             f"{W}); create the cache with head_major=False for longer "
             "contexts")
-    if head_major and T > 1 and cache.length != 0:
+    if head_major and T > 1 and cache.host_length != 0:
         raise NotImplementedError(
             "a prefill chunk on a head-major cache must start on a fresh "
             "cache (continuation chunks attend over the batch-major cache)")
-    # a uniform window reclaims slots on the batch-major cache (JAX's ring)
-    ring = W is not None and not head_major and pattern == 1
-    if (ring and T > 1 and cache.length + T > cache.max_seq
+    ring = writes_ring(cfg, cache)
+    if (ring and T > 1 and cache.host_length + T > cache.max_seq
             and cache.max_seq < W + T):
         # JAX's guard (decoder.py:477-485): a chunk that straddles the wrap
         # would overwrite positions still inside an in-chunk query's
@@ -309,20 +316,21 @@ def forward(
         raise ValueError(
             f"ring KV cache needs max_seq >= sliding_window + chunk "
             f"({cache.max_seq} < {W} + {T})")
-    dev = tokens.device
     x = params.embed[tokens].to(specs.wqkv.odtype)
     if cfg.embed_multiplier != 1.0:
         # gemma: sqrt(hidden), rounded to the activation dtype first, as JAX
-        # and HF multiply
-        x = x * torch.tensor(cfg.embed_multiplier, dtype=x.dtype,
-                             device=dev)
-    q_slot = torch.arange(cache.length, cache.length + T, device=dev)
+        # and HF multiply; made once per value and device
+        x = x * constant(cfg.embed_multiplier, x.dtype, x.device)
+    # positions from the device length: a captured step replays at each
+    # replay's length
+    q_slot = cache.length + torch.arange(T, device=tokens.device)
     if kv_start is not None:
         rope_pos = torch.clamp_min(q_slot[None, :] - kv_start[:, None], 0)
     else:
         rope_pos = q_slot
     cos, sin = rope_cos_sin(rope_pos, cfg.head_dim_, cfg.rope_theta)
-    kv_len = cache.length + T
+    kv_len = (cache.length + T).expand(B).contiguous()      # [B] int32
+    slots = cache.slots(T, ring)
     # gemma2's attention (None elsewhere)
     attn_scale = (cfg.query_pre_attn_scalar ** -0.5
                   if cfg.query_pre_attn_scalar is not None else None)
@@ -340,7 +348,7 @@ def forward(
         win = windows[i]
 
         def kv_apply(q, k, v, i=i, win=win):
-            cache.update_layer(i, k, v, ring=ring)
+            cache.update_layer(i, k, v, ring=ring, slots=slots)
             k_c, v_c, ks_c, vs_c = cache.layer_kv(i)
             if T == 1:
                 out = decode(q[:, 0], k_c, v_c, kv_len, ks_c, vs_c,

@@ -106,17 +106,24 @@ class KVCache:
     allocates them (pad slots are never written and always masked); decode
     attention over it is kernel 3 (`flash_decode_attention`).
 
-    `length` is the valid prefix, a host integer: the host loop always knows
-    it, so no step reads it back from the card. With ring writes (a
-    sliding-window model on the batch-major cache) it counts absolute
-    positions, and position p lives in slot p % S.
+    `length` is the valid prefix, a 0-dim int32 tensor on the cache's
+    device, as in JAX: a decode step computes its slots, positions and
+    lengths from it on the device, so a CUDA graph of the step replays at
+    the length of each replay. `host_length` mirrors it on the host for the
+    guards that stay host-side (overflow, the fresh-cache and ring checks);
+    eager forwards advance both, and a caller that replays a captured step
+    advances the mirror itself. With ring writes (a sliding-window model on
+    the batch-major cache) it counts absolute positions, and position p
+    lives in slot p % S.
     """
 
     def __init__(self, k, v, k_scale, v_scale, length: int = 0,
                  head_major: bool = False):
         self.k, self.v = k, v
         self.k_scale, self.v_scale = k_scale, v_scale
-        self.length = length
+        self.length = torch.full((), length, dtype=torch.int32,
+                                 device=k.device)
+        self.host_length = length
         self.head_major = head_major
 
     @classmethod
@@ -148,21 +155,37 @@ class KVCache:
     def quantized(self) -> bool:
         return self.k_scale is not None
 
+    def set_length(self, n: int) -> "KVCache":
+        """Set the valid prefix: the device length and its host mirror."""
+        self.length.fill_(n)
+        self.host_length = n
+        return self
+
+    def slots(self, T: int, ring: bool = False) -> torch.Tensor:
+        """[T] int64: the slots of positions [length, length + T), read from
+        the device length (% S in ring mode)."""
+        pos = self.length + torch.arange(T, device=self.k.device)
+        return pos % self.max_seq if ring else pos
+
     def update_layer(self, layer: int, k_new: torch.Tensor,
-                     v_new: torch.Tensor, ring: bool = False) -> "KVCache":
+                     v_new: torch.Tensor, ring: bool = False,
+                     slots: Optional[torch.Tensor] = None) -> "KVCache":
         """Write k/v [B, T, n_kv, D] at positions [length, length + T) of
-        `layer`, in place (int8 caches quantize per (token, head)). The
-        length advances once per forward, through `advance`.
+        `layer`, in place (int8 caches quantize per (token, head)), through
+        `index_copy_` at the device slots `slots(T, ring)` (a forward
+        computes them once for all its layers). The length advances once
+        per forward, through `advance`.
 
         ring=True (sliding-window models on the batch-major cache): position
         p goes to slot p % S, so a window-sized cache serves unbounded
-        decode; a T > 1 chunk that straddles the wrap is scattered slot by
-        slot. Outside ring mode a write past S raises."""
+        decode, a chunk that straddles the wrap included. Outside ring mode
+        a write past S raises (checked on the host mirror)."""
         T = k_new.shape[1]
         S = self.max_seq
-        pos = self.length
-        if not ring and pos + T > S:
-            raise ValueError(f"cache overflow: {pos} + {T} > {S}")
+        if not ring and self.host_length + T > S:
+            raise ValueError(f"cache overflow: {self.host_length} + {T} > {S}")
+        if slots is None:
+            slots = self.slots(T, ring)
         if self.quantized:
             qk, sk = Q.quantize_kv(k_new)
             qv, sv = Q.quantize_kv(v_new)
@@ -178,15 +201,8 @@ class KVCache:
         writes = [(self.k, kv_form(qk)), (self.v, kv_form(qv))]
         if self.quantized:
             writes += [(self.k_scale, sc_form(sk)), (self.v_scale, sc_form(sv))]
-        if ring and (pos % S) + T > S:
-            # the chunk straddles the wrap: per-token slots
-            slots = (pos + torch.arange(T, device=qk.device)) % S
-            for buf, val in writes:
-                buf[layer].index_copy_(axis, slots, val.to(buf.dtype))
-        else:
-            start = pos % S if ring else pos
-            for buf, val in writes:
-                buf[layer].narrow(axis, start, T).copy_(val)
+        for buf, val in writes:
+            buf[layer].index_copy_(axis, slots, val.to(buf.dtype))
         return self
 
     def layer_kv(self, layer: int):
@@ -197,7 +213,9 @@ class KVCache:
         return self.k[layer], self.v[layer], None, None
 
     def advance(self, t: int) -> "KVCache":
-        self.length += t
+        """Advance the device length in place, and its host mirror."""
+        self.length.add_(t)
+        self.host_length += t
         return self
 
 

@@ -14,13 +14,15 @@ def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     reciprocal, which is an ulp off now and then; the CUDA kernels, the
     Pallas kernels and PyTorch's CPU run divide. So the divisor goes in as
     a 0-dim tensor on x's own device."""
-    return x / _divisor(float(d), x.dtype, x.device)
+    return x / constant(float(d), x.dtype, x.device)
 
 
 @functools.lru_cache(maxsize=64)
-def _divisor(d: float, dtype: torch.dtype, device: torch.device
+def constant(d: float, dtype: torch.dtype, device: torch.device
              ) -> torch.Tensor:
-    """The 0-dim tensor d on `device`, made once: a fresh one would cost a
-    fill kernel on the card at every call (the quantizers call true_div in
-    every layer of every step). Only read, never written."""
+    """The 0-dim tensor d (rounded to `dtype`) on `device`, made once: a
+    fresh one would cost a fill kernel on the card at every call (the
+    quantizers divide in every layer of every step), and a CUDA graph of
+    the decode step cannot hold its making (the first, eager step makes
+    every constant the step needs). Only read, never written."""
     return torch.full((), d, dtype=dtype, device=device)

@@ -1,8 +1,9 @@
 """PyTorch port: engine and package-level checks on the CPU.
 
-- Greedy `generate` tokens equal the JAX InferenceEngine's (attn_impl=
-  "flash") on the same converted tiny W8A8 model, and on the tiny W4A4
-  model of resolve_specs (packed W4A4 q/k/v/up/gate, W8A8 o/down), for
+- Greedy `generate` tokens (the port's default, its device decode loop)
+  equal the JAX InferenceEngine's (attn_impl="flash"), with JAX's device
+  loop off and on, on the same converted tiny W8A8 model, and on the tiny
+  W4A4 model of resolve_specs (packed W4A4 q/k/v/up/gate, W8A8 o/down), for
   prompts of different lengths (left padding, so kv_start is live), bf16
   and int8 KV. Each seed is one whose top-2 logit margin stays clear of
   the two packages' logit tolerance at every step; the test asserts that
@@ -44,15 +45,16 @@ PROMPTS = [[5, 17, 33, 2, 9], [101, 7], [64, 3, 3, 200, 11, 12, 13, 14, 15],
 NEW = 6
 
 
+@pytest.mark.parametrize("jax_loop", [False, True])
 @pytest.mark.parametrize("kv_dtype,config,seed", [
     ("bfloat16", None, 1), ("int8", None, 1), ("bfloat16", "w4a4", 8),
     ("int8", "w4a4", 8)])
-def test_greedy_tokens_match_jax(kv_dtype, config, seed):
+def test_greedy_tokens_match_jax(kv_dtype, config, seed, jax_loop):
     cfg, jp, jspecs, tp, tspecs = models.build(
         seed=seed, qcfg=models.CONFIGS.get(config))
     ecfg = dict(max_seq_len=64, prefill_chunk=8, kv_dtype=kv_dtype)
     ref = JEngine(jp, cfg, jspecs, JEngineConfig(
-        device_decode_loop=False, **ecfg)).generate(PROMPTS, NEW)
+        device_decode_loop=jax_loop, **ecfg)).generate(PROMPTS, NEW)
     eng = InferenceEngine(tp, cfg, tspecs, EngineConfig(**ecfg),
                           device="cpu")
     got = eng.generate(PROMPTS, NEW)

@@ -1013,3 +1013,193 @@ def test_decode_attention_refusals(cuda):
         decode_attention(q, k, v, torch.ones(2, device=cuda), ks, vs)
     with pytest.raises(NotImplementedError):
         decode_attention(q, k, v, 8, ks, vs, alibi_slopes=torch.ones(4))
+
+
+# ---------------------------------------------------------------------------
+# The device decode loop: replays of a CUDA graph of the decode step
+# ---------------------------------------------------------------------------
+
+def _tiny_cfg(family):
+    """chip_smoke.py's phase-4 tiny models: llama, mistral (a window of 4)
+    and gemma2 (caps that bind, alternating windows no shorter than the
+    cache)."""
+    from mixq_tpu_torch.config import ModelConfig
+
+    base = dict(hidden_size=256, intermediate_size=512,
+                num_attention_heads=4, num_key_value_heads=2)
+    if family == "mistral":
+        return ModelConfig.tiny(model_type="mistral", sliding_window=4,
+                                **base)
+    if family == "gemma2":
+        return ModelConfig.tiny(
+            model_type="gemma2", rms_norm_eps=1e-6,
+            hidden_act="gelu_pytorch_tanh", gated_mlp=True,
+            tie_word_embeddings=True, embed_multiplier=256 ** 0.5,
+            post_norms=True, query_pre_attn_scalar=24.0,
+            attn_logit_softcap=0.4, final_logit_softcap=1.0,
+            sliding_window=128, sliding_window_pattern=2, **base)
+    return ModelConfig.tiny(**base)
+
+
+def _tiny_engine(cuda, family, precision, kv_dtype="int8", **ecfg):
+    from mixq_tpu_torch.config import EngineConfig, QuantConfig
+    from mixq_tpu_torch.engine import InferenceEngine
+    from mixq_tpu_torch.models.decoder import (DecoderSpecs,
+                                               init_decoder_params)
+    from mixq_tpu_torch.ops.mixed_linear import LinearSpec
+    from mixq_tpu_torch.quantize import resolve_specs
+
+    cfg = _tiny_cfg(family)
+    specs = {"W8A8": lambda: DecoderSpecs.uniform(LinearSpec(w_bit=8,
+                                                             a_bit=8)),
+             "W4A4": lambda: resolve_specs(QuantConfig.w4a4(
+                 outlier_budget=16)),
+             "W8A16": lambda: resolve_specs(QuantConfig.w8a16())}[
+                 precision]()
+    params = init_decoder_params(cfg, specs, _gen(0), device=cuda,
+                                 dtype=torch.bfloat16, outlier_budget=16)
+    return InferenceEngine(params, cfg, specs, EngineConfig(
+        max_seq_len=64, prefill_chunk=8, kv_dtype=kv_dtype, **ecfg),
+        device=cuda)
+
+
+def _stepwise(eng):
+    import copy
+    import dataclasses
+
+    other = copy.copy(eng)
+    other.engine_cfg = dataclasses.replace(eng.engine_cfg,
+                                           device_decode_loop=False)
+    return other
+
+
+LOOP_CASES = [(f, p) for f in ("llama", "mistral", "gemma2")
+              for p in ("W8A8", "W4A4", "W8A16")]
+LOOP_PROMPTS = [[5, 17, 33, 2, 9], [101, 7], [64, 3, 3, 200, 11, 12, 13],
+                [42]]
+
+
+@pytest.mark.parametrize("family,precision", LOOP_CASES)
+def test_graph_generate_equals_stepwise(cuda, family, precision,
+                                        monkeypatch):
+    """generate through the graph (the default) equals the stepwise host
+    loop on the same engine token for token: greedy, greedy with an EOS
+    read every 2 steps, and sampled (temperature, top-k, top-p) from one
+    seed, with logprobs; the graph path captured once a call and never
+    ran the stepwise loop. The wrappers counted one prefill, the eager
+    step and the captured one; the card ran (profiler, by kernel name)
+    one prefill and new - 1 decode steps."""
+    from torch.autograd import DeviceType
+
+    from mixq_tpu_torch.engine import SamplingParams
+    from mixq_tpu_torch.engine import engine as engine_mod
+    from mixq_tpu_torch.engine.engine import DecodeLoop
+    from mixq_tpu_torch.kernels import (card_trace, executed_counts,
+                                        launch_counts, reset_launch_counts)
+
+    eng = _tiny_engine(cuda, family, precision)
+    step = _stepwise(eng)
+    captures = []
+    real = DecodeLoop.capture
+    monkeypatch.setattr(DecodeLoop, "capture",
+                        lambda self: captures.append(1) or real(self))
+    new = 12
+    ref = step.generate(LOOP_PROMPTS, new)
+    eos = ref[0][3]
+    ref_eos = step.generate(LOOP_PROMPTS, new, eos_token_id=eos)
+    sp = SamplingParams(temperature=0.9, top_k=40, top_p=0.95)
+    ref_sp = step.generate(LOOP_PROMPTS, new, sampling=sp, seed=5,
+                           return_logprobs=True)
+    monkeypatch.setattr(type(eng), "_stepwise", None)     # refused
+    reset_launch_counts()
+    with card_trace() as prof:
+        got = eng.generate(LOOP_PROMPTS, new)
+    per_call = {k: v for k, v in launch_counts().items() if v}
+    ran = executed_counts((e.key, e.count) for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA)
+    assert got == ref and len(captures) == 1
+    monkeypatch.setattr(engine_mod, "DEFAULT_WINDOW", 2)
+    assert eng.generate(LOOP_PROMPTS, new, eos_token_id=eos) == ref_eos
+    assert ref_eos[0][-1] == eos and len(ref_eos[0]) <= 4
+    assert eng.generate(LOOP_PROMPTS, new, sampling=sp, seed=5,
+                        return_logprobs=True) == ref_sp
+    L = eng.model_cfg.num_hidden_layers
+    attn = ("flash_decode" if eng.new_cache(4, 128).head_major
+            else "decode_attention")
+    norms = 0 if precision == "W8A16" else 2 * L
+    assert per_call[attn] == L * 2
+    assert per_call.get("rmsnorm_quant", 0) == norms * 3
+    assert ran[attn] == L * (new - 1)
+    assert ran["rmsnorm_quant"] == norms * new
+
+
+@pytest.mark.parametrize("family,precision", LOOP_CASES)
+def test_graph_replay_logits_bit_equal(cuda, family, precision):
+    """Two caches from the same prefill: one runs 8 eager steps, the other
+    one eager step, the capture and 7 replays; every step's logits, the
+    tokens and the caches bit-equal. mistral's cache is an 8-slot ring
+    past its wrap."""
+    from mixq_tpu_torch.engine import SamplingParams
+    from mixq_tpu_torch.engine.engine import DecodeLoop
+
+    eng = _tiny_engine(cuda, family, precision)
+    B, steps = 3, 8
+    slots = 8 if family == "mistral" else 64
+    toks = torch.randint(1, eng.model_cfg.vocab_size, (B, 8),
+                         generator=_gen(9), device=cuda)
+    kv_start = torch.tensor([0, 2, 5], dtype=torch.int32, device=cuda)
+    runs = []
+    for graphed in (False, True):
+        cache = eng.new_cache(B, slots)
+        logits, cache = eng.prefill(toks, cache, kv_start)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        loop = DecodeLoop(eng, cache, kv_start, tok, steps + 1,
+                          SamplingParams(), None)
+        out = [loop.step().clone()]
+        for _ in range(steps - 1):
+            if graphed:
+                if loop.graph is None:
+                    loop.capture()
+                loop.replay()
+                out.append(loop.logits.clone())
+            else:
+                out.append(loop.step().clone())
+        torch.cuda.synchronize()
+        runs.append((out, loop.tokens.clone(), cache))
+    (eager, t_e, c_e), (graph, t_g, c_g) = runs
+    assert all(torch.equal(a, b) for a, b in zip(eager, graph))
+    assert torch.equal(t_e, t_g)
+    assert c_g.host_length == int(c_g.length) == 8 + steps
+    for f in ("k", "v", "k_scale", "v_scale"):
+        a, b = getattr(c_e, f), getattr(c_g, f)
+        assert (a is None and b is None) or torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("family,precision", LOOP_CASES)
+def test_decode_step_syncs_nothing(cuda, family, precision):
+    """The step (greedy, and sampled with logprobs and an EOS mask) under
+    torch.cuda.set_sync_debug_mode("error"), after a warm-up step."""
+    from mixq_tpu_torch.engine import SamplingParams
+    from mixq_tpu_torch.engine.engine import DecodeLoop
+    from mixq_tpu_torch.engine.sampling import chosen_logprob, sample
+
+    eng = _tiny_engine(cuda, family, precision)
+    toks = torch.randint(1, eng.model_cfg.vocab_size, (3, 8),
+                         generator=_gen(4), device=cuda)
+    for sp in (SamplingParams(), SamplingParams(temperature=0.8, top_k=20,
+                                                top_p=0.9)):
+        cache = eng.new_cache(3, 64)
+        logits, cache = eng.prefill(toks, cache)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        tok = sample(logits, gen, sp)
+        loop = DecodeLoop(eng, cache, eng._rows(None, 3), tok, 4, sp, gen,
+                          eos_token_id=7,
+                          first_lp=chosen_logprob(logits, tok))
+        loop.step()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop.step()
+            loop.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert cache.host_length == int(cache.length) == 11
