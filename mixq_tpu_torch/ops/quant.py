@@ -204,12 +204,19 @@ def gather_outlier_weights(w: torch.Tensor, oset: OutlierSet) -> torch.Tensor:
     return rows * oset.mask[:, None].to(rows.dtype)
 
 
+def top_indices(scores: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices of the n largest scores, largest first, ties by the lower
+    index first, as jax.lax.top_k orders them (torch.topk does not): a
+    stable descending sort, on the CPU and the card alike."""
+    return torch.sort(scores, descending=True, stable=True).indices[:n]
+
+
 def top_k_outliers_from_scales(
     act_scales: torch.Tensor, n: int, k: int, budget: int
 ) -> OutlierSet:
     """Calibration-time outlier pick: the top-n channels by recorded
-    activation absmax."""
-    idx = torch.topk(act_scales.float(), n).indices
+    activation absmax, ties by the lower index."""
+    idx = top_indices(act_scales.float(), n)
     return outlier_set_from_indices(idx, k=k, budget=budget,
                                     device=act_scales.device)
 
