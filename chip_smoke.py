@@ -104,7 +104,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      one step at batch 16 on a window-sized (4096-slot) ring filled past
      its wrap, every kernel-8 launch held against its plain version; and
      one prefill of 8 prompts x 64 tokens into a fresh cache (512 rows
-     through every linear), its device ms and wall ms.
+     through every linear), its device ms and wall ms;
+  7. pipeline: full-width 32-layer Llama-2-7B from float weights to served
+     tokens. A seeded bf16 state dict under HF names on the card (4
+     embedding channels boosted by 1000, PLANTED), quantize_model(W8A8:
+     empty outlier sets), InferenceEngine.warmup_online on two batches of
+     8 x 64 tokens, then phase 5's generate and phase 6's decode timing on
+     the warmed model (its device ms beside phase 6's random-init W8A8O16
+     row); every planted channel in every wqkv and up set, counts within
+     the budget, each set equal to the plain rule run on the card's own
+     stats, the planted channels' margin over sigma reported (asserted >
+     2); the first 2 layers quantized and warmed on the card and on the
+     CPU (params bit-equal, counts equal, sets equal wherever a channel's
+     max clears sigma by more than the two devices' stats differ); then
+     a fresh dict through quantize_model(W4A4, calib_batches: calibration
+     on the card) and phase 5's generate. It prints the host seconds of
+     the float dict, quantize_model, calibration and warmup_online, the
+     counts by slot and the phase's peak memory.
 It then prints the kernels line (one entry per ported TPU kernel, and one
 per mode a later slice added to a path: the GEMMs' gelu_new epilogue and
 flash decode's softcap) and, last, the device line. Details go to
@@ -1844,11 +1860,12 @@ def stepwise_engine(eng):
     return other
 
 
-def serve(dev, params, cfg, specs, name, kv_dtype):
+def serve(dev, params, cfg, specs, name, kv_dtype, eng=None):
+    """generate on `eng` (a new engine over `params` when None)."""
     from mixq_tpu_torch.kernels import (card_trace, launch_counts,
                                         reset_launch_counts)
 
-    eng = new_engine(dev, params, cfg, specs, kv_dtype)
+    eng = eng or new_engine(dev, params, cfg, specs, kv_dtype)
     check(eng.engine_cfg.device_decode_loop, "the device loop is off")
     g = torch.Generator().manual_seed(2)
     lens = [5, 9, 13, 17, 21, 26, 30, 37]
@@ -2250,6 +2267,277 @@ KERNEL_NOTES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: from float weights to served tokens
+# ---------------------------------------------------------------------------
+
+# embedding channels boosted into outliers (and their boost): with 4 of
+# them at 1000 every layer's normed input holds them near sqrt(H / 4) = 32,
+# far past 2 sigma, however the residual stream grows over 32 layers
+PLANTED, BOOST, SIGMA = (11, 1003, 2050, 3071), 1000.0, 6.0
+
+
+def float_state_dict(cfg, dev, seed=7, layers=None):
+    """A bf16 state dict of `cfg` under HF's llama names on the card:
+    N(0, 0.02) weights from `seed`, norms of ones, PLANTED embedding
+    channels boosted by BOOST. `layers` keeps only the first blocks."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.head_dim_)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16) * 0.02
+
+    def ones():
+        return torch.ones(H, device=dev, dtype=torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": w(V, H), "model.norm.weight": ones(),
+          "lm_head.weight": w(V, H)}
+    sd["model.embed_tokens.weight"][:, list(PLANTED)] += BOOST
+    for i in range(cfg.num_hidden_layers if layers is None else layers):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = ones()
+        sd[p + "post_attention_layernorm.weight"] = ones()
+        for name, shape in (("self_attn.q_proj", (nq * hd, H)),
+                            ("self_attn.k_proj", (nkv * hd, H)),
+                            ("self_attn.v_proj", (nkv * hd, H)),
+                            ("self_attn.o_proj", (H, nq * hd)),
+                            ("mlp.gate_proj", (I, H)),
+                            ("mlp.up_proj", (I, H)),
+                            ("mlp.down_proj", (H, I))):
+            sd[p + name + ".weight"] = w(*shape)
+    torch.cuda.synchronize()
+    return sd
+
+
+def token_batches(cfg, n, B, T, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, cfg.vocab_size, (B, T), generator=g)
+            for _ in range(n)]
+
+
+def linear_sets(params):
+    """{"{layer}.{slot}": the live channels of the slot's set, in slot
+    order} from the first linear of each slot."""
+    out = {}
+    for i, bp in enumerate(params.blocks):
+        for slot, lin in (("wqkv", bp.attn.wq), ("wo", bp.attn.wo),
+                          ("up", bp.mlp.up), ("down", bp.mlp.down)):
+            out[f"{i}.{slot}"] = lin.out_ind[:int(lin.out_count)].tolist()
+    return out
+
+
+def plain_sets(stats_log, budget, sigma=SIGMA):
+    """The online rule, plainly, from each warmup step's stats (on the
+    host): after each step, the channels past sigma not yet in the set,
+    largest first, ties by the lower index, appended up to the budget."""
+    import numpy as np
+
+    sets = {k: [] for k in stats_log[0]}
+    for stats in stats_log:
+        for k, m in stats.items():
+            m = m.float().cpu().numpy()
+            have = set(sets[k])
+            new = [int(c) for c in np.argsort(-m, kind="stable")
+                   if m[c] > sigma and int(c) not in have]
+            sets[k] += new[:budget - len(sets[k])]
+    return sets
+
+
+def tensors_of(obj):
+    if obj is None:
+        return []
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    return [t for x in obj for t in tensors_of(x)]
+
+
+def bit_equal_to_cpu(card, cpu):
+    """Whether every tensor of two parameter trees has the same dtype,
+    shape and bits (the card's copied to the host); and their count."""
+    a, b = tensors_of(card), tensors_of(cpu)
+    same = len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y) for x, y in zip(a, b))
+    return same, len(b)
+
+
+def cpu_check(dev, sd, cfg, qcfg):
+    """The first 2 layers at full width: the card's quantize_model
+    bit-equal to the CPU's of the same float weights, then warmup_online
+    on both (2 batches of 2 x 64 tokens): counts equal, and the sets equal
+    on every slot whose channel maxima lie farther from sigma than the two
+    devices' stats differ (asserted for every wqkv and up slot)."""
+    import dataclasses
+
+    from mixq_tpu_torch.models.hf import TensorSource
+    from mixq_tpu_torch.quantize import quantize_model, warmup_online_outliers
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    keep = [k for k in sd if not k.startswith("model.layers.")
+            or int(k.split(".")[2]) < 2]
+    sd_card = {k: sd[k] for k in keep}
+    sd_cpu = {k: sd[k].cpu() for k in keep}
+    t0 = time.perf_counter()
+    card, specs = quantize_model(TensorSource.from_torch_state_dict(sd_card),
+                                 cfg2, qcfg, device=dev)
+    cpu, _ = quantize_model(TensorSource.from_torch_state_dict(sd_cpu), cfg2,
+                            qcfg, device="cpu")
+    same, n = bit_equal_to_cpu(card, cpu)
+    check(same, "the card's quantize_model of 2 layers differs from the "
+          "CPU's")
+    batches = token_batches(cfg, 2, 2, 64, seed=21)
+    logs = {"card": [], "cpu": []}
+    card, c_card = warmup_online_outliers(card, cfg2, specs, batches,
+                                          stats_log=logs["card"])
+    cpu, c_cpu = warmup_online_outliers(cpu, cfg2, specs, batches,
+                                        stats_log=logs["cpu"])
+    check(c_card == c_cpu, f"2-layer warmup counts: card {c_card}, "
+          f"CPU {c_cpu}")
+    s_card, s_cpu = linear_sets(card), linear_sets(cpu)
+    compared, res = [], {}
+    for k in s_cpu:
+        spread = max((a[k].cpu() - b[k]).abs().max().item()
+                     for a, b in zip(logs["card"], logs["cpu"]))
+        margin = min((b[k] - SIGMA).abs().min().item() for b in logs["cpu"])
+        res[k] = dict(spread=spread, margin_to_sigma=margin)
+        if margin > spread:
+            check(s_card[k] == s_cpu[k], f"2-layer {k}: card set "
+                  f"{s_card[k]} != CPU set {s_cpu[k]}")
+            compared.append(k)
+    check(all(f"{i}.{s}" in compared for i in range(2)
+              for s in ("wqkv", "up")),
+          f"2-layer warmup: a wqkv/up slot lies within the card-vs-CPU "
+          f"spread of sigma: {res}")
+    same_w, _ = bit_equal_to_cpu(card, cpu)
+    return dict(layers=2, tensors_bit_equal=n, counts=c_cpu,
+                sets_compared=compared, promoted_params_bit_equal=same_w,
+                by_slot=res, seconds=time.perf_counter() - t0)
+
+
+def pipeline_phase(dev, gen, report):
+    """Phase 7: Llama-2-7B at full width and depth from a float state dict
+    on the card through quantize_model, warmup_online and generate."""
+    from mixq_tpu_torch.config import QuantConfig
+    from mixq_tpu_torch.models.hf import TensorSource
+    from mixq_tpu_torch.quantize import quantize_model
+    from mixq_tpu_torch.quantize import quantizer as quantizer_mod
+
+    cfg = llama2_7b()
+    out, secs = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    # W8A8: empty sets, then the online predictor
+    t0 = time.perf_counter()
+    sd = float_state_dict(cfg, dev)
+    secs["float_dict_w8a8"] = time.perf_counter() - t0
+    qcfg = QuantConfig.w8a8()
+    t0 = time.perf_counter()
+    params, specs = quantize_model(TensorSource.from_torch_state_dict(sd),
+                                   cfg, qcfg, device=dev)
+    torch.cuda.synchronize()
+    secs["quantize_model_w8a8"] = time.perf_counter() - t0
+    out["cpu_check"] = cpu_check(dev, sd, cfg, qcfg)
+    print(f"pipeline: 2 layers card vs CPU {out['cpu_check']}", flush=True)
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = new_engine(dev, params, cfg, specs, "int8")
+    del params
+    batches = token_batches(cfg, 2, 8, 64, seed=22)
+    log = []
+    t0 = time.perf_counter()
+    counts = eng.warmup_online(batches, stats_log=log)
+    torch.cuda.synchronize()
+    secs["warmup_online"] = time.perf_counter() - t0
+    budget = qcfg.outlier_budget
+    check(all(0 <= n <= budget for n in counts.values()),
+          f"warmup counts past the budget {budget}: {counts}")
+    sets = linear_sets(eng.params)
+    check(sets == plain_sets(log, budget), "warmup sets differ from the "
+          "plain rule on the card's own stats")
+    missing = {k: sorted(set(PLANTED) - set(v)) for k, v in sets.items()
+               if k.endswith((".wqkv", ".up")) and set(PLANTED) - set(v)}
+    check(not missing, f"planted channels missing from sets: {missing}")
+    # the planted channels' normed maxima over sigma, lowest over layers
+    margin = min(log[0][f"{i}.{s}"][list(PLANTED)].min().item() / SIGMA
+                 for i in range(cfg.num_hidden_layers) for s in ("wqkv", "up"))
+    check(margin > 2, f"planted channels clear {margin:.2f} sigma, not 2")
+    out["w8a8"] = dict(
+        counts_by_slot={s: [counts[f"{i}.{s}"]
+                            for i in range(cfg.num_hidden_layers)]
+                        for s in ("wqkv", "wo", "up", "down")},
+        planted=list(PLANTED), boost=BOOST,
+        planted_margin_in_sigmas=margin, sets_equal_plain_rule=True,
+        warmup_batches=[8, 64])
+    print(f"pipeline W8A8 warmup: {out['w8a8']}", flush=True)
+    eng, out["w8a8"]["serve"] = serve(dev, None, cfg, specs, "W8A8", "int8",
+                                      eng=eng)
+    print(f"pipeline W8A8 serve: {out['w8a8']['serve']}", flush=True)
+    dec = decode_timing(dev, eng, cfg, gen, "pipeline_W8A8O16", "W8A8")
+    ref = report["paths"]["Llama-2-7B W8A8O16"]["decode"]["graph"]
+    out["w8a8"]["decode"] = dict(
+        graph_device_ms_per_step=dec["graph"]["device_ms_per_step"],
+        eager_device_ms_per_step=dec["eager"]["device_ms_per_step"],
+        random_init_graph_device_ms_per_step=ref["device_ms_per_step"],
+        ratio_to_random_init=(dec["graph"]["device_ms_per_step"]
+                              / ref["device_ms_per_step"]),
+        graph_ms_per_step=dec["graph"]["ms_per_step"],
+        max_memory_allocated_gib=dec["max_memory_allocated_gib"])
+    print(f"pipeline W8A8 decode: {out['w8a8']['decode']}", flush=True)
+    del eng, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # W4A4: calibration on the card, then the calibrated sets
+    t0 = time.perf_counter()
+    sd = float_state_dict(cfg, dev)
+    secs["float_dict_w4a4"] = time.perf_counter() - t0
+    timed = {}
+    real = quantizer_mod.collect_act_scales
+
+    def collect(*a, **k):
+        t = time.perf_counter()
+        res = real(*a, **k)
+        torch.cuda.synchronize()
+        timed["s"] = time.perf_counter() - t
+        return res
+
+    quantizer_mod.collect_act_scales = collect
+    try:
+        t0 = time.perf_counter()
+        params, specs = quantize_model(
+            TensorSource.from_torch_state_dict(sd), cfg, QuantConfig.w4a4(),
+            calib_batches=token_batches(cfg, 2, 8, 64, seed=23), device=dev)
+        torch.cuda.synchronize()
+        secs["quantize_model_w4a4"] = time.perf_counter() - t0
+    finally:
+        quantizer_mod.collect_act_scales = real
+    secs["calibration"] = timed["s"]
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    sets = linear_sets(params)
+    check(all(len(v) == 128 for v in sets.values()),
+          "calibrated W4A4 sets are not full")
+    missing = {k: sorted(set(PLANTED) - set(v)) for k, v in sets.items()
+               if k.endswith((".wqkv", ".up")) and set(PLANTED) - set(v)}
+    check(not missing, f"W4A4: planted channels not calibrated: {missing}")
+    eng, serve_w4 = serve(dev, params, cfg, specs, "W4A4", "int8")
+    out["w4a4"] = dict(serve=serve_w4, calib_batches=[2, 8, 64])
+    print(f"pipeline W4A4 serve: {serve_w4}", flush=True)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["host_s"] = secs
+    out["max_memory_allocated_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30)
+    print(f"pipeline host seconds: {secs}; peak memory "
+          f"{out['max_memory_allocated_gib']:.2f} GiB", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2461,6 +2749,7 @@ def main():
         del eng, params                 # free the model before the next
         gc.collect()
         torch.cuda.empty_cache()
+    report["pipeline"] = pipeline_phase(dev, gen, report)
     report["total_s"] = time.perf_counter() - t_start
 
     kernels = []

@@ -4,6 +4,7 @@ mixq_tpu/engine/engine.py).
     prefill(tokens [B, Tp], cache, kv_start) -> (last logits, cache)
     decode_step(tokens [B, 1], cache, kv_start) -> (logits, cache)
     generate(prompts, ...) -> token lists
+    warmup_online(batches) -> outlier counts (the online predictor's warmup)
 
 Eager PyTorch: the cache is written in place. `generate` decodes, by
 default (`EngineConfig.device_decode_loop`, as in JAX), through
@@ -63,7 +64,12 @@ class DecodeLoop:
     cache, the parameters, the head and these buffers, so it is captured
     per loop, once per `generate` call. A capture or replay error
     raises. Replays skip `update_layer`'s host overflow check, so the
-    loop refuses a cache (not a ring) too short for its steps."""
+    loop refuses a cache (not a ring) too short for its steps.
+
+    No graph may outlive the parameters it was captured on:
+    `InferenceEngine.warmup_online` swaps `engine.params` for new tensors
+    (promotion rebuilds them). Today each `generate` captures anew, so none
+    does; a graph cached across calls must be dropped at such a swap."""
 
     def __init__(self, engine: "InferenceEngine", cache: KVCache,
                  kv_start: torch.Tensor, first_tok: torch.Tensor,
@@ -196,6 +202,22 @@ class InferenceEngine:
             head_major=use_head_major_cache(self.specs.attn_impl, mc, S,
                                             dtype.itemsize),
             device=self.device)
+
+    def warmup_online(self, warmup_batches, sigma: float = 6.0,
+                      max_steps: int = 2, stats_log=None):
+        """The online outlier predictor's warmup (JAX's warmup_online):
+        detect outlier channels on the token batches, promote their weight
+        rows to bf16, freeze, and swap the engine's params. The f32 head
+        stays: no promotion touches the embedding or the head. Returns
+        {"{layer}.{slot}": outlier count}; a `stats_log` list gets each
+        warmup step's statistics."""
+        from mixq_tpu_torch.quantize.online import warmup_online_outliers
+
+        self.params, counts = warmup_online_outliers(
+            self.params, self.model_cfg, self.specs, warmup_batches,
+            sigma=sigma, max_steps=max_steps, head_f32=self.head_f32,
+            stats_log=stats_log)
+        return counts
 
     def _rows(self, x, B: int) -> torch.Tensor:
         if x is None:

@@ -35,7 +35,10 @@ block on the card, W8A8: kernel 1 twice, the int8 GEMM seven times (q, k,
 v, o, up, gate+SiLU or gemma2's gate+GELU-tanh, down); W4A4 (reference
 policy): kernel 1 twice, five packed-W4 GEMMs (q, k, v, up, gate) and two
 W8A8 ones (o, down); W8A16: seven a16 GEMMs and no kernel 1; and one decode
-attention per decode step (kernel 3 or 8; gemma2: in its softcap mode). The
+attention per decode step (kernel 3 or 8; gemma2: in its softcap mode).
+`forward(..., collect_stats=True)` also returns each linear group's input
+channel absmax (calibration and the online predictor's warmup read it;
+"full" gives the raw inputs); off, the forward computes none of it. The
 stacked `lax.scan` runtime, continuous batching slots, ALiBi, rope scaling
 and the other families raise NotImplementedError (ROADMAP.md Queue A).
 """
@@ -177,11 +180,12 @@ def _linear(lin, h, act, spec):
 
 
 def _mlp(x: torch.Tensor, bp: BlockParams, specs: DecoderSpecs,
-         cfg: ModelConfig) -> torch.Tensor:
+         cfg: ModelConfig, stats: Optional[dict] = None) -> torch.Tensor:
     """Gated MLP on the pre-norm residual x: norm, up and gate sharing one
     quantized activation, the activation of `cfg.hidden_act` fused into the
     gate GEMM (SwiGLU, or gemma's GeGLU: gelu_pytorch_tanh is gelu_new),
-    then down."""
+    then down. With a `stats` dict, the inputs of up (the normed x) and
+    down (the inner product) go into it."""
     mlp = bp.mlp
     gate_fuse = GATE_FUSE[cfg.hidden_act]
     spec_gate = (specs.gate if specs.gate.fuse == gate_fuse
@@ -190,6 +194,8 @@ def _mlp(x: torch.Tensor, bp: BlockParams, specs: DecoderSpecs,
     up = _linear(mlp.up, h, act, specs.up)
     gate = _linear(mlp.gate, h, act, spec_gate)
     inner = (gate.float() * up.float()).to(up.dtype)
+    if stats is not None:
+        stats.update(up=h, down=inner)
     return mixed_linear(mlp.down, inner, specs.down)
 
 
@@ -201,8 +207,12 @@ def block_core(
     sin: torch.Tensor,
     specs: DecoderSpecs,
     cfg: ModelConfig,
+    stats: Optional[dict] = None,
 ) -> torch.Tensor:
-    """One decoder block, with the KV-cache strategy injected."""
+    """One decoder block, with the KV-cache strategy injected. With a
+    `stats` dict, the input of each linear group goes into it under its
+    slot: "wqkv" (the normed x; on a MIX path kernel 1's y), "wo" (the
+    attention output), "up" and "down" (see _mlp)."""
     B, T, _ = x.shape
     n_q, n_kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                      cfg.head_dim_)
@@ -215,14 +225,22 @@ def block_core(
     attn = kv_apply(q, k, v).reshape(B, T, n_q * hd)
     # o_proj quantizes its own input (the reference's unfused call)
     attn_out = mixed_linear(bp.attn.wo, attn, specs.wo)
+    if stats is not None:
+        stats.update(wqkv=h_ln, wo=attn)
     if bp.post_attn_norm_scale is not None:      # gemma2 pre-residual norms
         attn_out = rmsnorm(attn_out, bp.post_attn_norm_scale,
                            cfg.rms_norm_eps)
     x = x + attn_out.to(x.dtype)
-    mlp_out = _mlp(x, bp, specs, cfg)
+    mlp_out = _mlp(x, bp, specs, cfg, stats)
     if bp.post_ffw_norm_scale is not None:
         mlp_out = rmsnorm(mlp_out, bp.post_ffw_norm_scale, cfg.rms_norm_eps)
     return x + mlp_out.to(x.dtype)
+
+
+def absmax_channels(x: torch.Tensor) -> torch.Tensor:
+    """Per-channel absolute max over batch and time, in f32: the
+    calibration statistic (JAX's _absmax_channels)."""
+    return x.float().abs().reshape(-1, x.shape[-1]).amax(dim=0)
 
 
 def lm_head_f32(params: DecoderParams, specs: DecoderSpecs) -> torch.Tensor:
@@ -279,13 +297,20 @@ def forward(
     kv_start: Optional[torch.Tensor] = None,   # [B] int32 first real slot
     *,
     head_f32: torch.Tensor,                    # lm_head_f32(params, specs)
-) -> Tuple[torch.Tensor, KVCache]:
+    collect_stats=False,
+):
     """Run the decoder on a token chunk starting at cache.length.
 
     Returns (logits [B, T, V] f32, the cache, written in place with its
     length advanced by T). T = 1 is a decode step; T > 1 is a prefill chunk
     (on a head-major cache only on a fresh one). `head_f32` is the head
-    widened once by the caller (the engine holds it)."""
+    widened once by the caller (the engine holds it).
+
+    collect_stats=True also returns, third, each linear group's input
+    channel absmax over batch and time, {"{layer}.{wqkv|wo|up|down}": [K]
+    f32} (calibration and the online predictor's warmup read it);
+    "full" returns the raw inputs instead. Off (the default), the forward
+    runs no reduction for it."""
     _check_supported(cfg)
     _check_attn_impl(specs.attn_impl)
     if params.stacked is not None or params.pos_embed is not None:
@@ -343,6 +368,7 @@ def forward(
               if T == 1 else {})
     decode = (flash_decode_attention if head_major
               else functools.partial(decode_attention, ring=ring))
+    all_stats = {}
 
     for i, bp in enumerate(params.blocks):
         win = windows[i]
@@ -366,7 +392,12 @@ def forward(
                           sliding_window=win, k_scale=ks_c, v_scale=vs_c,
                           scale=attn_scale, softcap=attn_softcap, ring=ring)
 
-        x = block_core(x, bp, kv_apply, cos, sin, specs, cfg)
+        stats = {} if collect_stats else None
+        x = block_core(x, bp, kv_apply, cos, sin, specs, cfg, stats)
+        if collect_stats:
+            for slot, a in stats.items():
+                all_stats[f"{i}.{slot}"] = (a if collect_stats == "full"
+                                            else absmax_channels(a))
     cache.advance(T)
 
     x = rmsnorm(x, params.lnf_scale, cfg.rms_norm_eps)
@@ -376,6 +407,8 @@ def forward(
     if cfg.final_logit_softcap is not None:        # gemma2
         cap = cfg.final_logit_softcap
         logits = torch.tanh(true_div(logits, cap)) * cap
+    if collect_stats:
+        return logits, cache, all_stats
     return logits, cache
 
 

@@ -13,8 +13,8 @@ quantization) is PyTorch glue, as it is jnp glue in JAX.
 
 Int4 weights are stored packed, two per uint8 in the halves layout
 (ops/quant.py::pack_int4): the port has no jnp.int4 storage and no storage
-switches. QUIK linears raise NotImplementedError (ROADMAP.md Queue A
-item 3).
+switches. QUIK linears raise NotImplementedError (ROADMAP.md Queue A).
+`promote_outliers` is the online predictor's weight update (warmup only).
 """
 from __future__ import annotations
 
@@ -221,3 +221,50 @@ def from_float(
         q_weight=q_w, w_scale=w_scale, w_outlier=w_outlier,
         out_ind=oset_fields[0], out_mask=oset_fields[1],
         k_mask=oset_fields[2], out_count=oset_fields[3], bias=b)
+
+
+def promote_outliers(
+    params: MixLinearParams,
+    w_fp: Optional[torch.Tensor],
+    new_oset: Q.OutlierSet,
+    spec: LinearSpec,
+) -> MixLinearParams:
+    """Online outlier promotion (mirrors mixq_tpu/ops/mixed_linear.py::
+    promote_outliers): with an updated outlier set, rebuild w_outlier and
+    zero the set's rows in the int weight (packed W4 is unpacked, zeroed
+    and repacked; w_scale is kept). Runs during warmup, off the steady-state
+    forward.
+
+    w_outlier comes from the fp weight `w_fp` [K, N] when given, else from
+    the dequantized int weight, bf16(q_w * w_scale), as the reference's
+    `q_weight[:, ind] * scale_col`. In that case a slot that was live
+    before and holds the same channel keeps its w_outlier row: its int row
+    was zeroed when it was promoted, so dequantizing it again would give
+    zeros. (JAX regathers every slot from the zeroed weight there, and so
+    loses the rows promoted by an earlier warmup step; ROADMAP.md Queue C.)
+    Per-channel scales only without `w_fp`: JAX's w_scale[None, :] does not
+    broadcast a grouped [G, N] scale against [K, N] and raises, so this
+    raises too."""
+    keep = None
+    if w_fp is None:
+        if params.w_scale.dim() != 1:
+            raise ValueError(
+                "promote_outliers: grouped [G, N] weight scales need the fp "
+                "weight (w_fp); the int weight is dequantized with "
+                "per-channel [N] scales only, as in JAX")
+        w_fp = int_weight(params, spec).float() * params.w_scale[None, :]
+        if params.w_outlier is not None and params.out_ind is not None:
+            keep = ((params.out_mask > 0.5)
+                    & (params.out_ind == new_oset.ind))[:, None]
+    w_outlier = Q.gather_outlier_weights(w_fp, new_oset).to(torch.bfloat16)
+    if keep is not None:
+        w_outlier = torch.where(keep, params.w_outlier.to(torch.bfloat16),
+                                w_outlier)
+    q_w = (int_weight(params, spec).float()
+           * new_oset.k_mask[:, None]).to(torch.int8)
+    if spec.w_bit == 4 and params.q_weight.dtype == torch.uint8:
+        q_w = Q.pack_int4(q_w)
+    return params._replace(
+        q_weight=q_w, w_outlier=w_outlier, out_ind=new_oset.ind,
+        out_mask=new_oset.mask, k_mask=new_oset.k_mask,
+        out_count=new_oset.count)

@@ -7,9 +7,11 @@ half to even, and each division is an IEEE f32 division on both sides.
 Ported here: int8, int4 and group-wise weight quantization, int4 packing in
 the halves layout, per-token activation and per-(token, head) KV
 quantization, the static-budget outlier set and its helpers, the dequant
-epilogue and the grouped int8 GEMM reference. Asymmetric (QUIK) quantization
-and the online outlier detector are still to be ported (ROADMAP.md Queue A
-item 2).
+epilogue, the grouped int8 GEMM reference, and the online outlier detector
+(`detect_new_outliers`, `detect_new_outliers_from_absmax`). Every pick of
+channels by magnitude goes through `top_indices`, which orders ties as
+jax.lax.top_k does (the lower index first). Asymmetric (QUIK) quantization
+is still to be ported (ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -183,6 +185,48 @@ def outlier_set_from_indices(ind, k: int, budget: int,
     oset.k_mask[ind.long()] = 0.0
     oset.count.fill_(n)
     return oset
+
+
+def detect_new_outliers(x: torch.Tensor, oset: OutlierSet,
+                        sigma: float) -> OutlierSet:
+    """Online outlier predictor update: the channels where any |x| >
+    sigma that are not in the set yet, appended after its live entries up
+    to the budget (see detect_new_outliers_from_absmax)."""
+    k = x.shape[-1]
+    ch_max = x.float().abs().reshape(-1, k).amax(dim=0)
+    return detect_new_outliers_from_absmax(ch_max, oset, sigma)
+
+
+def detect_new_outliers_from_absmax(ch_max: torch.Tensor, oset: OutlierSet,
+                                    sigma: float) -> OutlierSet:
+    """`detect_new_outliers` from precomputed per-channel absmax (the
+    statistic of forward(collect_stats=True)). Static shapes, no host
+    read: new channels are ranked by magnitude (ties by the lower index,
+    `top_indices`) and the first min(new, budget - count) are written at
+    slots count, count + 1, ...; the rest of the ranking is dropped."""
+    k = ch_max.shape[0]
+    budget = oset.budget
+    is_new = (ch_max > sigma) & (oset.k_mask > 0.5)              # [K]
+    score = torch.where(is_new, ch_max.float(),
+                        torch.full_like(ch_max, -float("inf"),
+                                        dtype=torch.float32))
+    top_idx = top_indices(score, budget)
+    n_new = is_new.sum().to(torch.int32)
+    n_add = torch.minimum(n_new, budget - oset.count)
+    slots = torch.arange(top_idx.shape[0], dtype=torch.int32,
+                         device=ch_max.device)
+    take = slots < n_add
+    # writes that are not taken go to one spare slot past the end
+    dest = torch.where(take, oset.count + slots, budget).long()
+    ind = torch.cat([oset.ind, oset.ind.new_zeros(1)])
+    ind.scatter_(0, dest, top_idx.to(torch.int32))
+    mask = torch.cat([oset.mask, oset.mask.new_zeros(1)])
+    mask.scatter_(0, dest, torch.ones_like(dest, dtype=mask.dtype))
+    upd_k = torch.zeros(k + 1, dtype=torch.float32, device=ch_max.device)
+    upd_k.scatter_(0, torch.where(take, top_idx, k),
+                   torch.ones_like(top_idx, dtype=torch.float32))
+    return OutlierSet(ind[:budget], mask[:budget],
+                      oset.k_mask * (1.0 - upd_k[:k]), oset.count + n_add)
 
 
 def extract_outliers(x: torch.Tensor, oset: OutlierSet) -> torch.Tensor:

@@ -1203,3 +1203,210 @@ def test_decode_step_syncs_nothing(cuda, family, precision):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert cache.host_length == int(cache.length) == 11
+
+
+# ---------------------------------------------------------------------------
+# The quantization pipeline and the online outlier predictor on the card
+# ---------------------------------------------------------------------------
+
+def test_top_indices_ties_on_the_card(cuda):
+    """A descending stable sort on CUDA keeps the lower index first among
+    ties, as on the CPU (and as jax.lax.top_k): the calibration pick and
+    the detector choose the CPU's channels, in its order."""
+    g = torch.Generator().manual_seed(3)
+    for levels in (3, 20):
+        s = torch.randint(0, levels, (4096,), generator=g).float()
+        idx = Q.top_indices(s.to(cuda), 128)
+        assert torch.equal(idx.cpu(), Q.top_indices(s, 128))
+        card = Q.top_k_outliers_from_scales(s.to(cuda), 128, 4096, 128)
+        cpu = Q.top_k_outliers_from_scales(s, 128, 4096, 128)
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+        m = s * 0.7                           # many ties past sigma = 6
+        start = Q.empty_outlier_set(4096, 64, device="cpu")
+        card = Q.detect_new_outliers_from_absmax(
+            m.to(cuda), Q.OutlierSet(*(t.to(cuda) for t in start)), 6.0)
+        cpu = Q.detect_new_outliers_from_absmax(m, start, 6.0)
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+
+
+def _hf_state(cfg, boost_channels=(7, 100), boost=10.0):
+    """A seeded HF-named float state dict of a llama (CPU tensors), with
+    embedding channels boosted into outliers."""
+    g = torch.Generator().manual_seed(11)
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.head_dim_)
+
+    def w(*shape, s=0.05):
+        return torch.randn(shape, generator=g) * s
+
+    d = {"model.embed_tokens.weight": w(V, H, s=0.02),
+         "model.norm.weight": torch.ones(H), "lm_head.weight": w(V, H, s=0.02)}
+    d["model.embed_tokens.weight"][:, list(boost_channels)] += boost
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}."
+        d[p + "input_layernorm.weight"] = torch.ones(H)
+        d[p + "post_attention_layernorm.weight"] = torch.ones(H)
+        for name, shape in (("self_attn.q_proj", (nq * hd, H)),
+                            ("self_attn.k_proj", (nkv * hd, H)),
+                            ("self_attn.v_proj", (nkv * hd, H)),
+                            ("self_attn.o_proj", (H, nq * hd)),
+                            ("mlp.gate_proj", (I, H)),
+                            ("mlp.up_proj", (I, H)),
+                            ("mlp.down_proj", (H, I))):
+            d[p + name + ".weight"] = w(*shape)
+    return d
+
+
+def _tensors(obj):
+    if obj is None:
+        return []
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    return [t for x in obj for t in _tensors(x)]
+
+
+def _assert_params_equal(card, cpu):
+    a, b = _tensors(card), _tensors(cpu)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.device.type == "cuda" and x.dtype == y.dtype
+        assert torch.equal(x.cpu(), y)
+
+
+def test_quantize_and_warmup_on_the_card_equal_the_cpu(cuda):
+    """quantize_model (W8A8, empty sets) of a state dict on the card is
+    bit-equal to the CPU's of the same dict; warmup_online then gives the
+    CPU's counts, sets and promoted params. The stats forwards of the two
+    devices may differ in summation order: every channel's maximum is
+    asserted farther from sigma than they differ."""
+    from mixq_tpu_torch.config import QuantConfig
+    from mixq_tpu_torch.models.hf import TensorSource
+    from mixq_tpu_torch.quantize import (quantize_model,
+                                         warmup_online_outliers)
+
+    cfg = _tiny_cfg("llama")
+    state = _hf_state(cfg)
+    qcfg = QuantConfig.w8a8(outlier_budget=16)
+    sd_card = {k: v.to(cuda, torch.bfloat16) for k, v in state.items()}
+    sd_cpu = {k: v.to(torch.bfloat16) for k, v in state.items()}
+    card, specs = quantize_model(TensorSource.from_torch_state_dict(sd_card),
+                                 cfg, qcfg, device=cuda)
+    cpu, _ = quantize_model(TensorSource.from_torch_state_dict(sd_cpu), cfg,
+                            qcfg, device="cpu")
+    _assert_params_equal(card, cpu)
+    g = torch.Generator().manual_seed(2)
+    batches = [torch.randint(1, cfg.vocab_size, (4, 16), generator=g)
+               for _ in range(2)]
+    logs = {"card": [], "cpu": []}
+    wc, counts_card = warmup_online_outliers(card, cfg, specs, batches,
+                                             stats_log=logs["card"])
+    wp, counts_cpu = warmup_online_outliers(cpu, cfg, specs, batches,
+                                            stats_log=logs["cpu"])
+    for a, b in zip(logs["card"], logs["cpu"]):
+        spread = max((a[k].cpu() - b[k]).abs().max().item() for k in b)
+        margin = min((b[k] - 6.0).abs().min().item() for k in b)
+        assert margin > spread, (margin, spread)
+    assert counts_card == counts_cpu and sum(counts_cpu.values()) > 0
+    _assert_params_equal(wc, wp)
+
+
+def test_calibrated_w4a4_on_the_card(cuda):
+    """4-bit quantize_model on the card: from the CPU's act scales, params
+    bit-equal to the CPU's; from calibration batches on the card, the card's
+    scales within 2e-2 of the CPU's per key and the sets equal wherever the
+    gap at the cut exceeds the two devices' difference."""
+    from mixq_tpu_torch.config import QuantConfig
+    from mixq_tpu_torch.models.decoder import DecoderSpecs
+    from mixq_tpu_torch.models.hf import TensorSource, params_from_source
+    from mixq_tpu_torch.quantize import (collect_act_scales,
+                                         outlier_sets_from_scales,
+                                         quantize_model)
+
+    cfg = _tiny_cfg("llama")
+    state = _hf_state(cfg, boost_channels=tuple(range(0, 64, 4)))
+    qcfg = QuantConfig.w4a4(outlier_budget=16)
+    src_cpu = TensorSource.from_dict(state)
+    src_card = TensorSource.from_torch_state_dict(
+        {k: v.to(cuda) for k, v in state.items()})
+    g = torch.Generator().manual_seed(6)
+    batches = [torch.randint(1, cfg.vocab_size, (2, 16), generator=g)
+               for _ in range(2)]
+    s_cpu = collect_act_scales(params_from_source(
+        src_cpu, cfg, DecoderSpecs.fp16(), device="cpu"), cfg, batches)
+    cpu, _ = quantize_model(src_cpu, cfg, qcfg, act_scales=s_cpu,
+                            device="cpu")
+    card, _ = quantize_model(src_card, cfg, qcfg, act_scales=s_cpu,
+                             device=cuda)
+    _assert_params_equal(card, cpu)
+    s_card = collect_act_scales(params_from_source(
+        src_card, cfg, DecoderSpecs.fp16(), device=cuda), cfg, batches)
+    sets_card = outlier_sets_from_scales(s_card, qcfg)
+    sets_cpu = outlier_sets_from_scales(s_cpu, qcfg)
+    for k, b in s_cpu.items():
+        a = s_card[k]
+        assert a.device.type == "cuda"
+        diff = (a.cpu() - b).abs().max().item()
+        assert diff <= 2e-2 * b.abs().max().item(), (k, diff)
+        cut = torch.sort(b, descending=True).values
+        if cut[15] - cut[16] > diff:
+            assert (set(sets_card[k].ind.tolist())
+                    == set(sets_cpu[k].ind.tolist())), k
+    calibrated, _ = quantize_model(src_card, cfg, qcfg, calib_batches=batches,
+                                   device=cuda)
+    assert calibrated.blocks[0].attn.wq.q_weight.device.type == "cuda"
+
+
+def test_collect_stats_adds_no_sync_and_leaves_the_step_graph(cuda):
+    """A decode step with collect_stats=True syncs nothing (set_sync_debug_
+    mode("error")). With it off, a replay of the captured step runs the
+    eager step's kernels, name for name and count for count; the stats
+    forward runs more (its reductions)."""
+    from torch.autograd import DeviceType
+
+    from mixq_tpu_torch.engine import SamplingParams
+    from mixq_tpu_torch.engine.engine import DecodeLoop
+    from mixq_tpu_torch.kernels import card_trace
+    from mixq_tpu_torch.models.decoder import forward
+
+    eng = _tiny_engine(cuda, "llama", "W8A8")
+    toks = torch.randint(1, eng.model_cfg.vocab_size, (3, 8),
+                         generator=_gen(4), device=cuda)
+    cache = eng.new_cache(3, 64)
+    logits, cache = eng.prefill(toks, cache)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    loop = DecodeLoop(eng, cache, eng._rows(None, 3), tok, 6,
+                      SamplingParams(), None)
+    loop.step()
+    kv_start = eng._rows(None, 3)
+
+    def stats_step():
+        with torch.inference_mode():
+            return forward(eng.params, loop.tok, cache, eng.specs,
+                           eng.model_cfg, kv_start, head_f32=eng.head_f32,
+                           collect_stats=True)
+
+    stats_step()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, stats = stats_step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(stats) == 4 * eng.model_cfg.num_hidden_layers
+
+    def kernels(run):
+        torch.cuda.synchronize()
+        with card_trace() as prof:
+            run()
+            torch.cuda.synchronize()
+        return {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+
+    eager = kernels(loop.step)
+    loop.capture()
+    graph = kernels(loop.replay)
+    assert graph == eager
+    with_stats = kernels(stats_step)
+    assert sum(with_stats.values()) > sum(eager.values())
