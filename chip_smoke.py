@@ -2367,8 +2367,9 @@ def cpu_check(dev, sd, cfg, qcfg):
     """The first 2 layers at full width: the card's quantize_model
     bit-equal to the CPU's of the same float weights, then warmup_online
     on both (2 batches of 2 x 64 tokens): counts equal, and the sets equal
-    on every slot whose channel maxima lie farther from sigma than the two
-    devices' stats differ (asserted for every wqkv and up slot)."""
+    on every slot whose stats are bit-equal or whose channel maxima lie
+    farther from sigma than the two devices' stats differ (asserted for
+    every wqkv and up slot)."""
     import dataclasses
 
     from mixq_tpu_torch.models.hf import TensorSource
@@ -2402,7 +2403,9 @@ def cpu_check(dev, sd, cfg, qcfg):
                      for a, b in zip(logs["card"], logs["cpu"]))
         margin = min((b[k] - SIGMA).abs().min().item() for b in logs["cpu"])
         res[k] = dict(spread=spread, margin_to_sigma=margin)
-        if margin > spread:
+        # equal stats give equal sets; else no channel may lie within the
+        # stats' difference of sigma
+        if spread == 0 or margin > spread:
             check(s_card[k] == s_cpu[k], f"2-layer {k}: card set "
                   f"{s_card[k]} != CPU set {s_cpu[k]}")
             compared.append(k)

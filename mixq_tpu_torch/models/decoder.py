@@ -237,12 +237,6 @@ def block_core(
     return x + mlp_out.to(x.dtype)
 
 
-def absmax_channels(x: torch.Tensor) -> torch.Tensor:
-    """Per-channel absolute max over batch and time, in f32: the
-    calibration statistic (JAX's _absmax_channels)."""
-    return x.float().abs().reshape(-1, x.shape[-1]).amax(dim=0)
-
-
 def lm_head_f32(params: DecoderParams, specs: DecoderSpecs) -> torch.Tensor:
     """The head [H, V] (the embedding's transpose when tied) rounded to the
     activation dtype and widened to f32: the operand of JAX's
@@ -397,7 +391,7 @@ def forward(
         if collect_stats:
             for slot, a in stats.items():
                 all_stats[f"{i}.{slot}"] = (a if collect_stats == "full"
-                                            else absmax_channels(a))
+                                            else Q.absmax_channels(a))
     cache.advance(T)
 
     x = rmsnorm(x, params.lnf_scale, cfg.rms_norm_eps)

@@ -181,27 +181,23 @@ def _f32(src: TensorSource, name: str, device) -> torch.Tensor:
 
 
 def _linear_from_src(src: TensorSource, prefix: str, spec: LinearSpec,
-                     oset: Optional[Q.OutlierSet], device,
-                     store_dtype=torch.bfloat16) -> MixLinearParams:
+                     oset: Optional[Q.OutlierSet], device) -> MixLinearParams:
     """One HF Linear ([N, K] weight, optional bias) quantized as `spec`
-    into [K, N] MixLinearParams."""
+    into [K, N] MixLinearParams (bf16 storage)."""
     w = _f32(src, prefix + ".weight", device).t().contiguous()
     bias = (_f32(src, prefix + ".bias", device)
             if src.has(prefix + ".bias") else None)
-    return from_float(w, spec, bias=bias, outlier_set=oset,
-                      store_dtype=store_dtype)
+    return from_float(w, spec, bias=bias, outlier_set=oset)
 
 
 def _qkv_from_src(src: TensorSource, scheme, i: int, spec: LinearSpec,
-                  oset: Optional[Q.OutlierSet], device,
-                  store_dtype=torch.bfloat16):
+                  oset: Optional[Q.OutlierSet], device):
     """(wq, wk, wv) from separate q/k/v tensors, sharing one outlier set
     (they share one quantized activation)."""
     if scheme.get("qkv"):
         raise NotImplementedError("fused qkv tensors are not ported")
     return tuple(_linear_from_src(src, scheme[n].format(i=i), spec, oset,
-                                  device, store_dtype)
-                 for n in ("q", "k", "v"))
+                                  device) for n in ("q", "k", "v"))
 
 
 def params_from_source(
@@ -209,14 +205,13 @@ def params_from_source(
     cfg: ModelConfig,
     specs: DecoderSpecs,
     outlier_sets: Optional[Dict[str, Q.OutlierSet]] = None,
-    store_dtype: torch.dtype = torch.bfloat16,
     device="cuda",
 ) -> DecoderParams:
     """Convert an HF state dict into DecoderParams on `device`, quantizing
     per `specs`, as JAX's params_from_source does for dense blocks:
     weights widened to f32 and transposed to [K, N], norm scales in f32
-    (gemma's +1 offset folded in), embed and head in `store_dtype`, the
-    head None when tied.
+    (gemma's +1 offset folded in), embed and head in bf16 (JAX's default
+    store dtype), the head None when tied.
 
     outlier_sets: per-layer sets keyed "{i}.wqkv", "{i}.wo", "{i}.up"
     (shared by gate), "{i}.down", e.g. from quantize.calibration."""
@@ -238,13 +233,12 @@ def params_from_source(
 
     def linear(slot, spec, oset, i):
         return _linear_from_src(src, scheme[slot].format(i=i), spec, oset,
-                                device, store_dtype)
+                                device)
 
     blocks = []
     for i in range(cfg.num_hidden_layers):
         wq, wk, wv = _qkv_from_src(src, scheme, i, specs.wqkv,
-                                   osets.get(f"{i}.wqkv"), device,
-                                   store_dtype)
+                                   osets.get(f"{i}.wqkv"), device)
         up_oset = osets.get(f"{i}.up")
         blocks.append(BlockParams(
             ln1_scale=norm_vec(scheme["ln1"], i),
@@ -262,11 +256,11 @@ def params_from_source(
             post_ffw_norm_scale=norm_vec(scheme.get("post_ffw"), i),
         ))
 
-    embed = _f32(src, scheme["embed"], device).to(store_dtype)
+    embed = _f32(src, scheme["embed"], device).to(torch.bfloat16)
     lm_head = None
     if not cfg.tie_word_embeddings and src.has(scheme["lm_head"]):
         lm_head = _f32(src, scheme["lm_head"], device).t().contiguous().to(
-            store_dtype)
+            torch.bfloat16)
     return DecoderParams(embed=embed, blocks=tuple(blocks),
                          lnf_scale=norm_vec(scheme["lnf"]), lnf_bias=None,
                          lm_head=lm_head)

@@ -187,14 +187,18 @@ def outlier_set_from_indices(ind, k: int, budget: int,
     return oset
 
 
+def absmax_channels(x: torch.Tensor) -> torch.Tensor:
+    """Per-channel absolute max over every leading axis (batch, time), in
+    f32: the calibration and warmup statistic."""
+    return x.float().abs().reshape(-1, x.shape[-1]).amax(dim=0)
+
+
 def detect_new_outliers(x: torch.Tensor, oset: OutlierSet,
                         sigma: float) -> OutlierSet:
     """Online outlier predictor update: the channels where any |x| >
     sigma that are not in the set yet, appended after its live entries up
     to the budget (see detect_new_outliers_from_absmax)."""
-    k = x.shape[-1]
-    ch_max = x.float().abs().reshape(-1, k).amax(dim=0)
-    return detect_new_outliers_from_absmax(ch_max, oset, sigma)
+    return detect_new_outliers_from_absmax(absmax_channels(x), oset, sigma)
 
 
 def detect_new_outliers_from_absmax(ch_max: torch.Tensor, oset: OutlierSet,
@@ -207,10 +211,8 @@ def detect_new_outliers_from_absmax(ch_max: torch.Tensor, oset: OutlierSet,
     k = ch_max.shape[0]
     budget = oset.budget
     is_new = (ch_max > sigma) & (oset.k_mask > 0.5)              # [K]
-    score = torch.where(is_new, ch_max.float(),
-                        torch.full_like(ch_max, -float("inf"),
-                                        dtype=torch.float32))
-    top_idx = top_indices(score, budget)
+    top_idx = top_indices(ch_max.float().masked_fill(~is_new, -float("inf")),
+                          budget)
     n_new = is_new.sum().to(torch.int32)
     n_add = torch.minimum(n_new, budget - oset.count)
     slots = torch.arange(top_idx.shape[0], dtype=torch.int32,

@@ -1,4 +1,4 @@
-"""Offline quantization driver: policy resolution and model conversion
+"""Offline quantization: policy resolution and model conversion
 (mirrors mixq_tpu/quantize/quantizer.py).
 
     specs = resolve_specs(quant_cfg)      # QuantConfig -> DecoderSpecs
@@ -106,7 +106,7 @@ def quantize_model(
                 fp_params = params_from_source(src, cfg, DecoderSpecs.fp16(),
                                                device=device)
             act_scales = collect_act_scales(fp_params, cfg, calib_batches)
-            del fp_params
+            del fp_params       # this reference to the FP16 copy goes first
         osets = outlier_sets_from_scales(act_scales, qcfg, device=device)
     elif qcfg.version == "MIX" and qcfg.w_bit == 8:
         # empty sets, the full budget reserved: the forward always runs the

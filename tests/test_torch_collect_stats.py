@@ -9,10 +9,13 @@ the batch-major bf16 cache, as calibration and warmup run it.
   the inner product of gate and up). Held within 1e-2 of max|stat| per
   key: every stat is a max of bf16 values, and what differs between the
   two forwards is f32 summation order (decoder tests), which can flip one
-  bf16 rounding (2**-8 relative) of an activation upstream.
+  bf16 rounding (2**-8 relative) of an activation upstream. (On this
+  test's inputs the two read bit-equal.)
 - "full": the raw inputs, whose channel absmax is the True statistic.
 - Off: the forward returns (logits, cache), and its logits are those of
   the stats forward bit for bit."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,9 +23,9 @@ import torch
 
 from mixq_tpu.models import KVCache as JKVCache
 from mixq_tpu.models.decoder import forward as j_forward
-from mixq_tpu_torch.models.decoder import absmax_channels, forward, \
-    lm_head_f32
+from mixq_tpu_torch.models.decoder import forward, lm_head_f32
 from mixq_tpu_torch.models.layers import KVCache
+from mixq_tpu_torch.ops.quant import absmax_channels
 
 import test_torch_models as models
 
@@ -40,8 +43,8 @@ def caches(cfg, B, S):
 def run_both(config, quantized, collect):
     cfg, jp, jspecs, tp, tspecs = models.build(
         seed=1, quantized=quantized, qcfg=models.CONFIGS.get(config))
-    jspecs = jspecs.__class__(**{**jspecs.__dict__, "attn_impl": "xla"})
-    tspecs = tspecs.__class__(**{**tspecs.__dict__, "attn_impl": "xla"})
+    jspecs = dataclasses.replace(jspecs, attn_impl="xla")
+    tspecs = dataclasses.replace(tspecs, attn_impl="xla")
     B, T = 3, 8
     rng = np.random.default_rng(4)
     toks = rng.integers(1, cfg.vocab_size, (B, T + 1)).astype(np.int32)
