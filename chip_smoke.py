@@ -1920,7 +1920,9 @@ def serve(dev, params, cfg, specs, name, kv_dtype, eng=None):
                      graph_replays=graph.replays,
                      executed={k: v for k, v in ran.items() if v},
                      launches={k: v for k, v in counts.items() if v},
-                     tokens_equal_stepwise=True, first_row=out[0][:8])
+                     tokens_equal_stepwise=True, first_row=out[0][:8],
+                     distinct_rows=len({tuple(r) for r in out}),
+                     constant_rows=sum(len(set(r)) == 1 for r in out))
 
 
 def prefill_timing(dev, eng, cfg, B=8, T=64, n=3):
@@ -2271,30 +2273,46 @@ KERNEL_NOTES = {
 # Phase 7: from float weights to served tokens
 # ---------------------------------------------------------------------------
 
-# embedding channels boosted into outliers (and their boost): with 4 of
-# them at 1000 every layer's normed input holds them near sqrt(H / 4) = 32,
-# far past 2 sigma, however the residual stream grows over 32 layers
-PLANTED, BOOST, SIGMA = (11, 1003, 2050, 3071), 1000.0, 6.0
+# Embedding channels boosted into outliers, their boost, and the spread of
+# the embedding's rows. The rows are N(0, EMBED_STD), as torch.nn.Embedding
+# makes them, so that each token's own channels still steer every layer
+# beside the planted ones (at N(0, 0.02) and a boost of 1000 the tokens'
+# channels fell below bf16's rounding and every served row was one
+# repeated token). BOOST is the least of 200, 250, 300 and 400 that keeps
+# the planted channels' normed maxima past 2 sigma in all 32 layers (200
+# gave 1.98); the margin is asserted and reported.
+PLANTED, BOOST, EMBED_STD, SIGMA = (11, 1003, 2050, 3071), 250.0, 1.0, 6.0
+# one prefill's logits of the warmed W8A8 model against the FP16-spec model
+# of the same float weights: their distance over the reference's spread
+# over positions (`logits_gap`) under this limit, and under a quarter of the
+# distance of the same model with its promoted rows dropped (the fault of a
+# promotion that zeroes a row of the int weight and never fills the outlier
+# term), so that the check would see that fault, and under half of the
+# quantized model's before warmup. An H100 80GB HBM3 at 700 W read
+# 0.19-0.26 for the warmed model at boosts of 200-400 (dropped rows 5.4-9.1,
+# before warmup 0.52-0.85)
+LOGITS_REL_TOL = 0.5
 
 
 def float_state_dict(cfg, dev, seed=7, layers=None):
-    """A bf16 state dict of `cfg` under HF's llama names on the card:
-    N(0, 0.02) weights from `seed`, norms of ones, PLANTED embedding
-    channels boosted by BOOST. `layers` keeps only the first blocks."""
+    """A bf16 state dict of `cfg` under HF's llama names on the card from
+    `seed`: N(0, EMBED_STD) embedding rows with the PLANTED channels raised
+    by BOOST, N(0, 0.02) linear weights and head, norms of ones. `layers`
+    keeps only the first blocks."""
     g = torch.Generator(device=dev).manual_seed(seed)
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim_)
 
-    def w(*shape):
+    def w(*shape, std=0.02):
         return torch.randn(shape, generator=g, device=dev,
-                           dtype=torch.bfloat16) * 0.02
+                           dtype=torch.bfloat16) * std
 
     def ones():
         return torch.ones(H, device=dev, dtype=torch.bfloat16)
 
-    sd = {"model.embed_tokens.weight": w(V, H), "model.norm.weight": ones(),
-          "lm_head.weight": w(V, H)}
+    sd = {"model.embed_tokens.weight": w(V, H, std=EMBED_STD),
+          "model.norm.weight": ones(), "lm_head.weight": w(V, H)}
     sd["model.embed_tokens.weight"][:, list(PLANTED)] += BOOST
     for i in range(cfg.num_hidden_layers if layers is None else layers):
         p = f"model.layers.{i}."
@@ -2316,6 +2334,51 @@ def token_batches(cfg, n, B, T, seed):
     g = torch.Generator().manual_seed(seed)
     return [torch.randint(1, cfg.vocab_size, (B, T), generator=g)
             for _ in range(n)]
+
+
+def prefill_logits(params, cfg, specs, tokens, head_f32=None):
+    """The f32 logits [B, T, V] of one prefill of `tokens` (on the card)
+    into a fresh batch-major bf16 cache."""
+    from mixq_tpu_torch.models.decoder import forward, lm_head_f32
+    from mixq_tpu_torch.models.layers import KVCache
+
+    B, T = tokens.shape
+    cache = KVCache.create(cfg.num_hidden_layers, B, T,
+                           cfg.num_key_value_heads, cfg.head_dim_,
+                           torch.bfloat16, head_major=False,
+                           device=tokens.device)
+    if head_f32 is None:
+        head_f32 = lm_head_f32(params, specs)
+    with torch.inference_mode():
+        return forward(params, tokens, cache, specs, cfg,
+                       head_f32=head_f32)[0]
+
+
+def logits_gap(logits, ref):
+    """||logits - ref|| over the reference's spread over positions,
+    ||ref - its mean over positions|| (the planted channels give every
+    position a common part, which a relative error would hide behind),
+    and the share of positions whose top token is the reference's."""
+    spread = (ref - ref.mean(dim=(0, 1))).norm()
+    return dict(rel=((logits - ref).norm() / spread).item(),
+                top1_agree=(logits.argmax(-1) == ref.argmax(-1))
+                .float().mean().item())
+
+
+def drop_promoted_rows(params):
+    """`params` with every linear's promoted rows zeroed: the int rows
+    zeroed by the promotion, the outlier term empty."""
+    def drop(lin):
+        if lin is None or lin.w_outlier is None:
+            return lin
+        return lin._replace(w_outlier=torch.zeros_like(lin.w_outlier))
+
+    return params._replace(blocks=tuple(
+        bp._replace(attn=bp.attn._replace(**{
+            n: drop(getattr(bp.attn, n)) for n in ("wq", "wk", "wv", "wo")}),
+            mlp=bp.mlp._replace(**{
+                n: drop(getattr(bp.mlp, n)) for n in ("up", "gate", "down")}))
+        for bp in params.blocks))
 
 
 def linear_sets(params):
@@ -2346,6 +2409,17 @@ def plain_sets(stats_log, budget, sigma=SIGMA):
     return sets
 
 
+def planted_margins(stats_log, layers):
+    """For each warmup step, the planted channels' lowest normed maximum
+    over the wqkv and up slots of every layer, in sigmas, and its slot."""
+    out = []
+    for stats in stats_log:
+        low = min((stats[f"{i}.{s}"][list(PLANTED)].min().item() / SIGMA,
+                   f"{i}.{s}") for i in range(layers) for s in ("wqkv", "up"))
+        out.append(dict(sigmas=low[0], slot=low[1]))
+    return out
+
+
 def tensors_of(obj):
     if obj is None:
         return []
@@ -2363,13 +2437,25 @@ def bit_equal_to_cpu(card, cpu):
     return same, len(b)
 
 
+def slot_linears(params, key):
+    """The linears of block `layer` that read stats slot `slot`."""
+    from mixq_tpu_torch.quantize.online import SLOT_LINEARS
+
+    i, slot = key.split(".")
+    part, names = next((p, ns) for s, p, ns in SLOT_LINEARS if s == slot)
+    return [getattr(getattr(params.blocks[int(i)], part), n) for n in names]
+
+
 def cpu_check(dev, sd, cfg, qcfg):
     """The first 2 layers at full width: the card's quantize_model
     bit-equal to the CPU's of the same float weights, then warmup_online
-    on both (2 batches of 2 x 64 tokens): counts equal, and the sets equal
-    on every slot whose stats are bit-equal or whose channel maxima lie
+    on both (2 batches of 2 x 64 tokens): the sets and counts equal on
+    every slot whose stats are bit-equal or whose channel maxima lie
     farther from sigma than the two devices' stats differ (asserted for
-    every wqkv and up slot)."""
+    every wqkv and up slot; a channel within that spread of sigma may
+    join on one device only). The promoted params are bit-equal: the
+    whole tree when every slot was compared, else the compared slots'
+    linears."""
     import dataclasses
 
     from mixq_tpu_torch.models.hf import TensorSource
@@ -2394,8 +2480,6 @@ def cpu_check(dev, sd, cfg, qcfg):
                                           stats_log=logs["card"])
     cpu, c_cpu = warmup_online_outliers(cpu, cfg2, specs, batches,
                                         stats_log=logs["cpu"])
-    check(c_card == c_cpu, f"2-layer warmup counts: card {c_card}, "
-          f"CPU {c_cpu}")
     s_card, s_cpu = linear_sets(card), linear_sets(cpu)
     compared, res = [], {}
     for k in s_cpu:
@@ -2406,26 +2490,39 @@ def cpu_check(dev, sd, cfg, qcfg):
         # equal stats give equal sets; else no channel may lie within the
         # stats' difference of sigma
         if spread == 0 or margin > spread:
-            check(s_card[k] == s_cpu[k], f"2-layer {k}: card set "
-                  f"{s_card[k]} != CPU set {s_cpu[k]}")
+            check(s_card[k] == s_cpu[k] and c_card[k] == c_cpu[k],
+                  f"2-layer {k}: card set {s_card[k]} (count {c_card[k]}) "
+                  f"!= CPU set {s_cpu[k]} (count {c_cpu[k]})")
             compared.append(k)
     check(all(f"{i}.{s}" in compared for i in range(2)
               for s in ("wqkv", "up")),
           f"2-layer warmup: a wqkv/up slot lies within the card-vs-CPU "
           f"spread of sigma: {res}")
-    same_w, _ = bit_equal_to_cpu(card, cpu)
-    return dict(layers=2, tensors_bit_equal=n, counts=c_cpu,
-                sets_compared=compared, promoted_params_bit_equal=same_w,
+    # equal sets promote equal rows of bit-equal weights
+    if len(compared) == len(s_cpu):
+        same_w, n_w = bit_equal_to_cpu(card, cpu)
+    else:
+        same_w, n_w = bit_equal_to_cpu(
+            [slot_linears(card, k) for k in compared],
+            [slot_linears(cpu, k) for k in compared])
+    check(same_w, f"2-layer promoted params differ on the card and the CPU "
+          f"(slots {compared})")
+    return dict(layers=2, tensors_bit_equal=n, counts_card=c_card,
+                counts_cpu=c_cpu,
+                sets_compared=compared, promoted_tensors_bit_equal=n_w,
                 by_slot=res, seconds=time.perf_counter() - t0)
 
 
 def pipeline_phase(dev, gen, report):
     """Phase 7: Llama-2-7B at full width and depth from a float state dict
-    on the card through quantize_model, warmup_online and generate."""
+    on the card through quantize_model, warmup_online and generate, held
+    against the FP16-spec model of the same weights."""
     from mixq_tpu_torch.config import QuantConfig
-    from mixq_tpu_torch.models.hf import TensorSource
-    from mixq_tpu_torch.quantize import quantize_model
-    from mixq_tpu_torch.quantize import quantizer as quantizer_mod
+    from mixq_tpu_torch.models.decoder import DecoderSpecs
+    from mixq_tpu_torch.models.hf import TensorSource, params_from_source
+    from mixq_tpu_torch.quantize import (collect_act_scales,
+                                         outlier_sets_from_scales,
+                                         quantize_model)
 
     cfg = llama2_7b()
     out, secs = {}, {}
@@ -2435,15 +2532,29 @@ def pipeline_phase(dev, gen, report):
     t0 = time.perf_counter()
     sd = float_state_dict(cfg, dev)
     secs["float_dict_w8a8"] = time.perf_counter() - t0
+    src = TensorSource.from_torch_state_dict(sd)
     qcfg = QuantConfig.w8a8()
     t0 = time.perf_counter()
-    params, specs = quantize_model(TensorSource.from_torch_state_dict(sd),
-                                   cfg, qcfg, device=dev)
+    params, specs = quantize_model(src, cfg, qcfg, device=dev)
     torch.cuda.synchronize()
     secs["quantize_model_w8a8"] = time.perf_counter() - t0
     out["cpu_check"] = cpu_check(dev, sd, cfg, qcfg)
     print(f"pipeline: 2 layers card vs CPU {out['cpu_check']}", flush=True)
-    del sd
+    # the reference: the FP16-spec model of the same float weights, one
+    # prefill of 8 x 64 tokens; then calibration alone on it (the W4A4
+    # quantize_model below runs the same on a copy of its own)
+    fp_specs = DecoderSpecs.fp16()
+    fp_params = params_from_source(src, cfg, fp_specs, device=dev)
+    tokens = token_batches(cfg, 1, 8, 64, seed=24)[0].to(dev, torch.int32)
+    ref = prefill_logits(fp_params, cfg, fp_specs, tokens)
+    unpromoted = logits_gap(prefill_logits(params, cfg, specs, tokens), ref)
+    calib = token_batches(cfg, 2, 8, 64, seed=23)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scales = collect_act_scales(fp_params, cfg, calib)
+    torch.cuda.synchronize()
+    secs["calibration"] = time.perf_counter() - t0
+    del sd, src, fp_params
     gc.collect()
     torch.cuda.empty_cache()
     eng = new_engine(dev, params, cfg, specs, "int8")
@@ -2463,29 +2574,44 @@ def pipeline_phase(dev, gen, report):
     missing = {k: sorted(set(PLANTED) - set(v)) for k, v in sets.items()
                if k.endswith((".wqkv", ".up")) and set(PLANTED) - set(v)}
     check(not missing, f"planted channels missing from sets: {missing}")
-    # the planted channels' normed maxima over sigma, lowest over layers
-    margin = min(log[0][f"{i}.{s}"][list(PLANTED)].min().item() / SIGMA
-                 for i in range(cfg.num_hidden_layers) for s in ("wqkv", "up"))
-    check(margin > 2, f"planted channels clear {margin:.2f} sigma, not 2")
+    margins = planted_margins(log, cfg.num_hidden_layers)
+    low = min(m["sigmas"] for m in margins)
+    check(low > 2, f"planted channels clear {low:.2f} sigma, not 2: "
+          f"{margins}")
+    warmed = logits_gap(prefill_logits(eng.params, cfg, specs, tokens,
+                                       eng.head_f32), ref)
+    dropped = logits_gap(prefill_logits(drop_promoted_rows(eng.params), cfg,
+                                        specs, tokens, eng.head_f32), ref)
     out["w8a8"] = dict(
         counts_by_slot={s: [counts[f"{i}.{s}"]
                             for i in range(cfg.num_hidden_layers)]
                         for s in ("wqkv", "wo", "up", "down")},
-        planted=list(PLANTED), boost=BOOST,
-        planted_margin_in_sigmas=margin, sets_equal_plain_rule=True,
-        warmup_batches=[8, 64])
+        planted=list(PLANTED), boost=BOOST, embed_std=EMBED_STD,
+        planted_margin_by_step=margins, sets_equal_plain_rule=True,
+        warmup_batches=[8, 64],
+        logits_vs_fp16_spec=dict(warmed=warmed, before_warmup=unpromoted,
+                                 promoted_rows_dropped=dropped,
+                                 tokens=[8, 64]))
     print(f"pipeline W8A8 warmup: {out['w8a8']}", flush=True)
+    check(warmed["rel"] < LOGITS_REL_TOL
+          and warmed["rel"] < dropped["rel"] / 4
+          and warmed["rel"] < unpromoted["rel"] / 2,
+          f"the warmed W8A8 model's logits lie {warmed['rel']:.4g} from the "
+          f"FP16-spec model's (limit {LOGITS_REL_TOL}; with the promoted "
+          f"rows dropped {dropped['rel']:.4g}, before warmup "
+          f"{unpromoted['rel']:.4g})")
     eng, out["w8a8"]["serve"] = serve(dev, None, cfg, specs, "W8A8", "int8",
                                       eng=eng)
     print(f"pipeline W8A8 serve: {out['w8a8']['serve']}", flush=True)
+    varied(out["w8a8"]["serve"], "W8A8")
     dec = decode_timing(dev, eng, cfg, gen, "pipeline_W8A8O16", "W8A8")
-    ref = report["paths"]["Llama-2-7B W8A8O16"]["decode"]["graph"]
+    ref_step = report["paths"]["Llama-2-7B W8A8O16"]["decode"]["graph"]
     out["w8a8"]["decode"] = dict(
         graph_device_ms_per_step=dec["graph"]["device_ms_per_step"],
         eager_device_ms_per_step=dec["eager"]["device_ms_per_step"],
-        random_init_graph_device_ms_per_step=ref["device_ms_per_step"],
+        random_init_graph_device_ms_per_step=ref_step["device_ms_per_step"],
         ratio_to_random_init=(dec["graph"]["device_ms_per_step"]
-                              / ref["device_ms_per_step"]),
+                              / ref_step["device_ms_per_step"]),
         graph_ms_per_step=dec["graph"]["ms_per_step"],
         max_memory_allocated_gib=dec["max_memory_allocated_gib"])
     print(f"pipeline W8A8 decode: {out['w8a8']['decode']}", flush=True)
@@ -2497,40 +2623,33 @@ def pipeline_phase(dev, gen, report):
     t0 = time.perf_counter()
     sd = float_state_dict(cfg, dev)
     secs["float_dict_w4a4"] = time.perf_counter() - t0
-    timed = {}
-    real = quantizer_mod.collect_act_scales
-
-    def collect(*a, **k):
-        t = time.perf_counter()
-        res = real(*a, **k)
-        torch.cuda.synchronize()
-        timed["s"] = time.perf_counter() - t
-        return res
-
-    quantizer_mod.collect_act_scales = collect
-    try:
-        t0 = time.perf_counter()
-        params, specs = quantize_model(
-            TensorSource.from_torch_state_dict(sd), cfg, QuantConfig.w4a4(),
-            calib_batches=token_batches(cfg, 2, 8, 64, seed=23), device=dev)
-        torch.cuda.synchronize()
-        secs["quantize_model_w4a4"] = time.perf_counter() - t0
-    finally:
-        quantizer_mod.collect_act_scales = real
-    secs["calibration"] = timed["s"]
+    w4 = QuantConfig.w4a4()
+    t0 = time.perf_counter()
+    params, specs = quantize_model(TensorSource.from_torch_state_dict(sd),
+                                   cfg, w4, calib_batches=calib, device=dev)
+    torch.cuda.synchronize()
+    secs["quantize_model_w4a4"] = time.perf_counter() - t0
     del sd
     gc.collect()
     torch.cuda.empty_cache()
     sets = linear_sets(params)
     check(all(len(v) == 128 for v in sets.values()),
           "calibrated W4A4 sets are not full")
+    alone = {k: s.ind[:int(s.count)].tolist() for k, s in
+             outlier_sets_from_scales(scales, w4, device=dev).items()}
+    check(sets == alone, "the W4A4 sets differ from the top channels of "
+          "the calibration run alone")
     missing = {k: sorted(set(PLANTED) - set(v)) for k, v in sets.items()
                if k.endswith((".wqkv", ".up")) and set(PLANTED) - set(v)}
     check(not missing, f"W4A4: planted channels not calibrated: {missing}")
     eng, serve_w4 = serve(dev, params, cfg, specs, "W4A4", "int8")
-    out["w4a4"] = dict(serve=serve_w4, calib_batches=[2, 8, 64])
-    print(f"pipeline W4A4 serve: {serve_w4}", flush=True)
-    del eng, params
+    out["w4a4"] = dict(serve=serve_w4, calib_batches=[2, 8, 64],
+                       logits_vs_fp16_spec=logits_gap(prefill_logits(
+                           eng.params, cfg, specs, tokens, eng.head_f32),
+                           ref))
+    print(f"pipeline W4A4: {out['w4a4']}", flush=True)
+    varied(serve_w4, "W4A4")
+    del eng, params, ref
     gc.collect()
     torch.cuda.empty_cache()
     out["host_s"] = secs
@@ -2539,6 +2658,14 @@ def pipeline_phase(dev, gen, report):
     print(f"pipeline host seconds: {secs}; peak memory "
           f"{out['max_memory_allocated_gib']:.2f} GiB", flush=True)
     return out
+
+
+def varied(served, name):
+    """The served rows are neither all one row nor all one repeated token
+    each (the tokens' own channels reach the head)."""
+    check(served["distinct_rows"] > 1 and served["constant_rows"] < 8,
+          f"{name}: {served['distinct_rows']} distinct rows of 8, "
+          f"{served['constant_rows']} of one repeated token")
 
 
 def main():

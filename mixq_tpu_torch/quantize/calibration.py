@@ -84,15 +84,15 @@ def outlier_sets_from_scales(
     scales: Dict,
     qcfg: QuantConfig,
     n_outliers: Optional[int] = None,
-    device=None,
+    device="cuda",
 ) -> Dict[str, Q.OutlierSet]:
     """The top-N channels of each linear group as static fp outliers (the
-    reference's top fp_features channels by calibration scale). Sets are
-    made where each scale lies, or on `device`."""
+    reference's top fp_features channels by calibration scale), made on
+    `device` whatever the scales' type or device."""
     n = n_outliers if n_outliers is not None else qcfg.outlier_budget
     out = {}
     for key, s in scales.items():
-        s = _scale_tensor(s, device or getattr(s, "device", "cpu"))
+        s = _scale_tensor(s, device)
         k = s.shape[0]
         out[key] = Q.top_k_outliers_from_scales(
             s, n=min(n, k, qcfg.outlier_budget), k=k,
@@ -103,14 +103,14 @@ def outlier_sets_from_scales(
 def sigma_outlier_sets_from_scales(
     scales: Dict,
     qcfg: QuantConfig,
-    device=None,
+    device="cuda",
 ) -> Dict[str, Q.OutlierSet]:
     """Alternative policy: the channels whose calibration absmax exceeds
     sigma (the online predictor's threshold, applied offline), the largest
-    first, capped at the budget."""
+    first, capped at the budget; made on `device`."""
     out = {}
     for key, s in scales.items():
-        s = _scale_tensor(s, device or getattr(s, "device", "cpu"))
+        s = _scale_tensor(s, device)
         k = s.shape[0]
         n = int(min(int((s > qcfg.outlier_sigma).sum()),
                     qcfg.outlier_budget))

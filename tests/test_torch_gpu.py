@@ -1343,8 +1343,8 @@ def test_calibrated_w4a4_on_the_card(cuda):
     _assert_params_equal(card, cpu)
     s_card = collect_act_scales(params_from_source(
         src_card, cfg, DecoderSpecs.fp16(), device=cuda), cfg, batches)
-    sets_card = outlier_sets_from_scales(s_card, qcfg)
-    sets_cpu = outlier_sets_from_scales(s_cpu, qcfg)
+    sets_card = outlier_sets_from_scales(s_card, qcfg, device=cuda)
+    sets_cpu = outlier_sets_from_scales(s_cpu, qcfg, device="cpu")
     for k, b in s_cpu.items():
         a = s_card[k]
         assert a.device.type == "cuda"

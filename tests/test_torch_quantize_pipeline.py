@@ -185,8 +185,25 @@ def test_set_policies_as_jax():
         for k in j:
             assert_tree_equal(jtree(j[k]), t[k], k)
     j = jcal.outlier_sets_from_scales(scales, qcfg, n_outliers=5)
-    t = tcal.outlier_sets_from_scales(scales, tq, n_outliers=5)
+    t = tcal.outlier_sets_from_scales(scales, tq, n_outliers=5,
+                                      device="cpu")
     assert_tree_equal(jtree(j["0.down"]), t["0.down"])
+
+
+@pytest.mark.parametrize("build", [tcal.outlier_sets_from_scales,
+                                   tcal.sigma_outlier_sets_from_scales])
+def test_set_builders_default_to_the_card(build):
+    """Sets go where `device` says (the card by default), whether the
+    scales are numpy (load_act_scales) or tensors."""
+    import inspect
+
+    assert inspect.signature(build).parameters["device"].default == "cuda"
+    tq = TQuantConfig.w4a4(outlier_budget=BUDGET, outlier_sigma=6.0)
+    scales = np.arange(64, dtype=np.float32) / 4
+    for s in (scales, torch.from_numpy(scales)):
+        oset = build({"0.wqkv": s}, tq, device="cpu")["0.wqkv"]
+        assert all(t.device.type == "cpu" for t in oset)
+        assert oset.ind[:int(oset.count)].tolist()[:2] == [63, 62]
 
 
 def test_act_scales_npz_round_trip(tmp_path):
