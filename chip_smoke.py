@@ -2280,7 +2280,7 @@ KERNEL_NOTES = {
 # channels fell below bf16's rounding and every served row was one
 # repeated token). BOOST is the least of 200, 250, 300 and 400 that keeps
 # the planted channels' normed maxima past 2 sigma in all 32 layers (200
-# gave 1.98); the margin is asserted and reported.
+# gave 1.98; phase7_scan.py); the margin is asserted and reported.
 PLANTED, BOOST, EMBED_STD, SIGMA = (11, 1003, 2050, 3071), 250.0, 1.0, 6.0
 # one prefill's logits of the warmed W8A8 model against the FP16-spec model
 # of the same float weights: their distance over the reference's spread
@@ -2288,17 +2288,17 @@ PLANTED, BOOST, EMBED_STD, SIGMA = (11, 1003, 2050, 3071), 250.0, 1.0, 6.0
 # distance of the same model with its promoted rows dropped (the fault of a
 # promotion that zeroes a row of the int weight and never fills the outlier
 # term), so that the check would see that fault, and under half of the
-# quantized model's before warmup. An H100 80GB HBM3 at 700 W read
-# 0.19-0.26 for the warmed model at boosts of 200-400 (dropped rows 5.4-9.1,
-# before warmup 0.52-0.85)
+# quantized model's before warmup (phase7_scan.py reads all three at each
+# boost)
 LOGITS_REL_TOL = 0.5
 
 
-def float_state_dict(cfg, dev, seed=7, layers=None):
+def float_state_dict(cfg, dev, seed=7, layers=None, boost=BOOST,
+                     embed_std=EMBED_STD):
     """A bf16 state dict of `cfg` under HF's llama names on the card from
-    `seed`: N(0, EMBED_STD) embedding rows with the PLANTED channels raised
-    by BOOST, N(0, 0.02) linear weights and head, norms of ones. `layers`
-    keeps only the first blocks."""
+    `seed`: N(0, embed_std) embedding rows with the PLANTED channels raised
+    by `boost`, N(0, 0.02) linear weights and head, norms of ones. `layers`
+    keeps only the first blocks (phase7_scan.py sets the boost)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -2311,9 +2311,9 @@ def float_state_dict(cfg, dev, seed=7, layers=None):
     def ones():
         return torch.ones(H, device=dev, dtype=torch.bfloat16)
 
-    sd = {"model.embed_tokens.weight": w(V, H, std=EMBED_STD),
+    sd = {"model.embed_tokens.weight": w(V, H, std=embed_std),
           "model.norm.weight": ones(), "lm_head.weight": w(V, H)}
-    sd["model.embed_tokens.weight"][:, list(PLANTED)] += BOOST
+    sd["model.embed_tokens.weight"][:, list(PLANTED)] += boost
     for i in range(cfg.num_hidden_layers if layers is None else layers):
         p = f"model.layers.{i}."
         sd[p + "input_layernorm.weight"] = ones()
