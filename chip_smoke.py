@@ -2085,12 +2085,23 @@ def decode_timing(dev, eng, cfg, gen, tag, name):
                bound_ms=bound_ms(nbytes, [])[0],
                graph_capture_ms=capture_ms,
                graph_logits_bit_equal_steps=steps)
+    want_steps = {k: v * steps for k, v in want.items()}
     for mode in ("eager", "graph"):
-        rewind()
-        prof = profile_steps(runs[mode], f"{tag}_{mode}", steps)
-        check_executed(prof.pop("ran"),
-                       {k: v * steps for k, v in want.items()},
-                       f"{tag} {mode} steps")
+        # CUPTI can drop a kernel's record inside a window (an H100 once
+        # showed 511 of 512 kernel-1 and 1,791 of 1,792 kernel-2 runs over
+        # 8 eager steps, every other count exact): a window short of some
+        # kernel is profiled again, at most twice; one that ran a kernel
+        # more often than the steps launch it fails at once
+        for window in range(1, 4):
+            rewind()
+            prof = profile_steps(runs[mode], f"{tag}_{mode}", steps)
+            ran = prof.pop("ran")
+            if window == 3 or all(ran.get(k, 0) >= v
+                                  for k, v in want_steps.items()
+                                  if k in ran):
+                break
+        check_executed(ran, want_steps, f"{tag} {mode} steps")
+        prof["profiled_windows"] = window
         wall = [w for w, _ in timed[mode]]
         mean = sum(wall) / len(wall)
         res[mode] = dict(
