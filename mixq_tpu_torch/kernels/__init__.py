@@ -100,19 +100,21 @@ SPIN = "spin_kernel"
 
 
 @contextlib.contextmanager
-def card_trace():
+def card_trace(pause: float = 0.05):
     """A torch.profiler window (device activity only) over the block,
     yielding the profiler. Before and after the block the card is
-    synchronized, a spin kernel (SPIN) runs and the host pauses 50 ms:
-    windows on the H100 that opened and closed right at their work lost
-    kernels (the last ~3 ms of a graph replay; four of 8 eager steps')."""
+    synchronized, a spin kernel (SPIN) runs and the host pauses `pause`
+    seconds: windows on the H100 that opened and closed right at their
+    work lost kernels (the last ~3 ms of a graph replay; four of 8 eager
+    steps'), and some windows with 50 ms pauses still lost the first
+    kernels of their block."""
     from torch.profiler import ProfilerActivity, profile
 
     def margin():
         torch.cuda.synchronize()
         torch.cuda._sleep(1 << 22)
         torch.cuda.synchronize()
-        time.sleep(0.05)
+        time.sleep(pause)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         margin()
