@@ -2089,8 +2089,8 @@ def decode_timing(dev, eng, cfg, gen, tag, name):
     for mode in ("eager", "graph"):
         # CUPTI drops kernel records from some windows, mostly the first of
         # their block, and never adds any (on an H100: one of 512 kernel-1
-        # runs; a tenth of a window's records; in one call the first three
-        # port kernels of every window after some point), and every window
+        # runs; in one call the first three port kernels of every window
+        # after some point), and every window
         # runs the same steps: a window short of some kernel is profiled
         # again after a 0.5 s pause, at most 6 windows, and each kernel's
         # count is its most in any window; the times are the first
@@ -2313,10 +2313,9 @@ PLANTED, BOOST, EMBED_STD, SIGMA = (11, 1003, 2050, 3071), 250.0, 1.0, 6.0
 LOGITS_REL_TOL = 0.5
 
 
-def float_state_dict(cfg, dev, seed=7, layers=None, boost=BOOST,
-                     embed_std=EMBED_STD):
+def float_state_dict(cfg, dev, seed=7, layers=None, boost=BOOST):
     """A bf16 state dict of `cfg` under HF's llama names on the card from
-    `seed`: N(0, embed_std) embedding rows with the PLANTED channels raised
+    `seed`: N(0, EMBED_STD) embedding rows with the PLANTED channels raised
     by `boost`, N(0, 0.02) linear weights and head, norms of ones. `layers`
     keeps only the first blocks (phase7_scan.py sets the boost)."""
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -2331,7 +2330,7 @@ def float_state_dict(cfg, dev, seed=7, layers=None, boost=BOOST,
     def ones():
         return torch.ones(H, device=dev, dtype=torch.bfloat16)
 
-    sd = {"model.embed_tokens.weight": w(V, H, std=embed_std),
+    sd = {"model.embed_tokens.weight": w(V, H, std=EMBED_STD),
           "model.norm.weight": ones(), "lm_head.weight": w(V, H)}
     sd["model.embed_tokens.weight"][:, list(PLANTED)] += boost
     for i in range(cfg.num_hidden_layers if layers is None else layers):

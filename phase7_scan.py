@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The planting scan behind chip_smoke.py's phase 7 (one CUDA card).
 
-    python3 phase7_scan.py [--boosts 200,250,300,400] [--embed-std 1.0]
+    python3 phase7_scan.py [--boosts 200,250,300,400]
 
 For each boost of the PLANTED embedding channels: Llama-2-7B at full
 width and depth from chip_smoke.float_state_dict on the card, through
@@ -27,7 +27,7 @@ import time
 import torch
 
 
-def scan(dev, boost, embed_std):
+def scan(dev, boost):
     import chip_smoke as S
     from mixq_tpu_torch.config import QuantConfig
     from mixq_tpu_torch.models.decoder import DecoderSpecs
@@ -35,7 +35,7 @@ def scan(dev, boost, embed_std):
     from mixq_tpu_torch.quantize import quantize_model
 
     cfg = S.llama2_7b()
-    sd = S.float_state_dict(cfg, dev, boost=boost, embed_std=embed_std)
+    sd = S.float_state_dict(cfg, dev, boost=boost)
     src = TensorSource.from_torch_state_dict(sd)
     params, specs = quantize_model(src, cfg, QuantConfig.w8a8(), device=dev)
     fp_specs = DecoderSpecs.fp16()
@@ -59,7 +59,7 @@ def scan(dev, boost, embed_std):
             eng.head_f32), ref),
         before_warmup=before)
     _, served = S.serve(dev, None, cfg, specs, "W8A8", "int8", eng=eng)
-    return dict(boost=boost, embed_std=embed_std,
+    return dict(boost=boost, embed_std=S.EMBED_STD,
                 planted_margin_by_step=S.planted_margins(
                     log, cfg.num_hidden_layers),
                 logits_vs_fp16_spec=logits,
@@ -74,7 +74,6 @@ def scan(dev, boost, embed_std):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--boosts", default="200,250,300,400")
-    ap.add_argument("--embed-std", type=float, default=1.0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("phase7_scan: no CUDA device", file=sys.stderr)
@@ -88,7 +87,7 @@ def main():
     rows = []
     for boost in (float(b) for b in args.boosts.split(",")):
         t0 = time.perf_counter()
-        row = scan(dev, boost, args.embed_std)
+        row = scan(dev, boost)
         row["seconds"] = time.perf_counter() - t0
         print(json.dumps(row), flush=True)
         rows.append(row)
