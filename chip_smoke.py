@@ -2090,11 +2090,10 @@ def decode_timing(dev, eng, cfg, gen, tag, name):
         # CUPTI drops kernel records from some windows, mostly the first of
         # their block, and never adds any (on an H100: one of 512 kernel-1
         # runs; in one call the first three port kernels of every window
-        # after some point), and every window
-        # runs the same steps: a window short of some kernel is profiled
-        # again after a 0.5 s pause, at most 6 windows, and each kernel's
-        # count is its most in any window; the times are the first
-        # complete window's
+        # after some point), and every window runs the same steps: a window
+        # short of some kernel is profiled again after a 0.5 s pause, at
+        # most 6 windows, and each kernel's count is its most in any
+        # window; the times are the first complete window's
         most, short = {}, []
         for window in range(6):
             rewind()
@@ -2457,7 +2456,7 @@ def bit_equal_to_cpu(card, cpu):
 
 
 def slot_linears(params, key):
-    """The linears of block `layer` that read stats slot `slot`."""
+    """The linears that read stats slot `key` ("{layer}.{slot}")."""
     from mixq_tpu_torch.quantize.online import SLOT_LINEARS
 
     i, slot = key.split(".")
