@@ -2,15 +2,26 @@
 // [B, S, n_kv, D] (bf16, or int8 with per-(token, head) f32 scales
 // [B, S, n_kv]), with per-row valid lengths and first valid positions, GQA
 // groups of g query heads per kv head, an optional ring layout
-// (sliding-window caches), gemma2's score scale and logit softcap.
+// (sliding-window caches), gemma2's score scale and logit softcap, and
+// Baichuan-13B's ALiBi bias.
 //
 // Replaces: mixq_tpu/ops/pallas/decode_attention.py::decode_attention, and
 // with it `attend` over a batch-major cache at T=1 (mixq_tpu/models/
 // layers.py), whose recipe it is:
 //   s = (sum_d f32(q) * f32(k)) * scale [* k_scale]; [softcap] s =
-//   tanh(s / cap) * cap; masked slots s = -1e30; p = softmax(s)
-//   [* v_scale]; o = sum_s p * f32(v)
+//   tanh(s / cap) * cap; [ALiBi] s = s + slope_h * f32(p - q_pos);
+//   masked slots s = -1e30; p = softmax(s) [* v_scale]; o = sum_s p *
+//   f32(v)
 // all in f32 (K and V widened, nothing quantized), rounded once to bf16.
+// ALiBi is `attend`'s relative form: p is the absolute position (the
+// kernel walks positions, on a ring too) and q_pos = len - 1, the query's;
+// the bias is rounded as the plain version rounds it, a multiply then an
+// add (__fmul_rn, __fadd_rn: no contraction into an fma). It goes into the
+// score where the score is formed, before any max; the softcap is applied
+// later to the raw scores (the cap is monotone), so the two together would
+// need the cap moved before the max: the wrapper refuses that pair, which
+// no ported family has. The slopes are a runtime pointer (null: none), so
+// ALiBi adds no instantiation.
 //
 // Valid positions are [lo, hi): hi = len (non-ring: min(len, S)), lo =
 // max(start, 0) and, for a ring, also len - S. A ring keeps position p in
@@ -154,6 +165,7 @@ struct Args {
   int length_all;
   const int32_t* starts;    // [B] or null: start_all
   int start_all;
+  const float* alibi;       // [n_kv*G] ALiBi slopes or null
   __nv_bfloat16* out;       // [B, n_kv*G, D]
   int S, D, ring;
   float scale, softcap;
@@ -438,6 +450,9 @@ decode_attention_kernel(const Args a) {
               sv = __fmul_rn(c4[e], a.scale);
               if constexpr (kInt8)
                 sv = __fmul_rn(sv, sscale[rr]);
+              if (a.alibi)      // head j's slope; the query at len - 1
+                sv = __fadd_rn(sv, __fmul_rn(a.alibi[hk * G + j],
+                                             (float)(p - (len - 1))));
               if (uniform) sv = 0.f;
               tmax = fmaxf(tmax, sv);
             }
@@ -747,20 +762,23 @@ int route(int int8, bool cap, int g, const Args& a, int B, int n_kv, int R,
 
 // lengths / starts: a [B] int32 array, or null and the scalar beside it.
 // softcap > 0: scores = tanh(scores / softcap) * softcap after the scale.
+// alibi: [n_kv * g] f32 slopes, or null for no ALiBi (not with a softcap).
 // ring != 0: position p lives in slot p % S, and lengths are absolute.
 // splits: R, the blocks of one row's cluster
 // (kernels/decode_attention.py::plan_decode).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* lengths, int length_all, const void* starts,
-    int start_all, void* out, int B, int S, int n_kv, int g, int D,
-    float scale, float softcap, int int8, int ring, int splits,
+    int start_all, const void* alibi, void* out, int B, int S, int n_kv,
+    int g, int D, float scale, float softcap, int int8, int ring, int splits,
     void* stream) {
   if (splits < 1 || splits > kMaxSplits) return (int)cudaErrorInvalidValue;
+  if (alibi && softcap > 0.f) return (int)cudaErrorInvalidValue;
   const Args a{(const __nv_bfloat16*)q, (const char*)k, (const char*)v,
                (const float*)ks, (const float*)vs, (const int32_t*)lengths,
                length_all, (const int32_t*)starts, start_all,
-               (__nv_bfloat16*)out, S, D, ring, scale, softcap};
+               (const float*)alibi, (__nv_bfloat16*)out, S, D, ring, scale,
+               softcap};
   return route(int8, softcap > 0.f, g, a, B, n_kv, splits,
                (cudaStream_t)stream, nullptr);
 }

@@ -5,8 +5,8 @@
 //
 // Replaces: mixq_tpu/ops/pallas/flash_decode.py::flash_decode_attention
 // (its main-cache path, with the softcap and the score-scale override of
-// gemma2; no tail window or ALiBi; a sliding window comes in as the
-// per-row first valid slot).
+// gemma2 and the ALiBi bias of Baichuan-13B; no tail window; a sliding
+// window comes in as the per-row first valid slot).
 // It repeats the Pallas kernel's single-pass whole-row softmax exactly:
 //   int8: q is absmax-quantized per head, s = int32(q_i8 . k) * q_scale *
 //         k_scale * scale; [softcap] s = tanh(s / cap) * cap;
@@ -14,10 +14,17 @@
 //         p_scale = max(max(p2) / 127, 1e-20); p_i8 = round(p2 / p_scale);
 //         o = int32(p_i8 . v) * p_scale / l
 //   bf16: s = (q . k) * scale in f32; [softcap]; o = (bf16(p) . v) / l
+//   [ALiBi] after the softcap, s = s + slope_h * f32(slot), the Pallas
+//   kernel's absolute form (the query's -slope * q_pos is a constant of
+//   the row, which the softmax drops); the slot is the absolute index in
+//   the row, so under a cluster split the rank's part start plus i.
 // `scale` is a runtime float (1/sqrt(D), or gemma2's
 // query_pre_attn_scalar^-0.5); the softcap is a template flag, so the
 // instantiations without it are the ones llama runs. The softcap uses the
-// accurate tanhf (no tanh.approx, no --use_fast_math).
+// accurate tanhf (no tanh.approx, no --use_fast_math). The ALiBi slopes
+// are a runtime pointer (null: none), so ALiBi adds no instantiation; the
+// bias is rounded as the plain version rounds it, a multiply then an add
+// (__fmul_rn, __fadd_rn: no contraction into an fma).
 // Masked slots get exactly the probability the Pallas kernel gives them, 0,
 // so they are skipped instead of read. A row with no valid slot is written
 // as zeros (the Pallas kernel's `live` factor; it zeroes only rows of
@@ -109,6 +116,7 @@ struct Args {
   const int32_t* lengths;   // [B] or null: length_all
   int length_all;
   const int32_t* starts;    // [B] or null: 0
+  const float* alibi;       // [n_kv*G] ALiBi slopes or null
   __nv_bfloat16* out;       // [B, n_kv*G, D]
   int B, S, Sp, D, P;       // P: the longest part a rank takes
   float scale, softcap;
@@ -448,6 +456,8 @@ flash_decode_kernel(const Args a) {
         sv = __fmul_rn(sc[h * P + i], a.scale);
       if constexpr (kSoftcap)
         sv = __fmul_rn(tanhf(__fdiv_rn(sv, a.softcap)), a.softcap);
+      if (a.alibi)      // head h's slope, read where it is used
+        sv = __fadd_rn(sv, __fmul_rn(a.alibi[hk * G + h], (float)(lo + i)));
       sc[h * P + i] = sv;
       m[h] = fmaxf(m[h], sv);
     }
@@ -671,20 +681,23 @@ int route(int int8, bool cap, int g, const Args& a, int n_kv, int R,
 }  // namespace
 
 // softcap > 0: scores = tanh(scores / softcap) * softcap after the scale;
+// alibi: [n_kv * g] f32 slopes, or null for no ALiBi;
 // splits: R, the blocks of one row's cluster
 // (kernels/flash_decode.py::plan_flash).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* ks,
                                    const void* vs, const void* lengths,
                                    int length_all, const void* starts,
-                                   void* out, int B, int n_kv, int g, int S,
-                                   int Sp, int D, float scale, float softcap,
-                                   int int8, int splits, void* stream) {
+                                   const void* alibi, void* out, int B,
+                                   int n_kv, int g, int S, int Sp, int D,
+                                   float scale, float softcap, int int8,
+                                   int splits, void* stream) {
   if (splits < 1 || splits > kMaxSplits) return (int)cudaErrorInvalidValue;
   const Args a{(const __nv_bfloat16*)q, (const char*)k, (const char*)v,
                (const float*)ks, (const float*)vs, (const int32_t*)lengths,
-               length_all, (const int32_t*)starts, (__nv_bfloat16*)out, B, S,
-               Sp, D, part_rows(S, rows_per_step(D * (int8 ? 1 : 2)), splits),
+               length_all, (const int32_t*)starts, (const float*)alibi,
+               (__nv_bfloat16*)out, B, S, Sp, D,
+               part_rows(S, rows_per_step(D * (int8 ? 1 : 2)), splits),
                scale, softcap};
   return route(int8, softcap > 0.f, g, a, n_kv, splits,
                (cudaStream_t)stream, nullptr);

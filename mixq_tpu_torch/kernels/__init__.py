@@ -4,9 +4,10 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 module's plain PyTorch version only for CPU tensors. Each keeps a plain
 integer count of its launches in its `launches` attribute, and a wrapper
 with several modes also counts them by mode in `mode_launches` (the GEMMs
-by weight mode and by epilogue, flash decode its softcap launches, decode
-attention its KV type, ring and softcap launches), so a run can show that the main path went through the kernels, in the modes it
-expects.
+by weight mode and by epilogue, flash decode its softcap and ALiBi
+launches, decode attention its KV type, ring, softcap and ALiBi launches),
+so a run can show that the main path went through the kernels, in the
+modes it expects.
 
 The counts are the wrappers' launches: an eager launch, and a launch
 recorded into a CUDA graph while it is captured, count once each. A
@@ -73,10 +74,12 @@ _BASES = ("mix_gemm_kernel", "w8a16_kernel", "flash_decode_kernel",
           "decode_attention_kernel", "rmsnorm_quant_regs",
           "rmsnorm_quant_loop")
 # the launch-count keys a kernel's name does not show: the GEMMs'
-# epilogues and decode attention's ring are runtime arguments
+# epilogues, decode attention's ring and both attentions' ALiBi slopes are
+# runtime arguments
 UNNAMED = frozenset([f"mix_gemm.{e}" for e in mix_gemm.EPILOGUES]
                     + [f"w8a16.{e}" for e in w8a16.EPILOGUES]
-                    + ["decode_attention.ring"])
+                    + ["decode_attention.ring", "decode_attention.alibi",
+                       "flash_decode.alibi"])
 
 
 def _keys_of(m) -> list:
@@ -100,14 +103,17 @@ SPIN = "spin_kernel"
 
 
 @contextlib.contextmanager
-def card_trace(pause: float = 0.05):
+def card_trace(pause: float = 0.05, primer=None):
     """A torch.profiler window (device activity only) over the block,
     yielding the profiler. Before and after the block the card is
     synchronized, a spin kernel (SPIN) runs and the host pauses `pause`
     seconds: windows on the H100 that opened and closed right at their
     work lost kernels (the last ~3 ms of a graph replay; four of 8 eager
     steps'), and some windows with 50 ms pauses still lost the first
-    kernels of their block."""
+    kernels of their block (the first kernel-1 and kernel-2 runs: one and
+    up to three). `primer`, when given, runs inside the window before the
+    first spin kernel, so that such a loss falls on its launches; a
+    reader then takes only the block's events (`block_events`)."""
     from torch.profiler import ProfilerActivity, profile
 
     def margin():
@@ -117,9 +123,27 @@ def card_trace(pause: float = 0.05):
         time.sleep(pause)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if primer is not None:
+            primer()
         margin()
         yield prof
         margin()
+
+
+def block_events(prof) -> list:
+    """The device events of a card_trace window's block: those that start
+    between its two spin kernels; every device event but the spins when
+    the window does not hold exactly two."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spins = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if SPIN in e.name)
+    rest = [e for e in events if SPIN not in e.name]
+    if len(spins) != 2:
+        return rest
+    lo, hi = spins[0][1], spins[1][0]
+    return [e for e in rest if lo <= e.time_range.start <= hi]
 
 
 def executed_counts(events) -> dict:

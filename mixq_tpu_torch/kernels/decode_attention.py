@@ -19,8 +19,14 @@ batch-major cache at T=1 needs, so that the decoder's decode step runs here:
            `attend`'s window mask for the query at kv_len - 1;
   scale    the score scale (default 1/sqrt(D), gemma2's
            query_pre_attn_scalar^-0.5), and `softcap` > 0 (gemma2:
-           tanh(s / cap) * cap after the scale and k_scale, before the mask).
-ALiBi is not ported and raises NotImplementedError.
+           tanh(s / cap) * cap after the scale and k_scale, before the mask);
+  alibi_slopes  [n_q] f32 (Baichuan-13B): `attend`'s bias
+           slope * f32(kv_pos - q_pos), q_pos = kv_len - 1, added before
+           the mask (mixq_tpu/models/layers.py:824-830), on ring positions
+           too. With a softcap it raises ValueError: the kernel caps its
+           raw scores after their max (the cap is monotone), and the bias
+           would have to come after the cap and before the max; no ported
+           family has both.
 
 A row with no valid position gets what JAX gives it: every score is masked
 to -1e30, so the softmax is uniform over all S slots and the row is the mean
@@ -41,8 +47,8 @@ in units of UNIT positions.
 `decode_attention` launches the kernel for CUDA tensors and runs
 `decode_attention_plain`, which is `attend` at T=1 (PyTorch ops), for CPU
 tensors. Besides its total `launches` the wrapper counts its
-launches by mode in `mode_launches`: "int8" or "bf16" (the KV type), "ring"
-and "softcap".
+launches by mode in `mode_launches`: "int8" or "bf16" (the KV type), "ring",
+"softcap" and "alibi".
 """
 from __future__ import annotations
 
@@ -137,6 +143,7 @@ def decode_attention_plain(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None, kv_start: Rows = None,
     ring: bool = False, scale: Optional[float] = None, softcap: float = 0.0,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """PyTorch version of the kernel: `attend` over the cache layer for the
     query at kv_len - 1 of each row."""
@@ -150,7 +157,8 @@ def decode_attention_plain(
         kv_start, device=q.device).expand(B))
     return attend(q[:, None], k, v, (lens - 1)[:, None], lens, starts,
                   k_scale=k_scale, v_scale=v_scale, scale=scale,
-                  softcap=softcap or None, ring=ring)[:, 0]
+                  softcap=softcap or None, ring=ring,
+                  alibi=alibi_slopes)[:, 0]
 
 
 @functools.cache
@@ -158,8 +166,8 @@ def _lib():
     lib = _build.load("decode_attention")
     lib.decode_attention_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_int,
-                                 ctypes.c_void_p, ctypes.c_int,
-                                 ctypes.c_void_p] + [ctypes.c_int] * 5
+                                 ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
     lib.decode_attention_launch.restype = ctypes.c_int
@@ -206,13 +214,15 @@ def _decode(q, k, v, kv_len, k_scale, v_scale, kv_start, ring, scale,
             splits: Optional[int] = None) -> torch.Tensor:
     """`decode_attention`; `splits` forces R (1, 2, 4 or 8) instead of
     plan_decode's, so a card test can hold the result across plans."""
-    if alibi_slopes is not None:
-        raise NotImplementedError("decode_attention: ALiBi is not ported")
     if softcap < 0:
         raise ValueError(f"softcap {softcap} must be >= 0 (0: none)")
+    if alibi_slopes is not None and softcap:
+        raise ValueError("decode_attention: ALiBi with a softcap is not "
+                         "supported (the kernel caps scores after their max)")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len, k_scale, v_scale,
-                                      kv_start, ring, scale, softcap)
+                                      kv_start, ring, scale, softcap,
+                                      alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, n_q, D = q.shape
@@ -236,6 +246,9 @@ def _decode(q, k, v, kv_len, k_scale, v_scale, kv_start, ring, scale,
                     or not t.is_contiguous()):
                 raise ValueError(f"{name} must be a contiguous f32 "
                                  f"{(B, S, n_kv)} tensor on {dev}")
+    if alibi_slopes is not None:
+        _build.require(alibi_slopes, torch.float32, (n_q,), "alibi_slopes",
+                       dev)
     if scale is None:             # attend's f32 1 / sqrt(D)
         scale = float(1.0 / torch.sqrt(torch.tensor(float(D))))
     g = n_q // n_kv
@@ -255,7 +268,9 @@ def _decode(q, k, v, kv_len, k_scale, v_scale, kv_start, ring, scale,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        len_p, len_all, st_p, st_all, out.data_ptr(),
+        len_p, len_all, st_p, st_all,
+        None if alibi_slopes is None else alibi_slopes.data_ptr(),
+        out.data_ptr(),
         B, S, n_kv, g, D, scale, softcap, int(quantized), int(ring), splits,
         stream)
     _build.check(rc, "decode_attention")
@@ -266,9 +281,11 @@ def _decode(q, k, v, kv_len, k_scale, v_scale, kv_start, ring, scale,
         modes["ring"] += 1
     if softcap:
         modes["softcap"] += 1
+    if alibi_slopes is not None:
+        modes["alibi"] += 1
     return out
 
 
 decode_attention.launches = 0
 decode_attention.mode_launches = {"int8": 0, "bf16": 0, "ring": 0,
-                                  "softcap": 0}
+                                  "softcap": 0, "alibi": 0}

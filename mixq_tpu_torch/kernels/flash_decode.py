@@ -5,9 +5,13 @@ main-cache path) with the CUDA kernel in mixq_tpu_torch/csrc/flash_decode.cu.
 bf16 or int8 cache with per-(token, head) scales, GQA, per-row valid lengths
 and first valid slots (kv_start), and gemma2's score-scale override (`scale`,
 default 1/sqrt(D)) and logit softcap (`softcap` > 0: tanh(s / cap) * cap
-after the scale, before the mask), with the Pallas signature's meaning. The
-int8 mode repeats the Pallas recipe: q and the probabilities are
-absmax-quantized so both dots are int8 x int8.
+after the scale, before the mask), and ALiBi (`alibi_slopes` [n_q] f32:
+slope * f32(slot) added after the softcap, before the mask, the Pallas
+kernel's absolute form, mixq_tpu/ops/pallas/flash_decode.py:340-348: the
+query's own -slope * q_pos is a constant of the row, which the softmax
+drops), with the Pallas signature's meaning. The int8 mode repeats the
+Pallas recipe: q and the probabilities are absmax-quantized so both dots
+are int8 x int8.
 
 One difference from the Pallas kernel: a row with no valid slot
 (length <= kv_start) comes out as zeros. The Pallas kernel zeroes only rows
@@ -16,7 +20,7 @@ kv_start >= length > 0; the decoder never produces such a row.
 
 A sliding window reaches the kernel as its per-row start: the decoder
 passes max(kv_start, kv_len - W) at T=1, as JAX does. Still to port
-(ROADMAP.md Queue B): ALiBi, the token-major tail window and T>1 verify.
+(ROADMAP.md Queue B): the token-major tail window and T>1 verify.
 
 `use_head_major_cache` is JAX's policy for which cache layout serving
 takes (head-major for this kernel, or batch-major for kernel 8), read as on
@@ -34,8 +38,8 @@ row's slots between the ranks, as the kernel computes it.
 `flash_decode_level` sizes one flipped probability level per output row,
 the unit of the kernel's tolerance against the plain version on a peaked
 softmax.
-Besides its total `launches`, the wrapper counts its softcap launches in
-`mode_launches["softcap"]`.
+Besides its total `launches`, the wrapper counts its softcap and ALiBi
+launches in `mode_launches["softcap"]` and `mode_launches["alibi"]`.
 """
 from __future__ import annotations
 
@@ -91,7 +95,7 @@ def _layer_view(k, v, k_scale, v_scale, layer):
 
 
 def _softmax_parts(q, k, v, lengths, k_scale, v_scale, kv_start, layer,
-                   softcap, scale):
+                   softcap, scale, alibi_slopes):
     """The plain version's scores and softmax numerator: (p = exp(s - max)
     [B, n_kv, g, S] f32, l = sum(p), valid [B, S], live, the layer's v and
     v_scale, quantized)."""
@@ -120,6 +124,9 @@ def _softmax_parts(q, k, v, lengths, k_scale, v_scale, kv_start, layer,
         qk = torch.matmul(qf, kt.float()) * scale
     if softcap:
         qk = torch.tanh(true_div(qk, softcap)) * softcap
+    if alibi_slopes is not None:
+        qk = qk + (alibi_slopes.reshape(n_kv, g)[None, :, :, None]
+                   * pos.float())
     qk = torch.where(valid[:, None, None, :], qk, MASK_VALUE)
     m = qk.amax(-1, keepdim=True)
     p = torch.exp(qk - m)
@@ -132,11 +139,13 @@ def flash_decode_plain(
     v_scale: Optional[torch.Tensor] = None, kv_start: Rows = None,
     layer: Optional[int] = None, softcap: float = 0.0,
     scale: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """PyTorch version of the kernel, in the Pallas kernel's order of
     operations. The int8 dots run in float64, which holds them exactly."""
     p, l, _, live, v, v_scale, quantized = _softmax_parts(
-        q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap, scale)
+        q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap, scale,
+        alibi_slopes)
     B, n_q, D = q.shape
     S = v.shape[2]
     vv = v.permute(1, 0, 2, 3)                       # [B, n_kv, S, D]
@@ -159,6 +168,7 @@ def flash_decode_level(
     v_scale: Optional[torch.Tensor] = None, kv_start: Rows = None,
     layer: Optional[int] = None, softcap: float = 0.0,
     scale: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[B, n_q] f32: the most that one probability level, rounded the other
     way, moves an output row of flash_decode_plain. int8: a level of p_i8
@@ -168,7 +178,8 @@ def flash_decode_level(
     implementations flips such roundings now and then; a peaked softmax
     (small l) makes each flip large."""
     p, l, valid, _, v, v_scale, quantized = _softmax_parts(
-        q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap, scale)
+        q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap, scale,
+        alibi_slopes)
     B, n_q, _ = q.shape
     S = v.shape[2]
     if quantized:
@@ -330,10 +341,9 @@ def use_head_major_cache(attn_impl: str, model_cfg, max_seq: int,
 def _lib():
     lib = _build.load("flash_decode")
     lib.flash_decode_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p,
-                                 ctypes.c_void_p] + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 2
-        + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.flash_decode_launch.restype = ctypes.c_int
     return lib
 
@@ -361,19 +371,22 @@ def flash_decode_attention(
     layer: Optional[int] = None,              # layer index of a 5D cache
     softcap: float = 0.0,                     # > 0: gemma2 logit softcap
     scale: Optional[float] = None,            # score scale; None: 1/sqrt(D)
+    alibi_slopes: Optional[torch.Tensor] = None,   # [n_q] f32 ALiBi slopes
 ) -> torch.Tensor:
     """Returns the attention output [B, n_q, D] in q.dtype."""
     return _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer,
-                  softcap, scale)
+                  softcap, scale, alibi_slopes)
 
 
 def _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap,
-           scale, splits: Optional[int] = None) -> torch.Tensor:
+           scale, alibi_slopes=None,
+           splits: Optional[int] = None) -> torch.Tensor:
     """`flash_decode_attention`; `splits` forces R (1, 2, 4 or 8) instead
     of plan_flash's, so a card test can hold the result across plans."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, k_scale, v_scale,
-                                  kv_start, layer, softcap, scale)
+                                  kv_start, layer, softcap, scale,
+                                  alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     k, v, k_scale, v_scale = _layer_view(k, v, k_scale, v_scale, layer)
@@ -412,6 +425,9 @@ def _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap,
                     or not t.is_contiguous()):
                 raise ValueError(f"{name} must be a contiguous f32 "
                                  f"{(n_kv, B, Sp)} tensor on {dev}")
+    if alibi_slopes is not None:
+        _build.require(alibi_slopes, torch.float32, (n_q,), "alibi_slopes",
+                       dev)
     if _row_smem(g, S, D) > SMEM_LIMIT:
         raise ValueError(f"a row's g*S*4 scores ({_row_smem(g, S, D)} bytes "
                          f"of shared memory with the reduction buffers) "
@@ -439,15 +455,19 @@ def _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap,
         v_scale.data_ptr() if quantized else None,
         None if len_t is None else len_t.data_ptr(),
         lengths if len_t is None else 0,
-        None if st_t is None else st_t.data_ptr(), out.data_ptr(),
-        B, n_kv, g, S, Sp, D, _score_scale(scale, D), softcap,
-        int(quantized), splits, stream)
+        None if st_t is None else st_t.data_ptr(),
+        None if alibi_slopes is None else alibi_slopes.data_ptr(),
+        out.data_ptr(), B, n_kv, g, S, Sp, D, _score_scale(scale, D),
+        softcap, int(quantized), splits, stream)
     _build.check(rc, "flash_decode")
     flash_decode_attention.launches += 1
+    modes = flash_decode_attention.mode_launches
     if softcap:
-        flash_decode_attention.mode_launches["softcap"] += 1
+        modes["softcap"] += 1
+    if alibi_slopes is not None:
+        modes["alibi"] += 1
     return out
 
 
 flash_decode_attention.launches = 0
-flash_decode_attention.mode_launches = {"softcap": 0}
+flash_decode_attention.mode_launches = {"softcap": 0, "alibi": 0}

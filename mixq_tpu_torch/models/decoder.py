@@ -4,7 +4,8 @@ mixq_tpu/models/decoder.py).
 A model is a plain tensor container (`DecoderParams`) plus `forward`; the
 per-linear precision policy and the decode-attention choice are a static
 `DecoderSpecs`. Ported: the llama family (RMSNorm, gated SiLU MLP, GQA,
-unscaled neox RoPE), mistral (a uniform sliding window) and gemma2 (the
+unscaled neox RoPE, or ALiBi with rope style "none": Baichuan-13B),
+mistral (a uniform sliding window) and gemma2 (the
 embedding multiplier, post-attention and post-FFW norms, the GeGLU MLP with
 the tanh-GELU fused into the gate GEMM, the query_pre_attn_scalar score
 scale, the attention and final-logit softcaps, the tied head, and
@@ -35,12 +36,15 @@ block on the card, W8A8: kernel 1 twice, the int8 GEMM seven times (q, k,
 v, o, up, gate+SiLU or gemma2's gate+GELU-tanh, down); W4A4 (reference
 policy): kernel 1 twice, five packed-W4 GEMMs (q, k, v, up, gate) and two
 W8A8 ones (o, down); W8A16: seven a16 GEMMs and no kernel 1; and one decode
-attention per decode step (kernel 3 or 8; gemma2: in its softcap mode).
+attention per decode step (kernel 3 or 8; gemma2: in its softcap mode;
+ALiBi models: in its ALiBi mode, the slopes made once per head count and
+device, so a captured step reads the eager step's).
 `forward(..., collect_stats=True)` also returns each linear group's input
 channel absmax (calibration and the online predictor's warmup read it;
 "full" gives the raw inputs); off, the forward computes none of it. The
-stacked `lax.scan` runtime, continuous batching slots, ALiBi, rope scaling
-and the other families raise NotImplementedError (ROADMAP.md Queue A).
+stacked `lax.scan` runtime, continuous batching slots, falcon's pre-scaled
+ALiBi slopes, rope scaling and the other families raise
+NotImplementedError (ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -53,9 +57,9 @@ import torch
 from mixq_tpu_torch.config import ModelConfig
 from mixq_tpu_torch.kernels.decode_attention import decode_attention
 from mixq_tpu_torch.kernels.flash_decode import flash_decode_attention
-from mixq_tpu_torch.models.layers import (KVCache, apply_rope, attend,
-                                          rmsnorm, rmsnorm_quant,
-                                          rope_cos_sin)
+from mixq_tpu_torch.models.layers import (KVCache, alibi_slopes,
+                                          apply_rope, attend, rmsnorm,
+                                          rmsnorm_quant, rope_cos_sin)
 from mixq_tpu_torch.ops import quant as Q
 from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
                                              from_float, mixed_linear,
@@ -140,22 +144,25 @@ def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
         "layernorm": cfg.layernorm != "rmsnorm",
         "parallel_attn_mlp": cfg.parallel_attn_mlp,
-        "rope_style": cfg.rope_style != "neox",
+        # ALiBi models rotate nothing (rope style "none")
+        "rope_style": cfg.rope_style != ("none" if cfg.alibi else "neox"),
         "rotary_dim": cfg.rotary_dim not in (None, cfg.head_dim_),
         "qk_norm": cfg.qk_norm,
         "num_local_experts": cfg.num_local_experts > 0,
         "gated_mlp": not gated,
         "hidden_act": cfg.hidden_act not in GATE_FUSE,
         "rope_scaling_type": cfg.rope_scaling_type is not None,
-        "alibi": cfg.alibi,
+        # falcon's slopes are pre-scaled by 1/sqrt(head_dim)
+        # (mixq_tpu/models/decoder.py:489-494)
+        "alibi": cfg.alibi and cfg.model_type == "falcon",
         "attention_bias": cfg.attention_bias,
         "mlp_bias": cfg.mlp_bias,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"model features not ported yet: {bad} (llama, mistral and "
-            "gemma2 families only)")
+            f"model features not ported yet: {bad} (llama, baichuan, "
+            "mistral and gemma2 families only)")
 
 
 def _shares_act(spec: LinearSpec) -> bool:
@@ -347,13 +354,19 @@ def forward(
         rope_pos = torch.clamp_min(q_slot[None, :] - kv_start[:, None], 0)
     else:
         rope_pos = q_slot
-    cos, sin = rope_cos_sin(rope_pos, cfg.head_dim_, cfg.rope_theta)
+    # ALiBi models rotate nothing (apply_rope's style "none")
+    cos, sin = (rope_cos_sin(rope_pos, cfg.head_dim_, cfg.rope_theta)
+                if cfg.rope_style != "none" else (None, None))
     kv_len = (cache.length + T).expand(B).contiguous()      # [B] int32
     slots = cache.slots(T, ring)
     # gemma2's attention (None elsewhere)
     attn_scale = (cfg.query_pre_attn_scalar ** -0.5
                   if cfg.query_pre_attn_scalar is not None else None)
     attn_softcap = cfg.attn_logit_softcap
+    # ALiBi's [n_q] slopes on the cache's device, as JAX passes them to
+    # every attention (decoder.py:487-488)
+    alibi = (alibi_slopes(cfg.num_attention_heads, cache.k.device)
+             if cfg.alibi else None)
     # layer windows: uniform, or on layers i % pattern == 0 (gemma2); the
     # decode step's first position for each distinct window
     windows = [W if W is not None and i % pattern == 0 else None
@@ -373,18 +386,20 @@ def forward(
             if T == 1:
                 out = decode(q[:, 0], k_c, v_c, kv_len, ks_c, vs_c,
                              kv_start=starts[win],
-                             softcap=attn_softcap or 0.0, scale=attn_scale)
+                             softcap=attn_softcap or 0.0, scale=attn_scale,
+                             alibi_slopes=alibi)
                 return out[:, None]
             if head_major:
                 # fresh-cache prefill: attention over the chunk's own fp
                 # k/v equals attention over the cache
                 return attend(q, k, v, q_slot, kv_len, kv_start=kv_start,
                               sliding_window=win, scale=attn_scale,
-                              softcap=attn_softcap)
+                              softcap=attn_softcap, alibi=alibi)
             # JAX's batch-major prefill: attend over the cache layer
             return attend(q, k_c, v_c, q_slot, kv_len, kv_start=kv_start,
                           sliding_window=win, k_scale=ks_c, v_scale=vs_c,
-                          scale=attn_scale, softcap=attn_softcap, ring=ring)
+                          scale=attn_scale, softcap=attn_softcap, ring=ring,
+                          alibi=alibi)
 
         stats = {} if collect_stats else None
         x = block_core(x, bp, kv_apply, cos, sin, specs, cfg, stats)

@@ -6,14 +6,15 @@ mixq_tpu/models/hf.py).
     params = params_from_source(src, cfg, specs, outlier_sets, device=...)
 
 Ported: `TensorSource` over a dict or a torch state dict, `config_from_hf`
-and the weight-name schemes for the llama, mistral and gemma2 families, and
-`params_from_source` for their dense blocks (separate q/k/v, gated MLP,
-gemma's +1 norm offset, gemma2's post-norms, a tied head). Every weight is
-quantized where its tensor lies or on `device`: a state dict on the card
-is quantized on the card, one tensor at a time, never through numpy. The
-other families, fused qkv tensors, MoE blocks, rope scaling, safetensors
-directories and `load_model` are still to be ported (ROADMAP.md Queue A);
-they raise.
+and the weight-name schemes for the llama, baichuan, mistral and gemma2
+families, and `params_from_source` for their dense blocks (separate q/k/v,
+or baichuan's fused `W_pack` split at load, gated MLP, gemma's +1 norm
+offset, gemma2's post-norms, a tied head). Every weight is quantized where
+its tensor lies or on `device`: a state dict on the card is quantized on
+the card, one tensor at a time, never through numpy. The other families,
+falcon's interleaved query_key_value, MoE blocks, rope scaling,
+safetensors directories and `load_model` are still to be ported
+(ROADMAP.md Queue A); they raise.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from mixq_tpu_torch.ops import quant as Q
 from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
                                              from_float)
 
-PORTED_FAMILIES = ("llama", "mistral", "gemma2")
+PORTED_FAMILIES = ("llama", "baichuan", "mistral", "gemma2")
 
 
 # ---------------------------------------------------------------------------
@@ -54,7 +55,8 @@ def _check_rope_scaling(hf: Dict) -> None:
 
 def config_from_hf(hf: Dict) -> ModelConfig:
     """Map an HF config dict to ModelConfig, field for field as JAX's
-    config_from_hf does, for the llama, mistral and gemma2 families."""
+    config_from_hf does, for the llama, baichuan, mistral and gemma2
+    families."""
     mt = hf.get("model_type", "llama")
     if mt not in PORTED_FAMILIES:
         raise NotImplementedError(
@@ -92,6 +94,12 @@ def config_from_hf(hf: Dict) -> ModelConfig:
             sliding_window=hf.get("sliding_window", 4096),
             sliding_window_pattern=2,   # even layers local, odd global
         )
+    # Baichuan-13B takes ALiBi in place of rotary: JAX's rule
+    # (mixq_tpu/models/hf.py:177-200), 40 layers or an explicit
+    # position_embedding "ALIBI"
+    alibi = mt == "baichuan" and (
+        common["num_hidden_layers"] == 40
+        or str(hf.get("position_embedding", "")).upper() == "ALIBI")
     return ModelConfig(
         **common,
         num_key_value_heads=n_kv,
@@ -103,6 +111,8 @@ def config_from_hf(hf: Dict) -> ModelConfig:
         sliding_window=(hf.get("sliding_window")
                         if hf.get("use_sliding_window", mt == "mistral")
                         else None),
+        alibi=alibi,
+        rope_style="none" if alibi else "neox",
     )
 
 
@@ -153,6 +163,10 @@ _LLAMA = dict(
 _SCHEMES: Dict[str, Dict[str, Optional[str]]] = {
     "llama": _LLAMA,
     "mistral": _LLAMA,
+    # one fused [q | k | v] tensor (JAX's scheme, mixq_tpu/models/hf.py:
+    # 384-396)
+    "baichuan": dict(_LLAMA, q=None, k=None, v=None,
+                     qkv="model.layers.{i}.self_attn.W_pack"),
     # gemma2's block has four norms: HF's post_attention_layernorm is a
     # post-attention (pre-residual) norm there, unlike llama's pre-MLP one
     "gemma2": dict(
@@ -190,14 +204,27 @@ def _linear_from_src(src: TensorSource, prefix: str, spec: LinearSpec,
     return from_float(w, spec, bias=bias, outlier_set=oset)
 
 
-def _qkv_from_src(src: TensorSource, scheme, i: int, spec: LinearSpec,
-                  oset: Optional[Q.OutlierSet], device):
-    """(wq, wk, wv) from separate q/k/v tensors, sharing one outlier set
-    (they share one quantized activation)."""
-    if scheme.get("qkv"):
-        raise NotImplementedError("fused qkv tensors are not ported")
-    return tuple(_linear_from_src(src, scheme[n].format(i=i), spec, oset,
-                                  device) for n in ("q", "k", "v"))
+def _qkv_from_src(src: TensorSource, scheme, i: int, cfg: ModelConfig,
+                  spec: LinearSpec, oset: Optional[Q.OutlierSet], device):
+    """(wq, wk, wv), sharing one outlier set (they share one quantized
+    activation): from separate q/k/v tensors, or from a fused [q | k | v]
+    tensor (baichuan's W_pack) split by rows at n_q*hd and n_q*hd +
+    n_kv*hd, its bias too (JAX's _qkv_from_src, mixq_tpu/models/hf.py:
+    550-609, its non-falcon branch)."""
+    if not scheme.get("qkv"):
+        return tuple(_linear_from_src(src, scheme[n].format(i=i), spec,
+                                      oset, device) for n in ("q", "k", "v"))
+    prefix = scheme["qkv"].format(i=i)
+    w = _f32(src, prefix + ".weight", device)
+    bias = (_f32(src, prefix + ".bias", device)
+            if src.has(prefix + ".bias") else None)
+    hd = cfg.head_dim_
+    sizes = [cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd,
+             cfg.num_key_value_heads * hd]
+    ws = torch.split(w, sizes, dim=0)
+    bs = torch.split(bias, sizes, dim=0) if bias is not None else (None,) * 3
+    return tuple(from_float(wp.t().contiguous(), spec, bias=bp,
+                            outlier_set=oset) for wp, bp in zip(ws, bs))
 
 
 def params_from_source(
@@ -237,7 +264,7 @@ def params_from_source(
 
     blocks = []
     for i in range(cfg.num_hidden_layers):
-        wq, wk, wv = _qkv_from_src(src, scheme, i, specs.wqkv,
+        wq, wk, wv = _qkv_from_src(src, scheme, i, cfg, specs.wqkv,
                                    osets.get(f"{i}.wqkv"), device)
         up_oset = osets.get(f"{i}.up")
         blocks.append(BlockParams(

@@ -11,12 +11,15 @@ The JAX cache's token-major tail window and its flush exist because a
 dynamic-offset write into the big head-major cache is a whole-array pass on
 the TPU. On the card a write into a [.., S, D] stripe is an ordinary strided
 copy, so this cache is written in place and keeps no tail; results, not
-layout, are held against the reference. Layernorm, rope scaling, ALiBi and
+layout, are held against the reference. Layernorm, rope scaling and
 `attend_chunked` are still to be ported (ROADMAP.md Queue A). `attend`
-takes gemma2's score scale, softcap and (alternating) sliding window.
+takes gemma2's score scale, softcap and (alternating) sliding window, and
+ALiBi's bias (`alibi_slopes`; Baichuan-13B, whose rope style "none" is the
+identity rotation).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -78,7 +81,11 @@ def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float = 10000.0
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                style: str = "neox") -> torch.Tensor:
     """Rotate-half ('neox') rope on x [B, T, H, D] with cos/sin [T, D/2] or
-    [B, T, D/2]; computed in f32, returned in x.dtype."""
+    [B, T, D/2]; computed in f32, returned in x.dtype. Style "none" (ALiBi
+    models) is x itself: JAX rotates by cos = 1, sin = 0
+    (mixq_tpu/models/decoder.py:455-456), which gives back x."""
+    if style == "none":
+        return x
     if style != "neox":
         raise NotImplementedError(f"rope style {style!r} is not ported")
     c = cos.unsqueeze(-2)
@@ -89,6 +96,31 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     x1, x2 = torch.chunk(xf, 2, dim=-1)
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ALiBi
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def alibi_slopes(n_heads: int, device: torch.device) -> torch.Tensor:
+    """[n_heads] f32 per-head ALiBi slopes on `device` (mirrors
+    mixq_tpu/models/layers.py:216-235, in its Python-float arithmetic): the
+    geometric sequence from 2^(-8/closest_pow2), with interleaved extra
+    slopes for a head count that is not a power of two. Made once per head
+    count and device, as utils.arith.constant is: a CUDA graph of the
+    decode step cannot hold the host-to-device copy, so it reads the
+    tensor the first, eager forward made. Only read, never written."""
+    import math
+
+    closest = 2 ** math.floor(math.log2(n_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = [base ** i for i in range(1, closest + 1)]
+    if closest != n_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        slopes += [extra_base ** i
+                   for i in range(1, 2 * (n_heads - closest) + 1, 2)]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +280,7 @@ def attend(
     softcap: Optional[float] = None,           # gemma2: tanh(s / cap) * cap
     ring: bool = False,                        # ring cache: slot s holds
                                                # ring_positions(len)[s]
+    alibi: Optional[torch.Tensor] = None,      # [n_q] f32 ALiBi slopes
 ) -> torch.Tensor:
     """Masked multi-head attention over a KV buffer (a prefill chunk's own
     k/v, or a batch-major cache layer), GQA by grouping query heads against
@@ -255,10 +288,11 @@ def attend(
     replaces 1/sqrt(D), the int8 cache's k_scale multiplies the scores after
     the contraction, the softcap comes after both, the window masks
     positions at or before q_slot - W, and v_scale multiplies the
-    normalised probabilities. Masks are taken in absolute positions, so a
+    normalised probabilities. ALiBi adds slope * f32(kv_pos - q_pos) to the
+    scores after the softcap and before the mask (JAX's relative form, on
+    ring positions too). Masks are taken in absolute positions, so a
     ring cache is read as JAX reads it. Operands in f32 (the JAX CPU path's
-    operand type; prefill is not the bandwidth-bound step). ALiBi is still
-    to be ported."""
+    operand type; prefill is not the bandwidth-bound step)."""
     B, T, n_q, D = q.shape
     S, n_kv = k.shape[1], k.shape[2]
     groups = n_q // n_kv
@@ -277,6 +311,11 @@ def attend(
         kv_pos = ring_positions(kv_valid_len, S, q.device)[:, None, :]
     else:
         kv_pos = torch.arange(S, device=q.device)[None, None, :]   # [1,1,S]
+    if alibi is not None:
+        # [n_q] slopes grouped to [n_kv, groups], as the scores are
+        dist = (kv_pos - q_pos).float()                            # [B?,T,S]
+        scores = scores + (alibi.reshape(n_kv, groups)[:, :, None, None]
+                           * dist[:, None, None])
     mask = (kv_pos <= q_pos) & (kv_pos < lens)                     # [B?,T,S]
     if ring:
         mask = mask & (kv_pos >= 0)        # never-written slots come out < 0

@@ -203,8 +203,9 @@ def test_tolerance_pins_the_widened_recipe():
 def test_wrapper_refusals():
     q, k, v, ks, vs = setup(kv_dtype=jnp.int8)
     args = (t(q[:, 0]), t(k), t(v), 20, t(ks), t(vs))
-    with pytest.raises(NotImplementedError):
-        decode_attention(*args, alibi_slopes=torch.ones(4))
+    # ALiBi with a softcap: the kernel caps scores after their max
+    with pytest.raises(ValueError, match="ALiBi with a softcap"):
+        decode_attention(*args, softcap=30.0, alibi_slopes=torch.ones(4))
     with pytest.raises(ValueError):
         decode_attention(*args, softcap=-1.0)
     before = decode_attention.launches

@@ -7,9 +7,14 @@ an H100 run of chip_smoke.py printed them) map to the launch-count keys of
 `kernels.launch_counts()`, template arguments to modes; other kernels are
 skipped; a name of one of the port's kernels that does not parse raises;
 the keys a name cannot show (the GEMMs' epilogues, decode attention's
-ring) are left out.
+ring, both attentions' ALiBi slopes) are left out. `kernels.block_events`
+keeps a card_trace window's block: the events between its two spin
+kernels (a primer's before the first are left out).
 """
+import types
+
 import pytest
+from torch.autograd import DeviceType
 
 from mixq_tpu_torch import kernels
 
@@ -64,8 +69,8 @@ def test_counts_add_up_and_other_kernels_are_skipped():
 def test_keys_are_launch_counts_keys_but_the_unnamed():
     keys = set(kernels.executed_counts([]))
     assert keys == set(kernels.launch_counts()) - kernels.UNNAMED
-    assert {"mix_gemm.gelu_new", "w8a16.silu",
-            "decode_attention.ring"} <= kernels.UNNAMED
+    assert {"mix_gemm.gelu_new", "w8a16.silu", "decode_attention.ring",
+            "decode_attention.alibi", "flash_decode.alibi"} <= kernels.UNNAMED
     assert not kernels.UNNAMED - set(kernels.launch_counts())
 
 
@@ -75,3 +80,33 @@ def test_keys_are_launch_counts_keys_but_the_unnamed():
 def test_a_kernel_of_the_port_that_does_not_parse_raises(name):
     with pytest.raises(ValueError, match="unknown name"):
         kernels.executed_counts([(name, 1)])
+
+
+def _event(name, start, end, device=DeviceType.CUDA):
+    return types.SimpleNamespace(
+        name=name, device_type=device,
+        time_range=types.SimpleNamespace(start=start, end=end))
+
+
+class _Window:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+@pytest.mark.parametrize("spins,kept", [
+    ([(10, 20), (90, 100)], ["block a", "block b"]),
+    ([(90, 100)], ["primer", "block a", "block b", "after"]),
+    ([], ["primer", "block a", "block b", "after"])])
+def test_block_events_keep_the_block(spins, kept):
+    """The events that start between the window's two spin kernels; with a
+    spin record missing, every device event but the spins."""
+    events = ([_event("primer", 0, 5)]
+              + [_event(kernels.SPIN + "(long)", a, b) for a, b in spins]
+              + [_event("block a", 30, 40), _event("block b", 50, 60),
+                 _event("after", 110, 120),
+                 _event("a host op", 35, 36, DeviceType.CPU)])
+    got = [e.name for e in kernels.block_events(_Window(events))]
+    assert got == kept

@@ -16,7 +16,9 @@ position, a ring read past its wrap, gemma2's softcap and scale, and a
 peaked softmax; flash decode and decode attention split over clusters of
 1, 2, 4 and 8 blocks, bit-equal across two launches of a plan, and flash
 decode's peaked Gemma-2-9B case over 8 seeds against the plain version on
-the card and on the CPU) and the wrappers' refusals. The
+the card and on the CPU; both with ALiBi at every cluster size, kernel 3
+with its rows held in probability levels, since ALiBi rows are peaked)
+and the wrappers' refusals. The
 tiny models served on the card against the same models on the CPU are
 phase 4 of chip_smoke.py.
 
@@ -732,6 +734,60 @@ def test_flash_decode_forced_splits(cuda, int8, nq, nkv, D, S, cap, scale,
     assert torch.equal(got, again) and (got[2] == 0).all()
 
 
+# (n_q, n_kv, D, S, softcap): Baichuan-13B's heads (40 of 128, MHA: 8
+# interleaved extra slopes), g = 4, and ALiBi after a softcap
+FLASH_ALIBI_CASES = [(40, 40, 128, 512, 0.0), (8, 2, 64, 300, 0.0),
+                     (6, 6, 64, 200, 30.0)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nq,nkv,D,S,cap", FLASH_ALIBI_CASES)
+def test_flash_decode_alibi_forced_splits(cuda, int8, nq, nkv, D, S, cap,
+                                          splits):
+    """Kernel 3 with ALiBi (slope * slot, the slot absolute under every
+    cluster cut) at R = `splits`, on ragged rows (lengths S, S/2 + 1, 0, 9
+    and 1; window starts 5 and 3): each row within two bf16 ulps plus
+    PEAK_LEVELS of its probability level of the plain version (ALiBi rows
+    are peaked), one launch per call counted in the ALiBi mode, two
+    launches bit-equal, and the plain version without the bias far
+    beyond the limit."""
+    from mixq_tpu_torch.kernels.flash_decode import _flash
+    from mixq_tpu_torch.models.layers import alibi_slopes
+    g = _gen(nq + D + S + splits + 3)
+    B = 5
+    q = (torch.randn(B, nq, D, generator=g, device=cuda)
+         * (8.0 if cap else 1.0)).to(torch.bfloat16)
+    k, v, ks, vs = _cache(cuda, g, 1, nkv, B, S, D, int8, pad=S % 128 != 0)
+    lengths = torch.tensor([S, S // 2 + 1, 0, 9, 1], dtype=torch.int32,
+                           device=cuda)
+    start = torch.tensor([0, 5, 0, 3, 0], dtype=torch.int32, device=cuda)
+    slopes = alibi_slopes(nq, torch.device(cuda))
+    opts = dict(softcap=cap, alibi_slopes=slopes)
+    plain_args = (q, k, v, lengths, ks, vs, start, 0)
+    ref = flash_decode_plain(*plain_args, **opts).float()
+    level = flash_decode_level(*plain_args, **opts)
+    before = flash_decode_attention.launches
+    alibi_before = flash_decode_attention.mode_launches["alibi"]
+    got = _flash(*plain_args, cap, None, slopes, splits=splits)
+    again = _flash(*plain_args, cap, None, slopes, splits=splits)
+    torch.cuda.synchronize()
+    assert flash_decode_attention.launches == before + 2
+    assert flash_decode_attention.mode_launches["alibi"] == alibi_before + 2
+    assert torch.equal(got, again) and (got[2] == 0).all()
+
+    def levels(out):
+        """Each row's error beyond two ulps in its probability levels (0
+        within two ulps: the empty row's level is 0 in bf16)."""
+        over = ((out - ref).abs() - 2 * BF16_ULP * ref.abs()).amax(-1)
+        return torch.where(over > 0, over / level, 0.0).max().item()
+
+    assert bool(torch.isfinite(got).all())
+    assert levels(got.float()) <= PEAK_LEVELS[int8]
+    free = flash_decode_plain(*plain_args, softcap=cap).float()
+    assert levels(free) > 10 * PEAK_LEVELS[int8]
+
+
 def test_flash_decode_plan_launch(cuda):
     """The wrapper's own plan (plan_flash on the card's cluster table): one
     launch per call, bit-equal on a second call, R = 1 where the stripes
@@ -959,6 +1015,63 @@ def test_decode_attention_forced_splits(cuda, B, int8, nq, nkv, D, S, ring,
     assert torch.equal(got, again)
 
 
+# (n_q, n_kv, D, S, ring): Baichuan-13B's heads, g = 2 on a ring read
+# past its wrap, g = 4
+DECODE_ALIBI_CASES = [(40, 40, 128, 512, False), (8, 4, 64, 200, True),
+                      (8, 2, 128, 300, False)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("nq,nkv,D,S,ring", DECODE_ALIBI_CASES)
+def test_decode_attention_alibi_forced_splits(cuda, B, int8, nq, nkv, D, S,
+                                              ring, splits):
+    """Kernel 8 with ALiBi (slope * (position - q_pos), q_pos = kv_len - 1,
+    added where the score is formed, before any max) at R = `splits`, on
+    ragged rows (full, one position, past S for a ring, a window start, no
+    valid position): within two bf16 ulps plus DECODE_ATOL of the plain
+    version, one launch per call counted in the ALiBi mode, two launches
+    bit-equal."""
+    from mixq_tpu_torch.kernels.decode_attention import _decode
+    from mixq_tpu_torch.models.layers import alibi_slopes
+    g = _gen(nq + D + S + B + splits + 7 * int8 + 11)
+    q = torch.randn(B, nq, D, generator=g, device=cuda).to(torch.bfloat16)
+    k, v, ks, vs = _batch_major(cuda, g, B, S, nkv, D, int8)
+    if ring:
+        lengths = torch.randint(S + 1, 3 * S, (B,), generator=g, device=cuda,
+                                dtype=torch.int32)
+        starts = torch.clamp_min(lengths - S + 17, 0).to(torch.int32)
+    else:
+        lengths = torch.randint(1, S + 1, (B,), generator=g, device=cuda,
+                                dtype=torch.int32)
+        starts = torch.minimum(torch.randint(0, 40, (B,), generator=g,
+                                             device=cuda, dtype=torch.int32),
+                               lengths - 1)
+    lengths[0] = 3 * S if ring else S
+    starts[0] = 0
+    if B > 1:
+        lengths[1], starts[1] = (S + 1, S) if ring else (1, 0)
+    if B > 2:
+        starts[2] = lengths[2]                   # no valid position
+    slopes = alibi_slopes(nq, torch.device(cuda))
+    ref = decode_attention_plain(q, k, v, lengths, ks, vs, starts, ring=ring,
+                                 alibi_slopes=slopes)
+    before = decode_attention.launches
+    alibi_before = decode_attention.mode_launches["alibi"]
+    args = (q, k, v, lengths, ks, vs, starts, ring, None, 0.0, slopes)
+    got = _decode(*args, splits=splits)
+    again = _decode(*args, splits=splits)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert decode_attention.mode_launches["alibi"] == alibi_before + 2
+    _assert_decode_close(got, ref)
+    assert torch.equal(got, again)
+    free = decode_attention_plain(q, k, v, lengths, ks, vs, starts,
+                                  ring=ring).float()
+    assert (free - ref.float()).abs().max().item() > 100 * DECODE_ATOL
+
+
 def test_decode_attention_plan_launch(cuda):
     """The wrapper's own plan (plan_decode on the card's cluster table):
     one launch per call, bit-equal on a second call, R = 1 where the
@@ -1011,8 +1124,14 @@ def test_decode_attention_refusals(cuda):
                          ks[:, :, :1].contiguous(), vs[:, :, :1].contiguous())
     with pytest.raises(ValueError):                  # lengths not int32
         decode_attention(q, k, v, torch.ones(2, device=cuda), ks, vs)
-    with pytest.raises(NotImplementedError):
-        decode_attention(q, k, v, 8, ks, vs, alibi_slopes=torch.ones(4))
+    slopes = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="ALiBi with a softcap"):
+        decode_attention(q, k, v, 8, ks, vs, alibi_slopes=slopes,
+                         softcap=30.0)
+    with pytest.raises(ValueError):                  # slopes on the host
+        decode_attention(q, k, v, 8, ks, vs, alibi_slopes=slopes.cpu())
+    with pytest.raises(ValueError):                  # one slope per kv head
+        decode_attention(q, k, v, 8, ks, vs, alibi_slopes=slopes[:2])
 
 
 # ---------------------------------------------------------------------------
@@ -1020,13 +1139,19 @@ def test_decode_attention_refusals(cuda):
 # ---------------------------------------------------------------------------
 
 def _tiny_cfg(family):
-    """chip_smoke.py's phase-4 tiny models: llama, mistral (a window of 4)
-    and gemma2 (caps that bind, alternating windows no shorter than the
-    cache)."""
+    """chip_smoke.py's phase-4 tiny models: llama, mistral (a window of 4),
+    gemma2 (caps that bind, alternating windows no shorter than the cache)
+    and an ALiBi llama-shaped model (baichuan: 6 heads of 64, MHA, rope
+    style "none"; "baichuan flash" serves it under attn_impl="flash")."""
     from mixq_tpu_torch.config import ModelConfig
 
     base = dict(hidden_size=256, intermediate_size=512,
                 num_attention_heads=4, num_key_value_heads=2)
+    if family.startswith("baichuan"):
+        return ModelConfig.tiny(model_type="baichuan", alibi=True,
+                                rope_style="none", hidden_size=384,
+                                intermediate_size=512, num_attention_heads=6,
+                                num_key_value_heads=6)
     if family == "mistral":
         return ModelConfig.tiny(model_type="mistral", sliding_window=4,
                                 **base)
@@ -1042,6 +1167,8 @@ def _tiny_cfg(family):
 
 
 def _tiny_engine(cuda, family, precision, kv_dtype="int8", **ecfg):
+    import dataclasses
+
     from mixq_tpu_torch.config import EngineConfig, QuantConfig
     from mixq_tpu_torch.engine import InferenceEngine
     from mixq_tpu_torch.models.decoder import (DecoderSpecs,
@@ -1056,6 +1183,8 @@ def _tiny_engine(cuda, family, precision, kv_dtype="int8", **ecfg):
                  outlier_budget=16)),
              "W8A16": lambda: resolve_specs(QuantConfig.w8a16())}[
                  precision]()
+    if family.endswith(" flash"):
+        specs = dataclasses.replace(specs, attn_impl="flash")
     params = init_decoder_params(cfg, specs, _gen(0), device=cuda,
                                  dtype=torch.bfloat16, outlier_budget=16)
     return InferenceEngine(params, cfg, specs, EngineConfig(
@@ -1074,7 +1203,8 @@ def _stepwise(eng):
 
 
 LOOP_CASES = [(f, p) for f in ("llama", "mistral", "gemma2")
-              for p in ("W8A8", "W4A4", "W8A16")]
+              for p in ("W8A8", "W4A4", "W8A16")] + [
+    ("baichuan", "W8A8"), ("baichuan flash", "W8A8")]
 LOOP_PROMPTS = [[5, 17, 33, 2, 9], [101, 7], [64, 3, 3, 200, 11, 12, 13],
                 [42]]
 

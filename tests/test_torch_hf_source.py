@@ -197,9 +197,9 @@ def test_unported_sources_raise():
     cfg = thf.config_from_hf(hf_config("llama"))
     state = hf_state(cfg, 0)
     src = thf.TensorSource.from_dict(state)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):     # interleaved q/k/v
         thf.params_from_source(src, dataclasses.replace(
-            cfg, model_type="baichuan"), TSpecs.fp16(), device="cpu")
+            cfg, model_type="falcon"), TSpecs.fp16(), device="cpu")
     with pytest.raises(NotImplementedError):
         thf.params_from_source(src, dataclasses.replace(
             cfg, num_local_experts=4), TSpecs.fp16(), device="cpu")

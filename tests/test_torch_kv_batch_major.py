@@ -195,6 +195,6 @@ def test_policy_table(monkeypatch):
                         if hd == 128 and (family, impl, itemsize,
                                           S) in TABLE:
                             assert got == TABLE[family, impl, itemsize, S]
-    # alibi goes batch-major under "auto" too (its kernels are not ported)
+    # ALiBi models take the batch-major cache under "auto" (JAX's policy)
     alibi = dataclasses.replace(_cfg("llama", 128), alibi=True)
     assert not use_head_major_cache("auto", alibi, 4096, 1)
