@@ -19,25 +19,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      operations over the data-sheet peak, whichever is larger), its plain
      version's and, where one exists, that of one PyTorch call computing
      the same function (`library_ms`): fused RMSNorm + quantization (kernel
-     1; A8 and A4 at M=64 and M=8, A8 at M=512, at Llama-2-7B's and
-     Gemma-2-9B's widths; q_x, x_scale and x_out also held bit-equal to the
-     plain quantizer and gather fed the kernel's own y; each row timed at
-     each instantiation that takes it, beside a trivial launch and the
-     parent tree's time, not measured in the run), the int8 GEMM in its W8A8 (kernel 2) and its packed-W4 and
-     grouped modes (kernel A), each row with its split-K plan and beside
-     the earlier 64 x 32-tile kernel's time (not measured in the run), and
-     as whole blocks (W8A8, W4, W4 g128, and the g128 path's seven); a
-     prefill-shaped W8A8 row at M=512; three plans held bit-equal in W8A8
-     and in W4; the a16
-     (weight-only) GEMM with int8 and packed weights, per-channel and
-     grouped, with the w8a16_matmul and int8_matmul_dequant entry points
-     (each a16 row with its split-K plan, the clusters the card holds and
-     ptxas's registers and spills; two split-K launches held bit-equal),
-     and flash decode (each row with its cluster plan, R and blocks, the
-     clusters of R blocks the card holds, its instantiation's load
-     pipeline, registers and spills, two launches of the plan held
-     bit-equal, and the parent tree's time, not measured in the run); then
-     Gemma-2-9B's:
+     1; A8 and A4 at M=64 and M=8, A8 at M=512 and at phase 9's largest
+     admission prefill, M=4096, at Llama-2-7B's and Gemma-2-9B's widths;
+     q_x, x_scale and x_out also held bit-equal to the plain quantizer and
+     gather fed the kernel's own y; each row timed at each instantiation
+     that takes it, beside a trivial launch and the parent tree's time, not
+     measured in the run), the int8 GEMM in its W8A8 (kernel 2) and its
+     packed-W4 and grouped modes (kernel A), each row with its split-K
+     plan and beside the earlier 64 x 32-tile kernel's time (not measured
+     in the run), and as whole blocks (W8A8, W4, W4 g128, and the g128
+     path's seven); a prefill-shaped W8A8 row at M=512, and every linear
+     shape of the block in W8A8 at M=4096 (phase 9's largest admission
+     prefill: 16 prompts of 256 tokens); three plans held bit-equal in
+     W8A8 and in W4; the a16 (weight-only) GEMM with int8 and packed
+     weights, per-channel and grouped, with the w8a16_matmul and
+     int8_matmul_dequant entry points (each a16 row with its split-K plan,
+     the clusters the card holds and ptxas's registers and spills; two
+     split-K launches held bit-equal), and flash decode (each row with its
+     cluster plan, R and blocks, the clusters of R blocks the card holds,
+     its instantiation's load pipeline, registers and spills, two launches
+     of the plan held bit-equal, and the parent tree's time, not measured
+     in the run); then Gemma-2-9B's:
      every linear shape of its block in kernel 2 (W8A8), kernel A (W4 on
      q/k/v/up/gate) and kernel B (W8A16), with the tanh-GELU (gelu_new)
      epilogue on the gate, and the gate once with the exact GELU (no serve
@@ -62,7 +64,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      at every cluster size R; bf16 beside SDPA with the bias as a float
      mask), and kernel 8 with ALiBi at the same heads, bf16 and int8 KV, at
      B=64 and at generate's B=8 (every R), each also against the plain
-     version without the bias, which lies beyond its limit;
+     version without the bias, which lies beyond its limit; then phase 9's
+     pool rows: kernel 3 (int8, head-major) and kernel 8 (bf16, batch-
+     major) at B=64 S=640 32/32 D=128 with lengths 1 to 640, a row at 1
+     and one at S in one launch, no kv_start, held and timed at every R;
   4. reference: tiny W8A8, W4A4 (per-channel and grouped) and W8A16 llama
      models, and tiny W8A8, W4A4 and W8A16 gemma2 models (caps that bind
      without saturating), on the head-major cache (attn_impl="flash"); a
@@ -75,7 +80,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      logits, bf16 and int8 KV, each limit below the int8-vs-bf16 KV
      control; every flash decode and decode attention launch against its
      plain version on the model's own inputs, where the card first leaves
-     the CPU, and launch counts by mode;
+     the CPU, and launch counts by mode; and the tiny W8A8 llama served by
+     the continuous-batching engine (10 requests on 4 slots, int8 KV,
+     "flash" and "auto") on the card and on the CPU: each request replayed
+     teacher-forced within the layout's logits limit, and the same tokens
+     up to its first step whose top-2 margin is not above twice its
+     card-vs-CPU gap;
   5. serve: full-width 32-layer Llama-2-7B in four configurations,
      full-width 42-layer Gemma-2-9B in three, full-width 32-layer
      Mistral-7B-v0.1 W8A8O16 and Llama-2-7B W8A8O16 with bf16 KV, one after
@@ -143,10 +153,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and phase 6's decode timing. It prints the host seconds of the dict,
      quantize_model and warmup_online, the counts by slot, the planted
      channels' margins and the phase's peak memory.
-It then prints the kernels line (one entry per ported TPU kernel, and one
+  9. continuous batching (run after phase 7, whose warmed Llama-2-7B
+     W8A8O16 params it serves, and before phase 8): the CB engine
+     (engine/batching.py, the native scheduler) on a pool of 64 slots x 640
+     positions under "auto" with bf16 KV (batch-major, kernel 8) and under
+     "flash" with int8 KV (head-major, kernel 3). A seeded script of 192
+     requests (prompts of 16-256 tokens, budgets of 16-128; at most 16
+     arrive a window; 8 sample at temperature 0.8, top-k 50, top-p 0.9; 4
+     carry a stop set, each the 4th greedy token of its prompt served
+     alone first) through step_window (windows of 8 steps as CUDA graph
+     replays), the wrappers' counts set to 0 just before and read just
+     after, then through single eager steps on the same engine. It prints
+     for each pool the requests, tokens, windows, wall s and tokens/s, ms
+     per window (median, p90), one window's CUPTI device ms per step by
+     kernel name and busy share (windows profiled one by one until one
+     holds every kernel run its steps imply), the admissions' ms, the
+     captures' ms and the peak memory; and asserts that every request ends
+     at its budget or its stop token, the greedy requests' tokens equal
+     between windows and single steps, the slot-mode forward's logits at
+     one length for every row bit-equal to the scalar-length forward's,
+     the native scheduler in use, and no admission prefill past the rows
+     (M=4096) at which phase 3 held kernels 1 and 2.
+It prints each phase's host seconds as it ends. It then prints the
+kernels line (one entry per ported TPU kernel, and one
 per mode a later slice added to a path: the GEMMs' gelu_new epilogue,
-flash decode's softcap and both attentions' ALiBi) and, last, the device
-line. Details go to
+flash decode's softcap and both attentions' ALiBi, and kernels 3 and 8 at
+phase 9's pools) and, last, the device line. Details go to
 OUT_DIR/chip_smoke.json. Without a CUDA card, or without the package beside
 it, the script exits non-zero and prints no result.
 """
@@ -241,12 +273,17 @@ def rotating(fns):
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# the rows of phase 9's largest admission prefill: k_pad = 16 prompts of
+# one 256-token bucket (CB_PREFILL_CHUNK), which phase 3 holds kernels 1 and
+# 2 at and phase 9 asserts no admission passes
+CB_PREFILL_M = 16 * 256
 # Kernel 1's phase-3 rows, (M, H, a_bits): the decode step's M=64 at
 # Llama-2-7B's and Gemma-2-9B's widths, A8 (W8A8 paths, o/down) and A4
-# (q/k/v, up/gate of W4A4); generate's M=8; a prefill of 8 x 64 at M=512
+# (q/k/v, up/gate of W4A4); generate's M=8; a prefill of 8 x 64 at M=512;
+# phase 9's largest admission prefill
 KERNEL1_ROWS = [(64, 4096, 8), (64, 4096, 4), (64, 3584, 8), (64, 3584, 4),
                 (8, 4096, 8), (8, 4096, 4), (8, 3584, 8), (8, 3584, 4),
-                (512, 4096, 8)]
+                (512, 4096, 8), (CB_PREFILL_M, 4096, 8)]
 KERNEL1_TOL = ("y within 1 bf16 ulp, q_x within 1 LSB, x_scale rtol 1e-5 of "
                "the plain version; q_x, x_scale, x_out bit-equal to the "
                "plain quantizer and gather fed the kernel's own y")
@@ -524,7 +561,9 @@ def kernel_mix_gemm(dev, gen, rows):
     """Kernel 2, W8A8: each distinct shape of a block alone, then the block
     of seven linears (~200 MB of weights), each with its split-K plan; then
     (own generator: the later phases keep their inputs) a prefill-shaped
-    gate (M=512) and the check that three plans give the same bits."""
+    gate (M=512), the check that three plans give the same bits, and each
+    distinct linear shape of the block at phase 9's largest admission
+    prefill (M=CB_PREFILL_M)."""
     M, Bo = 64, 128
     out_rows, errs = gemm_cases(dev, gen, M, Bo, [
         (K, N, f, False, 1) for K, N, f in
@@ -540,7 +579,11 @@ def kernel_mix_gemm(dev, gen, rows):
     prefill, _ = gemm_cases(dev, own, 512, Bo, [(4096, 11008, "silu", False,
                                                   1)])
     blk["bit_equal_plans"] = plans_bit_equal(dev, own)
-    rows["mix_gemm"] = out_rows + [blk] + prefill
+    admit, _ = gemm_cases(dev, torch.Generator(device=dev).manual_seed(8),
+                          CB_PREFILL_M, Bo, [
+                              (K, N, f, False, 1) for K, N, f in
+                              sorted({(K, N, f) for _, K, N, f in BLOCK})])
+    rows["mix_gemm"] = out_rows + [blk] + prefill + admit
     return blk
 
 
@@ -963,9 +1006,22 @@ def kernel_int8_matmul(dev, gen, rows):
     return row
 
 
-def flash_case(dev, gen, B, S, n_q, n_kv, D, int8, offset=0.0, gain=1.0):
+def pool_lengths(dev, gen, B, S):
+    """A continuous-batching pool's rows: lengths uniform over [1, S], the
+    first at S and the second at 1 (a row of one position leaves R - 1
+    ranks of a cluster split an empty part), no first slot (a pool row
+    starts at 0)."""
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0], lengths[1] = S, 1
+    return lengths, torch.zeros(B, dtype=torch.int32, device=dev)
+
+
+def flash_case(dev, gen, B, S, n_q, n_kv, D, int8, offset=0.0, gain=1.0,
+               pool=False):
     """Random q (N(0, gain^2)) and K/V (N(0, 1)), q and K shifted by
-    `offset`, ragged lengths and first slots."""
+    `offset`, ragged lengths and first slots (`pool`: a CB pool's rows,
+    pool_lengths)."""
     from mixq_tpu_torch.ops import quant as Q
 
     q = (torch.randn(B, n_q, D, generator=gen, device=dev) * gain
@@ -979,6 +1035,8 @@ def flash_case(dev, gen, B, S, n_q, n_kv, D, int8, offset=0.0, gain=1.0):
         k = kf.to(torch.bfloat16)
         v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         ks = vs = None
+    if pool:
+        return (q, k, v, ks, vs) + pool_lengths(dev, gen, B, S)
     lengths = torch.randint(S // 2, S + 1, (B,), generator=gen, device=dev,
                             dtype=torch.int32)
     lengths[0], lengths[1] = S, 1
@@ -998,7 +1056,7 @@ def beyond_levels(got, ref, level):
 
 def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
               offset=0.0, model="Llama-2-7B", gain=1.0, sweep=False,
-              alibi=False):
+              alibi=False, pool=False):
     """Kernel 3 on one case against its plain version, then timed. The
     limit is two bf16 ulps of |y| plus FLASH_ATOL; for a peaked case
     (gain > 1, or ALiBi, whose rows are peaked by construction) it is two
@@ -1007,7 +1065,8 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
     binds: the uncapped plain version lies beyond the limit by a margin;
     with ALiBi (n_q's slopes) the plain version without the bias lies
     beyond it. With `sweep`, the row is also held to its limit and timed
-    at every cluster size R (`ms_by_splits`)."""
+    at every cluster size R (`ms_by_splits`). `pool`: a CB pool's rows
+    (pool_lengths)."""
     from mixq_tpu_torch.kernels.flash_decode import (flash_decode_attention,
                                                      flash_decode_level,
                                                      flash_decode_plain)
@@ -1016,7 +1075,7 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
 
     from mixq_tpu_torch.kernels import flash_decode as FD
     q, k, v, ks, vs, lengths, starts = flash_case(dev, gen, B, S, n_q, n_kv,
-                                                  D, int8, offset, gain)
+                                                  D, int8, offset, gain, pool)
     args = (q, k, v, lengths, ks, vs, starts, 0)
     slopes = alibi_slopes(n_q, dev) if alibi else None
     opts = dict(softcap=softcap, scale=scale, alibi_slopes=slopes)
@@ -1091,10 +1150,12 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
         qb = q[:, :, None, :]
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             qb, kb, vb, attn_mask=mask, scale=scale), 20)
+    rows_of = (f"CB pool rows: lengths 1 to {S}, no kv_start" if pool
+               else "ragged lengths and kv_start")
     row.update(mode=mode,
                work=f"{model} B={B} S={S} n_q={n_q} n_kv={n_kv} D={D} "
-                    f"{mode}, ragged lengths and kv_start ({valid} valid "
-                    "rows)" + (f", q and K + {offset:g}" if offset else ""),
+                    f"{mode}, {rows_of} ({valid} valid rows)"
+                    + (f", q and K + {offset:g}" if offset else ""),
                tolerance=tolerance,
                max_abs_err=err.max().item(), beyond_2_ulps=beyond,
                beyond_levels=levels, share_beyond_2_ulps=share,
@@ -1117,7 +1178,7 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
             held(fn(), f" at R = {R}")
             row["ms_by_splits"][R] = device_ms(fn, 50)
     key = (model, n_q, n_kv, D, mode)
-    if B == 64 and key in PREV_KERNEL3_MS:
+    if B == 64 and key in PREV_KERNEL3_MS and not pool:
         row.update(previous_ms=PREV_KERNEL3_MS[key], previous_from="234e8be")
     return row
 
@@ -1314,11 +1375,12 @@ def kernel_baichuan(dev, rows):
 
 
 def decode_case(dev, gen, B, S, n_q, n_kv, D, int8, offset=0.0, gain=1.0,
-                ring=False):
+                ring=False, pool=False):
     """A batch-major cache layer [B, S, n_kv, D] of N(0, 1) K (+ offset) and
-    V, q ~ N(offset, gain^2). Ragged lengths and first positions; a ring is
-    read past its wrap (the first row at S + 37) from the window start of a
-    window of S, as Mistral's 4096-slot ring is."""
+    V, q ~ N(offset, gain^2). Ragged lengths and first positions (`pool`: a
+    CB pool's rows, pool_lengths); a ring is read past its wrap (the first
+    row at S + 37) from the window start of a window of S, as Mistral's
+    4096-slot ring is."""
     from mixq_tpu_torch.ops import quant as Q
 
     q = (torch.randn(B, n_q, D, generator=gen, device=dev) * gain
@@ -1336,6 +1398,8 @@ def decode_case(dev, gen, B, S, n_q, n_kv, D, int8, offset=0.0, gain=1.0,
                                 device=dev, dtype=torch.int32)
         lengths[0] = S + 37
         starts = (lengths - S).to(torch.int32)
+    elif pool:
+        lengths, starts = pool_lengths(dev, gen, B, S)
     else:
         lengths = torch.randint(S // 2, S + 1, (B,), generator=gen,
                                 device=dev, dtype=torch.int32)
@@ -1353,7 +1417,7 @@ def decode_case(dev, gen, B, S, n_q, n_kv, D, int8, offset=0.0, gain=1.0,
 
 def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
                scale=None, offset=0.0, gain=1.0, ring=False, sweep=False,
-               cpu_ref=False, alibi=False):
+               cpu_ref=False, alibi=False, pool=False):
     """Kernel 8 on one case against its plain version (two bf16 ulps of |y|
     plus DECODE_ATOL), two launches of its plan bit-equal, then timed; with a
     softcap the uncapped plain version lies beyond the limit, and with
@@ -1364,7 +1428,8 @@ def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
     R (`ms_by_splits`). With ALiBi (n_q's slopes) the plain version without
     the bias lies beyond the limit, and SDPA takes the bias as an additive
     float mask. Each row carries its plan (R, blocks, the card's clusters
-    of R, the load pipeline, ptxas registers and spills)."""
+    of R, the load pipeline, ptxas registers and spills). `pool`: a CB
+    pool's rows (pool_lengths)."""
     from mixq_tpu_torch.kernels import _build
     from mixq_tpu_torch.kernels import decode_attention as DA
     from mixq_tpu_torch.kernels.decode_attention import (
@@ -1373,7 +1438,7 @@ def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
     import torch.nn.functional as F
 
     args, valid = decode_case(dev, gen, B, S, n_q, n_kv, D, int8, offset,
-                              gain, ring)
+                              gain, ring, pool)
     slopes = alibi_slopes(n_q, dev) if alibi else None
     opts = dict(ring=ring, softcap=softcap, scale=scale, alibi_slopes=slopes)
     kv = "int8" if int8 else "bf16"
@@ -1449,10 +1514,12 @@ def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
     clusters = DA._clusters(0, int8, g, softcap > 0, D)
     plan = DA.plan_decode(B, n_kv, g, S, D, int8, softcap > 0,
                           _build.sm_count(0), clusters)
+    rows_of = (f"CB pool rows: lengths 1 to {S}, no kv_start" if pool
+               else "ragged lengths and starts")
     row.update(mode=mode,
                work=f"{model} B={B} S={S} n_q={n_q} n_kv={n_kv} D={D} "
-                    f"{mode}, ragged lengths and starts ({valid} valid "
-                    "rows)" + (f", q and K + {offset:g}" if offset else ""),
+                    f"{mode}, {rows_of} ({valid} valid rows)"
+                    + (f", q and K + {offset:g}" if offset else ""),
                tolerance=f"2 bf16 ulps of |y| + {DECODE_ATOL}",
                max_abs_err=err.max().item(), beyond_2_ulps=beyond,
                share_beyond_2_ulps=(over > 0).float().mean().item(),
@@ -1484,7 +1551,7 @@ def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
             held(fn(), ref, f" at R = {R}")
             row["ms_by_splits"][R] = device_ms(fn, 50)
     key = (model, n_q, n_kv, D, mode, B)
-    if key in PREV_KERNEL8_MS:
+    if key in PREV_KERNEL8_MS and not pool:
         row.update(previous_ms=PREV_KERNEL8_MS[key], previous_from="171275c")
     return row
 
@@ -1522,6 +1589,24 @@ def kernel_decode_small_batch(dev, rows):
                    sweep=True),
         decode_row(dev, gen, 8, 512, 32, 32, 128, False, "Llama-2-7B",
                    sweep=True)]
+
+
+def kernel_pool_rows(dev, rows):
+    """Kernels 3 and 8 at the rows of phase 9's pools (64 slots of 640
+    positions at Llama-2-7B's heads): kernel 3 with int8 KV (head-major),
+    kernel 8 with bf16 KV (batch-major), lengths 1 to S with a row at 1 and
+    one at S in one launch, each held to its limit and timed at every
+    cluster size R (the inputs from a generator of their own, so the other
+    phases' inputs stay as they were). Returns (kernel 3's row, kernel
+    8's)."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rows["cb_pool"] = [
+        flash_row(dev, gen, CB_SLOTS, CB_SEQ, 32, 32, 128, True,
+                  sweep=True, pool=True),
+        decode_row(dev, gen, CB_SLOTS, CB_SEQ, 32, 32, 128, False,
+                   "Llama-2-7B", sweep=True, pool=True)]
+    torch.cuda.empty_cache()
+    return tuple(rows["cb_pool"])
 
 
 # ---------------------------------------------------------------------------
@@ -1952,6 +2037,104 @@ def reference_check(dev):
     print(f"reference: tiny models card vs CPU, teacher-forced logits {res}",
           flush=True)
     check(not failures, "; ".join(failures))
+    return res
+
+
+# the seed of phase 4's CB script (prompts and budgets), not picked for
+# its margins: the check asserts tokens only before a near-tie
+CB_TINY_SEED = 15
+# phase 4's CB limit on teacher-forced logits, both layouts: below the
+# llama W8A8 int8-vs-bf16 KV controls (1.73e-2 batch-major, 1.9e-2
+# head-major). A bf16 ulp that kernel 3 or 8 leaves from its plain version
+# can flip an int8 activation or KV entry, and a flip moves the logits by
+# ~1e-2 of their max: on an H100, over seeds 0-15 of this script and of
+# tests/test_torch_gpu.py's CB script, both layouts read up to 1.40e-2
+# where an entry flips and ~3e-7 where none does (cb_seed_scan.py)
+CB_TINY_TOL = 1.6e-2
+
+
+def cb_reference(dev, seed=CB_TINY_SEED):
+    """Phase 4's continuous-batching check: the tiny W8A8 llama served by
+    the CB engine (10 requests of 1 to 19 prompt tokens, budgets 4 to 13,
+    on 4 slots of 64 positions, int8 KV, windows of 8) on the card, through
+    the kernels and graph replays, and on the CPU, under "flash" (head-
+    major, kernel 3) and "auto" (at 64 positions batch-major, kernel 8).
+    Each request's CPU tokens are then replayed teacher-forced as the pool
+    serves them (its prompt but the last token, then one token a step) on
+    both devices: every step's logits within CB_TINY_TOL of max|logits|
+    on both layouts, and the card's served tokens equal to the CPU's up
+    to the request's first step whose top-2 margin (the CPU's logits) does
+    not clear twice that step's card-vs-CPU gap: before it the two argmaxes
+    must agree, from it on a near-tie may go either way."""
+    from mixq_tpu_torch.config import EngineConfig, ModelConfig
+    from mixq_tpu_torch.convert import params_to
+    from mixq_tpu_torch.engine import InferenceEngine
+    from mixq_tpu_torch.engine.batching import ContinuousBatchingEngine
+    from mixq_tpu_torch.models.decoder import init_decoder_params
+
+    cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=4, num_key_value_heads=2)
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in torch.randint(1, 20, (10,), generator=g).tolist()]
+    budgets = [4 + i for i in range(10)]
+    ecfg = EngineConfig(max_batch_size=4, max_seq_len=64, prefill_chunk=8,
+                        kv_dtype="int8")
+    res = {}
+    for attn_impl in ("flash", "auto"):
+        specs = path_specs("W8A8", attn_impl, outlier_budget=16)
+        cpu = init_decoder_params(cfg, specs,
+                                  torch.Generator().manual_seed(0),
+                                  device="cpu", outlier_budget=16)
+        card = params_to(cpu, dev)
+        served = []
+        for params, d in ((cpu, "cpu"), (card, dev)):
+            eng = ContinuousBatchingEngine(params, cfg, specs, ecfg,
+                                           device=d)
+            ids = [eng.add_request(p, b) for p, b in zip(prompts, budgets)]
+            out = eng.run_to_completion()
+            served.append([out[i] for i in ids])
+        hm = eng.cache.head_major
+        check(hm == (attn_impl == "flash"), f"CB tiny {attn_impl}: layout")
+        tol = CB_TINY_TOL
+        worst, held, ties, margin = 0.0, 0, [], float("inf")
+        for r, (prompt, toks, got_toks) in enumerate(zip(prompts, *served)):
+            logits = []
+            for params, d in ((cpu, "cpu"), (card, dev)):
+                eng = InferenceEngine(params, cfg, specs, ecfg, device=d)
+                cache = eng.new_cache(1, 64)
+                if len(prompt) > 1:
+                    eng.prefill(torch.tensor([prompt[:-1]]), cache)
+                steps = []
+                for t in [prompt[-1]] + toks[:-1]:
+                    lg, cache = eng.decode_step(torch.tensor([[t]]), cache)
+                    steps.append(lg[0].float().cpu())
+                logits.append(torch.stack(steps))
+            ref, got = logits
+            gaps = (got - ref).abs().amax(-1)
+            worst = max(worst, gaps.max().item() / ref.abs().max().item())
+            top2 = torch.topk(ref, 2, dim=-1).values
+            margins = top2[:, 0] - top2[:, 1]
+            margin = min(margin, margins.min().item())
+            near = (margins <= 2 * gaps).nonzero()
+            n = int(near[0]) if len(near) else len(toks)
+            check(got_toks[:n] == toks[:n], f"CB tiny {attn_impl}: request "
+                  f"{r}'s card tokens {got_toks} leave the CPU's {toks} "
+                  f"before its first near-tie (step {n})")
+            held += n
+            if n < len(toks):
+                ties.append(dict(request=r, step=n,
+                                 margin=margins[n].item(),
+                                 gap=gaps[n].item()))
+        check(worst <= tol, f"CB tiny {attn_impl}: teacher-forced logits "
+              f"{worst} of max|logits| from the CPU's, past {tol}")
+        tokens = sum(len(t) for t in served[0])
+        res[f"llama W8A8 CB {attn_impl} int8 KV"] = dict(
+            head_major=hm, requests=len(prompts), tokens=tokens,
+            tokens_held_equal=held, tokens_equal=served[0] == served[1],
+            near_ties=ties, max_logits_gap=worst, limit=tol,
+            min_top2_margin=margin)
+    print(f"reference: CB engine, tiny llama card vs CPU {res}", flush=True)
     return res
 
 
@@ -2436,6 +2619,12 @@ KERNEL_ROWS = [
     ("decode_attention_alibi", "decode_attention", "REPLACES",
      "decode_attention_alibi", ("decode_attention.alibi",),
      (BAICHUAN_PATHS[0][0],)),
+    ("flash_decode_pool", "flash_decode", "REPLACES", "flash_decode_pool",
+     ("flash_decode",), ("Llama-2-7B W8A8O16 CB int8 KV (flash, "
+                         "head-major)",)),
+    ("decode_attention_pool", "decode_attention", "REPLACES",
+     "decode_attention_pool", ("decode_attention",),
+     ("Llama-2-7B W8A8O16 CB bf16 KV (auto, batch-major)",)),
 ]
 # entries whose mode is a runtime argument (the gelu_new epilogue), which
 # a kernel's name does not show: the card's runs are counted by the
@@ -2446,6 +2635,16 @@ EXECUTED_AS = {"mix_gemm_w8a8_gelu_new": ("mix_gemm.w8a8",),
                "flash_decode_alibi": ("flash_decode",),
                "decode_attention_alibi": ("decode_attention",)}
 KERNEL_NOTES = {
+    "flash_decode_pool": "kernel 3 at phase 9's int8 head-major pool: 64 "
+                         "slots of 640 positions, rows of length 1 to 640 "
+                         "in one launch; launches: the card's runs in that "
+                         "pool's profiled window (R = 8 decode steps)",
+    "decode_attention_pool": "kernel 8 at phase 9's bf16 batch-major pool "
+                             "(JAX's default engine configuration): 64 "
+                             "slots of 640 positions, rows of length 1 to "
+                             "640 in one launch; launches: the card's runs "
+                             "in that pool's profiled window (R = 8 decode "
+                             "steps)",
     "w8a16_matmul": "launches: the a16 kernel's int8 per-channel mode, "
                     "which computes this entry's function",
     "int8_matmul_dequant": "launches: kernel 2's W8A8 mode, which computes "
@@ -2736,7 +2935,8 @@ def cpu_check(dev, sd, cfg, qcfg):
 def pipeline_phase(dev, gen, report):
     """Phase 7: Llama-2-7B at full width and depth from a float state dict
     on the card through quantize_model, warmup_online and generate, held
-    against the FP16-spec model of the same weights."""
+    against the FP16-spec model of the same weights. Returns (its report,
+    the warmed W8A8O16 params and their specs, which phase 9 serves)."""
     from mixq_tpu_torch.config import QuantConfig
     from mixq_tpu_torch.models.decoder import DecoderSpecs
     from mixq_tpu_torch.models.hf import TensorSource, params_from_source
@@ -2835,6 +3035,7 @@ def pipeline_phase(dev, gen, report):
         graph_ms_per_step=dec["graph"]["ms_per_step"],
         max_memory_allocated_gib=dec["max_memory_allocated_gib"])
     print(f"pipeline W8A8 decode: {out['w8a8']['decode']}", flush=True)
+    warmed, warmed_specs = eng.params, eng.specs
     del eng, dec
     gc.collect()
     torch.cuda.empty_cache()
@@ -2877,7 +3078,7 @@ def pipeline_phase(dev, gen, report):
                                        / 2 ** 30)
     print(f"pipeline host seconds: {secs}; peak memory "
           f"{out['max_memory_allocated_gib']:.2f} GiB", flush=True)
-    return out
+    return out, warmed, warmed_specs
 
 
 def baichuan_phase(dev, gen):
@@ -2977,6 +3178,382 @@ def varied(served, name):
           f"{name}: {served['distinct_rows']} distinct rows of 8, "
           f"{served['constant_rows']} of one repeated token")
 
+
+# ---------------------------------------------------------------------------
+# Phase 9: continuous batching
+# ---------------------------------------------------------------------------
+
+# the pools, one after another: (label, attn_impl, KV type). JAX's default
+# engine configuration first (bf16 KV under "auto": the batch-major pool,
+# kernel 8), then the int8 head-major pool (kernel 3)
+CB_POOLS = [("Llama-2-7B W8A8O16 CB bf16 KV (auto, batch-major)", "auto",
+             "bfloat16"),
+            ("Llama-2-7B W8A8O16 CB int8 KV (flash, head-major)", "flash",
+             "int8")]
+CB_SLOTS, CB_SEQ = 64, 640
+# the traffic script (benchserve.py's rule, :160-200): requests with prompts
+# uniform over 16-256 tokens and budgets over 16-128 new tokens arrive at
+# window boundaries, at most CB_BURST a window (each of CB_BURST arrives
+# with probability 1/2); CB_SAMPLED sample, CB_STOPPED carry a stop set
+CB_REQUESTS, CB_BURST = 192, 16
+CB_PROMPT, CB_NEW = (16, 256), (16, 128)
+CB_SAMPLED, CB_STOPPED = 8, 4
+CB_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
+# one prefill bucket for every prompt of the script (at most 256 tokens):
+# an admission group's prefill is [k_pad, 256] whatever its prompts
+CB_PREFILL_CHUNK = 256
+# windows profiled one by one (each a card_trace of its R steps alone),
+# until one shows every kernel run the steps imply
+CB_PROFILED = (6, 7, 8, 9, 10, 11)
+
+
+def cb_script(cfg, seed=0):
+    """The requests (prompt, budget, sampling or None) and the arrivals of
+    each window, from `seed`."""
+    import random
+
+    from mixq_tpu_torch.engine import SamplingParams
+
+    rng = random.Random(seed)
+    reqs = [dict(prompt=[rng.randrange(1, cfg.vocab_size)
+                         for _ in range(rng.randint(*CB_PROMPT))],
+                 budget=rng.randint(*CB_NEW), sampling=None, stop=None)
+            for _ in range(CB_REQUESTS)]
+    for i in rng.sample(range(CB_REQUESTS), CB_SAMPLED):
+        reqs[i]["sampling"] = SamplingParams(**CB_SAMPLING)
+    greedy = [i for i, r in enumerate(reqs) if r["sampling"] is None]
+    stopped = sorted(rng.sample(greedy, CB_STOPPED))
+    arrivals, left = [], CB_REQUESTS
+    while left:
+        n = min(left, sum(rng.random() < 0.5 for _ in range(CB_BURST)))
+        arrivals.append(n)
+        left -= n
+    return reqs, arrivals, stopped
+
+
+class Forwards:
+    """Counts the CB engine's forward calls (prefill chunks, and T=1 steps
+    run eagerly or captured) while it is entered, and the most rows
+    (k_pad x chunk) a prefill chunk ran."""
+
+    def __enter__(self):
+        from mixq_tpu_torch.engine import batching
+
+        self.prefill = self.step = self.prefill_m = 0
+        self._mod, self._real = batching, batching.forward
+
+        def counted(params, tokens, *a, **kw):
+            if tokens.shape[1] > 1:
+                self.prefill += 1
+                self.prefill_m = max(self.prefill_m, tokens.numel())
+            else:
+                self.step += 1
+            return self._real(params, tokens, *a, **kw)
+
+        batching.forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.forward = self._real
+        return False
+
+
+def cb_run(eng, reqs, arrivals, windowed, profile=None):
+    """Serve the script: the requests of window w arrive before window w
+    (windowed) or before step w * R (single steps, `step`). Returns the
+    records by request index and, per window, (wall ms, tokens taken,
+    profiled); `profile(window)` may wrap a window's decode run."""
+    R = eng._window_r
+    rid_of, records, windows = {}, {}, []
+    nxt, w, step = 0, 0, 0
+    while nxt < len(reqs) or eng.has_work:
+        if windowed or step % R == 0:
+            for _ in range(arrivals[w] if w < len(arrivals) else 0):
+                r = reqs[nxt]
+                rid_of[eng.add_request(
+                    r["prompt"], r["budget"], sampling=r["sampling"],
+                    stop_token_ids=r["stop"])] = nxt
+                nxt += 1
+            w += 1
+        if windowed:
+            before = sum(len(o) for o in eng._outputs.values())
+            done = sum(len(v["tokens"]) for v in records.values())
+            real = eng._run_window
+            profiled = profile is not None and profile.wants(w - 1)
+            if profiled:
+                eng._run_window = profile.wrap(w - 1, real)
+            t0 = time.perf_counter()
+            eng.step_window()
+            ms = (time.perf_counter() - t0) * 1e3
+            eng._run_window = real
+        else:
+            eng.step()
+        for rid, rec in eng.finished_records().items():
+            records[rid_of[rid]] = rec
+        if windowed:
+            taken = (sum(len(o) for o in eng._outputs.values())
+                     + sum(len(v["tokens"]) for v in records.values())
+                     - before - done)
+            windows.append((ms, taken, profiled))
+        step += 1
+        check(step < 100000, "the CB script did not drain")
+    return records, windows, step
+
+
+class WindowProfile:
+    """Profiles the decode runs of the windows in CB_PROFILED one by one
+    (a card_trace around the R steps), until one shows every kernel run
+    that R steps imply. The trace's primer is an eager greedy step from the
+    window's own state, which is then put back: it writes the KV position
+    the window's first step writes, with the same values."""
+
+    def __init__(self, eng, want, tag):
+        self.eng, self.want, self.tag = eng, want, tag
+        self.done, self.most, self.short, self.first = False, {}, [], None
+        self.primed = 0
+
+    def wants(self, w):
+        return not self.done and w in CB_PROFILED
+
+    def wrap(self, w, real):
+        def primer():
+            self.primed += 1
+            with torch.inference_mode():
+                state = self.eng._state.clone()
+                self.eng._col.zero_()
+                self.eng._step(False)
+                self.eng._state.copy_(state)
+
+        def run():
+            prof = profile_steps(lambda n: real(), f"{self.tag}_window{w}",
+                                 self.eng._window_r, primer=primer)
+            ran = prof.pop("ran")
+            self.most = {k: max(self.most.get(k, 0), v)
+                         for k, v in ran.items()}
+            lost = {k: v - ran[k] for k, v in self.want.items()
+                    if k in ran and ran[k] < v}
+            if self.first is None or not lost:
+                self.first = dict(window=w, **prof)
+            if lost:
+                self.short.append(lost)
+            else:
+                self.done = True
+        return run
+
+
+def cb_phase(dev, params, cfg, specs):
+    """Phase 9: Llama-2-7B W8A8O16 (phase 7's warmed params) served by the
+    continuous-batching engine on a pool of 64 slots x 640 positions, under
+    "auto" with bf16 KV (batch-major, kernel 8) and "flash" with int8 KV
+    (head-major, kernel 3): the 192-request script through step_window
+    (CUDA graph replays), then the same script through single eager steps
+    on the same engine; greedy tokens equal, every request ends at its
+    budget or its stop token, the slot-mode forward bit-equal to the
+    scalar one at equal lengths, the native scheduler in use."""
+    reqs, arrivals, stopped = cb_script(cfg)
+    out = {"script": dict(
+        requests=CB_REQUESTS, arrivals_per_window=arrivals,
+        burst=CB_BURST, prompt_tokens=sum(len(r["prompt"]) for r in reqs),
+        budget_tokens=sum(r["budget"] for r in reqs),
+        sampled=[i for i, r in enumerate(reqs) if r["sampling"]],
+        stopped=stopped, sampling=CB_SAMPLING,
+        prefill_chunk=CB_PREFILL_CHUNK), "pools": {}}
+    for label, attn_impl, kv_dtype in CB_POOLS:
+        out["pools"][label] = cb_pool(dev, params, cfg, specs, label,
+                                      attn_impl, kv_dtype, reqs, arrivals,
+                                      stopped)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def cb_pool(dev, params, cfg, specs, label, attn_impl, kv_dtype, reqs,
+            arrivals, stopped):
+    """Phase 9 on one pool (cb_phase); the engine and its pool are freed
+    when it returns."""
+    import dataclasses
+
+    from mixq_tpu_torch.config import EngineConfig
+    from mixq_tpu_torch.engine.batching import ContinuousBatchingEngine
+    from mixq_tpu_torch.engine.scheduler import NativeScheduler
+    from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mixq_tpu_torch.models.decoder import forward
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatchingEngine(
+        params, cfg, dataclasses.replace(specs, attn_impl=attn_impl),
+        EngineConfig(max_batch_size=CB_SLOTS, max_seq_len=CB_SEQ,
+                     prefill_chunk=CB_PREFILL_CHUNK, kv_dtype=kv_dtype),
+        device=dev)
+    check(isinstance(eng.sched, NativeScheduler),
+          f"{label}: the scheduler is {type(eng.sched).__name__}")
+    check(eng.cache.head_major == (kv_dtype == "int8"),
+          f"{label}: the pool's layout")
+    R = eng._window_r
+    pool = {"attn_impl": attn_impl, "kv_dtype": kv_dtype,
+            "slots": CB_SLOTS, "positions": CB_SEQ, "window_r": R,
+            "head_major": eng.cache.head_major,
+            "scheduler": type(eng.sched).__name__,
+            "pool_gib": tensor_bytes((eng.cache.k, eng.cache.v,
+                                      eng.cache.k_scale,
+                                      eng.cache.v_scale)) / 2 ** 30}
+    # the stop tokens: the 4th greedy token of each stopped request's
+    # prompt served alone on this pool (its first window captures the
+    # greedy graph)
+    timings = {"capture_ms": [], "admit_ms": []}
+    real_capture, real_admit = eng._capture, eng._admit_many
+
+    def timed(store, fn):
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            timings[store].append((time.perf_counter() - t0) * 1e3)
+            return r
+        return call
+
+    eng._capture = timed("capture_ms", real_capture)
+    probe = [eng.add_request(reqs[i]["prompt"], 4) for i in stopped]
+    got = eng.run_to_completion()
+    for i, rid in zip(stopped, probe):
+        reqs[i]["stop"] = [got[rid][3]]
+    pool["stop_tokens"] = [reqs[i]["stop"][0] for i in stopped]
+    # the main path: the script through windows, counts set to 0 first
+    attn = attn_modes(cfg, eng.specs, kv_dtype, CB_SEQ)
+    eng._admit_many = timed("admit_ms", real_admit)
+    profile = WindowProfile(eng, expect_launches("W8A8", cfg, R, R,
+                                                 attn),
+                            f"cb_{kv_dtype}")
+    graphs = set(eng._graphs)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Forwards() as fw:
+        recs, windows, _ = cb_run(eng, reqs, arrivals, True, profile)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    eng._admit_many = real_admit
+    check(profile.done, f"{label}: every profiled window lost kernel "
+          f"records: {profile.short}")
+    check_executed(profile.most, profile.want, f"{label} window")
+    # phase 3 held kernels 1 and 2 at every admission prefill's rows
+    check(fw.prefill_m <= CB_PREFILL_M, f"{label}: an admission prefill ran "
+          f"{fw.prefill_m} rows, past the {CB_PREFILL_M} at which phase 3 "
+          "held kernels 1 and 2")
+    # the wrappers: every eager forward (prefill chunks, the first step
+    # of a mode, the profiled windows' primers) and the captured step
+    # (once a mode: the greedy one in the stop-token probe, the sampling
+    # one in the script)
+    check_launches(counts, expect_launches(
+        "W8A8", cfg, fw.prefill + fw.step, fw.step, attn),
+        f"{label} (wrapper launches)")
+    new = set(eng._graphs) - graphs
+    check(sorted(eng._graphs) == [False, True]
+          and fw.step == 2 * len(new) + profile.primed,
+          f"{label}: {fw.step} eager steps, graphs {sorted(graphs)} "
+          f"before the script and {sorted(eng._graphs)} after")
+    # every request ends at its budget or at its stop token
+    check(sorted(recs) == list(range(CB_REQUESTS)),
+          f"{label}: {len(recs)} of {CB_REQUESTS} requests finished")
+    stops = 0
+    for i, r in enumerate(reqs):
+        toks = recs[i]["tokens"]
+        stop = bool(r["stop"]) and toks[-1] in r["stop"]
+        stops += stop
+        check(len(toks) == r["budget"] or (stop and len(toks)
+                                           <= r["budget"]),
+              f"{label}: request {i} ended after {len(toks)} of "
+              f"{r['budget']} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in toks)
+              and len(recs[i]["logprobs"]) == len(toks)
+              and all(x <= 0 for x in recs[i]["logprobs"]),
+              f"{label}: request {i}'s tokens or logprobs")
+    free = [(ms, n) for ms, n, prof in windows if not prof]
+    ms_sorted = sorted(ms for ms, _ in free)
+    tokens = sum(len(v["tokens"]) for v in recs.values())
+    pool.update(
+        requests=len(recs), tokens=tokens, windows=len(windows),
+        stopped_at_stop_token=stops, wall_s=wall,
+        unprofiled_windows=len(free),
+        unprofiled_wall_s=sum(ms for ms, _ in free) / 1e3,
+        tok_per_s=sum(n for _, n in free) / sum(ms for ms, _ in free)
+        * 1e3,
+        ms_per_window_median=ms_sorted[len(ms_sorted) // 2],
+        ms_per_window_p90=ms_sorted[int(0.9 * (len(ms_sorted) - 1))],
+        admissions=len(timings["admit_ms"]),
+        admission_ms_total=sum(timings["admit_ms"]),
+        admission_ms_median=sorted(timings["admit_ms"])[
+            len(timings["admit_ms"]) // 2],
+        capture_ms=timings["capture_ms"],
+        prefill_forwards=fw.prefill, prefill_rows_most=fw.prefill_m,
+        eager_steps=fw.step,
+        window_profile=profile.first,
+        profile_short_windows=profile.short,
+        launches=counts, executed=profile.most,
+        executed_want_per_window=profile.want)
+    pool["serve"] = {"executed": profile.most, "launches": counts}
+    print(f"cb {label}: {CB_REQUESTS} requests, {tokens} tokens, "
+          f"{len(windows)} windows, {wall:.2f} s wall "
+          f"({pool['unprofiled_wall_s']:.2f} s over the "
+          f"{len(free)} unprofiled windows: {pool['tok_per_s']:.1f} "
+          f"tok/s); ms per window median "
+          f"{pool['ms_per_window_median']:.2f}, p90 "
+          f"{pool['ms_per_window_p90']:.2f}; {len(timings['admit_ms'])}"
+          f" admissions, {pool['admission_ms_total']:.1f} ms in all "
+          f"(median {pool['admission_ms_median']:.2f}); capture ms "
+          f"{timings['capture_ms']}; {stops} of {CB_STOPPED} stopped "
+          "at their stop token", flush=True)
+    wp = {k: v for k, v in profile.first.items()
+          if k != "top_kernels_us_per_step"}
+    print(f"cb {label} window {wp['window']}: device ms per step "
+          f"{wp['device_ms_per_step']:.3f} (attention "
+          f"{wp['attention_ms_per_step']:.3f}), busy "
+          f"{wp['device_busy_share']:.3f}, by kernel (name, runs, us per "
+          f"step) {profile.first['top_kernels_us_per_step']}; the card "
+          f"ran {profile.most} of {profile.want} a window", flush=True)
+
+    # the same script through single eager steps, on the same engine
+    t0 = time.perf_counter()
+    steps_recs, _, n_steps = cb_run(eng, reqs, arrivals, False)
+    pool["stepwise_wall_s"] = time.perf_counter() - t0
+    pool["stepwise_steps"] = n_steps
+    greedy = [i for i, r in enumerate(reqs) if r["sampling"] is None]
+    differ = [i for i in greedy
+              if steps_recs[i]["tokens"] != recs[i]["tokens"]]
+    check(not differ, f"{label}: greedy requests {differ} differ "
+          "between windows and single steps")
+    pool["greedy_equal_stepwise"] = len(greedy)
+
+    # every row at one length: the slot-mode step bit-equal to the
+    # scalar-length step on the same batch and cache
+    L0 = 300
+    tok = torch.randint(1, cfg.vocab_size, (CB_SLOTS, 1), device=dev,
+                        generator=torch.Generator(device=dev)
+                        .manual_seed(9))
+    with torch.inference_mode():
+        slot, _ = forward(eng.params, tok, eng.cache, eng.specs, cfg,
+                          head_f32=eng.head_f32,
+                          slot_lengths=torch.full(
+                              (CB_SLOTS,), L0, dtype=torch.int32,
+                              device=dev))
+        eng.cache.set_length(L0)
+        scalar, _ = forward(eng.params, tok, eng.cache, eng.specs, cfg,
+                            head_f32=eng.head_f32)
+        eng.cache.set_length(0)
+    check(torch.equal(slot, scalar) and bool(torch.isfinite(slot).all()),
+          f"{label}: slot-mode logits differ from the scalar forward's "
+          f"(max |d| {(slot - scalar).abs().max().item()})")
+    pool["slot_logits_bit_equal_scalar"] = True
+    pool["max_memory_allocated_gib"] = (torch.cuda.max_memory_allocated()
+                                        / 2 ** 30)
+    print(f"cb {label}: {len(greedy)} greedy requests equal through "
+          f"{n_steps} single steps ({pool['stepwise_wall_s']:.1f} s); "
+          f"slot-mode logits bit-equal to the scalar forward's; peak "
+          f"memory {pool['max_memory_allocated_gib']:.2f} GiB (pool "
+          f"{pool['pool_gib']:.2f} GiB)", flush=True)
+    return pool
 
 def main():
     if not torch.cuda.is_available():
@@ -3115,6 +3692,8 @@ def main():
     kernel_decode_small_batch(dev, rows)
     (main_rows["flash_decode_alibi"],
      main_rows["decode_attention_alibi"]) = kernel_baichuan(dev, rows)
+    (main_rows["flash_decode_pool"],
+     main_rows["decode_attention_pool"]) = kernel_pool_rows(dev, rows)
     for name, rs in rows.items():
         for r in rs:
             lib = ("-" if r.get("library_ms") is None
@@ -3152,7 +3731,20 @@ def main():
     report["kernels"] = rows
     torch.cuda.empty_cache()
 
+    report["phase_s"] = {}
+    t_phase = [t_start]
+
+    def phase_done(name):
+        """Host seconds of a phase, printed as it ends."""
+        now = time.perf_counter()
+        report["phase_s"][name] = now - t_phase[0]
+        t_phase[0] = now
+        print(f"phase {name}: {report['phase_s'][name]:.1f} s", flush=True)
+
+    phase_done("1-3 card, build, kernels")
     report["reference"] = reference_check(dev)
+    report["reference"]["cb"] = cb_reference(dev)
+    phase_done("4 reference")
 
     report["paths"] = {}
     for model, name, label, tag, kv_dtype, attn_impl in PATHS:
@@ -3191,12 +3783,22 @@ def main():
         del eng, params                 # free the model before the next
         gc.collect()
         torch.cuda.empty_cache()
-    report["pipeline"] = pipeline_phase(dev, gen, report)
+    phase_done("5-6 serve, timing")
+    report["pipeline"], warmed, specs = pipeline_phase(dev, gen, report)
+    phase_done("7 pipeline")
+    # phase 9 serves phase 7's warmed W8A8O16 params, then frees them
+    report["cb"] = cb_phase(dev, warmed, llama2_7b(), specs)
+    del warmed
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("9 continuous batching")
     report["baichuan"] = baichuan_phase(dev, gen)
+    phase_done("8 Baichuan")
     report["total_s"] = time.perf_counter() - t_start
 
     kernels = []
-    served = {**report["paths"], **report["baichuan"]["paths"]}
+    served = {**report["paths"], **report["baichuan"]["paths"],
+              **report["cb"]["pools"]}
     for name, mod, attr, row, keys, labels in KERNEL_ROWS:
         source = MODULES[mod].SOURCE
         r = main_rows[row]

@@ -41,10 +41,12 @@ ALiBi models: in its ALiBi mode, the slopes made once per head count and
 device, so a captured step reads the eager step's).
 `forward(..., collect_stats=True)` also returns each linear group's input
 channel absmax (calibration and the online predictor's warmup read it;
-"full" gives the raw inputs); off, the forward computes none of it. The
-stacked `lax.scan` runtime, continuous batching slots, falcon's pre-scaled
-ALiBi slopes, rope scaling and the other families raise
-NotImplementedError (ROADMAP.md Queue A).
+"full" gives the raw inputs); off, the forward computes none of it.
+`forward(..., slot_lengths=[B])` is the continuous-batching pool's T=1
+decode step at per-row positions (engine/batching.py). The stacked
+`lax.scan` runtime, the slot-mode T>1 verify, falcon's pre-scaled ALiBi
+slopes, rope scaling and the other families raise NotImplementedError
+(ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -297,15 +299,27 @@ def forward(
     cfg: ModelConfig,
     kv_start: Optional[torch.Tensor] = None,   # [B] int32 first real slot
     *,
-    head_f32: torch.Tensor,                    # lm_head_f32(params, specs)
+    head_f32: Optional[torch.Tensor],          # lm_head_f32(params, specs)
     collect_stats=False,
+    slot_lengths: Optional[torch.Tensor] = None,   # [B] int32 per-row
+                                                   # positions (CB pool)
 ):
     """Run the decoder on a token chunk starting at cache.length.
 
     Returns (logits [B, T, V] f32, the cache, written in place with its
     length advanced by T). T = 1 is a decode step; T > 1 is a prefill chunk
     (on a head-major cache only on a fresh one). `head_f32` is the head
-    widened once by the caller (the engine holds it).
+    widened once by the caller (the engine holds it); None skips the final
+    norm and the head and returns None for the logits (an admission
+    prefill, whose logits nothing reads, as JAX's CB prefill returns only
+    the cache).
+
+    slot_lengths (continuous batching, JAX's slot mode, decoder.py:368-424):
+    a T = 1 decode step in which row b's token sits at position
+    slot_lengths[b]: its RoPE position, its KV write (update_layer_slots)
+    and its attention length slot_lengths[b] + 1 are per row, on the
+    device, and the cache's scalar length is neither read nor moved. T > 1
+    in slot mode (the speculative verify) raises NotImplementedError.
 
     collect_stats=True also returns, third, each linear group's input
     channel absmax over batch and time, {"{layer}.{wqkv|wo|up|down}": [K]
@@ -317,6 +331,10 @@ def forward(
     if params.stacked is not None or params.pos_embed is not None:
         raise NotImplementedError("stacked (scan) params / learned positions")
     B, T = tokens.shape
+    if slot_lengths is not None and T != 1:
+        raise NotImplementedError(
+            "slot-mode forward of T > 1 tokens (speculative verify) is not "
+            "ported (ROADMAP.md Queue A item 8)")
     W, pattern = cfg.sliding_window, cfg.sliding_window_pattern
     head_major = cache.head_major
     if (head_major and W is not None and pattern != 1
@@ -347,18 +365,26 @@ def forward(
         # gemma: sqrt(hidden), rounded to the activation dtype first, as JAX
         # and HF multiply; made once per value and device
         x = x * constant(cfg.embed_multiplier, x.dtype, x.device)
-    # positions from the device length: a captured step replays at each
-    # replay's length
-    q_slot = cache.length + torch.arange(T, device=tokens.device)
-    if kv_start is not None:
-        rope_pos = torch.clamp_min(q_slot[None, :] - kv_start[:, None], 0)
-    else:
+    if slot_lengths is not None:
+        # per-row positions (JAX's slot mode: kv_start does not shift RoPE)
+        q_slot = slot_lengths[:, None]                        # [B, 1]
         rope_pos = q_slot
+        kv_len = (slot_lengths + 1).to(torch.int32)           # [B] int32
+        slots = None
+    else:
+        # positions from the device length: a captured step replays at
+        # each replay's length
+        q_slot = cache.length + torch.arange(T, device=tokens.device)
+        if kv_start is not None:
+            rope_pos = torch.clamp_min(q_slot[None, :] - kv_start[:, None],
+                                       0)
+        else:
+            rope_pos = q_slot
+        kv_len = (cache.length + T).expand(B).contiguous()    # [B] int32
+        slots = cache.slots(T, ring)
     # ALiBi models rotate nothing (apply_rope's style "none")
     cos, sin = (rope_cos_sin(rope_pos, cfg.head_dim_, cfg.rope_theta)
                 if cfg.rope_style != "none" else (None, None))
-    kv_len = (cache.length + T).expand(B).contiguous()      # [B] int32
-    slots = cache.slots(T, ring)
     # gemma2's attention (None elsewhere)
     attn_scale = (cfg.query_pre_attn_scalar ** -0.5
                   if cfg.query_pre_attn_scalar is not None else None)
@@ -381,7 +407,10 @@ def forward(
         win = windows[i]
 
         def kv_apply(q, k, v, i=i, win=win):
-            cache.update_layer(i, k, v, ring=ring, slots=slots)
+            if slot_lengths is not None:
+                cache.update_layer_slots(i, k, v, slot_lengths, ring=ring)
+            else:
+                cache.update_layer(i, k, v, ring=ring, slots=slots)
             k_c, v_c, ks_c, vs_c = cache.layer_kv(i)
             if T == 1:
                 out = decode(q[:, 0], k_c, v_c, kv_len, ks_c, vs_c,
@@ -407,8 +436,18 @@ def forward(
             for slot, a in stats.items():
                 all_stats[f"{i}.{slot}"] = (a if collect_stats == "full"
                                             else Q.absmax_channels(a))
-    cache.advance(T)
+    if slot_lengths is None:
+        cache.advance(T)
+    logits = None if head_f32 is None else _head(x, params, specs, cfg,
+                                                 head_f32)
+    if collect_stats:
+        return logits, cache, all_stats
+    return logits, cache
 
+
+def _head(x, params: DecoderParams, specs: DecoderSpecs, cfg: ModelConfig,
+          head_f32: torch.Tensor) -> torch.Tensor:
+    """The final norm and the f32 head: logits [B, T, V] f32."""
     x = rmsnorm(x, params.lnf_scale, cfg.rms_norm_eps)
     # jnp.dot(bf16, bf16, preferred_element_type=f32): f32 products of the
     # bf16-rounded operands, summed in f32
@@ -416,9 +455,7 @@ def forward(
     if cfg.final_logit_softcap is not None:        # gemma2
         cap = cfg.final_logit_softcap
         logits = torch.tanh(true_div(logits, cap)) * cap
-    if collect_stats:
-        return logits, cache, all_stats
-    return logits, cache
+    return logits
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ the KV cache in JAX's two layouts (batch-major, with ring writes for
 sliding-window models, and head-major), written in place, and `attend`, the
 masked attention that serves prefill (plain PyTorch, as JAX computes it in
 jnp): over a chunk's own k/v, or over a batch-major cache with its int8
-scales and ring positions.
+scales and ring positions. `KVCache.update_layer_slots` is the
+continuous-batching pool's decode write at per-row positions.
 
 The JAX cache's token-major tail window and its flush exist because a
 dynamic-offset write into the big head-major cache is a whole-array pass on
@@ -235,6 +236,40 @@ class KVCache:
             writes += [(self.k_scale, sc_form(sk)), (self.v_scale, sc_form(sv))]
         for buf, val in writes:
             buf[layer].index_copy_(axis, slots, val.to(buf.dtype))
+        return self
+
+    def update_layer_slots(self, layer: int, k_new: torch.Tensor,
+                           v_new: torch.Tensor, slot_lengths: torch.Tensor,
+                           ring: bool = False) -> "KVCache":
+        """The continuous-batching decode write (JAX's update_layer_slots,
+        mixq_tpu/models/layers.py:591-650, on a cache without its tail):
+        row b's k/v [B, 1, n_kv, D] goes to position slot_lengths[b] ([B]
+        int, on the device) of `layer`, in place, int8 quantized per
+        (token, head) as update_layer does; % S on a ring. The scalar
+        length is not read or moved. No host check runs, so that a CUDA
+        graph holds the write: the caller keeps slot_lengths within the
+        cache (the window's clamp at S - 1, as JAX's). T > 1 (the
+        speculative verify's span write) is still to be ported."""
+        if k_new.shape[1] != 1:
+            raise NotImplementedError(
+                "slot-mode KV writes of T > 1 tokens (speculative verify) "
+                "are not ported (ROADMAP.md Queue A item 8)")
+        pos = slot_lengths.long()
+        if ring:
+            pos = pos % self.max_seq
+        rows = torch.arange(k_new.shape[0], device=pos.device)
+        if self.quantized:
+            qk, sk = Q.quantize_kv(k_new[:, 0])
+            qv, sv = Q.quantize_kv(v_new[:, 0])
+            writes = [(self.k, qk), (self.v, qv), (self.k_scale, sk),
+                      (self.v_scale, sv)]
+        else:
+            writes = [(self.k, k_new[:, 0]), (self.v, v_new[:, 0])]
+        for buf, val in writes:            # val: [B, n_kv(, D)]
+            if self.head_major:            # [n_kv, B, S(, D)] per layer
+                buf[layer][:, rows, pos] = val.transpose(0, 1).to(buf.dtype)
+            else:                          # [B, S, n_kv(, D)] per layer
+                buf[layer][rows, pos] = val.to(buf.dtype)
         return self
 
     def layer_kv(self, layer: int):

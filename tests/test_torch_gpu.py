@@ -1540,3 +1540,219 @@ def test_collect_stats_adds_no_sync_and_leaves_the_step_graph(cuda):
     assert graph == eager
     with_stats = kernels(stats_step)
     assert sum(with_stats.values()) > sum(eager.values())
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching: the slot pool's ragged rows, the slot-mode forward,
+# the CB engine's windows as graph replays
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("head_major", [True, False])
+def test_pool_rows_at_length_1_and_S(cuda, head_major, splits):
+    """A CB pool's decode at Llama-2-7B's heads (32 of 128): kernel 3 (int8,
+    head-major) and kernel 8 (bf16, batch-major) with rows of kv_len 1 and
+    S = 640 and ragged ones between in one launch and no kv_start (a pool
+    row starts at 0), at every cluster size R: a row of length 1 leaves
+    R - 1 ranks an empty part. Within each kernel's limit of its plain
+    version."""
+    from mixq_tpu_torch.kernels.decode_attention import _decode
+    from mixq_tpu_torch.kernels.flash_decode import _flash
+    g = _gen(640 + splits + head_major)
+    B, S, n, D = 16, 640, 32, 128
+    q = torch.randn(B, n, D, generator=g, device=cuda).to(torch.bfloat16)
+    lengths = torch.randint(1, S + 1, (B,), generator=g, device=cuda,
+                            dtype=torch.int32)
+    lengths[0], lengths[1], lengths[2] = 1, S, 2
+    if head_major:
+        k, v, ks, vs = _cache(cuda, g, 1, n, B, S, D, True, pad=True)
+        got = _flash(q, k, v, lengths, ks, vs, None, 0, 0.0, None,
+                     splits=splits)
+        _assert_flash_close(got, flash_decode_plain(q, k, v, lengths, ks,
+                                                    vs, layer=0), True)
+    else:
+        k, v, ks, vs = _batch_major(cuda, g, B, S, n, D, False)
+        got = _decode(q, k, v, lengths, ks, vs, None, False, None, 0.0,
+                      splits=splits)
+        _assert_decode_close(got, decode_attention_plain(q, k, v, lengths,
+                                                         ks, vs))
+    torch.cuda.synchronize()
+
+
+def _cb_world(cuda):
+    """The tiny W8A8 llama of the loop tests, on the CPU and the same
+    parameters on the card."""
+    from mixq_tpu_torch.convert import params_to
+    from mixq_tpu_torch.models.decoder import (DecoderSpecs,
+                                               init_decoder_params)
+    from mixq_tpu_torch.ops.mixed_linear import LinearSpec
+
+    cfg = _tiny_cfg("llama")
+    specs = DecoderSpecs.uniform(LinearSpec(w_bit=8, a_bit=8))
+    cpu = init_decoder_params(cfg, specs, torch.Generator().manual_seed(3),
+                              device="cpu", outlier_budget=16)
+    return cfg, specs, cpu, params_to(cpu, cuda)
+
+
+CB_LAYOUTS = [("flash", "int8"), ("auto", "bfloat16"), ("auto", "int8")]
+
+
+@pytest.mark.parametrize("attn,kv", CB_LAYOUTS)
+def test_slot_forward_on_the_card_equals_the_cpu(cuda, attn, kv):
+    """forward(slot_lengths) at ragged lengths (0 to 20 after a prefill of
+    16), 3 steps, on the card and on the CPU: logits within phase 4's
+    limits for the tiny llama (1e-5 of max|logits| on the head-major cache,
+    where the card's W8A8 run equals the CPU's block by block; 1.35e-2 on
+    the batch-major one, where kernel 8 and the prefill's attention over
+    the cache sum in another order); on the same caches the slot-mode step
+    at one length for every row bit-equal to the scalar-length step."""
+    import dataclasses
+
+    from mixq_tpu_torch.models.decoder import forward, lm_head_f32
+    from mixq_tpu_torch.models.layers import KVCache
+
+    cfg, specs, cpu, card = _cb_world(cuda)
+    specs = dataclasses.replace(specs, attn_impl=attn)
+    toks = torch.randint(1, cfg.vocab_size, (4, 20),
+                         generator=torch.Generator().manual_seed(5))
+    lengths = torch.tensor([16, 3, 0, 12], dtype=torch.int32)
+    hm = attn == "flash"
+    logits = []
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        head = lm_head_f32(params, specs)
+        cache = KVCache.create(cfg.num_hidden_layers, 4, 64,
+                               cfg.num_key_value_heads, cfg.head_dim_,
+                               getattr(torch, kv), head_major=hm, device=dev)
+        t = toks.to(dev)
+        with torch.inference_mode():
+            forward(params, t[:, :16], cache, specs, cfg, head_f32=head)
+            out = []
+            for i in range(3):
+                lg, _ = forward(params, t[:, 16 + i:17 + i], cache, specs,
+                                cfg, head_f32=head,
+                                slot_lengths=(lengths + i).to(dev))
+                out.append(lg.cpu())
+            # every row at 16: slot mode bit-equal to the scalar forward
+            even, _ = forward(params, t[:, 19:], cache, specs, cfg,
+                              head_f32=head, slot_lengths=torch.full(
+                                  (4,), 16, dtype=torch.int32, device=dev))
+            scalar, _ = forward(params, t[:, 19:], cache, specs, cfg,
+                                head_f32=head)
+        assert torch.equal(even, scalar)
+        logits.append(torch.stack(out))
+    ref, got = logits
+    tol = 1e-5 if hm else 1.35e-2
+    assert (got - ref).abs().max() <= tol * ref.abs().max()
+
+
+def _cb_serve(params, cfg, specs, dev, attn, kv, windowed=True, sampled=(),
+              seed=11):
+    import dataclasses
+
+    from mixq_tpu_torch.config import EngineConfig
+    from mixq_tpu_torch.engine import SamplingParams
+    from mixq_tpu_torch.engine.batching import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(
+        params, cfg, dataclasses.replace(specs, attn_impl=attn),
+        EngineConfig(max_batch_size=4, max_seq_len=64, prefill_chunk=8,
+                     kv_dtype=kv, device_decode_loop=windowed), device=dev)
+    ids = []
+    for i, prompt in enumerate(_cb_prompts(cfg, seed)):
+        sp = (SamplingParams(temperature=0.8, top_k=20, top_p=0.9)
+              if i in sampled else None)
+        ids.append(eng.add_request(prompt, 4 + i, sampling=sp))
+    out = eng.run_to_completion()
+    return eng, [out[i] for i in ids]
+
+
+def _cb_prompts(cfg, seed):
+    """The 9 prompts of _cb_serve, of 1 to 19 tokens."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, cfg.vocab_size,
+                          (int(torch.randint(1, 20, (1,), generator=g)),),
+                          generator=g).tolist() for _ in range(9)]
+
+
+def _cb_replay(params, cfg, specs, dev, kv, prompt, toks):
+    """A request teacher-forced as the pool serves it (its prompt but the
+    last token, then one token a step) on a cache of the pool's layout:
+    the logits [steps, V] on the host."""
+    from mixq_tpu_torch.config import EngineConfig
+    from mixq_tpu_torch.engine import InferenceEngine
+
+    eng = InferenceEngine(params, cfg, specs, EngineConfig(
+        max_seq_len=64, prefill_chunk=8, kv_dtype=kv), device=dev)
+    cache = eng.new_cache(1, 64)
+    if len(prompt) > 1:
+        eng.prefill(torch.tensor([prompt[:-1]]), cache)
+    steps = []
+    for t in [prompt[-1]] + toks[:-1]:
+        lg, cache = eng.decode_step(torch.tensor([[t]]), cache)
+        steps.append(lg[0].float().cpu())
+    return torch.stack(steps)
+
+
+def cb_card_vs_cpu(cfg, specs, cpu, card, cuda, attn, kv, seed=11):
+    """_cb_serve's script (prompts from `seed`) on the CPU and on the card,
+    then each request's CPU tokens replayed teacher-forced on both: the
+    card's engine and, per request, (the largest logits gap over the
+    replay's max|logits|, the steps before the first whose top-2 margin
+    (the CPU's logits) is not above twice its card-vs-CPU gap, whether the
+    card's served tokens equal the CPU's over those steps)."""
+    import dataclasses
+
+    _, ref = _cb_serve(cpu, cfg, specs, "cpu", attn, kv, seed=seed)
+    eng, got = _cb_serve(card, cfg, specs, cuda, attn, kv, seed=seed)
+    specs = dataclasses.replace(specs, attn_impl=attn)
+    out = []
+    for prompt, r, g in zip(_cb_prompts(cfg, seed), ref, got):
+        lr, lg = (_cb_replay(p, cfg, specs, d, kv, prompt, r)
+                  for p, d in ((cpu, "cpu"), (card, cuda)))
+        gaps = (lg - lr).abs().amax(-1)
+        top2 = torch.topk(lr, 2, dim=-1).values
+        near = ((top2[:, 0] - top2[:, 1]) <= 2 * gaps).nonzero()
+        n = int(near[0]) if len(near) else len(r)
+        out.append(((gaps.max() / lr.abs().max()).item(), n,
+                    g[:n] == r[:n]))
+    return eng, out
+
+
+# chip_smoke.py's CB_TINY_TOL
+CB_TINY_TOL = 1.6e-2
+
+
+@pytest.mark.parametrize("attn,kv", CB_LAYOUTS)
+def test_cb_tokens_on_the_card_equal_the_cpu(cuda, attn, kv):
+    """The CB engine (9 requests of 1 to 19 prompt tokens on 4 slots,
+    windows of 8) on the card, through the kernels and graph replays, and
+    on the CPU; the graph was captured once. Each request's CPU tokens
+    replayed teacher-forced on both devices (cb_card_vs_cpu): every step's
+    logits within CB_TINY_TOL of max|logits| (a bf16 ulp that kernel 3 or
+    8 leaves from its plain version can flip an int8 activation or KV
+    entry, which moves the logits by ~1e-2), and the card's tokens equal
+    the CPU's up to the request's first near-tie: before it the argmaxes
+    must agree, from it a near-tie may go either way."""
+    cfg, specs, cpu, card = _cb_world(cuda)
+    eng, held = cb_card_vs_cpu(cfg, specs, cpu, card, cuda, attn, kv)
+    assert eng.cache.head_major == (attn == "flash")
+    assert list(eng._graphs) == [False]
+    for i, (gap, n, equal) in enumerate(held):
+        assert gap <= CB_TINY_TOL and equal, (i, gap, n)
+
+
+@pytest.mark.parametrize("attn,kv", CB_LAYOUTS[:2])
+def test_cb_graph_windows_equal_eager_steps(cuda, attn, kv):
+    """On the card, windows as graph replays give the tokens of eager
+    single steps; with two sampled requests in the pool the greedy rows
+    stay the same and a second graph (the sampling mode, the generator
+    registered) is captured."""
+    cfg, specs, _, card = _cb_world(cuda)
+    _, steps = _cb_serve(card, cfg, specs, cuda, attn, kv, windowed=False)
+    eng, windows = _cb_serve(card, cfg, specs, cuda, attn, kv)
+    assert windows == steps
+    eng, mixed = _cb_serve(card, cfg, specs, cuda, attn, kv,
+                           sampled=(2, 5))
+    greedy = [i for i in range(9) if i not in (2, 5)]
+    assert [mixed[i] for i in greedy] == [steps[i] for i in greedy]
+    assert sorted(eng._graphs) == [False, True]
