@@ -109,8 +109,10 @@
 //
 // Requirements (checked by the Python wrapper): K % 16 == 0 (W4: K % 32),
 // N % 16 == 0, Bo % 16 == 0, 16-byte aligned operands, 1 <= S <= 8;
-// grouped: gs % 16 == 0 (W4: gs divides K/2). M, N edges and a K tail
-// inside the last stage are masked by zero-filled loads and guarded stores.
+// grouped: gs % 16 == 0 (W4: a gs that does not divide K/2 runs
+// step-wise, its group across the halves folded in two parts). M, N edges
+// and a K tail inside the last stage are masked by zero-filled loads and
+// guarded stores.
 // The launcher returns cudaGetLastError(); it allocates nothing and does not
 // synchronize.
 #include <cuda_bf16.h>
@@ -469,15 +471,21 @@ __device__ __forceinline__ void gemm_tile(const Args& a,
   // last stage (`left`: the group's stages still to run), with the scales
   // `sc` loaded at its first. Otherwise each k-step checks: the quad's
   // current group (of stored rows), where it ends, and where the split's
-  // rows end. The quad's scale rows: w_scale row hrow + group (W4's high
-  // half: the groups of K-rows K/2 + p), columns scol..scol + 7.
+  // rows end. The quad's scale rows: w_scale row hrow + group, columns
+  // scol..scol + 7. W4's high quad walks K-rows K/2 + p of its stored rows
+  // p: aligned, its groups are those of p offset by hrow = K/2 / gs;
+  // step-wise, `kb` = K/2 moves its group bounds into stored rows, so a
+  // group size that does not divide K/2 (the tiny gate's down projection:
+  // K = 704, gs = 64) has a group across the halves, each part folded by
+  // its own quad with that group's scales.
   float facc[GROUPED ? MT : 1][4][4];
   constexpr bool aligned = !STEPWISE;
   int cg = 0, gend = 0, lim = 0, left = 0, hrow = 0;
+  const int kb = STEPWISE && W4 && wk ? rows : 0;
   const int scol = n0 + 32 * wn + 8 * q;
   Scales sc{};
   if constexpr (GROUPED) {
-    hrow = W4 && wk ? rows / a.gs : 0;
+    hrow = !STEPWISE && W4 && wk ? rows / a.gs : 0;
     left = a.gs / KSTEP;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -485,8 +493,8 @@ __device__ __forceinline__ void gemm_tile(const Args& a,
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) facc[mt][j][e] = 0.f;
-    cg = (first * KSTEP + (W4 ? 0 : 64 * wk)) / a.gs;
-    gend = (cg + 1) * a.gs;
+    cg = (kb + first * KSTEP + (W4 ? 0 : 64 * wk)) / a.gs;
+    gend = (cg + 1) * a.gs - kb;
     lim = min((first + count) * KSTEP, rows);
   }
 
@@ -576,8 +584,8 @@ __device__ __forceinline__ void gemm_tile(const Args& a,
           const int nr = r + 32 + (!W4 && h2 == QSTEPS - 1 ? KSTEP - 64 : 0);
           if (!done && (nr >= gend || nr >= lim)) {
             fold<MT>(acc, facc, load_scales(a, hrow + cg, scol));
-            cg = nr / a.gs;
-            gend = (cg + 1) * a.gs;
+            cg = (kb + nr) / a.gs;
+            gend = (cg + 1) * a.gs - kb;
           }
         }
       }
@@ -814,9 +822,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 mix_gemm_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   // the step-wise fold's code kept out of the loop of group sizes that
-  // are multiples of KSTEP (with it there, that loop measured slower)
+  // are multiples of KSTEP (with it there, that loop measured slower);
+  // W4 groups that do not divide K/2 go step-wise too
   if constexpr (GROUPED) {
-    if (a.gs % KSTEP) {
+    if (a.gs % KSTEP || (W4 && (a.K / 2) % a.gs)) {
       gemm_tiles<W4, true, true>(a, smem);
       return;
     }

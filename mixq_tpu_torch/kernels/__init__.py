@@ -18,6 +18,7 @@ a window that `card_trace` opens.
 import contextlib
 import re
 import time
+from typing import Optional
 
 import torch
 
@@ -103,17 +104,19 @@ SPIN = "spin_kernel"
 
 
 @contextlib.contextmanager
-def card_trace(pause: float = 0.05, primer=None):
-    """A torch.profiler window (device activity only) over the block,
-    yielding the profiler. Before and after the block the card is
-    synchronized, a spin kernel (SPIN) runs and the host pauses `pause`
-    seconds: windows on the H100 that opened and closed right at their
-    work lost kernels (the last ~3 ms of a graph replay; four of 8 eager
-    steps'), and some windows with 50 ms pauses still lost the first
-    kernels of their block (the first kernel-1 and kernel-2 runs: one and
-    up to three). `primer`, when given, runs inside the window before the
-    first spin kernel, so that such a loss falls on its launches; a
-    reader then takes only the block's events (`block_events`)."""
+def card_trace(pause: float = 0.05, primer=None, cpu: bool = False):
+    """A torch.profiler window (device activity; with `cpu`, the host's
+    too, so a device event can be read under the host range that launched
+    it) over the block, yielding the profiler. Before and after the block
+    the card is synchronized, a spin kernel (SPIN) runs and the host
+    pauses `pause` seconds: windows on the H100 that opened and closed
+    right at their work lost kernels (the last ~3 ms of a graph replay;
+    four of 8 eager steps'), and some windows with 50 ms pauses still lost
+    the first kernels of their block (the first kernel-1 and kernel-2
+    runs: one and up to three). `primer`, when given, runs inside the
+    window before the first spin kernel, so that such a loss falls on its
+    launches; a reader then takes only the block's events
+    (`block_events`)."""
     from torch.profiler import ProfilerActivity, profile
 
     def margin():
@@ -122,7 +125,9 @@ def card_trace(pause: float = 0.05, primer=None):
         torch.cuda.synchronize()
         time.sleep(pause)
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if cpu else [])
+    with profile(activities=activities) as prof:
         if primer is not None:
             primer()
         margin()
@@ -130,16 +135,22 @@ def card_trace(pause: float = 0.05, primer=None):
         margin()
 
 
-def block_events(prof) -> list:
+def block_events(prof, host_range: Optional[str] = None) -> list:
     """The device events of a card_trace window's block: those that start
     between its two spin kernels; every device event but the spins when
-    the window does not hold exactly two."""
+    the window does not hold exactly two. With `host_range`, the host
+    ranges of that name (record_function; a window traced with `cpu`)
+    that start there instead: the profiler puts both on one clock, and
+    the block's host work starts a pause after the first spin ends."""
     from torch.autograd import DeviceType
 
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spins = sorted((e.time_range.start, e.time_range.end) for e in events
                    if SPIN in e.name)
     rest = [e for e in events if SPIN not in e.name]
+    if host_range is not None:
+        rest = [e for e in prof.events() if e.name == host_range
+                and e.device_type == DeviceType.CPU]
     if len(spins) != 2:
         return rest
     lo, hi = spins[0][1], spins[1][0]

@@ -161,21 +161,19 @@ def require(t: torch.Tensor, dtype, shape, name: str, device) -> None:
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def scale_groups(w_scale: torch.Tensor, K: int, halves: bool,
-                 what: str) -> int:
+def scale_groups(w_scale: torch.Tensor, K: int, what: str) -> int:
     """The number of K-groups G of a [N] (G = 1) or [G, N] weight scale,
     checked against what the GEMM kernels take: group_size = K / G a
-    multiple of 16 and, with `halves` (a kernel that folds the low and high
-    K-rows of a packed int4 row together), a divisor of K / 2."""
+    multiple of 16."""
     if w_scale.dim() == 1:
         return 1
     G = w_scale.shape[0]
     if G == 1:
         return 1
-    if K % G or (K // G) % 16 or (halves and (K // 2) % (K // G)):
+    if K % G or (K // G) % 16:
         raise ValueError(
             f"{what}: {G} scale groups over K={K} need group_size = K/G a "
-            f"multiple of 16{' dividing K/2' if halves else ''}")
+            "multiple of 16")
     return G
 
 

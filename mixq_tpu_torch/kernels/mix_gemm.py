@@ -67,8 +67,10 @@ def plan_mix(M: int, N: int, K: int, w4: bool, G: int, sm_count: int,
     Per-channel, the splits' int32 partials add exactly and the result
     does not depend on the plan. Grouped (G > 1), K is split in units of
     lcm(KSTEP, K/G) stored rows, so every split bound is a group boundary
-    and no group's int32 sum is cut in two. `clusters`, when given, is a
-    tuple (the plan is cached)."""
+    and no group's int32 sum is cut in two; for W4 with a group size that
+    does not divide K/2, only in the low half (a high K-row's group is cut
+    where it straddles a bound, each part folded with that group's
+    scales). `clusters`, when given, is a tuple (the plan is cached)."""
     rows = K // 2 if w4 else K
     unit = KSTEP
     if G > 1:
@@ -162,7 +164,7 @@ def _mix_gemm(q_x, w, x_scale, w_scale, x_outlier, w_outlier, fuse,
         raise ValueError(f"K ({K}) must be a multiple of {32 if w4 else 16} "
                          f"and N ({N}) of 16")
     dev = q_x.device
-    G = _build.scale_groups(w_scale, K, halves=True, what="mix_gemm")
+    G = _build.scale_groups(w_scale, K, what="mix_gemm")
     _build.require(q_x, torch.int8, (M, K), "q_x", dev)
     _build.require(w, w.dtype if w4 else torch.int8,
                    (K // 2, N) if w4 else (K, N), "w", dev)

@@ -144,7 +144,7 @@ def mix_gemm_a16(
         raise ValueError(f"K ({K}) must be a multiple of {32 if w4 else 16} "
                          f"and N ({N}) of 16")
     dev = x.device
-    G = _build.scale_groups(w_scale, K, halves=False, what="mix_gemm_a16")
+    G = _build.scale_groups(w_scale, K, what="mix_gemm_a16")
     _build.require(x, torch.bfloat16, (M, K), "x", dev)
     _build.require(w, w.dtype if w4 else torch.int8,
                    (K // 2, N) if w4 else (K, N), "w", dev)

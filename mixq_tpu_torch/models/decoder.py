@@ -135,6 +135,9 @@ class DecoderSpecs:
         return cls.uniform(LinearSpec(version="FP16", w_bit=16))
 
 
+# the name of the profiler range around each layer's prefill attention
+PREFILL_ATTEND = "prefill_attend"
+
 # the gate GEMM's epilogue for each gated-MLP activation (JAX's _mlp)
 GATE_FUSE = {"silu": "silu", "gelu": "gelu", "gelu_new": "gelu_new",
               "gelu_pytorch_tanh": "gelu_new"}
@@ -418,17 +421,21 @@ def forward(
                              softcap=attn_softcap or 0.0, scale=attn_scale,
                              alibi_slopes=alibi)
                 return out[:, None]
-            if head_major:
-                # fresh-cache prefill: attention over the chunk's own fp
-                # k/v equals attention over the cache
-                return attend(q, k, v, q_slot, kv_len, kv_start=kv_start,
-                              sliding_window=win, scale=attn_scale,
-                              softcap=attn_softcap, alibi=alibi)
-            # JAX's batch-major prefill: attend over the cache layer
-            return attend(q, k_c, v_c, q_slot, kv_len, kv_start=kv_start,
-                          sliding_window=win, k_scale=ks_c, v_scale=vs_c,
-                          scale=attn_scale, softcap=attn_softcap, ring=ring,
-                          alibi=alibi)
+            # a profiler range, so a trace reads prefill attention's
+            # device time (chip_smoke.py's evaluation split)
+            with torch.profiler.record_function(PREFILL_ATTEND):
+                if head_major:
+                    # fresh-cache prefill: attention over the chunk's own
+                    # fp k/v equals attention over the cache
+                    return attend(q, k, v, q_slot, kv_len,
+                                  kv_start=kv_start, sliding_window=win,
+                                  scale=attn_scale, softcap=attn_softcap,
+                                  alibi=alibi)
+                # JAX's batch-major prefill: attend over the cache layer
+                return attend(q, k_c, v_c, q_slot, kv_len, kv_start=kv_start,
+                              sliding_window=win, k_scale=ks_c, v_scale=vs_c,
+                              scale=attn_scale, softcap=attn_softcap,
+                              ring=ring, alibi=alibi)
 
         stats = {} if collect_stats else None
         x = block_core(x, bp, kv_apply, cos, sin, specs, cfg, stats)

@@ -24,5 +24,9 @@ def constant(d: float, dtype: torch.dtype, device: torch.device
     fresh one would cost a fill kernel on the card at every call (the
     quantizers divide in every layer of every step), and a CUDA graph of
     the decode step cannot hold its making (the first, eager step makes
-    every constant the step needs). Only read, never written."""
-    return torch.full((), d, dtype=dtype, device=device)
+    every constant the step needs). Only read, never written. Made outside
+    inference mode whatever the caller's mode, so that a forward under
+    autograd (training) may save it for backward after an inference-mode
+    forward made it."""
+    with torch.inference_mode(False):
+        return torch.full((), d, dtype=dtype, device=device)

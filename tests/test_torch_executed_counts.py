@@ -110,3 +110,21 @@ def test_block_events_keep_the_block(spins, kept):
                  _event("a host op", 35, 36, DeviceType.CPU)])
     got = [e.name for e in kernels.block_events(_Window(events))]
     assert got == kept
+
+
+@pytest.mark.parametrize("spins,kept", [
+    ([(10, 20), (90, 100)], [30]),
+    ([(90, 100)], [1, 30, 105])])
+def test_block_events_keep_the_blocks_host_ranges(spins, kept):
+    """With host_range: the host ranges of that name that start between
+    the two spin kernels (the primer's and later ones left out); with a
+    spin record missing, every such range."""
+    events = ([_event("range", 1, 4, DeviceType.CPU),
+               _event("range", 2, 3)]              # its device annotation
+              + [_event(kernels.SPIN + "(long)", a, b) for a, b in spins]
+              + [_event("range", 30, 45, DeviceType.CPU),
+                 _event("other", 31, 32, DeviceType.CPU),
+                 _event("range", 105, 107, DeviceType.CPU)])
+    got = kernels.block_events(_Window(events), host_range="range")
+    assert [e.time_range.start for e in got] == kept
+    assert all(e.device_type == DeviceType.CPU for e in got)

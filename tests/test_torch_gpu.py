@@ -367,7 +367,13 @@ def _group_sum_atol(q_x, w, xs, ws):
     (1, 256, 384, 8, 0, False), (33, 512, 256, 4, 16, False),
     (130, 11008, 4096, 86, 128, False),
     (16, 512, 384, 4, 0, True), (70, 256, 400, 8, 16, True),
-    (64, 4096, 11008, 32, 128, True)])
+    (64, 4096, 11008, 32, 128, True),
+    # the tiny PPL gate's linears with 64-row groups (H = 256, I = 704):
+    # q/k/v/o and up/gate in W4; down in W8 (mix4_g64) and in W4
+    # (mix4_full_g64: 11 groups over 352 packed rows, 64 not dividing K/2)
+    (1024, 256, 256, 4, 128, True), (1024, 256, 704, 4, 128, True),
+    (1024, 704, 256, 11, 128, False), (1024, 704, 256, 11, 128, True),
+    (70, 704, 256, 11, 0, True)])
 @pytest.mark.parametrize("fuse", FUSES)
 def test_mix_gemm_w4_and_grouped(cuda, M, K, N, G, B, w4, fuse):
     g = _gen(M + K + N + G)
@@ -414,7 +420,8 @@ def test_w4_bit_equal_across_plans(cuda):
 @pytest.mark.parametrize("M,K,N,G,w4", [
     (64, 4096, 4096, 32, True), (64, 11008, 4096, 86, False),
     (17, 1536, 400, 48, True), (33, 1056, 256, 22, False),
-    (33, 2048, 256, 4, False), (1, 16384, 128, 2, True)])
+    (33, 2048, 256, 4, False), (1, 16384, 128, 2, True),
+    (1024, 704, 256, 11, True), (33, 704, 256, 11, False)])
 def test_grouped_split_k(cuda, M, K, N, G, w4):
     """Grouped: the splits' f32 partials add in rank order, so two launches
     at one S are bit-equal, and at every S (1, 2, 3, the plan's, 8) the
@@ -575,8 +582,12 @@ def test_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                 # 5 groups: K % G != 0
         mix_gemm(q_x, w, xs, ws[:5].contiguous())
     q_x, w, xs, ws, _, _ = _w4_gemm_operands(cuda, g, 8, 384, 64, 3, 0, True)
-    with pytest.raises(ValueError):                 # W4: group 128 does not
-        mix_gemm(q_x, w, xs, ws)                    # divide K/2 = 192
+    # W4 with a group (128) that does not divide K/2 = 192 is taken: the
+    # group across the halves folds in two parts (test_grouped_split_k)
+    ref = mix_gemm_plain(q_x, w, xs, ws, out_dtype=torch.float32)
+    got = mix_gemm(q_x, w, xs, ws, out_dtype=torch.float32)
+    assert (got - ref).abs().le(1e-4 * ref.abs() + 1e-4
+                                + _group_sum_atol(q_x, w, xs, ws)).all()
     with pytest.raises(ValueError):                 # group_size 8 % 16 != 0
         mix_gemm(q_x, Q.unpack_int4(w), xs,
                  torch.ones(48, 64, device=cuda))
@@ -1756,3 +1767,162 @@ def test_cb_graph_windows_equal_eager_steps(cuda, attn, kv):
     greedy = [i for i in range(9) if i not in (2, 5)]
     assert [mixed[i] for i in greedy] == [steps[i] for i in greedy]
     assert sorted(eng._graphs) == [False, True]
+
+
+# ---------------------------------------------------------------------------
+# Evaluation on the card (eval/)
+# ---------------------------------------------------------------------------
+
+def _eval_model(cuda, qcfg):
+    """The tiny gate's shapes (H = 256, I = 704, 2 layers, V = 2048) from
+    random_hf_state with function-preserving outlier channels, quantized
+    on the card (4-bit: calibrated on the card); with its CPU copy."""
+    import dataclasses
+
+    import numpy as np
+
+    from mixq_tpu_torch.convert import params_to
+    from mixq_tpu_torch.models.decoder import DecoderSpecs
+    from mixq_tpu_torch.models.hf import params_from_source
+    from mixq_tpu_torch.quantize import quantize_model
+    from mixq_tpu_torch.utils.substrate import (plant_outlier_channels,
+                                                substrate_cfg)
+    from mixq_tpu_torch.utils.testing import DictSource, random_hf_state
+
+    cfg = dataclasses.replace(substrate_cfg("tiny"), num_hidden_layers=2)
+    state = plant_outlier_channels(random_hf_state(cfg, seed=4), cfg,
+                                   [5, 77, 200], gain=8.0,
+                                   inner_channels=[9, 300])
+    calib = [np.random.RandomState(i).randint(2, cfg.vocab_size, (4, 64))
+             for i in range(2)]
+    if qcfg is None:
+        specs = DecoderSpecs.fp16()
+        card = params_from_source(DictSource(state), cfg, specs, device=cuda)
+    else:
+        card, specs = quantize_model(DictSource(state), cfg, qcfg,
+                                     calib_batches=calib, device=cuda)
+    return cfg, specs, card, params_to(card, "cpu")
+
+
+@pytest.mark.parametrize("config", ["mix8", "mix4", "mix4_g64"])
+def test_tiny_ppl_on_the_card_equals_the_cpu(cuda, config, record_property):
+    """compute_perplexity on the card (kernels 1, 2 and A) against the same
+    params on the CPU (the plain versions), bf16 and int8 KV: within the
+    larger of the CPU's own int8-vs-bf16 KV gap and 1e-3 of its PPL (the
+    limit chip_smoke.py's phase 10 holds its FP16 and W8A8 rows to; its
+    trained A4 rows take 2.5e-3); the kernels counted."""
+    import numpy as np
+
+    from mixq_tpu_torch.config import QuantConfig
+    from mixq_tpu_torch.eval import compute_perplexity
+
+    qcfg = {"mix8": QuantConfig.w8a8(outlier_budget=32),
+            "mix4": QuantConfig.w4a4(),
+            "mix4_g64": QuantConfig.w4a4(q_group_size=64)}[config]
+    cfg, specs, card, cpu = _eval_model(cuda, qcfg)
+    tokens = np.random.RandomState(7).randint(2, cfg.vocab_size, 8 * 128)
+    before = mix_gemm.launches
+    ppl = {(kv, where): compute_perplexity(p, cfg, tokens, specs, n_ctx=128,
+                                           batch_size=8, kv_dtype=kv).ppl
+           for kv in ("bfloat16", "int8")
+           for where, p in (("card", card), ("cpu", cpu))}
+    assert mix_gemm.launches - before == 2 * 2 * 7     # 2 KV x 2 layers
+    gap = abs(ppl[("int8", "cpu")] - ppl[("bfloat16", "cpu")])
+    for kv in ("bfloat16", "int8"):
+        d = abs(ppl[(kv, "card")] - ppl[(kv, "cpu")])
+        record_property(f"{kv}_diff", d)
+        assert d <= max(gap, 1e-3 * ppl[(kv, "cpu")]), (kv, ppl)
+
+
+def test_mmlu_and_offline_tasks_on_the_card(cuda):
+    """evaluate_mmlu on the card gives the CPU's result on the same W8A8
+    params; cloze and completion through MixQLM on the card score >= 0.9
+    on a W8A8 Markov LM, its completion decoding through kernel 8."""
+    import csv
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from mixq_tpu_torch.config import ModelConfig, QuantConfig
+    from mixq_tpu_torch.eval.lm_eval_adaptor import MixQLM
+    from mixq_tpu_torch.eval.mmlu import evaluate_mmlu
+    from mixq_tpu_torch.eval.offline_tasks import (
+        IntTokenizer, build_cloze_task, build_completion_task,
+        evaluate_cloze, evaluate_completion)
+    from mixq_tpu_torch.quantize import quantize_model
+    from mixq_tpu_torch.utils.substrate import make_markov_state
+    from mixq_tpu_torch.utils.testing import DictSource
+
+    cfg, specs, card, cpu = _eval_model(cuda, QuantConfig.w8a8())
+
+    class Tok:
+        def __call__(self, text, add_special_tokens=True):
+            class R:
+                input_ids = [min(ord(c), cfg.vocab_size - 1) for c in text]
+            return R()
+
+    with tempfile.TemporaryDirectory() as d:
+        for split, n in (("dev", 5), ("test", 12)):
+            os.makedirs(os.path.join(d, split))
+            for subject in ("algebra", "biology"):
+                with open(os.path.join(d, split, f"{subject}_{split}.csv"),
+                          "w", newline="") as f:
+                    w = csv.writer(f)
+                    for i in range(n):
+                        w.writerow([f"Question {i}?", "one", "two", "three",
+                                    "four", "ABCD"[i % 4]])
+        got = evaluate_mmlu(card, cfg, specs, Tok(), d, n_shot=2)
+        want = evaluate_mmlu(cpu, cfg, specs, Tok(), d, n_shot=2)
+    assert got.n_questions == want.n_questions == 24
+    assert got.per_subject == want.per_subject
+
+    mcfg = ModelConfig(model_type="llama", vocab_size=512, hidden_size=256,
+                       intermediate_size=704, num_hidden_layers=2,
+                       num_attention_heads=4, num_key_value_heads=4)
+    state, succ = make_markov_state(mcfg, v_eff=128, seed=0, mean_cycle=12)
+    params, mspecs = quantize_model(DictSource(state), mcfg,
+                                    QuantConfig.w8a8(), device=cuda)
+    lm = MixQLM(params, mcfg, mspecs, IntTokenizer(), batch_size=8,
+                max_length=64)
+    walk = [5]
+    for _ in range(400):
+        walk.append(int(succ[walk[-1]]))
+    corpus = np.asarray(walk, np.int32)
+    res = evaluate_cloze(lm, build_cloze_task(corpus, n_items=16, ctx_len=8,
+                                              cont_len=3))
+    assert res["acc"] >= 0.9, res
+    before = decode_attention.launches
+    res = evaluate_completion(lm, build_completion_task(
+        corpus, n_items=8, ctx_len=8, gen_len=3))
+    assert res["exact_match"] >= 0.9, res
+    assert decode_attention.launches > before
+
+
+@pytest.mark.parametrize("H", [256, 3584, 4096, 5120])
+def test_rmsnorm_on_the_card_equals_the_cpu(cuda, H, record_property):
+    """models/layers.py::rmsnorm (the final norm before every logit, the
+    W8A16 paths' norm, gemma2's post-norms) on the card against the CPU,
+    at the tiny gate's, Gemma-2's, Llama-2-7B's and Baichuan-13B's widths.
+    The f32 row sum runs in another order on the card, and torch.mean
+    there multiplies by 1/H: every output within one bf16 ulp of the
+    CPU's, and at most 1e-4 of them differing at all (the shares are
+    recorded; with the sum divided by H in IEEE f32 instead they read
+    about the same, so the cause is the sum's order and the norm keeps
+    torch.mean)."""
+    from mixq_tpu_torch.models.layers import rmsnorm
+
+    g = torch.Generator().manual_seed(H)
+    x = (torch.randn(256, H, generator=g) * 3).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(H, generator=g)
+    card = rmsnorm(x.to(cuda), scale.to(cuda)).cpu()
+    cpu = rmsnorm(x, scale)
+    sq = x.float() ** 2
+    card_sum = torch.sum(sq.to(cuda), dim=-1)
+    differ = (card.view(torch.int16) != cpu.view(torch.int16)).float().mean()
+    record_property("differing_share", float(differ))
+    record_property("row_sums_differing_share", float(
+        (card_sum.cpu() != torch.sum(sq, dim=-1)).float().mean()))
+    assert ((card.float() - cpu.float()).abs()
+            <= BF16_ULP * cpu.float().abs()).all()
+    assert differ <= 1e-4

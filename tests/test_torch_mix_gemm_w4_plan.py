@@ -236,3 +236,19 @@ def test_grouped_fold_inside_a_step():
     for S in (1, 3):
         got = emulated(*[t(a) for a in ops], fuse="silu", splits=S)
         np.testing.assert_array_less(np.abs(got.numpy() - ref), lim)
+
+
+def test_w4_group_across_the_halves():
+    """W4 with groups of 64 over K = 704 (the tiny gate's down projection
+    under mix4_full_g64: 352 packed rows, 11 groups): 64 does not divide
+    K/2, so group 5 (K-rows 320-383) lies in both halves, its low part
+    folded by quad 0 and its high part by quad 1, and a split bound in the
+    low half falls inside a high group. Within the G-ulp limit of the
+    Pallas kernel at S = 1, 2 and 3, with and without outlier channels."""
+    for B in (0, 32):
+        ops = _operands(9, 704, 256, 11, B, True, 704 + B)
+        ref = _pallas(ops, "none")
+        lim = _group_sum_atol(ops) + 1e-5 * np.abs(ref) + 1e-5
+        for S in (1, 2, 3):
+            got = emulated(*[t(a) for a in ops], splits=S)
+            np.testing.assert_array_less(np.abs(got.numpy() - ref), lim)

@@ -87,3 +87,20 @@ def test_plain_vs_pallas(M, H, masked):
     np.testing.assert_allclose(np.asarray(js), ts.numpy(), rtol=2 ** -8)
     if masked:
         assert (tq.numpy()[:, [5, 17]] == 0).all()
+
+
+@pytest.mark.parametrize("H", [256, 3584, 4096, 5120])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_is_the_plain_kernels_norm(H, dtype):
+    """models.layers.rmsnorm (the final norm, the FP16 and W8A16 pre-norms)
+    and kernel 1's plain version normalize alike, bit for bit, at the
+    served widths."""
+    from mixq_tpu_torch.kernels.rmsnorm_quant import rmsnorm_quant_plain
+    from mixq_tpu_torch.models.layers import rmsnorm
+
+    g = torch.Generator().manual_seed(H)
+    x = (torch.randn(64, H, generator=g) * 3).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(H, generator=g)
+    y = rmsnorm_quant_plain(x, gamma)[0]
+    assert torch.equal(rmsnorm(x, gamma).view(torch.uint8),
+                       y.view(torch.uint8))

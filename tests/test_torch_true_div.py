@@ -147,3 +147,17 @@ def test_decode_plain_bits_unchanged(int8, softcap):
     old = _old_attend_t1(q, k, v, lens.long(), starts, ks, vs, scale,
                          softcap or None)
     assert torch.equal(got, old)
+
+
+def test_constant_made_in_inference_mode_serves_autograd():
+    """A divisor cached by an inference-mode call (serving) is saved by a
+    later division under autograd (training)."""
+    from mixq_tpu_torch.utils.arith import constant
+
+    constant.cache_clear()
+    x = torch.randn(4, 96)
+    with torch.inference_mode():
+        true_div(x, 96)
+    x.requires_grad_(True)
+    (true_div(x, 96) ** 2).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()

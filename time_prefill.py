@@ -86,7 +86,7 @@ def main():
             work = f"M={M} H={H}, 128 outlier channels, A{a_bits}"
             ok, dy, dq, ds = cs.kernel1_close(
                 RQ.fused_rmsnorm_quant(*ins), RQ.rmsnorm_quant_plain(*ins),
-                a_bits)
+                a_bits, ins[2])
             cs.check(ok, f"kernel 1 {work} disagrees with its plain "
                          f"version: dy {dy} dq {dq} ds {ds}")
             res["kernel1"].append(dict(
