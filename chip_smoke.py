@@ -73,7 +73,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      A4) and M=8192 (A8), kernels 2 and A on the tiny gate's linears
      (K, N of 256, 704) at M=1024 in W8A8, W4, and W4 and W8A8 with
      64-row groups (K=704: 11 groups), and on the Llama-2-7B block's at
-     M=2048 (W8A8, W4) and M=8192 (W8A8);
+     M=2048 (W8A8, W4) and M=8192 (W8A8); then phase 11's verify shapes
+     (kernel_verify_shapes): kernel 1 at M=256 H=4096 A8, kernel 2 on
+     every linear shape of the Llama-2-7B block at M=256 (64 slots x 4
+     verify tokens), kernel 3 at the verify's per-row lengths (B=64 S=640
+     32/32 int8, lengths 4 to 640);
   4. reference: tiny W8A8, W4A4 (per-channel and grouped) and W8A16 llama
      models, and tiny W8A8, W4A4 and W8A16 gemma2 models (caps that bind
      without saturating), on the head-major cache (attn_impl="flash"); a
@@ -178,8 +182,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      at its budget or its stop token, the greedy requests' tokens equal
      between windows and single steps, the slot-mode forward's logits at
      one length for every row bit-equal to the scalar-length forward's,
-     the native scheduler in use, and no admission prefill past the rows
-     (M=4096) at which phase 3 held kernels 1 and 2.
+     a full-pool verify of 4 tokens a row at ragged lengths against 4 T=1
+     slot steps on the same cache (verify_vs_steps: layer 0's attention
+     within a bf16 ulp, the bf16 pool's steps through kernel 8's plain
+     version; the 32-layer logits' argmaxes equal clear of near-ties, on
+     the int8 pool within 1e-5 of their max; the verify one position late
+     rejected), the native scheduler in use, and no admission prefill past
+     the rows (M=4096) at which phase 3 held kernels 1 and 2.
  10. evaluation (run last), the wrappers' counts set to 0 just before and
      read just after: examples/realistic_gate_torch.run with JAX's
      defaults (a tiny LM trained on the card for 600 steps, planted
@@ -205,12 +214,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (the control) and mix8 (asserted: acc and exact_match >= 0.9 on
      mix8, kernel 8 run in its decode steps, counted by name). It prints
      the rows, the host seconds, evaluated tokens/s and the peak memory.
+ 11. speculative serving (run last): the Markov Llama-2-7B of
+     benchserve.py:95-110 (make_markov_state: v_eff 512, cycles of ~16,
+     shared blocks, margin 30; 32 layers at full width) through
+     quantize_model(W8A8), on phase 9's two pools with spec_k 4, n-grams of
+     3 and spec windows of 8 rounds. Phase 9's script shape with prompts
+     that walk the planted chain (192 requests, 16-256 prompt tokens,
+     budgets 16-128, 8 sampled, 4 with a stop set). On each pool, the
+     wrappers' counts set to 0 first: on the int8 pool warmup (the
+     kernels, JAX's admission buckets eagerly, the four window graphs;
+     the bf16 pool captures its graphs in its first windows), then the
+     script through plain windows, spec windows, step_serve (on the int8
+     pool: on this traffic it never leaves spec mode) and async windows,
+     each printed with tok/s, ms per call (median, p90), drafted,
+     accepted, the acceptance rate and the gain (tokens emitted per verify
+     row); a full-pool verify against T=1 steps (verify_vs_steps); then a
+     full pool's spec window and plain window profiled (device ms per
+     verify round and per step, split by kernel; the kernels the card ran,
+     asserted: kernel 3 spec_k x 32 times a verify round on the int8 pool)
+     and one eager verify's launches (kernel 3 spec_k x 32, asserted).
+     Asserted: no graph captured after the int8 pool's warmup; drafted >
+     0; every request
+     ends at its budget or its stop token; the greedy tokens of the spec,
+     serve and async runs equal the plain run's up to each request's first
+     near-tie (a chosen logprob below log 1/2); a snapshot of an 8-slot
+     int8 spec pool serving 16 requests, after 2 step_serve calls with
+     requests still queued, restored into a new engine, continues
+     bit-equal to the uninterrupted run (sampled rows included);
+     generate_speculative on a 64-token chain prompt equals greedy
+     generate up to its first near-tie (forwards per token printed).
 It prints each phase's host seconds as it ends. It then prints the
 kernels line (one entry per ported TPU kernel, and one
 per mode a later slice added to a path: the GEMMs' gelu_new epilogue,
-flash decode's softcap and both attentions' ALiBi, and kernels 3 and 8 at
-phase 9's pools; launches summed over phases 5-10) and, last, the device
-line. Details go to
+flash decode's softcap and both attentions' ALiBi, kernels 3 and 8 at
+phase 9's pools, and kernels 1, 2 and 3 at phase 11's verify; launches
+summed over phases 5-11) and, last, the device line. Details go to
 OUT_DIR/chip_smoke.json. Without a CUDA card, or without the package beside
 it, the script exits non-zero and prints no result.
 """
@@ -751,6 +789,36 @@ def kernel_eval_shapes(dev, rows):
         for r in gemm_cases(dev, own, M, 128, cases)[0]]
 
 
+# phase 11's verify forward: spec_k = 4 tokens of each of 64 slots, rows
+# through kernels 1 and 2 (spec windows, step_spec)
+VERIFY_M = 64 * 4
+
+
+def kernel_verify_shapes(dev, rows):
+    """Kernels 1 and 2 at phase 11's verify rows (M = VERIFY_M, A8, at
+    Llama-2-7B's block shapes) and kernel 3 at the verify's per-row lengths
+    (phase 11's int8 pool: a row's last verify token at slot_lengths + 4,
+    slot_lengths over [0, S - 4]), each held to its plain version on the
+    same inputs and timed beside its bound, its plain version and, for the
+    GEMMs, `_int_mm`, on a generator of its own. Returns the rows of the
+    kernels line: kernel 1, kernel 2 on up (4096 x 11008), kernel 3."""
+    own = torch.Generator(device=dev).manual_seed(17)
+    floor = trivial_launch_ms(dev)
+    rows["rmsnorm_quant_verify"] = [rmsnorm_row(dev, own, VERIFY_M, 4096, 8,
+                                                floor)]
+    shapes = sorted({(K, N, f) for _, K, N, f in BLOCK})
+    rows["mix_gemm_verify"] = gemm_cases(
+        dev, own, VERIFY_M, 128,
+        [(K, N, f, False, 1) for K, N, f in shapes])[0]
+    rows["flash_decode_verify"] = [flash_row(
+        dev, own, CB_SLOTS, CB_SEQ, 32, 32, 128, True, pool=True,
+        verify=SPEC_K)]
+    up = next(r for r in rows["mix_gemm_verify"]
+              if "K=4096 N=11008 fuse=none" in r["work"])
+    return (rows["rmsnorm_quant_verify"][0], up,
+            rows["flash_decode_verify"][0])
+
+
 def a16_inputs(dev, gen, M, K, N, G, w4):
     from mixq_tpu_torch.kernels.w8a16 import dequant_weight
     from mixq_tpu_torch.ops import quant as Q
@@ -1104,11 +1172,22 @@ def pool_lengths(dev, gen, B, S):
     return lengths, torch.zeros(B, dtype=torch.int32, device=dev)
 
 
+def verify_lengths(dev, gen, B, S, k):
+    """A spec pool's rows at the verify's last token: slot_lengths uniform
+    over [0, S - k] (the spec round's clamp) plus k, the first row at S
+    and the second at k; no first slot."""
+    lengths = torch.randint(0, S - k + 1, (B,), generator=gen, device=dev,
+                            dtype=torch.int32) + k
+    lengths[0], lengths[1] = S, k
+    return lengths, torch.zeros(B, dtype=torch.int32, device=dev)
+
+
 def flash_case(dev, gen, B, S, n_q, n_kv, D, int8, offset=0.0, gain=1.0,
-               pool=False):
+               pool=False, verify=0):
     """Random q (N(0, gain^2)) and K/V (N(0, 1)), q and K shifted by
     `offset`, ragged lengths and first slots (`pool`: a CB pool's rows,
-    pool_lengths)."""
+    pool_lengths; `verify` = k: a spec pool's rows at the last of k verify
+    tokens, verify_lengths)."""
     from mixq_tpu_torch.ops import quant as Q
 
     q = (torch.randn(B, n_q, D, generator=gen, device=dev) * gain
@@ -1122,6 +1201,8 @@ def flash_case(dev, gen, B, S, n_q, n_kv, D, int8, offset=0.0, gain=1.0,
         k = kf.to(torch.bfloat16)
         v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         ks = vs = None
+    if verify:
+        return (q, k, v, ks, vs) + verify_lengths(dev, gen, B, S, verify)
     if pool:
         return (q, k, v, ks, vs) + pool_lengths(dev, gen, B, S)
     lengths = torch.randint(S // 2, S + 1, (B,), generator=gen, device=dev,
@@ -1143,7 +1224,7 @@ def beyond_levels(got, ref, level):
 
 def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
               offset=0.0, model="Llama-2-7B", gain=1.0, sweep=False,
-              alibi=False, pool=False):
+              alibi=False, pool=False, verify=0):
     """Kernel 3 on one case against its plain version, then timed. The
     limit is two bf16 ulps of |y| plus FLASH_ATOL; for a peaked case
     (gain > 1, or ALiBi, whose rows are peaked by construction) it is two
@@ -1153,7 +1234,8 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
     with ALiBi (n_q's slopes) the plain version without the bias lies
     beyond it. With `sweep`, the row is also held to its limit and timed
     at every cluster size R (`ms_by_splits`). `pool`: a CB pool's rows
-    (pool_lengths)."""
+    (pool_lengths); `verify` = k: at the last of k verify tokens
+    (verify_lengths)."""
     from mixq_tpu_torch.kernels.flash_decode import (flash_decode_attention,
                                                      flash_decode_level,
                                                      flash_decode_plain)
@@ -1161,8 +1243,8 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
     import torch.nn.functional as F
 
     from mixq_tpu_torch.kernels import flash_decode as FD
-    q, k, v, ks, vs, lengths, starts = flash_case(dev, gen, B, S, n_q, n_kv,
-                                                  D, int8, offset, gain, pool)
+    q, k, v, ks, vs, lengths, starts = flash_case(
+        dev, gen, B, S, n_q, n_kv, D, int8, offset, gain, pool, verify)
     args = (q, k, v, lengths, ks, vs, starts, 0)
     slopes = alibi_slopes(n_q, dev) if alibi else None
     opts = dict(softcap=softcap, scale=scale, alibi_slopes=slopes)
@@ -1237,7 +1319,9 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
         qb = q[:, :, None, :]
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             qb, kb, vb, attn_mask=mask, scale=scale), 20)
-    rows_of = (f"CB pool rows: lengths 1 to {S}, no kv_start" if pool
+    rows_of = (f"spec pool rows at the last of {verify} verify tokens: "
+               f"lengths {verify} to {S}, no kv_start" if verify
+               else f"CB pool rows: lengths 1 to {S}, no kv_start" if pool
                else "ragged lengths and kv_start")
     row.update(mode=mode,
                work=f"{model} B={B} S={S} n_q={n_q} n_kv={n_kv} D={D} "
@@ -2639,6 +2723,10 @@ BAICHUAN_PATHS = [
     ("Baichuan-13B W8A8O16 int8 KV (flash)", "baichuan_flash_int8kv",
      "flash", "int8")]
 
+# phase 11's pools (SPEC_POOLS): bf16 KV batch-major, int8 KV head-major
+SPEC_LABELS = (
+    "Llama-2-7B W8A8O16 Markov spec bf16 KV (auto, batch-major)",
+    "Llama-2-7B W8A8O16 Markov spec int8 KV (flash, head-major)")
 # the kernels line: one entry per ported TPU kernel (a row of PERF.md's
 # table) and per mode a later slice added to a path: (name, source module,
 # REPLACES attribute, phase-3 row key, launch-count keys, the serve runs
@@ -2683,6 +2771,12 @@ KERNEL_ROWS = [
     ("decode_attention_pool", "decode_attention", "REPLACES",
      "decode_attention_pool", ("decode_attention",),
      ("Llama-2-7B W8A8O16 CB bf16 KV (auto, batch-major)",)),
+    ("rmsnorm_quant_verify", "rmsnorm_quant", "REPLACES",
+     "rmsnorm_quant_verify", ("rmsnorm_quant",), SPEC_LABELS),
+    ("mix_gemm_w8a8_verify", "mix_gemm", "REPLACES", "mix_gemm_verify",
+     ("mix_gemm.w8a8",), SPEC_LABELS),
+    ("flash_decode_verify", "flash_decode", "REPLACES",
+     "flash_decode_verify", ("flash_decode",), SPEC_LABELS[1:]),
 ]
 # entries whose mode is a runtime argument (the gelu_new epilogue), which
 # a kernel's name does not show: the card's runs are counted by the
@@ -2697,6 +2791,23 @@ KERNEL_NOTES = {
                          "slots of 640 positions, rows of length 1 to 640 "
                          "in one launch; launches: the card's runs in that "
                          "pool's profiled window (R = 8 decode steps)",
+    "rmsnorm_quant_verify": "kernel 1 at phase 11's verify rows (64 slots "
+                            "x spec_k 4 = 256, H=4096, A8); launches: the "
+                            "card's runs in phase 11's profiled windows (a "
+                            "spec window of 8 verify rounds and a plain "
+                            "window of 8 steps, each pool)",
+    "mix_gemm_w8a8_verify": "kernel 2 (W8A8) at phase 11's verify rows "
+                            "(M=256); timed row: up, 4096 x 11008 (every "
+                            "block shape is held and timed in phase 3); "
+                            "launches: the card's runs in phase 11's "
+                            "profiled windows",
+    "flash_decode_verify": "kernel 3 at the speculative verify's per-row "
+                           "lengths (phase 11's int8 head-major pool: 64 "
+                           "slots of 640, the last of 4 verify tokens at "
+                           "slot_lengths + 4); one launch per verify token "
+                           "(Queue B item 1); launches: the card's runs in "
+                           "that pool's profiled windows (8 verify rounds "
+                           "x 4 x 32, and a plain window's 8 x 32)",
     "decode_attention_pool": "kernel 8 at phase 9's bf16 batch-major pool "
                              "(JAX's default engine configuration): 64 "
                              "slots of 640 positions, rows of length 1 to "
@@ -3604,6 +3715,7 @@ def cb_pool(dev, params, cfg, specs, label, attn_impl, kv_dtype, reqs,
           f"{label}: slot-mode logits differ from the scalar forward's "
           f"(max |d| {(slot - scalar).abs().max().item()})")
     pool["slot_logits_bit_equal_scalar"] = True
+    pool["verify_vs_steps"] = verify_vs_steps(eng, cfg, label)
     pool["max_memory_allocated_gib"] = (torch.cuda.max_memory_allocated()
                                         / 2 ** 30)
     print(f"cb {label}: {len(greedy)} greedy requests equal through "
@@ -3612,6 +3724,649 @@ def cb_pool(dev, params, cfg, specs, label, attn_impl, kv_dtype, reqs,
           f"memory {pool['max_memory_allocated_gib']:.2f} GiB (pool "
           f"{pool['pool_gib']:.2f} GiB)", flush=True)
     return pool
+
+
+# the verify held against T=1 steps (verify_vs_steps). Layer 0's attention
+# output within one bf16 ulp of |steps'| + VERIFY_ABS of their max: its
+# inputs are bit-equal either way (kernels 1 and 2 are bit-equal across
+# their plans, phase 3); on the head-major pool kernel 3 makes the same
+# calls (row b's query t at length slot_lengths[b] + t + 1), on the
+# batch-major pool the steps run kernel 8's plain version (`attend` at
+# T=1, the verify's arithmetic: f32 products of other shapes, an ulp at
+# most). The logits through every layer: on the head-major pool within
+# VERIFY_ABS of their max (the same kernels on the same inputs, the f32
+# head aside); on the batch-major pool, whose steps run kernel 8, by their
+# argmaxes clear of near-ties: an ulp flips an int8 activation, which moves a
+# W8A8 model's logits by ~1e-2 of their max at each layer (phase 9's
+# random Llama-2-7B on the bf16 pool: 0.017 through 1 layer, 0.16
+# through 32)
+VERIFY_ABS = 1e-5
+
+
+def verify_vs_steps(eng, cfg, label, control=True, seed=9):
+    """One full-pool verify forward (SPEC_K tokens a row at ragged lengths
+    of 16-380, teacher-forced) on the engine's live cache against SPEC_K
+    T=1 slot steps of the same tokens on the same cache: through layer 0,
+    the verify's attention output within one bf16 ulp (plus VERIFY_ABS of
+    the max) of the steps' (batch-major: kernel 8's plain version);
+    through every layer, finite logits whose argmax equals the main
+    path's steps' (kernel 3 or 8) wherever their top-2 margin clears twice
+    that row's gap, and on the head-major pool within VERIFY_ABS of their
+    max. The control (asserted with `control`): the same limit rejects
+    layer 0's attention of the verify one position late (what a span
+    written or rotated at the wrong position gives), run first. Returns
+    the record."""
+    import mixq_tpu_torch.models.decoder as D
+    from mixq_tpu_torch.kernels.decode_attention import (
+        decode_attention_plain)
+
+    dev, B, k = eng.device, eng.n_slots, SPEC_K
+    hm = eng.cache.head_major
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(16, 384 - k, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    toks = torch.randint(1, cfg.vocab_size, (B, k), generator=g, device=dev)
+    layer0 = eng.params._replace(blocks=eng.params.blocks[:1])
+
+    def fwd(params, t, at):
+        return D.forward(params, t, eng.cache, eng.specs, cfg,
+                         head_f32=eng.head_f32, slot_lengths=at)[0]
+
+    def steps(params):
+        return [fwd(params, toks[:, t:t + 1], lens + t) for t in range(k)]
+
+    def attention(name, fn, run):
+        """The outputs of D.<name> (run as `fn`, or itself) while run()."""
+        real, got = getattr(D, name), []
+
+        def spy(*a, **kw):
+            got.append((fn or real)(*a, **kw))
+            return got[-1]
+
+        setattr(D, name, spy)
+        try:
+            run()
+        finally:
+            setattr(D, name, real)
+        return got
+
+    step_attn = (("flash_decode_attention", None) if hm
+                 else ("decode_attention", decode_attention_plain))
+    # each forward writes the span it reads (the late one's last position
+    # is read by no later forward)
+    with torch.inference_mode():
+        late = attention("_verify_attend", None,
+                         lambda: fwd(layer0, toks, lens + 1))[0]
+        ref = torch.stack(attention(*step_attn, lambda: steps(layer0)), 1)
+        ver = attention("_verify_attend", None,
+                        lambda: fwd(layer0, toks, lens))[0]
+        main = torch.cat(steps(eng.params), 1)
+        full = fwd(eng.params, toks, lens)
+    ref, ver, late = ref.float(), ver.float(), late.float()
+    peak = ref.abs().max()
+    limit = BF16_ULP * ref.abs() + VERIFY_ABS * peak
+    diff = (ver - ref).abs()
+    gap = (diff.max() / peak).item()
+    late_gap = ((late - ref).abs().max() / peak).item()
+    within = bool((diff <= limit).all())
+    late_beyond = ((late - ref).abs() > limit).float().mean().item()
+    gaps = (full - main).abs().amax(-1)                          # [B, k]
+    logits_gap = (gaps.max() / main.abs().max()).item()
+    top2 = torch.topk(main, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * gaps
+    same = torch.argmax(full, -1) == torch.argmax(main, -1)
+    check(within and bool(torch.isfinite(full).all())
+          and bool(same[clear].all())
+          and (not hm or logits_gap <= VERIFY_ABS),
+          f"{label}: layer 0's verify attention "
+          f"{'within' if within else 'beyond'} one bf16 ulp of the steps' "
+          f"({gap:.3g} of its max); logits {logits_gap:.3g} of their max "
+          f"from the steps', argmaxes differ at "
+          f"{int((clear & ~same).sum())} clear positions")
+    if control:
+        check(late_beyond > 0, f"{label}: layer 0's attention one position "
+              f"late lies within one bf16 ulp of the steps' ({late_gap:.3g} "
+              "of its max)")
+    out = dict(attention_gap=gap, attention_bit_equal=bool(diff.max() == 0),
+               late_attention_gap=late_gap, late_beyond_share=late_beyond,
+               logits_gap=logits_gap, clear_positions=int(clear.sum()),
+               positions=B * k)
+    print(f"{label}: a {B} x {k} verify against T=1 steps on the same "
+          f"cache: layer 0's attention within one bf16 ulp of the "
+          f"{'kernel 3' if hm else 'plain kernel 8'} steps' ({gap:.3g} of "
+          f"its max; one position late {late_gap:.3g}, beyond the ulp at a "
+          f"share {late_beyond:.3g}); through "
+          f"{len(eng.params.blocks)} layers logits {out['logits_gap']:.3g} "
+          f"of max|logits| from the {'kernel 3' if hm else 'kernel 8'} "
+          f"steps', argmaxes equal at the {out['clear_positions']} of "
+          f"{B * k} positions clear of a near-tie", flush=True)
+    return out
+
+# ---------------------------------------------------------------------------
+# Phase 11: speculative serving
+# ---------------------------------------------------------------------------
+
+# the model: benchserve.py:95-110's Markov substrate (BENCH_SUBSTRATE=
+# markov) at Llama-2-7B's full width and depth, quantized through
+# quantize_model(W8A8): a planted first-order chain over tokens [2,
+# SPEC_V_EFF) with cycles of ~SPEC_CYCLE tokens, its blocks one shared set
+# of small random arrays, logit margin 30, so greedy output walks the chain
+# and a prompt that walks it makes n-grams recur
+SPEC_V_EFF, SPEC_CYCLE = 512, 16
+SPEC_K, SPEC_NGRAM, SPEC_WINDOW_R = 4, 3, 8
+# the script through an engine in turn: plain windows, spec windows,
+# step_serve (adaptive), async plain windows
+SPEC_RUNS = ("plain", "spec", "serve", "async")
+# phase 9's pools, with speculation
+# (label, attn_impl, KV type, warmup first, runs): the warmed pool asserts
+# that serving after warmup captures no graph; the other captures its
+# graphs in its first windows (the smoke's time limit holds one warmup).
+# step_serve runs on the int8 pool only: on the chain's traffic it never
+# leaves spec mode (acceptance 1), so on the bf16 pool it would repeat the
+# spec run call for call (25 s of the limit)
+SPEC_POOLS = [(SPEC_LABELS[0], "auto", "bfloat16", False,
+               ("plain", "spec", "async")),
+              (SPEC_LABELS[1], "flash", "int8", True, SPEC_RUNS)]
+# a greedy step is a near-tie where the plain run's chosen token holds less
+# than half the probability: another token may hold as much, and a verify
+# row's logits may differ from a T=1 step's by ulps (kernel 2's plan
+# follows M)
+NEAR_TIE_LP = math.log(0.5)
+# the snapshot check: a small pool of the same model and script, more
+# requests than slots (SNAP_SAMPLED of them sampled), snapshotted after
+# SNAP_AFTER calls while some are still queued
+SNAP_SLOTS, SNAP_REQUESTS, SNAP_SAMPLED, SNAP_AFTER = 8, 16, 4, 2
+
+
+def markov_model(dev):
+    """The Markov 7B model on the card: (cfg, params, specs, succ, host s
+    of the state and of quantize_model). The state's arrays go to the card
+    once (substrate.device_state: one block's)."""
+    from mixq_tpu_torch.config import QuantConfig
+    from mixq_tpu_torch.quantize import quantize_model
+    from mixq_tpu_torch.utils.substrate import (device_state,
+                                                make_markov_state)
+    from mixq_tpu_torch.utils.testing import DictSource
+
+    cfg = llama2_7b()
+    t0 = time.perf_counter()
+    state, succ = make_markov_state(cfg, v_eff=SPEC_V_EFF, seed=0,
+                                    mean_cycle=SPEC_CYCLE, share_blocks=True)
+    t1 = time.perf_counter()
+    params, specs = quantize_model(DictSource(device_state(state, dev)), cfg,
+                                   QuantConfig.w8a8(), device=dev)
+    torch.cuda.synchronize()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, params, specs, succ, dict(
+        state_s=t1 - t0, quantize_s=time.perf_counter() - t1)
+
+
+def spec_script(succ, seed=1):
+    """Phase 9's script shape (cb_script) with chain-walk prompts: 192
+    requests, prompts of 16-256 tokens, each a walk of the planted chain
+    from a random token, budgets of 16-128, CB_SAMPLED sampling, CB_STOPPED
+    with a stop set (the 4th token the chain gives after the prompt), the
+    arrivals per window."""
+    import random
+
+    from mixq_tpu_torch.engine import SamplingParams
+
+    rng = random.Random(seed)
+
+    def walk(t, n):
+        out = []
+        for _ in range(n):
+            out.append(t)
+            t = int(succ[t])
+        return out
+
+    reqs = [dict(prompt=walk(rng.randrange(2, SPEC_V_EFF),
+                             rng.randint(*CB_PROMPT)),
+                 budget=rng.randint(*CB_NEW), sampling=None, stop=None)
+            for _ in range(CB_REQUESTS)]
+    for i in rng.sample(range(CB_REQUESTS), CB_SAMPLED):
+        reqs[i]["sampling"] = SamplingParams(**CB_SAMPLING)
+    greedy = [i for i, r in enumerate(reqs) if r["sampling"] is None]
+    stopped = sorted(rng.sample(greedy, CB_STOPPED))
+    for i in stopped:
+        reqs[i]["stop"] = [walk(reqs[i]["prompt"][-1], 5)[4]]
+    arrivals, left = [], CB_REQUESTS
+    while left:
+        n = min(left, sum(rng.random() < 0.5 for _ in range(CB_BURST)))
+        arrivals.append(n)
+        left -= n
+    return reqs, arrivals, stopped, walk
+
+
+def spec_engine(dev, params, cfg, specs, attn_impl, kv_dtype, slots=None):
+    import dataclasses
+
+    from mixq_tpu_torch.config import EngineConfig
+    from mixq_tpu_torch.engine.batching import ContinuousBatchingEngine
+
+    return ContinuousBatchingEngine(
+        params, cfg, dataclasses.replace(specs, attn_impl=attn_impl),
+        EngineConfig(max_batch_size=slots or CB_SLOTS, max_seq_len=CB_SEQ,
+                     prefill_chunk=CB_PREFILL_CHUNK, kv_dtype=kv_dtype,
+                     spec_k=SPEC_K, spec_ngram=SPEC_NGRAM,
+                     spec_window_r=SPEC_WINDOW_R), device=dev)
+
+
+def spec_run(eng, reqs, arrivals, how):
+    """The script through `how` ("plain": step_window, "spec":
+    step_spec_window, "serve": step_serve, "async": step_window_async,
+    drained at the end): the requests of call w arrive before call w.
+    Returns the records by request index, each call's wall ms, the spec
+    counters of the run, the verify rows (R x active slots of each spec
+    window) and the tokens the card emitted in them (a slot that finished
+    mid-window included, as JAX's gain counts them)."""
+    step = {"plain": eng.step_window, "spec": eng.step_spec_window,
+            "serve": eng.step_serve, "async": eng.step_window_async}[how]
+    eng.spec_stats = dict.fromkeys(eng.spec_stats, 0)
+    rid_of, records, calls, rows, emitted = {}, {}, [], 0, 0.0
+    nxt, w = 0, 0
+    while nxt < len(reqs) or eng.has_work:
+        for _ in range(arrivals[w] if w < len(arrivals) else 0):
+            r = reqs[nxt]
+            rid_of[eng.add_request(r["prompt"], r["budget"],
+                                   sampling=r["sampling"],
+                                   stop_token_ids=r["stop"])] = nxt
+            nxt += 1
+        w += 1
+        forwards = eng.spec_stats["forwards"]
+        t0 = time.perf_counter()
+        n = step()
+        calls.append((time.perf_counter() - t0) * 1e3)
+        if eng.spec_stats["forwards"] > forwards:
+            rows += SPEC_WINDOW_R * n
+            emitted += eng._last_spec_gain * SPEC_WINDOW_R * n
+        for rid, rec in eng.finished_records().items():
+            records[rid_of[rid]] = rec
+        check(w < 100000, f"{how}: the script did not drain")
+    if how == "async":
+        eng.drain_async()
+        for rid, rec in eng.finished_records().items():
+            records[rid_of[rid]] = rec
+    return records, calls, dict(eng.spec_stats), rows, emitted
+
+
+def first_near_tie(lps):
+    return next((i for i, lp in enumerate(lps) if lp < NEAR_TIE_LP),
+                len(lps))
+
+
+def spec_profile(eng, tag, spec, want):
+    """One window of the engine's live pool (its R steps or spec rounds)
+    under the profiler, up to 3 windows until one shows every kernel run
+    of `want` (`card_trace`; its primer, as WindowProfile's, is an eager
+    step or round of the same kind from the window's own state, which is
+    then put back: it writes the KV positions the window's first step
+    writes, with the same values): the kernels the card ran (by
+    launch-count key), device ms a step or round (CUPTI over the window's
+    block), its split by kernel (kernel 1, kernel 2, kernel 3, kernel 8,
+    the rest: the glue and, on the batch-major pool, the verify's
+    `attend`), the busy share and the top kernels."""
+    from mixq_tpu_torch.kernels import block_events, card_trace
+
+    bufs = [eng._state] + ([eng._hist, eng._hlen] if spec else [])
+
+    def primer():
+        with torch.inference_mode():
+            saved = [t.clone() for t in bufs]
+            eng._col.zero_()
+            (eng._spec_round if spec else eng._step)(False)
+            for t, c in zip(bufs, saved):
+                t.copy_(c)
+
+    def run():
+        eng._run_window(spec)
+
+    n = SPEC_WINDOW_R if spec else eng._window_r
+    parts = {"kernel 1": "rmsnorm_quant", "kernel 2": "mix_gemm_kernel",
+             "kernel 3": "flash_decode_kernel",
+             "kernel 8": "decode_attention_kernel"}
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with torch.inference_mode(), card_trace(0.05, primer) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ran = ran_on_card(prof)
+        if all(ran.get(k, 0) >= v for k, v in want.items()):
+            break
+    check(all(ran.get(k, 0) == v for k, v in want.items()),
+          f"{tag}: the card ran {ran}, want {want} a window")
+    by_name, split = {}, dict.fromkeys(list(parts) + ["rest"], 0.0)
+    for e in block_events(prof):
+        count, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (count + 1, us + e.self_device_time_total)
+        key = next((k for k, pat in parts.items() if pat in e.name), "rest")
+        split[key] += e.self_device_time_total / n / 1e3
+    dev_us = sum(us for _, us in by_name.values())
+    check(0 < dev_us <= wall_us, f"{tag}: device time {dev_us} us in a "
+          f"block of {wall_us} us")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"profile_{tag}.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=40))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return dict(ran=ran, windows_tried=attempt + 1, steps=n,
+                device_ms_per_step=dev_us / n / 1e3,
+                device_busy_share=dev_us / wall_us,
+                wall_ms_per_step=wall_us / n / 1e3, split_ms=split,
+                top_kernels_us_per_step=[(name[:60], c, us / n)
+                                         for name, (c, us) in top])
+
+
+def spec_pool(dev, params, cfg, specs, label, attn_impl, kv_dtype, warm,
+              how_runs, reqs, arrivals):
+    """Phase 11 on one pool: warmup (`warm`), the runs `how_runs` (plain
+    first), the greedy-token checks, the verify against T=1 steps, the
+    profiled windows; the engine is freed when it returns."""
+    from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = spec_engine(dev, params, cfg, specs, attn_impl, kv_dtype)
+    check(eng.cache.head_major == (kv_dtype == "int8"),
+          f"{label}: the pool's layout")
+    pool = {"attn_impl": attn_impl, "kv_dtype": kv_dtype, "slots": CB_SLOTS,
+            "positions": CB_SEQ, "spec_k": SPEC_K, "spec_ngram": SPEC_NGRAM,
+            "spec_window_r": SPEC_WINDOW_R, "window_r": eng._window_r,
+            "head_major": eng.cache.head_major}
+    # the main path, counts set to 0 first: warmup (the kernels, JAX's
+    # admission buckets, the four graphs), then the four runs
+    reset_launch_counts()
+    if warm:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        programs = eng.warmup()
+        torch.cuda.synchronize()
+        pool.update(warmup_s=time.perf_counter() - t0,
+                    warmup_programs=programs, warmup_captures=eng.captures)
+        check(eng.captures == 4, f"{label}: warmup captured "
+              f"{eng.captures}")
+    runs = {}
+    for how in how_runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs, calls, stats, rows, emitted = spec_run(eng, reqs, arrivals,
+                                                     how)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(sorted(recs) == list(range(CB_REQUESTS)),
+              f"{label} {how}: {len(recs)} of {CB_REQUESTS} finished")
+        tokens = sum(len(r["tokens"]) for r in recs.values())
+        ms = sorted(calls)
+        run = dict(tokens=tokens, calls=len(calls), wall_s=wall,
+                   tok_per_s=tokens / wall,
+                   ms_per_window_median=ms[len(ms) // 2],
+                   ms_per_window_p90=ms[int(0.9 * (len(ms) - 1))],
+                   **stats)
+        if stats["forwards"]:
+            run.update(acceptance=stats["accepted"] / max(stats["drafted"],
+                                                          1),
+                       verify_rows=rows, gain=emitted / max(rows, 1))
+        runs[how] = (recs, run)
+        print(f"spec {label} {how}: {tokens} tokens in {wall:.2f} s, "
+              f"{run['tok_per_s']:.1f} tok/s over {len(calls)} calls; ms "
+              f"per window median {run['ms_per_window_median']:.2f}, p90 "
+              f"{run['ms_per_window_p90']:.2f}"
+              + (f"; drafted {stats['drafted']}, accepted "
+                 f"{stats['accepted']} (rate {run['acceptance']:.4f}), "
+                 f"gain {run['gain']:.3f} emitted per verify row over "
+                 f"{stats['forwards']} verify forwards" if stats["forwards"]
+                 else ""), flush=True)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if warm:
+        check(eng.captures == 4, f"{label}: {eng.captures - 4} captures "
+              "after warmup")
+        pool["captures_after_warmup"] = eng.captures - 4
+    else:
+        pool["captures_in_runs"] = eng.captures
+    pool["runs"] = {how: run for how, (_, run) in runs.items()}
+    spec = pool["runs"]["spec"]
+    check(spec["drafted"] > 0, f"{label}: no draft token")
+    # every request ends at its budget or its stop token; greedy tokens of
+    # the spec, serve and async runs equal the plain run's up to each
+    # request's first near-tie
+    plain = runs["plain"][0]
+    for i, r in enumerate(reqs):
+        for how, (recs, _) in runs.items():
+            toks = recs[i]["tokens"]
+            stop = bool(r["stop"]) and toks[-1] in r["stop"]
+            check(len(toks) == r["budget"] or (stop and len(toks)
+                                               <= r["budget"]),
+                  f"{label} {how}: request {i} ended after {len(toks)} of "
+                  f"{r['budget']} tokens")
+    held, ties = 0, []
+    for i, r in enumerate(reqs):
+        if r["sampling"] is not None:
+            continue
+        n = first_near_tie(plain[i]["logprobs"])
+        if n < len(plain[i]["tokens"]):
+            ties.append((i, n))
+        for how in how_runs[1:]:
+            got = runs[how][0][i]["tokens"]
+            check(got[:n] == plain[i]["tokens"][:n],
+                  f"{label} {how}: greedy request {i} leaves the plain "
+                  f"run before its first near-tie ({n})")
+        held += 1
+    pool.update(greedy_held=held, near_ties=ties,
+                min_greedy_logprob=min(
+                    min(plain[i]["logprobs"]) for i, r in enumerate(reqs)
+                    if r["sampling"] is None))
+    # the verify against T=1 steps on the live cache (the Markov model's
+    # blocks sit below the residual's bf16 resolution, so phase 9's random
+    # weights hold the control)
+    pool["verify_vs_steps"] = verify_vs_steps(eng, cfg, label,
+                                              control=False)
+    # kernel 3's launches per verify forward: spec_k x L on the int8 pool
+    L = cfg.num_hidden_layers
+    attn = attn_modes(cfg, eng.specs, kv_dtype, CB_SEQ)
+    # a full pool for it, admitted in groups of CB_BURST (phase 3 held
+    # kernels 1 and 2 at such an admission's rows) through plain windows,
+    # budgets up to the room
+    for g in range(0, CB_SLOTS, CB_BURST):
+        for i in range(g, g + CB_BURST):
+            eng.add_request(reqs[i]["prompt"], CB_SEQ)
+        eng.step_window()
+    reset_launch_counts()
+    with torch.inference_mode():
+        eng._verify(torch.zeros((eng.n_slots, SPEC_K), dtype=torch.int32,
+                                device=dev), False)
+    torch.cuda.synchronize()
+    one = launch_counts()
+    want_k3 = SPEC_K * L if eng.cache.head_major else 0
+    check(one["flash_decode"] == want_k3 and one["decode_attention"] == 0,
+          f"{label}: a verify forward launched kernel 3 "
+          f"{one['flash_decode']} times, want {want_k3}")
+    pool["verify_kernel3_launches"] = one["flash_decode"]
+    # one verify round and one plain step profiled, device ms by kernel
+    want_spec = expect_launches("W8A8", cfg, SPEC_WINDOW_R, 0, ())
+    if eng.cache.head_major:
+        want_spec["flash_decode"] = SPEC_K * L * SPEC_WINDOW_R
+    want_plain = expect_launches("W8A8", cfg, eng._window_r, eng._window_r,
+                                 attn)
+    from mixq_tpu_torch.kernels import UNNAMED
+    prof, ran = {}, {}
+    for what, spec_win, want in (("verify round", True, want_spec),
+                                 ("plain step", False, want_plain)):
+        prof[what] = spec_profile(
+            eng, f"spec_{kv_dtype}_{what.split()[0]}", spec_win,
+            {k: v for k, v in want.items() if k not in UNNAMED})
+        for k, v in prof[what]["ran"].items():
+            ran[k] = ran.get(k, 0) + v
+    pool["profile"] = prof
+    pool["serve"] = {"executed": ran, "launches": counts}
+    pool["launches"] = counts
+    pool["max_memory_allocated_gib"] = (torch.cuda.max_memory_allocated()
+                                        / 2 ** 30)
+    vr, ps = prof["verify round"], prof["plain step"]
+    print(f"spec {label}: "
+          + (f"warmup {pool['warmup_s']:.1f} s ({programs} programs, "
+             f"{eng.captures} graphs), no capture after it; " if warm else
+             f"{eng.captures} graphs captured in its first windows; ")
+          + f"{held} greedy requests equal across the "
+          f"{', '.join(how_runs)} runs up to their first near-tie "
+          f"({len(ties)} near-ties, least greedy logprob "
+          f"{pool['min_greedy_logprob']:.3g}); a verify forward launches "
+          f"kernel 3 {one['flash_decode']} times; device ms a verify round "
+          f"{vr['device_ms_per_step']:.3f} (busy "
+          f"{vr['device_busy_share']:.3f}) by kernel {vr['split_ms']}, a "
+          f"plain step {ps['device_ms_per_step']:.3f} by kernel "
+          f"{ps['split_ms']}; spec/plain tok/s "
+          f"{spec['tok_per_s'] / pool['runs']['plain']['tok_per_s']:.3f}; "
+          f"peak memory {pool['max_memory_allocated_gib']:.2f} GiB; "
+          f"launches {counts}", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pool
+
+
+def spec_snapshot(dev, params, cfg, specs, reqs):
+    """A small int8 flash spec pool (SNAP_SLOTS slots) through step_serve
+    on SNAP_REQUESTS of the script's requests (SNAP_SAMPLED of them
+    sampled): snapshotted after call SNAP_AFTER, with requests still
+    queued (asserted), and restored into a new engine, it continues with
+    the uninterrupted run's records, bit-equal (tokens and logprobs,
+    sampled rows included; the queued requests keep their ids, budgets and
+    stop sets)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from mixq_tpu_torch.config import EngineConfig
+    from mixq_tpu_torch.engine.batching import ContinuousBatchingEngine
+
+    sub = ([r for r in reqs if r["sampling"] is not None][:SNAP_SAMPLED]
+           + [r for r in reqs if r["sampling"] is None][
+               :SNAP_REQUESTS - SNAP_SAMPLED])
+    queued = []
+
+    def serve(snap_dir=None):
+        eng = spec_engine(dev, params, cfg, specs, "flash", "int8",
+                          SNAP_SLOTS)
+        ids = [eng.add_request(r["prompt"], r["budget"],
+                               sampling=r["sampling"],
+                               stop_token_ids=r["stop"]) for r in sub]
+        recs, calls, snap_s = {}, 0, None
+        while eng.has_work:
+            eng.step_serve()
+            recs.update(eng.finished_records())
+            calls += 1
+            if calls == SNAP_AFTER and snap_dir is not None:
+                queued.append(eng.stats()["queued"])
+                t0 = time.perf_counter()
+                eng.snapshot(snap_dir)
+                del eng
+                gc.collect()
+                eng = ContinuousBatchingEngine.restore(
+                    snap_dir, params, cfg,
+                    dataclasses.replace(specs, attn_impl="flash"),
+                    EngineConfig(max_batch_size=SNAP_SLOTS,
+                                 max_seq_len=CB_SEQ,
+                                 prefill_chunk=CB_PREFILL_CHUNK,
+                                 kv_dtype="int8", spec_k=SPEC_K,
+                                 spec_ngram=SPEC_NGRAM,
+                                 spec_window_r=SPEC_WINDOW_R), device=dev)
+                torch.cuda.synchronize()
+                snap_s = time.perf_counter() - t0
+        recs.update(eng.finished_records())
+        return [recs[i] for i in ids], snap_s
+
+    ref, _ = serve()
+    tmp = tempfile.mkdtemp(prefix="mixq_snapshot_")
+    try:
+        got, snap_s = serve(os.path.join(tmp, "pool"))
+        nbytes = sum(os.path.getsize(os.path.join(tmp, "pool", f))
+                     for f in os.listdir(os.path.join(tmp, "pool")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(queued[0] > 0, f"snapshot: no request queued after call "
+          f"{SNAP_AFTER}")
+    differ = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+    check(not differ, f"snapshot: requests {differ} differ after restore")
+    out = dict(slots=SNAP_SLOTS, requests=SNAP_REQUESTS,
+               sampled=sum(r["sampling"] is not None for r in sub),
+               snapshot_after_calls=SNAP_AFTER, queued_at_snapshot=queued[0],
+               snapshot_restore_s=snap_s, snapshot_bytes=nbytes,
+               bit_equal=True)
+    print(f"spec snapshot: {SNAP_REQUESTS} requests ({out['sampled']} "
+          f"sampled) on {SNAP_SLOTS} int8 flash slots, snapshot after "
+          f"{SNAP_AFTER} calls with {queued[0]} queued ("
+          f"{nbytes / 2 ** 30:.2f} GiB, {snap_s:.1f} s with the restore) "
+          "continues bit-equal to the uninterrupted run", flush=True)
+    return out
+
+
+def spec_generate(dev, params, cfg, specs, walk):
+    """generate_speculative on one 64-token chain prompt against greedy
+    generate on the same engine (bf16 KV): tokens equal up to the first
+    near-tie of generate's logprobs; forwards per token."""
+    import dataclasses
+
+    from mixq_tpu_torch.config import EngineConfig
+    from mixq_tpu_torch.engine import InferenceEngine
+    from mixq_tpu_torch.engine.speculative import generate_speculative
+
+    eng = InferenceEngine(params, cfg,
+                          dataclasses.replace(specs, attn_impl="auto"),
+                          EngineConfig(max_seq_len=CB_SEQ, prefill_chunk=64),
+                          device=dev)
+    prompt = walk(7, 64)
+    t0 = time.perf_counter()
+    toks, stats = generate_speculative(eng, prompt, max_new_tokens=64,
+                                       ngram=SPEC_NGRAM, k=SPEC_K)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    ref, lps = eng.generate([prompt], max_new_tokens=64,
+                            return_logprobs=True)
+    n = first_near_tie(lps[0])
+    check(toks[:n] == ref[0][:n] and len(toks) == 64,
+          f"generate_speculative leaves greedy generate before its first "
+          f"near-tie ({n})")
+    out = dict(tokens=len(toks), equal_up_to=n, host_s=spec_s,
+               forwards_per_token=stats["forwards"] / len(toks), **stats)
+    print(f"spec generate_speculative: 64 tokens equal greedy generate's "
+          f"(up to {n}); {stats['forwards']} forwards "
+          f"({out['forwards_per_token']:.3f} a token), drafted "
+          f"{stats['drafted']}, accepted {stats['accepted']}", flush=True)
+    return out
+
+
+def spec_phase(dev):
+    """Phase 11: speculative serving of the Markov Llama-2-7B model on
+    phase 9's pools (spec_pool), the snapshot check (spec_snapshot) and
+    generate_speculative (spec_generate)."""
+    cfg, params, specs, succ, built = markov_model(dev)
+    reqs, arrivals, stopped, walk = spec_script(succ)
+    out = {"model": dict(v_eff=SPEC_V_EFF, mean_cycle=SPEC_CYCLE,
+                         source="benchserve.py:95-110", **built),
+           "script": dict(requests=CB_REQUESTS,
+                          arrivals_per_window=arrivals,
+                          prompt_tokens=sum(len(r["prompt"]) for r in reqs),
+                          budget_tokens=sum(r["budget"] for r in reqs),
+                          sampled=[i for i, r in enumerate(reqs)
+                                   if r["sampling"]], stopped=stopped),
+           "pools": {}}
+    print(f"spec model: Markov state {built['state_s']:.1f} s, "
+          f"quantize_model {built['quantize_s']:.1f} s", flush=True)
+    for label, attn_impl, kv_dtype, warm, how_runs in SPEC_POOLS:
+        out["pools"][label] = spec_pool(dev, params, cfg, specs, label,
+                                        attn_impl, kv_dtype, warm, how_runs,
+                                        reqs, arrivals)
+    out["snapshot"] = spec_snapshot(dev, params, cfg, specs, reqs)
+    out["generate_speculative"] = spec_generate(dev, params, cfg, specs,
+                                                walk)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 
 # ---------------------------------------------------------------------------
 # Phase 10: evaluation
@@ -4125,6 +4880,8 @@ def main():
     (main_rows["flash_decode_pool"],
      main_rows["decode_attention_pool"]) = kernel_pool_rows(dev, rows)
     kernel_eval_shapes(dev, rows)
+    (main_rows["rmsnorm_quant_verify"], main_rows["mix_gemm_verify"],
+     main_rows["flash_decode_verify"]) = kernel_verify_shapes(dev, rows)
     for name, rs in rows.items():
         for r in rs:
             lib = ("-" if r.get("library_ms") is None
@@ -4227,11 +4984,14 @@ def main():
     phase_done("8 Baichuan")
     report["evaluation"] = eval_phase(dev, card)
     phase_done("10 evaluation")
+    report["spec"] = spec_phase(dev)
+    phase_done("11 speculative serving")
     report["total_s"] = time.perf_counter() - t_start
 
     kernels = []
     served = {**report["paths"], **report["baichuan"]["paths"],
-              **report["cb"]["pools"], "evaluation": report["evaluation"]}
+              **report["cb"]["pools"], "evaluation": report["evaluation"],
+              **report["spec"]["pools"]}
     for name, mod, attr, row, keys, labels in KERNEL_ROWS:
         source = MODULES[mod].SOURCE
         r = main_rows[row]

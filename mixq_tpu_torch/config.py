@@ -3,12 +3,13 @@
 Mirrors mixq_tpu/config.py field for field (a copy, so the port never
 imports the JAX package): a config serialized by either package loads in
 the other. Some EngineConfig fields describe JAX-side machinery (meshes,
-tail windows, speculation, async windows) that the port does not run
-yet; they are kept so that JSON round-trips unchanged. `device_decode_loop`
-drives the port's device decode loops (engine.DecodeLoop and the
-continuous-batching windows: a CUDA graph of the decode step on the
-card); `max_batch_size`, `window_r` and `prefill_token_budget` size the
-continuous-batching pool, its windows and its admission prefill.
+tail windows and their flush) that the port does not run; they are kept
+so that JSON round-trips unchanged. `device_decode_loop` drives the
+port's device decode loops (engine.DecodeLoop and the continuous-batching
+windows: a CUDA graph of the decode step on the card); `max_batch_size`,
+`window_r` and `prefill_token_budget` size the continuous-batching pool,
+its windows and its admission prefill; the spec_* fields and
+`async_windows` drive its speculation and async windows, as in JAX.
 
 Replaces the reference's scattered config surface (quant_config.json dict at
 models/base.py:249-255, magic numbers in Cache.py:6-22, policy tables in

@@ -1,6 +1,7 @@
-"""Continuous-batching slot scheduler (mirrors mixq_tpu/engine/scheduler.py):
-a ctypes binding to the native C++ scheduler (native/scheduler.cpp) and a
-pure-Python scheduler with the same contract.
+"""Continuous-batching slot scheduler and n-gram drafters (mirrors
+mixq_tpu/engine/scheduler.py): ctypes bindings to the native C++ scheduler
+and drafter (native/scheduler.cpp) and pure-Python ones with the same
+contract.
 
 Semantics: FCFS admission into free slots; a request occupies one KV-cache
 slot from admission until it reaches its token budget (clamped to the
@@ -12,8 +13,13 @@ mixq_tpu_torch/build/ (its file name carries a hash of the source and the
 flags, so an edited source is rebuilt). Nothing is built when this module
 is imported. A failed build or load raises: nothing falls back to the
 Python scheduler, which runs only where a caller constructs it.
-The drafters (speculative decoding) and `restore_slot` (engine
-snapshot/restore) are still to be ported (ROADMAP.md Queue A item 8).
+
+`restore_slot` re-occupies a slot with an in-flight request (engine
+snapshot/restore: slot ids are KV-cache row ids). The drafters keep each
+slot's token history and propose the prompt-lookup draft of
+engine/speculative.py::propose_ngram: `NativeDrafter` over the library's
+ngram_* scan (the engine's; `make_drafter`, JAX's name for it, never falls
+back), `PythonDrafter` over propose_ngram itself.
 """
 from __future__ import annotations
 
@@ -69,9 +75,15 @@ def _lib() -> ctypes.CDLL:
             ("sched_admit", i32, [vp, i64p, i32p, i32]),
             ("sched_on_token", i32, [vp, i32]),
             ("sched_finish", i32, [vp, i32]),
+            ("sched_restore_slot", i32, [vp, i32, i64, i32, i32, i32]),
             ("sched_active_slots", i32, [vp, i32p, i32]),
             ("sched_slot_info", i32, [vp, i32, i64p]),
-            ("sched_stats", None, [vp, i64p])):
+            ("sched_stats", None, [vp, i64p]),
+            ("ngram_create", vp, [i32]),
+            ("ngram_destroy", None, [vp]),
+            ("ngram_reset", i32, [vp, i32, i32p, i32]),
+            ("ngram_append", i32, [vp, i32, i32p, i32]),
+            ("ngram_propose", i32, [vp, i32, i32, i32, i32p])):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = res, args
     return lib
@@ -109,6 +121,14 @@ class NativeScheduler:
 
     def finish(self, slot: int) -> int:
         return self._lib.sched_finish(self._h, slot)
+
+    def restore_slot(self, slot: int, req_id: int, prompt_len: int,
+                     max_new_tokens: int, generated: int) -> int:
+        """Re-occupy `slot` with an in-flight request: 0, -1 (slot out of
+        range or live), -2 (invalid counts)."""
+        return self._lib.sched_restore_slot(self._h, slot, req_id,
+                                            prompt_len, max_new_tokens,
+                                            generated)
 
     def active_slots(self) -> List[int]:
         out = (ctypes.c_int32 * self.n_slots)()
@@ -186,6 +206,17 @@ class PythonScheduler:
         self._finished += 1
         return 0
 
+    def restore_slot(self, slot, req_id, prompt_len, max_new_tokens,
+                     generated) -> int:
+        if not (0 <= slot < self.n_slots) or self._slots[slot] is not None:
+            return -1
+        if (prompt_len <= 0 or max_new_tokens <= 0 or generated < 0
+                or generated >= max_new_tokens):
+            return -2
+        self._slots[slot] = _Req(req_id, prompt_len, max_new_tokens,
+                                 generated)
+        return 0
+
     def active_slots(self):
         return [i for i, r in enumerate(self._slots) if r is not None]
 
@@ -200,3 +231,59 @@ class PythonScheduler:
         return {"queued": len(self._queue), "active": active,
                 "finished": self._finished, "free": self.n_slots - active}
 
+
+
+class NativeDrafter:
+    """Per-slot prompt-lookup drafter over the native token histories
+    (native/scheduler.cpp ngram_*): a flat int32 backward scan per slot."""
+
+    def __init__(self, n_slots: int):
+        self._lib = _lib()
+        self._h = self._lib.ngram_create(n_slots)
+        if not self._h:
+            raise ValueError(f"ngram_create({n_slots}) failed")
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.ngram_destroy(self._h)
+            self._h = None
+
+    @staticmethod
+    def _arr(tokens):
+        return (ctypes.c_int32 * len(tokens))(*tokens)
+
+    def reset(self, slot: int, tokens) -> None:
+        tokens = list(tokens)
+        self._lib.ngram_reset(self._h, slot, self._arr(tokens), len(tokens))
+
+    def append(self, slot: int, tokens) -> None:
+        tokens = list(tokens)
+        self._lib.ngram_append(self._h, slot, self._arr(tokens), len(tokens))
+
+    def propose(self, slot: int, n: int, k: int) -> List[int]:
+        out = (ctypes.c_int32 * max(k, 1))()
+        got = self._lib.ngram_propose(self._h, slot, n, k, out)
+        return list(out[:got])
+
+
+class PythonDrafter:
+    """Pure-Python drafter with the native one's contract."""
+
+    def __init__(self, n_slots: int):
+        self._hist: List[List[int]] = [[] for _ in range(n_slots)]
+
+    def reset(self, slot, tokens):
+        self._hist[slot] = list(tokens)
+
+    def append(self, slot, tokens):
+        self._hist[slot].extend(tokens)
+
+    def propose(self, slot, n, k):
+        from mixq_tpu_torch.engine.speculative import propose_ngram
+
+        return propose_ngram(self._hist[slot], n, k)
+
+
+def make_drafter(n_slots: int) -> NativeDrafter:
+    """The native drafter; a failed build raises."""
+    return NativeDrafter(n_slots)

@@ -19,8 +19,10 @@ of length 0 and returns an average over masked slots when
 kv_start >= length > 0; the decoder never produces such a row.
 
 A sliding window reaches the kernel as its per-row start: the decoder
-passes max(kv_start, kv_len - W) at T=1, as JAX does. Still to port
-(ROADMAP.md Queue B): the token-major tail window and T>1 verify.
+passes max(kv_start, kv_len - W) at T=1, as JAX does. The speculative
+verify (T>1 in slot mode) launches it once per verify token at per-row
+lengths (models/decoder.py::_verify_attend). Still to port (ROADMAP.md
+Queue B): the token-major tail window.
 
 `use_head_major_cache` is JAX's policy for which cache layout serving
 takes (head-major for this kernel, or batch-major for kernel 8), read as on

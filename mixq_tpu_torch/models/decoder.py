@@ -19,11 +19,15 @@ either KV-cache layout, dispatched on the cache as JAX does:
       decode (T = 1): the token is written, then kernel 8
       (`decode_attention`) attends over the layer, from the layer's window
       start max(kv_start, kv_len - W);
+      speculative verify (T > 1 in slot mode): the span is written, then
+      `attend` with per-row query positions;
   head-major cache (the flash layout):
       prefill (T > 1, fresh cache): attention over the chunk's own k/v
       while the chunk is written into the cache;
       decode (T = 1): the token is written, then kernel 3 attends over the
-      cache, from the same window start.
+      cache, from the same window start;
+      speculative verify (T > 1 in slot mode): the span is written, then
+      kernel 3 once per verify token at its per-row length.
 
 Which layout a cache has is the engine's choice, by
 kernels.flash_decode.use_head_major_cache on `DecoderSpecs.attn_impl`.
@@ -42,11 +46,15 @@ device, so a captured step reads the eager step's).
 `forward(..., collect_stats=True)` also returns each linear group's input
 channel absmax (calibration and the online predictor's warmup read it;
 "full" gives the raw inputs); off, the forward computes none of it.
-`forward(..., slot_lengths=[B])` is the continuous-batching pool's T=1
-decode step at per-row positions (engine/batching.py). The stacked
-`lax.scan` runtime, the slot-mode T>1 verify, falcon's pre-scaled ALiBi
-slopes, rope scaling and the other families raise NotImplementedError
-(ROADMAP.md Queue A).
+`forward(..., slot_lengths=[B])` is the continuous-batching pool's step at
+per-row positions (engine/batching.py): T=1 is the decode step, T>1 the
+speculative verify, whose T tokens are written first; on the batch-major
+cache `attend` then takes the [B, T] query positions (JAX's jnp path, f32),
+on the head-major cache kernel 3 runs once per verify token t at per-row
+length slot_lengths + t + 1 (JAX's one flash call per t over its tail,
+decoder.py:611-646; the port reads its main cache). The stacked `lax.scan`
+runtime, falcon's pre-scaled ALiBi slopes, rope scaling and the other
+families raise NotImplementedError (ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -318,11 +326,11 @@ def forward(
     the cache).
 
     slot_lengths (continuous batching, JAX's slot mode, decoder.py:368-424):
-    a T = 1 decode step in which row b's token sits at position
-    slot_lengths[b]: its RoPE position, its KV write (update_layer_slots)
-    and its attention length slot_lengths[b] + 1 are per row, on the
-    device, and the cache's scalar length is neither read nor moved. T > 1
-    in slot mode (the speculative verify) raises NotImplementedError.
+    row b's T tokens sit at positions slot_lengths[b] .. + T - 1: their
+    RoPE positions, their KV write (update_layer_slots) and their
+    attention lengths are per row, on the device, and the cache's scalar
+    length is neither read nor moved. T = 1 is the decode step; T > 1 the
+    speculative verify (query t attends up to slot_lengths[b] + t + 1).
 
     collect_stats=True also returns, third, each linear group's input
     channel absmax over batch and time, {"{layer}.{wqkv|wo|up|down}": [K]
@@ -334,10 +342,7 @@ def forward(
     if params.stacked is not None or params.pos_embed is not None:
         raise NotImplementedError("stacked (scan) params / learned positions")
     B, T = tokens.shape
-    if slot_lengths is not None and T != 1:
-        raise NotImplementedError(
-            "slot-mode forward of T > 1 tokens (speculative verify) is not "
-            "ported (ROADMAP.md Queue A item 8)")
+    verify = slot_lengths is not None and T > 1
     W, pattern = cfg.sliding_window, cfg.sliding_window_pattern
     head_major = cache.head_major
     if (head_major and W is not None and pattern != 1
@@ -349,12 +354,13 @@ def forward(
             f"models need max_seq <= sliding_window ({cache.max_seq} > "
             f"{W}); create the cache with head_major=False for longer "
             "contexts")
-    if head_major and T > 1 and cache.host_length != 0:
+    if head_major and T > 1 and not verify and cache.host_length != 0:
         raise NotImplementedError(
             "a prefill chunk on a head-major cache must start on a fresh "
             "cache (continuation chunks attend over the batch-major cache)")
     ring = writes_ring(cfg, cache)
-    if (ring and T > 1 and cache.host_length + T > cache.max_seq
+    if (ring and T > 1 and not verify
+            and cache.host_length + T > cache.max_seq
             and cache.max_seq < W + T):
         # JAX's guard (decoder.py:477-485): a chunk that straddles the wrap
         # would overwrite positions still inside an in-chunk query's
@@ -370,9 +376,10 @@ def forward(
         x = x * constant(cfg.embed_multiplier, x.dtype, x.device)
     if slot_lengths is not None:
         # per-row positions (JAX's slot mode: kv_start does not shift RoPE)
-        q_slot = slot_lengths[:, None]                        # [B, 1]
+        q_slot = (slot_lengths[:, None]
+                  + torch.arange(T, device=tokens.device)[None])   # [B, T]
         rope_pos = q_slot
-        kv_len = (slot_lengths + 1).to(torch.int32)           # [B] int32
+        kv_len = (slot_lengths + T).to(torch.int32)           # [B] int32
         slots = None
     else:
         # positions from the device length: a captured step replays at
@@ -415,6 +422,11 @@ def forward(
             else:
                 cache.update_layer(i, k, v, ring=ring, slots=slots)
             k_c, v_c, ks_c, vs_c = cache.layer_kv(i)
+            if verify:
+                return _verify_attend(q, k_c, v_c, ks_c, vs_c, q_slot,
+                                      slot_lengths, kv_start, win,
+                                      head_major, ring, attn_scale,
+                                      attn_softcap, alibi)
             if T == 1:
                 out = decode(q[:, 0], k_c, v_c, kv_len, ks_c, vs_c,
                              kv_start=starts[win],
@@ -450,6 +462,30 @@ def forward(
     if collect_stats:
         return logits, cache, all_stats
     return logits, cache
+
+
+def _verify_attend(q, k_c, v_c, ks_c, vs_c, q_slot, slot_lengths, kv_start,
+                   win, head_major, ring, scale, softcap, alibi):
+    """The speculative verify's attention over a pool layer that already
+    holds all T verify tokens: on the batch-major cache `attend` with the
+    [B, T] query positions at length slot_lengths + T (its causal mask
+    gives query t its prefix); on the head-major cache kernel 3 once per
+    query t at the per-row length slot_lengths + t + 1 and that length's
+    window start."""
+    T = q.shape[1]
+    if not head_major:
+        return attend(q, k_c, v_c, q_slot, slot_lengths + T,
+                      kv_start=kv_start, sliding_window=win, k_scale=ks_c,
+                      v_scale=vs_c, scale=scale, softcap=softcap, ring=ring,
+                      alibi=alibi)
+    outs = []
+    for t in range(T):
+        len_t = (slot_lengths + (t + 1)).to(torch.int32)
+        outs.append(flash_decode_attention(
+            q[:, t].contiguous(), k_c, v_c, len_t, ks_c, vs_c,
+            kv_start=window_start(kv_start, len_t, win),
+            softcap=softcap or 0.0, scale=scale, alibi_slopes=alibi))
+    return torch.stack(outs, dim=1)
 
 
 def _head(x, params: DecoderParams, specs: DecoderSpecs, cfg: ModelConfig,

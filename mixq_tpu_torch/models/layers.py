@@ -5,8 +5,9 @@ the KV cache in JAX's two layouts (batch-major, with ring writes for
 sliding-window models, and head-major), written in place, and `attend`, the
 masked attention that serves prefill (plain PyTorch, as JAX computes it in
 jnp): over a chunk's own k/v, or over a batch-major cache with its int8
-scales and ring positions. `KVCache.update_layer_slots` is the
-continuous-batching pool's decode write at per-row positions.
+scales and ring positions, and the speculative verify over a batch-major
+pool. `KVCache.update_layer_slots` is the continuous-batching pool's write
+at per-row positions: the decode step's token, or the verify's span.
 
 The JAX cache's token-major tail window and its flush exist because a
 dynamic-offset write into the big head-major cache is a whole-array pass on
@@ -233,7 +234,8 @@ class KVCache:
                    else (lambda x: x))
         writes = [(self.k, kv_form(qk)), (self.v, kv_form(qv))]
         if self.quantized:
-            writes += [(self.k_scale, sc_form(sk)), (self.v_scale, sc_form(sv))]
+            writes += [(self.k_scale, sc_form(sk)),
+                       (self.v_scale, sc_form(sv))]
         for buf, val in writes:
             buf[layer].index_copy_(axis, slots, val.to(buf.dtype))
         return self
@@ -241,33 +243,32 @@ class KVCache:
     def update_layer_slots(self, layer: int, k_new: torch.Tensor,
                            v_new: torch.Tensor, slot_lengths: torch.Tensor,
                            ring: bool = False) -> "KVCache":
-        """The continuous-batching decode write (JAX's update_layer_slots,
+        """The continuous-batching write (JAX's update_layer_slots,
         mixq_tpu/models/layers.py:591-650, on a cache without its tail):
-        row b's k/v [B, 1, n_kv, D] goes to position slot_lengths[b] ([B]
-        int, on the device) of `layer`, in place, int8 quantized per
-        (token, head) as update_layer does; % S on a ring. The scalar
-        length is not read or moved. No host check runs, so that a CUDA
-        graph holds the write: the caller keeps slot_lengths within the
-        cache (the window's clamp at S - 1, as JAX's). T > 1 (the
-        speculative verify's span write) is still to be ported."""
-        if k_new.shape[1] != 1:
-            raise NotImplementedError(
-                "slot-mode KV writes of T > 1 tokens (speculative verify) "
-                "are not ported (ROADMAP.md Queue A item 8)")
-        pos = slot_lengths.long()
+        row b's k/v [B, T, n_kv, D] goes to positions slot_lengths[b] ..
+        slot_lengths[b] + T - 1 ([B] int, on the device) of `layer`, in
+        place, int8 quantized per (token, head) as update_layer does; % S
+        on a ring. T = 1 is the decode step, T > 1 the speculative verify's
+        span. The scalar length is not read or moved. No host check runs,
+        so that a CUDA graph holds the write: the caller keeps every span
+        inside the cache (the windows clamp lengths at S - 1, the spec
+        windows at S - T, as JAX's do; JAX drops a span's overflow)."""
+        B, T = k_new.shape[:2]
+        pos = (slot_lengths.long()[:, None]
+               + torch.arange(T, device=slot_lengths.device)[None])
         if ring:
             pos = pos % self.max_seq
-        rows = torch.arange(k_new.shape[0], device=pos.device)
+        rows = torch.arange(B, device=pos.device)[:, None]
         if self.quantized:
-            qk, sk = Q.quantize_kv(k_new[:, 0])
-            qv, sv = Q.quantize_kv(v_new[:, 0])
+            qk, sk = Q.quantize_kv(k_new)
+            qv, sv = Q.quantize_kv(v_new)
             writes = [(self.k, qk), (self.v, qv), (self.k_scale, sk),
                       (self.v_scale, sv)]
         else:
-            writes = [(self.k, k_new[:, 0]), (self.v, v_new[:, 0])]
-        for buf, val in writes:            # val: [B, n_kv(, D)]
+            writes = [(self.k, k_new), (self.v, v_new)]
+        for buf, val in writes:            # val: [B, T, n_kv(, D)]
             if self.head_major:            # [n_kv, B, S(, D)] per layer
-                buf[layer][:, rows, pos] = val.transpose(0, 1).to(buf.dtype)
+                buf[layer][:, rows, pos] = val.movedim(2, 0).to(buf.dtype)
             else:                          # [B, S, n_kv(, D)] per layer
                 buf[layer][rows, pos] = val.to(buf.dtype)
         return self
@@ -327,15 +328,26 @@ def attend(
     scores after the softcap and before the mask (JAX's relative form, on
     ring positions too). Masks are taken in absolute positions, so a
     ring cache is read as JAX reads it. Operands in f32 (the JAX CPU path's
-    operand type; prefill is not the bandwidth-bound step)."""
+    operand type; prefill is not the bandwidth-bound step). K and V are
+    each converted to f32 once, straight into [B, n_kv, S, D], and both
+    products are batched matmuls over that layout, the query heads of a kv
+    head and the queries stacked as rows (a speculative verify's few
+    queries per row read a whole pool layer this way without a second f32
+    copy of it)."""
     B, T, n_q, D = q.shape
     S, n_kv = k.shape[1], k.shape[2]
     groups = n_q // n_kv
     if scale is None:
         # f32 reciprocal of the f32 sqrt, as jnp computes 1 / sqrt(D)
         scale = 1.0 / torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
-    qf = q.float().reshape(B, T, n_kv, groups, D)
-    scores = torch.einsum("bthgd,bshd->bhgts", qf, k.float()) * scale
+    def f32_heads(a):                      # [B, S, n_kv, D] -> [B, n_kv, S, D]
+        return a.permute(0, 2, 1, 3).to(torch.float32,
+                                        memory_format=torch.contiguous_format)
+
+    qh = q.float().reshape(B, T, n_kv, groups, D).permute(0, 2, 3, 1, 4)
+    scores = torch.matmul(qh.reshape(B, n_kv, groups * T, D),
+                          f32_heads(k).transpose(-1, -2)).view(
+                              B, n_kv, groups, T, S) * scale
     if k_scale is not None:
         scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     if softcap is not None:
@@ -362,5 +374,6 @@ def attend(
     probs = torch.softmax(scores, dim=-1)
     if v_scale is not None:
         probs = probs * v_scale.permute(0, 2, 1)[:, :, None, None, :]
-    out = torch.einsum("bhgts,bshd->bthgd", probs, v.float())
-    return out.reshape(B, T, n_q, D).to(q.dtype)
+    out = torch.matmul(probs.reshape(B, n_kv, groups * T, S),
+                       f32_heads(v)).view(B, n_kv, groups, T, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, n_q, D).to(q.dtype)

@@ -17,9 +17,8 @@ tests/test_continuous_batching.py.
 - On the port alone: windows equal single steps; staggered arrivals, more
   requests than slots and a single-token prompt; EOS and per-request stop
   sets, windowed and stepwise; a sampled request beside greedy ones leaves
-  them as they were; the refusals (speculation, async windows, meshes,
-  snapshot/restore, warmup; CPU params without device="cpu"; a failed
-  scheduler build); the engine's scheduler is the native one; params of
+  them as they were; the refusals (meshes and pipeline stages; CPU params
+  without device="cpu"; a failed scheduler build); the engine's scheduler is the native one; params of
   another embedding and head assigned to an engine that has served give a
   fresh engine's tokens and logprobs.
 - Chunked admission (prefill_token_budget) equal to unchunked on both
@@ -269,20 +268,13 @@ def test_chunked_head_major_equals_jax_batch_major(tiny_fp, kv):
 def test_refusals(worlds, tmp_path, monkeypatch):
     world = worlds[True]
     cfg, _, _, tp, tspecs = world
-    for kw in (dict(spec_k=4), dict(async_windows=True),
-               dict(pipe_stages=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            port_engine(world, "auto", "bfloat16", **kw)
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        port_engine(world, "auto", "bfloat16", pipe_stages=2)
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         ContinuousBatchingEngine(tp, cfg, tspecs, mesh=object(),
                                  device="cpu")
     eng = port_engine(world, "auto", "bfloat16")
     assert isinstance(eng.sched, NativeScheduler)
-    for call in (lambda: eng.snapshot("x"), eng.warmup, eng.step_spec,
-                 eng.step_serve, eng.step_window_async, eng.drain_async,
-                 lambda: ContinuousBatchingEngine.restore("x")):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            call()
     # the pool runs on the card unless the caller asks for the CPU
     assert inspect.signature(ContinuousBatchingEngine).parameters[
         "device"].default == "cuda"

@@ -1770,6 +1770,240 @@ def test_cb_graph_windows_equal_eager_steps(cuda, attn, kv):
 
 
 # ---------------------------------------------------------------------------
+# Speculative serving, async windows, snapshot/restore and warmup on the card
+# ---------------------------------------------------------------------------
+
+def _spec_prompts(cfg, seed=21):
+    """8 repetitive prompts (a base of 2-5 tokens repeated, 4-18 tokens),
+    so that n-gram drafts recur."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for i in range(8):
+        base = torch.randint(1, cfg.vocab_size, (2 + i % 4,),
+                             generator=g).tolist()
+        out.append((base * 6)[:4 + 2 * i])
+    return out
+
+
+def _spec_engine(params, cfg, specs, dev, attn, kv, **kw):
+    import dataclasses
+
+    from mixq_tpu_torch.config import EngineConfig
+    from mixq_tpu_torch.engine.batching import ContinuousBatchingEngine
+
+    return ContinuousBatchingEngine(
+        params, cfg, dataclasses.replace(specs, attn_impl=attn),
+        EngineConfig(max_batch_size=4, max_seq_len=64, prefill_chunk=8,
+                     kv_dtype=kv, **kw), device=dev)
+
+
+def _spec_serve(eng, cfg, step, sampled=(), snap=None):
+    """The 8 prompts with budgets 6-13 through `step` until done; with
+    `snap` (a function of the engine), the engine it returns after the
+    second call carries on. Returns (engine, tokens by request)."""
+    from mixq_tpu_torch.engine import SamplingParams
+
+    ids = [eng.add_request(p, 6 + i, sampling=SamplingParams(
+        temperature=0.8, top_k=20) if i in sampled else None)
+        for i, p in enumerate(_spec_prompts(cfg))]
+    out, calls = {}, 0
+    while eng.has_work:
+        getattr(eng, step)()
+        out.update(eng.finished())
+        calls += 1
+        if calls == 2 and snap is not None:
+            eng = snap(eng)
+    out.update(eng.finished())
+    return eng, [out[i] for i in ids]
+
+
+@pytest.mark.parametrize("attn,kv", CB_LAYOUTS[:2])
+def test_spec_window_graph_equals_step_spec(cuda, attn, kv):
+    """The spec window (one captured round, replayed spec_window_r times,
+    drafting on the card) gives the tokens of step_spec (host drafts, an
+    eager verify), whose T=4 verify runs at the same shapes; a sampled
+    pair rides along without moving the greedy rows, and the sampling
+    round is a second graph. Drafts are accepted."""
+    cfg, specs, _, card = _cb_world(cuda)
+    _, host = _spec_serve(_spec_engine(card, cfg, specs, cuda, attn, kv,
+                                       spec_k=4), cfg, "step_spec")
+    eng, win = _spec_serve(_spec_engine(card, cfg, specs, cuda, attn, kv,
+                                        spec_k=4), cfg, "step_spec_window")
+    assert win == host
+    assert list(eng._spec_graphs) == [False] and not eng._graphs
+    assert eng.spec_stats["accepted"] > 0
+    eng, mixed = _spec_serve(_spec_engine(card, cfg, specs, cuda, attn, kv,
+                                          spec_k=4), cfg, "step_spec_window",
+                             sampled=(1, 6))
+    greedy = [i for i in range(8) if i not in (1, 6)]
+    assert [mixed[i] for i in greedy] == [win[i] for i in greedy]
+    assert sorted(eng._spec_graphs) == [False, True]
+
+
+@pytest.mark.parametrize("attn,kv", CB_LAYOUTS)
+def test_verify_on_the_card_equals_steps_and_the_cpu(cuda, attn, kv):
+    """A T=4 slot-mode verify at ragged lengths (0 to 16 after a prefill of
+    16) on the random tiny llama, whose attention moves its logits: on the
+    card within test_slot_forward_on_the_card_equals_the_cpu's limits of
+    the CPU's verify (held against JAX's by test_torch_slot_verify.py),
+    and within CB_TINY_TOL of max|logits| of four T=1 slot steps of the
+    same tokens on a cache prefilled alike, argmaxes equal wherever the
+    steps' top-2 margin clears twice the gap; the verify one position late
+    leaves the steps by ten times that gap."""
+    import dataclasses
+
+    from mixq_tpu_torch.models.decoder import forward, lm_head_f32
+    from mixq_tpu_torch.models.layers import KVCache
+
+    cfg, specs, cpu, card = _cb_world(cuda)
+    specs = dataclasses.replace(specs, attn_impl=attn)
+    toks = torch.randint(1, cfg.vocab_size, (4, 20),
+                         generator=torch.Generator().manual_seed(5))
+    lengths = torch.tensor([16, 3, 0, 12], dtype=torch.int32)
+    hm = attn == "flash"
+
+    def run(params, dev, at, steps=False):
+        head = lm_head_f32(params, specs)
+        cache = KVCache.create(cfg.num_hidden_layers, 4, 64,
+                               cfg.num_key_value_heads, cfg.head_dim_,
+                               getattr(torch, kv), head_major=hm, device=dev)
+        t, at = toks.to(dev), at.to(dev)
+        with torch.inference_mode():
+            forward(params, t[:, :16], cache, specs, cfg, head_f32=head)
+            if not steps:
+                return forward(params, t[:, 16:], cache, specs, cfg,
+                               head_f32=head, slot_lengths=at)[0].cpu()
+            return torch.cat([forward(
+                params, t[:, 16 + i:17 + i], cache, specs, cfg,
+                head_f32=head, slot_lengths=at + i)[0].cpu()
+                for i in range(4)], 1)
+
+    ref = run(cpu, "cpu", lengths)
+    got = run(card, cuda, lengths)
+    steps = run(card, cuda, lengths, steps=True)
+    late = run(card, cuda, lengths + 1)
+    tol = 1e-5 if hm else 1.35e-2
+    assert (got - ref).abs().max() <= tol * ref.abs().max()
+    gaps = (got - steps).abs().amax(-1)
+    gap = gaps.max() / steps.abs().max()
+    assert gap <= CB_TINY_TOL
+    top2 = torch.topk(steps, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * gaps
+    assert clear.any()
+    assert torch.equal(got.argmax(-1)[clear], steps.argmax(-1)[clear])
+    assert (late - steps).abs().max() / steps.abs().max() >= 10 * gap
+
+
+def test_verify_launches_kernel_3_per_token(cuda):
+    """A T=4 verify forward on the head-major int8 cache launches kernel 3
+    T x L times, at per-row lengths slot_lengths + t + 1, each launch
+    within its limit of the plain version on the same cache (the verify's
+    tokens all written first)."""
+    import dataclasses
+
+    from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mixq_tpu_torch.kernels import flash_decode as FD
+    from mixq_tpu_torch.models.decoder import forward, lm_head_f32
+    from mixq_tpu_torch.models.layers import KVCache
+
+    cfg, specs, _, card = _cb_world(cuda)
+    specs = dataclasses.replace(specs, attn_impl="flash")
+    L, T = cfg.num_hidden_layers, 4
+    cache = KVCache.create(L, 4, 64, cfg.num_key_value_heads, cfg.head_dim_,
+                           torch.int8, head_major=True, device=cuda)
+    toks = torch.randint(1, cfg.vocab_size, (4, 20), device=cuda,
+                         generator=_gen(7))
+    lengths = torch.tensor([16, 3, 0, 12], dtype=torch.int32, device=cuda)
+    calls = []
+    real = FD.flash_decode_attention
+
+    def spy(q, k, v, lens, *a, **kw):
+        out = real(q, k, v, lens, *a, **kw)
+        ref = flash_decode_plain(q, k, v, lens, *a, **kw)
+        calls.append(lens.clone())
+        _assert_flash_close(out, ref, True)
+        return out
+
+    import mixq_tpu_torch.models.decoder as D
+    with torch.inference_mode():
+        head = lm_head_f32(card, specs)
+        forward(card, toks[:, :16], cache, specs, cfg, head_f32=head)
+        reset_launch_counts()
+        D.flash_decode_attention = spy
+        try:
+            forward(card, toks[:, 16:], cache, specs, cfg, head_f32=head,
+                    slot_lengths=lengths)
+        finally:
+            D.flash_decode_attention = real
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_decode"] == T * L == len(calls)
+    for i, lens in enumerate(calls):
+        assert torch.equal(lens, lengths + i % T + 1)
+
+
+@pytest.mark.parametrize("attn,kv", CB_LAYOUTS[:2])
+def test_async_windows_on_the_card_equal_sync(cuda, attn, kv):
+    """Async windows (the next window dispatched before the last is read,
+    its outputs through pinned buffers behind an event) give the
+    synchronous windows' tokens, slots reused and admissions between
+    windows."""
+    cfg, specs, _, card = _cb_world(cuda)
+    _, sync = _cb_serve(card, cfg, specs, cuda, attn, kv)
+    import dataclasses
+
+    from mixq_tpu_torch.config import EngineConfig
+    from mixq_tpu_torch.engine.batching import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(
+        card, cfg, dataclasses.replace(specs, attn_impl=attn),
+        EngineConfig(max_batch_size=4, max_seq_len=64, prefill_chunk=8,
+                     kv_dtype=kv, async_windows=True), device=cuda)
+    ids = [eng.add_request(p, 4 + i)
+           for i, p in enumerate(_cb_prompts(cfg, 11))]
+    out = eng.run_to_completion()
+    eng.drain_async()
+    assert [out[i] for i in ids] == sync
+    assert eng._async_host[0][0].is_pinned()
+
+
+@pytest.mark.parametrize("attn,kv", CB_LAYOUTS[:2])
+def test_warmup_snapshot_restore_on_the_card(cuda, attn, kv, tmp_path):
+    """A spec engine warmed up (the admission plans of JAX's buckets, the
+    plain and spec windows' graphs of both sampling modes) captures no
+    graph while it serves step_serve's script; a snapshot after two calls
+    restored into a new engine carries on with the uninterrupted run's
+    tokens, sampled rows included (the generator's state)."""
+    cfg, specs, _, card = _cb_world(cuda)
+
+    def engine():
+        return _spec_engine(card, cfg, specs, cuda, attn, kv, spec_k=4)
+
+    eng = engine()
+    n = eng.warmup()
+    # Tp in {8, ..., 64} x k in {1, 2, 4}, plus 4 graphs
+    assert n == 8 * 3 + 4 and eng.captures == 4
+    eng, ref = _spec_serve(eng, cfg, "step_serve", sampled=(3,))
+    assert eng.captures == 4
+
+    def snap(e):
+        e.snapshot(str(tmp_path / "s"))
+        import dataclasses
+
+        from mixq_tpu_torch.config import EngineConfig
+        from mixq_tpu_torch.engine.batching import ContinuousBatchingEngine
+        return ContinuousBatchingEngine.restore(
+            str(tmp_path / "s"), card, cfg,
+            dataclasses.replace(specs, attn_impl=attn), EngineConfig(
+                max_batch_size=4, max_seq_len=64, prefill_chunk=8,
+                kv_dtype=kv, spec_k=4), device=cuda)
+
+    _, unwarmed = _spec_serve(engine(), cfg, "step_serve", sampled=(3,))
+    _, got = _spec_serve(engine(), cfg, "step_serve", sampled=(3,),
+                         snap=snap)
+    assert got == ref == unwarmed
+
+
+# ---------------------------------------------------------------------------
 # Evaluation on the card (eval/)
 # ---------------------------------------------------------------------------
 

@@ -5,7 +5,8 @@ against JAX's (mixq_tpu/models/layers.py:591-650, decoder.py:368-424).
 - update_layer_slots bit-equal to JAX's (a cache without JAX's tail window)
   on the batch-major cache with bf16 and int8 KV, the head-major one with
   int8 (scales in their 128-padded layout) and bf16, and a batch-major ring
-  (positions past S wrap); T > 1 raises.
+  (positions past S wrap). T > 1 (the speculative verify's span):
+  tests/test_torch_slot_verify.py.
 - forward at ragged per-row lengths, teacher-forced for 3 steps after a
   prefill, on the tiny W8A8O16 llama of tests/test_torch_models.py: logits
   within tests/test_torch_decoder.py's 5e-3 * max|logits| of JAX's eager
@@ -91,13 +92,6 @@ def test_update_layer_slots_bit_equal(kv_dtype, head_major, ring):
     assert int(tc.length) == 0 and tc.host_length == 0
 
 
-def test_update_layer_slots_refuses_verify_spans():
-    _, tc = _caches("bfloat16", False)
-    kn = torch.zeros((B, 2, NKV, HD), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        tc.update_layer_slots(0, kn, kn, torch.zeros(B, dtype=torch.int32))
-
-
 def _model_caches(cfg, kv_dtype, head_major, Sc=32):
     dims = (cfg.num_hidden_layers, B, Sc, cfg.num_key_value_heads,
             cfg.head_dim_)
@@ -151,12 +145,3 @@ def test_equal_lengths_bit_equal_to_scalar_forward(kv_dtype, head_major):
     assert tc.host_length == 9
     scalar, _ = forward(tp, toks[:, 9:], tc, tspecs, cfg, head_f32=head)
     assert torch.equal(slot, scalar)
-
-
-def test_slot_forward_refuses_verify():
-    cfg, _, _, tp, tspecs = models.build(1)
-    _, tc = _model_caches(cfg, "bfloat16", False)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        forward(tp, torch.ones((B, 2), dtype=torch.int32), tc, tspecs, cfg,
-                head_f32=lm_head_f32(tp, tspecs),
-                slot_lengths=torch.zeros(B, dtype=torch.int32))
