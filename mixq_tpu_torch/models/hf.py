@@ -5,20 +5,26 @@ mixq_tpu/models/hf.py).
     src = TensorSource.from_torch_state_dict(model.state_dict())
     params = params_from_source(src, cfg, specs, outlier_sets, device=...)
 
-Ported: `TensorSource` over a dict or a torch state dict, `config_from_hf`
-and the weight-name schemes for the llama, baichuan, mistral and gemma2
-families, and `params_from_source` for their dense blocks (separate q/k/v,
-or baichuan's fused `W_pack` split at load, gated MLP, gemma's +1 norm
+    params, cfg = load_model(hf_dir, specs, device="cuda")
+
+Ported: `TensorSource` over a dict, a torch state dict or an HF
+safetensors directory (read by the port's own utils/safetensors_io.py),
+`config_from_hf`, `load_hf_config`, `load_model`, and the weight-name
+schemes for the llama, baichuan, mistral and gemma2 families, and
+`params_from_source` for their dense blocks (separate q/k/v, or
+baichuan's fused `W_pack` split at load, gated MLP, gemma's +1 norm
 offset, gemma2's post-norms, a tied head). Every weight is quantized where
 its tensor lies or on `device`: a state dict on the card is quantized on
-the card, one tensor at a time, never through numpy. The other families,
-falcon's interleaved query_key_value, MoE blocks, rope scaling,
-safetensors directories and `load_model` are still to be ported
-(ROADMAP.md Queue A); they raise.
+the card, one tensor at a time, never through numpy; a tensor goes to
+`device` in its stored dtype and is widened there. The other families,
+falcon's interleaved query_key_value, MoE blocks and rope scaling are
+still to be ported (ROADMAP.md Queue A); they raise.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import json
+import os
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -30,6 +36,7 @@ from mixq_tpu_torch.models.decoder import (AttnParams, BlockParams,
 from mixq_tpu_torch.ops import quant as Q
 from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
                                              from_float)
+from mixq_tpu_torch.utils.safetensors_io import SafeTensorsFile
 
 PORTED_FAMILIES = ("llama", "baichuan", "mistral", "gemma2")
 
@@ -144,6 +151,32 @@ class TensorSource:
         """Over a torch state dict; the tensors stay on their device."""
         return cls(lambda k: sd[k].detach(), lambda k: k in sd)
 
+    @classmethod
+    def from_safetensors_dir(cls, path: str, device="cpu") -> "TensorSource":
+        """Over an HF checkpoint directory: the shards that
+        `model.safetensors.index.json` names, or one `model.safetensors`.
+        `get` maps a shard at its first use and reads one tensor onto
+        `device` in its stored dtype (bf16 stays bf16: JAX's uint16 shift
+        to f32 is the same exact widening, done where the tensor lands)."""
+        index_file = os.path.join(path, "model.safetensors.index.json")
+        if os.path.exists(index_file):
+            with open(index_file) as f:
+                shard_of: Dict[str, str] = json.load(f)["weight_map"]
+        elif os.path.exists(os.path.join(path, "model.safetensors")):
+            with SafeTensorsFile(os.path.join(path, "model.safetensors")) as f:
+                shard_of = dict.fromkeys(f.keys(), "model.safetensors")
+        else:
+            raise FileNotFoundError(f"no safetensors found in {path}")
+        handles: Dict[str, SafeTensorsFile] = {}
+
+        def get(k):
+            shard = shard_of[k]
+            if shard not in handles:
+                handles[shard] = SafeTensorsFile(os.path.join(path, shard))
+            return handles[shard].get(k, device)
+
+        return cls(get, lambda k: k in shard_of)
+
 
 _LLAMA = dict(
     embed="model.embed_tokens.weight",
@@ -191,7 +224,9 @@ def scheme_for(model_type: str) -> Dict[str, Optional[str]]:
 # ---------------------------------------------------------------------------
 
 def _f32(src: TensorSource, name: str, device) -> torch.Tensor:
-    return src.get(name).to(device=device, dtype=torch.float32)
+    # to the device in the stored dtype, widened there (a host-to-card copy
+    # that converts would widen on the host)
+    return src.get(name).to(device).to(torch.float32)
 
 
 def _linear_from_src(src: TensorSource, prefix: str, spec: LinearSpec,
@@ -291,3 +326,24 @@ def params_from_source(
     return DecoderParams(embed=embed, blocks=tuple(blocks),
                          lnf_scale=norm_vec(scheme["lnf"]), lnf_bias=None,
                          lm_head=lm_head)
+
+
+def load_hf_config(path: str) -> ModelConfig:
+    """The ModelConfig of an HF checkpoint directory's config.json."""
+    with open(os.path.join(path, "config.json")) as f:
+        return config_from_hf(json.load(f))
+
+
+def load_model(
+    path: str,
+    specs: Optional[DecoderSpecs] = None,
+    outlier_sets: Optional[Dict[str, Q.OutlierSet]] = None,
+    device="cuda",
+) -> Tuple[DecoderParams, ModelConfig]:
+    """Load (and optionally quantize on the fly) an HF checkpoint directory
+    onto `device`."""
+    cfg = load_hf_config(path)
+    specs = specs or DecoderSpecs.fp16()
+    src = TensorSource.from_safetensors_dir(path, device)
+    return params_from_source(src, cfg, specs, outlier_sets,
+                              device=device), cfg

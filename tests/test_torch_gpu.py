@@ -18,9 +18,12 @@ peaked softmax; flash decode and decode attention split over clusters of
 decode's peaked Gemma-2-9B case over 8 seeds against the plain version on
 the card and on the CPU; both with ALiBi at every cluster size, kernel 3
 with its rows held in probability levels, since ALiBi rows are peaked)
-and the wrappers' refusals. The
-tiny models served on the card against the same models on the CPU are
-phase 4 of chip_smoke.py.
+and the wrappers' refusals; W4A4O16 g128 (kernel A) and W8A16 (kernel
+B) checkpoints saved from the card and loaded back onto it (the greedy
+tokens of the params before the save; the CPU's load bit-equal), and the
+safetensors reader copying a tensor onto the card in its stored dtype.
+The tiny models served on the card against the same models on the CPU
+are phase 4 of chip_smoke.py.
 
 Every test here needs a CUDA card: the `cuda` fixture decides at run time
 and skips with a reason elsewhere. This file imports neither JAX nor the
@@ -2160,3 +2163,77 @@ def test_rmsnorm_on_the_card_equals_the_cpu(cuda, H, record_property):
     assert ((card.float() - cpu.float()).abs()
             <= BF16_ULP * cpu.float().abs()).all()
     assert differ <= 1e-4
+
+
+@pytest.mark.parametrize("config", ["w4a4_g128", "w8a16"])
+def test_checkpoint_round_trip_on_the_card(cuda, config, tmp_path):
+    """A small model's W4A4O16 g128 (kernel A) or W8A16 (kernel B) params,
+    saved from the card and loaded straight back onto it: the loaded params
+    serve the greedy tokens of the params before the save, through the
+    kernel of their mode; the same checkpoint loaded on the CPU gives the
+    same params, bit for bit."""
+    from mixq_tpu_torch.config import EngineConfig, ModelConfig, QuantConfig
+    from mixq_tpu_torch.convert import params_to
+    from mixq_tpu_torch.engine import InferenceEngine
+    from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mixq_tpu_torch.models.decoder import init_decoder_params
+    from mixq_tpu_torch.quantize import (load_checkpoint, resolve_specs,
+                                         save_checkpoint)
+
+    cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=8, num_key_value_heads=4)
+    qcfg = (QuantConfig.w4a4(outlier_budget=16, q_group_size=128)
+            if config == "w4a4_g128" else QuantConfig.w8a16())
+    specs = resolve_specs(qcfg)
+    params = init_decoder_params(cfg, specs, _gen(17), device=cuda,
+                                 dtype=torch.bfloat16, outlier_budget=16)
+    ecfg = EngineConfig(max_seq_len=128, prefill_chunk=16, kv_dtype="int8")
+    prompts = [[5, 17, 33, 2, 9], [101, 7, 64, 3]]
+    before = InferenceEngine(params, cfg, specs, ecfg,
+                             device=cuda).generate(prompts, 8)
+    d = str(tmp_path / "ck")
+    save_checkpoint(d, params, cfg, qcfg)
+    loaded, cfg2, q2 = load_checkpoint(d, device=cuda)
+    assert cfg2 == cfg and q2 == qcfg
+    _assert_params_equal(loaded, load_checkpoint(d, device="cpu")[0])
+    _assert_params_equal(loaded, params_to(params, "cpu"))
+    reset_launch_counts()
+    after = InferenceEngine(loaded, cfg2, resolve_specs(q2), ecfg,
+                            device=cuda).generate(prompts, 8)
+    counts = launch_counts()
+    assert after == before
+    mode = ("mix_gemm.w4_grouped" if config == "w4a4_g128"
+            else "w8a16.w8")
+    assert counts[mode] > 0, counts
+
+
+def test_safetensors_reads_onto_the_card_in_its_dtype(cuda, tmp_path):
+    """The reader copies a tensor straight to the card in its stored dtype
+    (the card's memory grows by its bf16 bytes, no f32 copy); an HF source
+    on the card widens there, and the card's tensor equals the CPU's."""
+    from mixq_tpu_torch.models.hf import TensorSource, _f32
+    from mixq_tpu_torch.utils.safetensors_io import SafeTensorsFile, save_file
+
+    g = torch.Generator().manual_seed(3)
+    w = (torch.randn(4096, 2048, generator=g)).to(torch.bfloat16)
+    p = str(tmp_path / "model.safetensors")
+    save_file({"model.w": w, "odd": torch.ones(3, dtype=torch.uint8),
+               "model.b": w[:7].clone()}, p)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with SafeTensorsFile(p) as f:
+        t = f.get("model.w", cuda)
+        torch.cuda.synchronize()
+        assert t.dtype == torch.bfloat16 and t.device.type == "cuda"
+        assert torch.cuda.max_memory_allocated() - base <= w.numel() * 2
+        assert torch.equal(t.cpu(), w)
+        assert torch.equal(f.get("model.b", cuda).cpu(), w[:7])
+    del t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    src = TensorSource.from_safetensors_dir(str(tmp_path), cuda)
+    x = _f32(src, "model.w", cuda)
+    assert x.dtype == torch.float32 and torch.equal(x.cpu(), w.float())
+    assert torch.cuda.max_memory_allocated() - base <= w.numel() * 6
