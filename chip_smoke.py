@@ -7,7 +7,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
   2. build: the five CUDA kernel libraries from mixq_tpu_torch/csrc, timed,
      with each instantiation's registers and spills (ptxas) of the
-     int8-activation GEMM (kernels 2 and A), of flash decode and of
+     int8-activation GEMM (kernels 2 and A; the four MIX instantiations
+     held at their registers from before QUIK's zero-point mode, and the
+     two zero-point ones), of flash decode and of
      decode attention (16 instantiations each, g x int8 x softcap), of
      kernel 1's register kernel (512 threads of one chunk, 256 of two; a
      spill in any of these fails) and of kernel B, and the clusters of 1..8
@@ -77,7 +79,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (kernel_verify_shapes): kernel 1 at M=256 H=4096 A8, kernel 2 on
      every linear shape of the Llama-2-7B block at M=256 (64 slots x 4
      verify tokens), kernel 3 at the verify's per-row lengths (B=64 S=640
-     32/32 int8, lengths 4 to 640);
+     32/32 int8, lengths 4 to 640); then QUIK's zero-point modes of
+     kernels 2 and A (kernel_quik): asymmetric activations that reach
+     -8 (A4) and -128 (A8) with a row of zeros, 256 outlier channels in
+     two chunks, each distinct linear shape of the Llama-2-7B QUIK block
+     at M=64 (q/k/v, up, gate+SiLU W4; o, down W8), its five W4 linears,
+     its two W8 ones and its seven at M=64, M=8 and M=2,048 (phase 10's
+     window batch), beside torch._int_mm with the epilogue in torch ops,
+     and the bits held across forced splits S = 1..8 in both modes;
   4. reference: tiny W8A8, W4A4 (per-channel and grouped) and W8A16 llama
      models, and tiny W8A8, W4A4 and W8A16 gemma2 models (caps that bind
      without saturating), on the head-major cache (attn_impl="flash"); a
@@ -97,8 +106,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      up to its first step whose top-2 margin is not above twice its
      card-vs-CPU gap;
   5. serve: full-width 32-layer Llama-2-7B in four configurations,
-     full-width 42-layer Gemma-2-9B in three, full-width 32-layer
-     Mistral-7B-v0.1 W8A8O16 and Llama-2-7B W8A8O16 with bf16 KV, one after
+     full-width Gemma-2-9B at 21 of its 42 layers (a depth cut for the
+     time limit) in three, full-width 32-layer Mistral-7B-v0.1 W8A8O16,
+     Llama-2-7B W8A8O16 with bf16 KV and Llama-2-7B QUIK W4A4 (256 outlier
+     channels per linear input; kernels 2 and A in their zero-point modes,
+     no kernel 1), one after
      another (each freed before the next is built): Llama W8A8O16, and from
      the reference policy (quantize.resolve_specs) W4A4O16 per-channel,
      W4A4O16 with 128-row scale groups, and W8A16; Gemma-2-9B W8A8O16,
@@ -116,8 +128,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and the captured one) asserted by mode; the tokens held equal to the
      same generate unprofiled (timed) and to a stepwise generate
      (device_decode_loop=False) on the same engine;
-  6. timing: for Llama-2-7B W8A8O16 and Mistral-7B W8A8O16 only (a cut
-     for the time limit) the device loop's decode step at batch
+  6. timing: for Llama-2-7B W8A8O16, Mistral-7B W8A8O16 and Llama-2-7B
+     QUIK W4A4 only (a cut for the time limit) the device loop's decode
+     step at batch
      64 with the KV cache filled to 512 positions, eagerly and as replays
      of its CUDA graph, each run from the same state: one eager step's
      launch counts by mode (asserted) under
@@ -133,7 +146,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the device's busy share (device time over the wall time of that same
      window, asserted <= 1) and the top kernels; for Mistral also
      one step at batch 16 on a window-sized (4096-slot) ring filled past
-     its wrap, every kernel-8 launch held against its plain version; and
+     its wrap, every kernel-8 launch held against its plain version; for
+     QUIK also 2 eager steps profiled with host ranges, their device ms
+     split into kernel A, kernel 2, kernel 3 and the asymmetric-quant glue
+     (quik_step_split); and
      one prefill of 8 prompts x 64 tokens into a fresh cache (512 rows
      through every linear), its device ms and wall ms;
   7. pipeline: full-width 32-layer Llama-2-7B from float weights to served
@@ -160,14 +176,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      generate's greedy tokens; then AutoModel.from_pretrained(W4A4,
      calib_batches: calibration on the card) reads the directory again,
      phase 5's generate serves it, and its params through a checkpoint
-     serve the same greedy tokens through kernel A. It prints the host
-     seconds of the float dict, quantize_model, calibration and
+     serve the same greedy tokens through kernel A; and so does
+     AutoModel.from_pretrained(QUIK W4A4, calib_batches) of the same
+     directory (sets of 256 equal to the calibration run's top channels;
+     served by generate through the zero-point modes, no kernel 1; its
+     checkpoint bit-equal and serving the same greedy tokens). It prints
+     the host seconds of the float dict, quantize_model, calibration and
      warmup_online, the counts by slot, the bytes,
      host seconds and GB/s of each write and each read (warm: the files
      were just written), the card's peak memory while each load ran, the
      files read, and the phase's peak memory. Every directory is deleted
      when it is no longer needed, and the phase's in a `finally`;
-  8. Baichuan: full-width 40-layer Baichuan-13B (ALiBi, 40 heads) from a
+  8. Baichuan: full-width Baichuan-13B at 20 of its 40 layers (a depth
+     cut for the time limit; ALiBi, 40 heads) from a
      seeded bf16 state dict under Baichuan's HF names (q, k and v as one
      W_pack tensor; phase 7's planted embedding) through
      quantize_model(W8A8: empty sets) and warmup_online (two batches of 8 x
@@ -211,30 +232,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      read just after: examples/realistic_gate_torch.run with JAX's
      defaults (a tiny LM trained on the card for 600 steps, planted
      outlier channels, the online predictor's warmup, PPL of fp16, mix8,
-     mix4, mix4_g64, mix4_full_g64 and the warmed mix8 on 4 held-out
+     mix4, mix4_g64, mix4_full_g64, quik and the warmed mix8 on 4 held-out
      segments with bf16 and int8 KV; asserted: the loss below 0.75 ln V,
      the planting's drift below 0.02, all 6 planted channels in every
      layer's q/k/v set), each config's first segment also on a CPU copy
      of its params (the plain versions), the card within the larger of
      the CPU's int8-vs-bf16 KV gap and 1e-3 of its PPL (2.5e-3 for the A4
-     configs, held under a control: one linear's outlier term dropped;
-     ppl_card_vs_cpu); then
+     configs and quik, held under a control: one linear's outlier term
+     dropped; ppl_card_vs_cpu); then
      examples/gate_7b_torch.run at Llama-2-7B's full width and depth
-     (FP16, mix8 and mix4 on the Markov substrate at margin 7, 4 chain
+     (FP16, mix8, mix4 and quik on the Markov substrate at margin 7, 4 chain
      segments x 8 windows x 256, bf16 and int8 KV; asserted: FP16's PPL
      within 5% of its chain's, 1 + (V - 1) e^-margin), with a 2-layer
-     full-width copy of mix8 and mix4 held on the card against the CPU as
-     above, one window batch of mix8 and of mix4 (and of the tiny
+     full-width copy of mix8, mix4 and quik held on the card against the
+     CPU as above, one window batch of mix8, mix4 and quik (and of the tiny
      mix4_g64 and mix4_full_g64: kernel A's new shapes) profiled, its
      device ms split into kernel 1, kernels 2 and A, the f32 prefill
-     attention and the rest, 32 mix8 windows timed at batch 8 and 32,
+     attention, QUIK's activation glue and the rest, 32 mix8 windows
+     timed at batch 8 and 32,
      and the offline cloze and completion tasks through MixQLM on FP16
      (the control) and mix8 (asserted: acc and exact_match >= 0.9 on
      mix8, kernel 8 run in its decode steps, counted by name). It prints
      the rows, the host seconds, evaluated tokens/s and the peak memory.
  11. speculative serving (run last): the Markov Llama-2-7B of
      benchserve.py:95-110 (make_markov_state: v_eff 512, cycles of ~16,
-     shared blocks, margin 30; 32 layers at full width) through
+     shared blocks, margin 30; full width, 16 of its 32 layers: a depth
+     cut for the time limit) through
      quantize_model(W8A8), on phase 9's two pools with spec_k 4, n-grams of
      3 and spec windows of 8 rounds. Phase 9's script shape with prompts
      that walk the planted chain (192 requests, 16-256 prompt tokens,
@@ -250,8 +273,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      row); a full-pool verify against T=1 steps (verify_vs_steps); then a
      full pool's spec window and plain window profiled (device ms per
      verify round and per step, split by kernel; the kernels the card ran,
-     asserted: kernel 3 spec_k x 32 times a verify round on the int8 pool)
-     and one eager verify's launches (kernel 3 spec_k x 32, asserted).
+     asserted: kernel 3 spec_k x layers times a verify round on the int8
+     pool) and one eager verify's launches (kernel 3 spec_k x layers,
+     asserted).
      Asserted: no graph captured after the int8 pool's warmup; drafted >
      0; every request
      ends at its budget or its stop token; the greedy tokens of the spec,
@@ -266,7 +290,8 @@ It prints each phase's host seconds as it ends. It then prints the
 kernels line (one entry per ported TPU kernel, and one
 per mode a later slice added to a path: the GEMMs' gelu_new epilogue,
 flash decode's softcap and both attentions' ALiBi, kernels 3 and 8 at
-phase 9's pools, and kernels 1, 2 and 3 at phase 11's verify; launches
+phase 9's pools, kernels 1, 2 and 3 at phase 11's verify, and QUIK's
+zero-point modes of kernels 2 and A; launches
 summed over phases 5-11) and, last, the device line. Details go to
 OUT_DIR/chip_smoke.json. Without a CUDA card, or without the package beside
 it, the script exits non-zero and prints no result.
@@ -559,9 +584,10 @@ def timed_gemm(kern, plain, lib, w, lib_w, wbytes, bound, **row):
 def block_row(kern, plain, lib, bounds, **row):
     """Device ms of a block's GEMMs run back to back on distinct weights, as
     the decode step runs them: the kernel, its plain version and the
-    library call; the bound is the sum of theirs."""
+    library call (None: no library row); the bound is the sum of
+    theirs."""
     row.update(ms=device_ms(kern, 20), plain_ms=device_ms(plain, 3),
-               library_ms=device_ms(lib, 20),
+               library_ms=None if lib is None else device_ms(lib, 20),
                bound_ms=sum(b for b, _ in bounds),
                bound_by=("bytes" if all(by == "bytes" for _, by in bounds)
                          else "operations"))
@@ -767,6 +793,178 @@ def kernel_w4_gemm(dev, gen, rows):
     return blocks[0]
 
 
+# QUIK (ROADMAP Queue A item 4): the zero-point modes of kernels 2 and A.
+# Its Llama-2-7B block: q/k/v/up/gate W4 (A4 asymmetric), o/down W8 (A8
+# asymmetric), 256 fp outlier channels on every linear input
+# (QuantConfig.quik_w4a4). M=64 is the decode step's batch, M=8 generate's,
+# M=2,048 phase 10's window batch (8 x 256).
+QUIK_BO = 256
+QUIK_W8 = ("o", "down")
+QUIK_LIB = ("torch._int_mm over an unpacked column-major copy of the int "
+            "weight, then the zero-point epilogue, the bf16 outlier matmul "
+            "and the activation in torch ops (a yardstick: the port never "
+            "calls it)")
+# f32 operations of the zero-point dequant per output: x_scale * w_scale,
+# x_zero * reduced_w, the add and the multiply
+ZP_OPS = 4
+
+
+def quik_inputs(dev, gen, M, K, N, w4, Bo=QUIK_BO):
+    """QUIK operands: bf16 activations through the asymmetric quantizer
+    (A4 for packed W4, A8 for W8), row 0 all zeros (every channel an
+    outlier) and row 1 with one large negative channel (q at -8 / -128);
+    random int weights and their reduced_w; Bo outlier channels. Returns
+    (mix_gemm's positional operands, its zero-point keywords, the library's
+    int8 weight, column-major)."""
+    from mixq_tpu_torch.ops import quant as Q
+
+    x = torch.randn(M, K, generator=gen, device=dev) * 0.5
+    x[0] = 0.0
+    if M > 1:
+        x[1, 3] = -40.0
+    q_x, xs, xz = Q.quantize_act_asymmetric(x.to(torch.bfloat16),
+                                            bits=4 if w4 else 8)
+    lo, hi = (-8, 8) if w4 else (-127, 128)
+    q_w = torch.randint(lo, hi, (K, N), generator=gen, device=dev,
+                        dtype=torch.int8)
+    ws = torch.rand(N, generator=gen, device=dev) * 1e-2 + 1e-3
+    xo = torch.randn(M, Bo, generator=gen, device=dev).to(torch.bfloat16)
+    wo = (torch.randn(Bo, N, generator=gen, device=dev) * 0.05).to(
+        torch.bfloat16)
+    w = Q.pack_int4(q_w) if w4 else q_w
+    zp = dict(x_zero=xz, reduced_w=Q.reduced_weight_rowsum(q_w))
+    return (q_x, w, xs, ws, xo, wo), zp, q_w.t().contiguous().t()
+
+
+def quik_bound(M, K, N, w4, fuse="none", Bo=QUIK_BO):
+    nbytes = (M * K + K * N // (2 if w4 else 1) + M * 8 + N * 8
+              + M * Bo * 2 + Bo * N * 2 + M * N * 2)
+    return bound_ms(nbytes, [(2 * M * N * K, "int8"),
+                             (2 * M * N * Bo, "bf16"),
+                             ((EPILOGUE_OPS[fuse] + ZP_OPS) * M * N, "f32")])
+
+
+def quik_lib(ins, zp, fuse):
+    """The library yardstick of one zero-point call on the int8 weight
+    `lib_w` (QUIK_LIB)."""
+    import torch.nn.functional as F
+
+    q_x, _, xs, ws, xo, wo = ins
+    scale = xs * ws[None, :]
+    corr = zp["x_zero"] * zp["reduced_w"][None, :]
+
+    def call(lib_w):
+        y = scale * (torch._int_mm(q_x, lib_w).float() + corr)
+        y = y + torch.matmul(xo, wo).float()
+        return (F.silu(y) if fuse == "silu" else y).to(torch.bfloat16)
+    return call
+
+
+def quik_linears():
+    """(name, K, N, fuse, w4) of the Llama-2-7B QUIK block's linears."""
+    return [(n, K, N, f, n not in QUIK_W8) for n, K, N, f in BLOCK]
+
+
+def quik_block(dev, gen, M, linears, **row):
+    """Kernels 2 and A in their zero-point modes over `linears` of one
+    block, as the decode step runs them (distinct weights, back to back):
+    each linear held to its plain version first."""
+    from mixq_tpu_torch.kernels.mix_gemm import mix_gemm, mix_gemm_plain
+
+    seq = [quik_inputs(dev, gen, M, K, N, w4) + (fuse,)
+           for _, K, N, fuse, w4 in linears]
+    errs = []
+    for (name, K, N, fuse, w4), (ins, zp, _, _) in zip(linears, seq):
+        got = mix_gemm(*ins, fuse=fuse, **zp)
+        torch.cuda.synchronize()
+        errs.append(check_gemm(got, mix_gemm_plain(*ins, fuse=fuse, **zp),
+                               f"QUIK {name} {K}x{N} M={M}"))
+    libs = [(quik_lib(ins, zp, fuse), lw) for ins, zp, lw, fuse in seq]
+    # torch._int_mm takes more than 16 rows: no library row at M=8
+    return block_row(
+        lambda: [mix_gemm(*s[0], fuse=s[3], **s[1]) for s in seq],
+        lambda: [mix_gemm_plain(*s[0], fuse=s[3], **s[1]) for s in seq],
+        (lambda: [f(lw) for f, lw in libs]) if M > 16 else None,
+        [quik_bound(M, K, N, w4, fuse) for _, K, N, fuse, w4 in linears],
+        tolerance=GEMM_TOL, library=QUIK_LIB, max_abs_err=max(errs),
+        plan={n: mix_plan(M, K, N, w4, zp=True)
+              for n, K, N, _, w4 in linears}, **row)
+
+
+def quik_plans_bit_equal(dev, gen):
+    """The zero-point term is added once, to the sum of the splits' int32
+    partials: S = 1..8 give the same bits, in both modes (q 4096x4096 W4
+    A4, down 11008x4096 W8 A8), at M=64 with 256 outlier channels (two
+    chunks of 128) and SiLU."""
+    from mixq_tpu_torch.kernels.mix_gemm import _mix_gemm
+
+    M, out = 64, []
+    for K, N, w4 in ((4096, 4096, True), (11008, 4096, False)):
+        ins, zp, _ = quik_inputs(dev, gen, M, K, N, w4)
+        splits = list(range(1, 9))
+        runs = [_mix_gemm(*ins, "silu", torch.bfloat16, splits=S, **zp)
+                for S in splits]
+        torch.cuda.synchronize()
+        for S, r in zip(splits[1:], runs[1:]):
+            check(torch.equal(runs[0].view(torch.uint8), r.view(torch.uint8)),
+                  f"QUIK {'W4' if w4 else 'W8'} {K}x{N}: S = {S} differs "
+                  "from S = 1")
+        out.append(dict(K=K, N=N, M=M, w4=w4, splits=splits,
+                        plan=mix_plan(M, K, N, w4, zp=True)))
+    return out
+
+
+def kernel_quik(dev, rows):
+    """Kernels 2 and A in QUIK's zero-point modes (on a generator of their
+    own, so the other phases' inputs stay as they were): each distinct
+    linear shape of the QUIK block at M=64 alone, over rotated weight
+    copies; the five W4 linears, the two W8 ones and the block of seven
+    at M=64, the seven at M=8 and at M=2,048; the bits across forced
+    split plans. Returns (the W8 rows' block, the W4 rows' block)."""
+    from mixq_tpu_torch.kernels.mix_gemm import mix_gemm, mix_gemm_plain
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    M = 64
+    out_rows = []
+    for K, N, fuse, w4 in sorted({(K, N, f, w4)
+                                  for _, K, N, f, w4 in quik_linears()}):
+        ins, zp, lib_w = quik_inputs(dev, gen, M, K, N, w4)
+        got = mix_gemm(*ins, fuse=fuse, **zp)
+        torch.cuda.synchronize()
+        mode = "W4 zero point" if w4 else "W8A8 zero point"
+        err = check_gemm(got, mix_gemm_plain(*ins, fuse=fuse, **zp),
+                         f"mix_gemm {mode} {K}x{N} {fuse}")
+        q_x, _, xs, ws, xo, wo = ins
+        out_rows.append(timed_gemm(
+            lambda w: mix_gemm(q_x, w, xs, ws, xo, wo, fuse=fuse, **zp),
+            lambda: mix_gemm_plain(*ins, fuse=fuse, **zp),
+            quik_lib(ins, zp, fuse), ins[1], lib_w,
+            K * N // (2 if w4 else 1), quik_bound(M, K, N, w4, fuse),
+            work=f"{mode} M={M} K={K} N={N} fuse={fuse} B={QUIK_BO}",
+            mode=mode, tolerance=GEMM_TOL, max_abs_err=err,
+            library=QUIK_LIB, plan=mix_plan(M, K, N, w4, zp=True)))
+        del ins, zp, lib_w
+    five = "(q,k,v 4096x4096; up, gate+SiLU 4096x11008)"
+    lin = quik_linears()
+    w4_blk = quik_block(
+        dev, gen, M, [x for x in lin if x[4]], mode="W4 zero point",
+        work=f"the five W4 linears of one Llama-2-7B QUIK block {five} at "
+             f"M={M}, A4 asymmetric, {QUIK_BO} outlier channels each")
+    w8_blk = quik_block(
+        dev, gen, M, [x for x in lin if not x[4]], mode="W8A8 zero point",
+        work=f"the two W8 linears of one Llama-2-7B QUIK block (o "
+             f"4096x4096, down 11008x4096) at M={M}, A8 asymmetric, "
+             f"{QUIK_BO} outlier channels each")
+    blocks = [quik_block(
+        dev, gen, m, lin, mode="W4 and W8A8 zero point",
+        work=f"the seven linears of one Llama-2-7B QUIK block at M={m} "
+             f"(q,k,v, up, gate+SiLU W4 A4; o, down W8 A8; {QUIK_BO} "
+             "outlier channels each)") for m in (M, 8, 2048)]
+    blocks[0]["bit_equal_plans"] = quik_plans_bit_equal(dev, gen)
+    rows["mix_gemm_zero_point"] = out_rows + [w4_blk, w8_blk] + blocks
+    return w8_blk, w4_blk
+
+
 # Phase 10's prefill shapes (Bo = 128 outlier channels, as quantize_model
 # gives every MIX linear). The tiny gate (H=256, I=704) prefills windows
 # of 8 x 128 rows: kernel 1 at A8 (mix8) and A4 (the mix4 configs); W8A8
@@ -882,6 +1080,7 @@ A16_LIB = ("torch.matmul of x with the pre-dequantized bf16 weight (product "
 # (g, int8, softcap)
 A16_PTXAS = {}
 MIX_PTXAS = {}
+ZP_PTXAS = {}
 RMS_PTXAS = {}
 FLASH_PTXAS = {}
 DECODE_PTXAS = {}
@@ -907,6 +1106,13 @@ def ptxas_by_mode(log, kernel):
             out.setdefault(key, {})["registers"] = int(
                 ln.split("Used", 1)[1].split()[0])
     return out
+
+
+# The MIX instantiations' registers by (w4, grouped), as ptxas reported them
+# before the zero-point mode was added (CUDA 12.8, sm_90a): the mode must
+# leave them as they were.
+MIX_REGISTERS = {(False, False): 128, (True, False): 161, (False, True): 224,
+                 (True, True): 240}
 
 
 # Kernel 3's times before its redesign (one block of 4 warps per (kv head,
@@ -1037,18 +1243,19 @@ def previous(*key):
     return {}
 
 
-def mix_plan(M, K, N, w4=False, G=1):
+def mix_plan(M, K, N, w4=False, G=1, zp=False):
     """The int8-activation GEMM's plan for this call (BN, splits S,
     blocks), the clusters of S blocks the card holds at once, and the
-    ptxas report of its instantiation."""
+    ptxas report of its instantiation (zp: the zero-point kernel's)."""
     from mixq_tpu_torch.kernels import _build
     from mixq_tpu_torch.kernels.mix_gemm import _clusters, plan_mix
 
-    clusters = _clusters(0, w4, G > 1)
+    clusters = _clusters(0, w4, G > 1, zp)
     p = plan_mix(M, N, K, w4, G, _build.sm_count(0), clusters)
     return dict(bn=p.bn, splits=p.splits, blocks=p.blocks,
                 max_active_clusters=clusters[p.splits - 1],
-                **MIX_PTXAS.get((w4, G > 1), {}))
+                **(ZP_PTXAS.get((w4,), {}) if zp
+                   else MIX_PTXAS.get((w4, G > 1), {})))
 
 
 def a16_plan(M, K, N, w4, G):
@@ -1880,13 +2087,16 @@ PER_LAYER = {
     "W4A4 grouped": {"rmsnorm_quant": 2, "mix_gemm": 7,
                      "mix_gemm.w4_grouped": 5, "mix_gemm.w8a8_grouped": 2},
     "W8A16": {"w8a16": 7, "w8a16.w8": 7},
+    # QUIK: every linear quantizes its own fp input (no kernel 1)
+    "QUIK": {"mix_gemm": 7, "mix_gemm.w4_zp": 5, "mix_gemm.w8a8_zp": 2},
 }
 
 
 def path_specs(name, attn_impl="auto", group_size=128, outlier_budget=128):
     """The DecoderSpecs of a configuration: W8A8 on every linear, or the
     reference policy of quantize.resolve_specs (W4A4: q/k/v/up/gate W4A4,
-    o/down W8A8; W8A16: weight-only everywhere), with its attn_impl."""
+    o/down W8A8; W8A16: weight-only everywhere; QUIK: q/k/v/up/gate QUIK
+    W4A4, o/down QUIK W8A8), with its attn_impl."""
     import dataclasses
 
     from mixq_tpu_torch.config import QuantConfig
@@ -1898,6 +2108,8 @@ def path_specs(name, attn_impl="auto", group_size=128, outlier_budget=128):
         specs = DecoderSpecs.uniform(LinearSpec(w_bit=8, a_bit=8))
     elif name == "W8A16":
         specs = resolve_specs(QuantConfig.w8a16())
+    elif name == "QUIK":
+        specs = resolve_specs(QuantConfig.quik_w4a4())
     else:
         specs = resolve_specs(QuantConfig.w4a4(
             outlier_budget=outlier_budget,
@@ -1983,9 +2195,11 @@ def check_executed(ran, want, what):
 # (gemma2 W8A8), 7.2e-2 (gemma2 W4A4) and, with 39 int8 KV entries written
 # differently, 1.06e-2 (llama batch-major int8 KV). So the W8A8 and W4A4
 # limits on the head-major cache are 1e-5, about 20x the card's reading: a
-# quantizer that rounds apart from the CPU's again fails them.
+# quantizer that rounds apart from the CPU's again fails them. The tiny
+# QUIK llama takes the W4A4 limit: its asymmetric quantizer
+# divides in IEEE f32 on both devices too.
 TINY_TOL = {
-    ("llama", "W8A8"): 1e-5, ("llama", "W4A4"): 1e-5,
+    ("llama", "W8A8"): 1e-5, ("llama", "W4A4"): 1e-5, ("llama", "QUIK"): 1e-5,
     ("llama", "W4A4 grouped"): 1e-5, ("llama", "W8A16"): 5e-3,
     ("gemma2", "W8A8"): 1e-5, ("gemma2", "W4A4"): 1e-5,
     ("gemma2", "W8A16"): 8e-3,
@@ -2102,7 +2316,8 @@ def reference_check(dev):
     the card's run first leaves the CPU's (Tap). On the head-major cache
     (attn_impl="flash", kernel 3; a prefill of 8 and 4 decode steps on 128
     slots): llama in W8A8, W4A4 per-channel and with 64-row groups (a
-    divisor of the tiny K/2 = 128 and 256), and W8A16; gemma2 in W8A8, W4A4
+    divisor of the tiny K/2 = 128 and 256), W8A16 and QUIK W4A4 (the
+    zero-point modes); gemma2 in W8A8, W4A4
     and W8A16. On the batch-major cache under attn_impl="auto" (kernel 8):
     llama W8A8 on 64 slots (a prefill of 8, 4 decode steps), and mistral
     W8A8 with a window of 4 on a ring of 8 slots (a prefill in two chunks of
@@ -2678,6 +2893,75 @@ def profile_steps(run, tag, n, pause=0.05, primer=None):
                     for name, (count, us) in top])
 
 
+def quik_step_split(dev, eng, cfg, gen, steps=2):
+    """QUIK's decode step at B=64 with 512 filled positions (phase 6's
+    state), 2 eager steps in a card_trace window with host activity (one
+    run as its primer; host tracing of the step's ~3,900 ops is slow, so
+    few steps): the device ms per step split into kernel A and
+    kernel 2 in their zero-point modes, kernel 3, the asymmetric-quant
+    glue (the device time under quik_linear's QUIK_QUANT ranges: outlier
+    extract, inlier mask, quantizer) and the rest, and the busy share."""
+    from mixq_tpu_torch.engine.engine import DecodeLoop
+    from mixq_tpu_torch.engine.sampling import SamplingParams
+    from mixq_tpu_torch.kernels import block_events, card_trace
+    from mixq_tpu_torch.ops.mixed_linear import QUIK_QUANT
+
+    B, fill = 64, 512
+    cache = eng.new_cache(B, 640)
+    seed_cache(cache, gen)
+    kv_start = torch.zeros(B, dtype=torch.int32, device=dev)
+    tok0 = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    loop = DecodeLoop(eng, cache, kv_start, tok0, 1 + steps,
+                      SamplingParams(), None)
+
+    def run():
+        cache.set_length(fill)
+        loop.tok.copy_(tok0[:, None])
+        loop.col.fill_(1)
+        for _ in range(steps):
+            loop.step()
+
+    run()
+    torch.cuda.synchronize()
+    with card_trace(primer=run, cpu=True) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the ranges' device-side annotations span their kernels: not counted
+    kernels = [e for e in block_events(prof) if e.name != QUIK_QUANT]
+    total = sum(e.self_device_time_total for e in kernels)
+
+    def named(key):
+        return sum(e.self_device_time_total for e in kernels
+                   if key in e.name)
+
+    def device_total(e):
+        if hasattr(e, "device_time_total"):
+            return e.device_time_total
+        return e.cuda_time_total
+
+    glue = sum(device_total(e)
+               for e in block_events(prof, host_range=QUIK_QUANT))
+    parts = {"kernel_A_w4_zp": named("mix_gemm_zp_kernel<true>"),
+             "kernel_2_w8a8_zp": named("mix_gemm_zp_kernel<false>"),
+             "kernel_3": named("flash_decode_kernel"),
+             "asymmetric_quant_glue": glue}
+    out = {k + "_ms_per_step": v / steps / 1e3 for k, v in parts.items()}
+    out.update(device_ms_per_step=total / steps / 1e3,
+               rest_ms_per_step=(total - sum(parts.values())) / steps / 1e3,
+               busy_share=total / 1e6 / wall, steps=steps,
+               ran=ran_on_card(prof))
+    check(all(v > 0 for v in parts.values()),
+          f"QUIK step split: a part took no device time: {parts}")
+    with open(os.path.join(OUT_DIR, "profile_QUIK_W4A4_split.txt"),
+              "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=40))
+    return out
+
+
 def ring_step(dev, eng, cfg, gen):
     """One decode step at batch 16 on a window-sized ring (4096 slots)
     filled past its wrap (length 4096 + 37), every kernel-8 launch held
@@ -2731,16 +3015,30 @@ PATHS = [
      "auto"),
     ("Llama-2-7B", "W8A8", "Llama-2-7B W8A8O16 bf16 KV", "W8A8O16_bf16kv",
      "bfloat16", "auto"),
+    ("Llama-2-7B", "QUIK", "Llama-2-7B QUIK W4A4", "QUIK_W4A4", "int8",
+     "auto"),
 ]
+# random outlier channels of every linear input at init: MIX's 128, QUIK's
+# 256 (QuantConfig.quik_w4a4)
+INIT_BUDGET = {"QUIK": 256}
 # phase 6 times the decode step and the prefill of these paths only (a cut
 # for the time limit): the random-init Llama-2-7B W8A8O16 step, which phase
-# 7 sets beside the warmed one, and Mistral-7B's, the ring through kernel 8.
+# 7 sets beside the warmed one, Mistral-7B's, the ring through kernel 8, and
+# QUIK's, with its step split into kernels and glue (quik_step_split).
 # The others' rows in PERF.md section 5 are earlier runs'; every path is
 # still served (phase 5).
-TIMED_PATHS = ("Llama-2-7B W8A8O16", "Mistral-7B W8A8O16")
+TIMED_PATHS = ("Llama-2-7B W8A8O16", "Mistral-7B W8A8O16",
+               "Llama-2-7B QUIK W4A4")
+# depth cut for the time limit (with QUIK's phases): phase 5 serves
+# Gemma-2-9B's three paths at 21 of its 42 layers (full width; the
+# alternating windows, softcaps and every kernel mode unchanged)
+SERVE_LAYERS = {"Gemma-2-9B": 21}
 MODELS = {"Llama-2-7B": llama2_7b, "Gemma-2-9B": gemma2_9b,
           "Mistral-7B": mistral_7b}
 
+# phase 8 runs Baichuan-13B at 20 of its 40 layers, full width (a depth
+# cut for the time limit)
+BAICHUAN_LAYERS = 20
 # Phase 8's two serve paths: (label, profile tag, attn_impl, KV type)
 BAICHUAN_PATHS = [
     ("Baichuan-13B W8A8O16 bf16 KV (auto)", "baichuan_auto_bf16kv", "auto",
@@ -2802,6 +3100,10 @@ KERNEL_ROWS = [
      ("mix_gemm.w8a8",), SPEC_LABELS),
     ("flash_decode_verify", "flash_decode", "REPLACES",
      "flash_decode_verify", ("flash_decode",), SPEC_LABELS[1:]),
+    ("mix_gemm_w8a8_zp", "mix_gemm", "REPLACES_QUIK", "quik_w8a8",
+     ("mix_gemm.w8a8_zp",), None),
+    ("mix_gemm_w4_zp", "mix_gemm", "REPLACES_QUIK", "quik_w4",
+     ("mix_gemm.w4_zp",), None),
 ]
 # entries whose mode is a runtime argument (the gelu_new epilogue), which
 # a kernel's name does not show: the card's runs are counted by the
@@ -2812,6 +3114,19 @@ EXECUTED_AS = {"mix_gemm_w8a8_gelu_new": ("mix_gemm.w8a8",),
                "flash_decode_alibi": ("flash_decode",),
                "decode_attention_alibi": ("decode_attention",)}
 KERNEL_NOTES = {
+    "mix_gemm_w8a8_zp": "kernel 2 (W8) in QUIK's zero-point mode "
+                        "(mix_gemm_zp_kernel<false>: o/down of QUIK W4A4, "
+                        "A8 asymmetric); timed row: o and down of one "
+                        "Llama-2-7B block at M=64, 256 outlier channels; "
+                        "replaces JAX's jnp int8 dot_general and zero-point "
+                        "epilogue in quik_linear (no Pallas kernel)",
+    "mix_gemm_w4_zp": "kernel A (packed W4) in QUIK's zero-point mode "
+                      "(mix_gemm_zp_kernel<true>: q/k/v/up/gate of QUIK "
+                      "W4A4, A4 asymmetric); timed row: the five W4 "
+                      "linears of one Llama-2-7B block at M=64, 256 "
+                      "outlier channels; replaces JAX's jnp int8 "
+                      "dot_general and zero-point epilogue in quik_linear "
+                      "(no Pallas kernel)",
     "flash_decode_pool": "kernel 3 at phase 9's int8 head-major pool: 64 "
                          "slots of 640 positions, rows of length 1 to 640 "
                          "in one launch; launches: the card's runs in that "
@@ -2832,7 +3147,7 @@ KERNEL_NOTES = {
                            "slot_lengths + 4); one launch per verify token "
                            "(Queue B item 1); launches: the card's runs in "
                            "that pool's profiled windows (8 verify rounds "
-                           "x 4 x 32, and a plain window's 8 x 32)",
+                           "x 4 x 16 layers, and a plain window's 8 x 16)",
     "decode_attention_pool": "kernel 8 at phase 9's bf16 batch-major pool "
                              "(JAX's default engine configuration): 64 "
                              "slots of 640 positions, rows of length 1 to "
@@ -3456,6 +3771,12 @@ def pipeline_run(dev, gen, report, root):
     (params, _, specs), io["hf_read_w4a4"] = timed_read(
         lambda: AutoModel.from_pretrained(hf_dir, w4, calib_batches=calib,
                                           device=dev), 2 * hf_bytes, peaks)
+    # QUIK W4A4 from the same directory, calibrating on the card (served
+    # after the W4A4 model, quik_pipeline)
+    quik = QuantConfig.quik_w4a4()
+    (qparams, _, qspecs), io["hf_read_quik"] = timed_read(
+        lambda: AutoModel.from_pretrained(hf_dir, quik, calib_batches=calib,
+                                          device=dev), 2 * hf_bytes, peaks)
     shutil.rmtree(hf_dir)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3505,12 +3826,81 @@ def pipeline_run(dev, gen, report, root):
     del eng, loaded
     gc.collect()
     torch.cuda.empty_cache()
+    out["quik"] = quik_pipeline(dev, root, qparams, cfg, quik, qspecs,
+                                scales, io, peaks)
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
     out["host_s"] = secs
     out["max_memory_allocated_gib"] = max(
         peaks + [torch.cuda.max_memory_allocated()]) / 2 ** 30
     print(f"pipeline host seconds: {secs}; peak memory "
           f"{out['max_memory_allocated_gib']:.2f} GiB", flush=True)
     return out, served, warmed_specs
+
+
+def quik_pipeline(dev, root, params, cfg, qcfg, specs, scales, io, peaks):
+    """Phase 7's QUIK W4A4 model (AutoModel.from_pretrained with
+    calibration on the card): its sets (256 a linear input) equal the top
+    channels of the calibration run alone; served by generate (8 prompts,
+    32 greedy tokens: kernels 2 and A in their zero-point modes, no kernel
+    1; phase 5 profiles the same path); its checkpoint through
+    save_checkpoint and from_quantized, bit-equal, and the loaded params
+    serve the in-memory model's greedy tokens."""
+    from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mixq_tpu_torch.quantize import outlier_sets_from_scales
+
+    sets = linear_sets(params)
+    budget = qcfg.outlier_budget
+    check(all(len(v) == budget for v in sets.values()),
+          f"calibrated QUIK sets are not full ({budget})")
+    alone = {k: s.ind[:int(s.count)].tolist() for k, s in
+             outlier_sets_from_scales(scales, qcfg, device=dev).items()}
+    check(sets == alone, "the QUIK sets differ from the top channels of "
+          "the calibration run alone")
+    check(all(lin.reduced_w is not None for bp in params.blocks
+              for lin in (bp.attn.wq, bp.attn.wo, bp.mlp.gate, bp.mlp.down)),
+          "a QUIK linear without reduced_w")
+    eng = new_engine(dev, params, cfg, specs, "int8")
+    prompts = serve_prompts(cfg)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    want = eng.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    check(counts.get("mix_gemm.w4_zp", 0) > 0
+          and counts.get("mix_gemm.w8a8_zp", 0) > 0
+          and "rmsnorm_quant" not in counts,
+          f"the calibrated QUIK model's launches: {counts}")
+    out = dict(budget=budget, generate_wall_s=wall, launches=counts,
+               distinct_rows=len({tuple(r) for r in want}),
+               constant_rows=sum(len(set(r)) == 1 for r in want),
+               first_row=want[0][:8])
+    print(f"pipeline QUIK: {out}", flush=True)
+    varied(out, "QUIK")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ck = os.path.join(root, "quik_w4a4")
+    loaded, io["quik_w4a4"] = round_trip(dev, ck, params, cfg, qcfg, specs,
+                                         peaks)
+    shutil.rmtree(ck)
+    eng = new_engine(dev, loaded, cfg, specs, "int8")
+    reset_launch_counts()
+    got = eng.generate(prompts, max_new_tokens=32)
+    counts = launch_counts()
+    check(got == want, "the QUIK checkpoint serves other greedy tokens than "
+          "the params it was saved from")
+    check(counts["mix_gemm.w4_zp"] > 0 and counts["mix_gemm.w8a8_zp"] > 0
+          and counts["rmsnorm_quant"] == 0,
+          f"the loaded QUIK model's launches: {counts}")
+    io["quik_w4a4"].update(tokens_equal=True, launches={
+        k: v for k, v in counts.items() if v})
+    print(f"pipeline: QUIK W4A4 checkpoint round trip: {io['quik_w4a4']}",
+          flush=True)
+    del eng, loaded
+    return out
 
 
 def baichuan_phase(dev, gen):
@@ -3527,6 +3917,7 @@ def baichuan_phase(dev, gen):
     cfg = baichuan_13b()
     check(cfg.alibi and cfg.rope_style == "none",
           "Baichuan-13B's config does not take ALiBi")
+    cfg = dataclasses.replace(cfg, num_hidden_layers=BAICHUAN_LAYERS)
     out, secs = {}, {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4113,12 +4504,14 @@ def verify_vs_steps(eng, cfg, label, control=True, seed=9):
 # ---------------------------------------------------------------------------
 
 # the model: benchserve.py:95-110's Markov substrate (BENCH_SUBSTRATE=
-# markov) at Llama-2-7B's full width and depth, quantized through
+# markov) at Llama-2-7B's full width, quantized through
 # quantize_model(W8A8): a planted first-order chain over tokens [2,
 # SPEC_V_EFF) with cycles of ~SPEC_CYCLE tokens, its blocks one shared set
 # of small random arrays, logit margin 30, so greedy output walks the chain
-# and a prompt that walks it makes n-grams recur
+# and a prompt that walks it makes n-grams recur; at SPEC_LAYERS of the 32
+# layers (a depth cut for the time limit, made with QUIK's phases)
 SPEC_V_EFF, SPEC_CYCLE = 512, 16
+SPEC_LAYERS = 16
 SPEC_K, SPEC_NGRAM, SPEC_WINDOW_R = 4, 3, 8
 # the script through an engine in turn: plain windows, spec windows,
 # step_serve (adaptive), async plain windows
@@ -4146,16 +4539,19 @@ SNAP_SLOTS, SNAP_REQUESTS, SNAP_SAMPLED, SNAP_AFTER = 8, 16, 4, 2
 
 
 def markov_model(dev):
-    """The Markov 7B model on the card: (cfg, params, specs, succ, host s
-    of the state and of quantize_model). The state's arrays go to the card
-    once (substrate.device_state: one block's)."""
+    """The Markov 7B model on the card, at SPEC_LAYERS of Llama-2-7B's 32
+    layers (full width): (cfg, params, specs, succ, host s of the state
+    and of quantize_model). The state's arrays go to the card once
+    (substrate.device_state: one block's)."""
+    import dataclasses
+
     from mixq_tpu_torch.config import QuantConfig
     from mixq_tpu_torch.quantize import quantize_model
     from mixq_tpu_torch.utils.substrate import (device_state,
                                                 make_markov_state)
     from mixq_tpu_torch.utils.testing import DictSource
 
-    cfg = llama2_7b()
+    cfg = dataclasses.replace(llama2_7b(), num_hidden_layers=SPEC_LAYERS)
     t0 = time.perf_counter()
     state, succ = make_markov_state(cfg, v_eff=SPEC_V_EFF, seed=0,
                                     mean_cycle=SPEC_CYCLE, share_blocks=True)
@@ -4646,7 +5042,7 @@ PPL_GATE = 0.1
 # same run (on the CPU) and this share of the PPL
 PPL_REL_TOL = 1e-3
 # ... but the tiny gate's configs with A4 activations (mix4, mix4_g64,
-# mix4_full_g64) take this share: the rest of the forward's f32 ops
+# mix4_full_g64, quik) take this share: the rest of the forward's f32 ops
 # (attend, the norms' row sums) run in another order on the card, and a
 # bf16 input that lands an ulp apart flips an int4 level now and then.
 # Readings on an H100 (segment 0): up to 1.26e-3 of the PPL (mix4_g64, bf16
@@ -4659,7 +5055,7 @@ A4_PPL_REL_TOL = 2.5e-3
 # the control the A4 limit is held under on every run: the CPU's PPL with
 # the outlier term of one linear dropped, the last layer's q projection
 # (on an H100: moved 0.018 to 0.027, 2.1x the limit or more)
-A4_CONFIGS = ("mix4", "mix4_g64", "mix4_full_g64")
+A4_CONFIGS = ("mix4", "mix4_g64", "mix4_full_g64", "quik")
 # the 2-layer, full-width copy of the 7B gate held on the card against the
 # CPU: its windows (n_ctx 256) on segment 0. Its PPL is mostly the chain's
 # (30.18 of 30.21: the blocks move it by ~0.03), so this check sees the
@@ -4778,10 +5174,12 @@ def split_profile(fn, tag):
     host activity (`fn` once more as its primer, so CUPTI's loss at a
     window's start falls there), split into kernel 1, kernels 2 and A, the
     f32 prefill `attend` (the device time under the decoder's
-    PREFILL_ATTEND ranges in the block) and the rest, with the port's
+    PREFILL_ATTEND ranges in the block), QUIK's activation glue (under
+    quik_linear's QUIK_QUANT ranges) and the rest, with the port's
     kernels the card ran (ran_on_card's keys)."""
     from mixq_tpu_torch.kernels import block_events, card_trace
     from mixq_tpu_torch.models.decoder import PREFILL_ATTEND
+    from mixq_tpu_torch.ops.mixed_linear import QUIK_QUANT
 
     torch.cuda.synchronize()
     with card_trace(primer=fn, cpu=True) as prof:
@@ -4790,7 +5188,8 @@ def split_profile(fn, tag):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # the ranges' device-side annotations span their kernels: not counted
-    kernels = [e for e in block_events(prof) if e.name != PREFILL_ATTEND]
+    kernels = [e for e in block_events(prof)
+               if e.name not in (PREFILL_ATTEND, QUIK_QUANT)]
     total = sum(e.self_device_time_total for e in kernels)
 
     def named(*keys):
@@ -4804,12 +5203,15 @@ def split_profile(fn, tag):
 
     attend_us = sum(device_total(e)
                     for e in block_events(prof, host_range=PREFILL_ATTEND))
+    quant_us = sum(device_total(e)
+                   for e in block_events(prof, host_range=QUIK_QUANT))
     k1 = named("rmsnorm_quant_regs", "rmsnorm_quant_loop")
-    k2 = named("mix_gemm_kernel")
+    k2 = named("mix_gemm_kernel", "mix_gemm_zp_kernel")
     out = dict(device_ms=total / 1e3, wall_ms=wall * 1e3,
                kernel1_ms=k1 / 1e3, kernel2_and_A_ms=k2 / 1e3,
                attend_ms=attend_us / 1e3 if attend_us else None,
-               rest_ms=(total - k1 - k2 - attend_us) / 1e3,
+               quik_quant_ms=quant_us / 1e3 if quant_us else None,
+               rest_ms=(total - k1 - k2 - attend_us - quant_us) / 1e3,
                busy_share=total / 1e6 / wall,
                ran=ran_on_card(prof))
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -4875,11 +5277,11 @@ def offline_tasks(params, cfg, specs, gate, label, profile_decode=False):
 
 
 def gate_7b_phase(dev, card):
-    """examples/gate_7b_torch.run at Llama-2-7B's full width and depth; on
-    the way, the offline tasks on FP16 (the control) and W8A8O16, one
-    W8A8O16 window batch profiled and a 32-window batch timed, and a
-    2-layer copy of W8A8O16 and W4A4O16 held on the card against the
-    CPU."""
+    """examples/gate_7b_torch.run at Llama-2-7B's full width and depth
+    (fp16, mix8, mix4 and quik); on the way, the offline tasks on FP16 (the
+    control) and W8A8O16, one window batch of each quantized config
+    profiled, a W8A8O16 32-window batch timed, and a 2-layer copy of
+    W8A8O16, W4A4O16 and QUIK W4A4 held on the card against the CPU."""
     import dataclasses
 
     import numpy as np
@@ -4894,7 +5296,8 @@ def gate_7b_phase(dev, card):
 
     def two_layers(name, gate):
         cfg2 = dataclasses.replace(gate.cfg, num_hidden_layers=2)
-        qcfg = {"mix8": QuantConfig.w8a8(), "mix4": QuantConfig.w4a4()}[name]
+        qcfg = {"mix8": QuantConfig.w8a8(), "mix4": QuantConfig.w4a4(),
+                "quik": QuantConfig.quik_w4a4()}[name]
         p2, specs2 = quantize_model(gate.src, cfg2, qcfg,
                                     calib_batches=gate.calib, device=dev)
         seg = gate.segments[0][:TWO_LAYER_WINDOWS * args.n_ctx + 1]
@@ -4986,7 +5389,7 @@ def eval_phase(dev, card):
     launches = launch_counts()
     for key in ("rmsnorm_quant", "mix_gemm.w8a8", "mix_gemm.w4",
                 "mix_gemm.w4_grouped", "mix_gemm.w8a8_grouped",
-                "decode_attention"):
+                "mix_gemm.w4_zp", "mix_gemm.w8a8_zp", "decode_attention"):
         check(launches.get(key, 0) > 0,
               f"evaluation: {key} launched {launches.get(key, 0)} times")
     ran = {}
@@ -5008,6 +5411,8 @@ def eval_phase(dev, card):
 
 
 def main():
+    import dataclasses
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5061,6 +5466,29 @@ def main():
     for (w4, grouped), r in MIX_PTXAS.items():
         check(" 0 bytes spill stores" in r.get("spills", ""),
               f"mix_gemm_kernel<W4={w4}, grouped={grouped}> spills: {r}")
+        # the zero-point mode is a template argument of its own: the MIX
+        # instantiations keep their registers
+        check(r.get("registers") == MIX_REGISTERS[(w4, grouped)],
+              f"mix_gemm_kernel<W4={w4}, grouped={grouped}> uses "
+              f"{r.get('registers')} registers, not "
+              f"{MIX_REGISTERS[(w4, grouped)]}")
+    # QUIK's zero-point kernel (W8 and packed W4) does not spill either
+    ZP_PTXAS.update(ptxas_by_mode(ptxas.get("mix_gemm", ""),
+                                  "mix_gemm_zp_kernel"))
+    check(ptxas.get("mix_gemm") == "(cached)" or len(ZP_PTXAS) == 2,
+          f"mix_gemm: ptxas reported {len(ZP_PTXAS)} zero-point "
+          "instantiations")
+    for (w4,), r in ZP_PTXAS.items():
+        check(" 0 bytes spill stores" in r.get("spills", ""),
+              f"mix_gemm_zp_kernel<W4={w4}> spills: {r}")
+    report["mix_gemm_zp_ptxas"] = {f"w4={k[0]}": v
+                                   for k, v in ZP_PTXAS.items()}
+    report["mix_gemm_zp_clusters"] = {
+        f"w4={w4}": mix_gemm._clusters(0, w4, False, True)
+        for w4 in (False, True)}
+    print(f"  mix_gemm_zp: {report['mix_gemm_zp_ptxas']}; clusters of 1..8 "
+          f"blocks the card holds at once: {report['mix_gemm_zp_clusters']}",
+          flush=True)
     # kernel 1's register kernel (one instantiation) does not spill
     log = ptxas.get("rmsnorm_quant", "")
     RMS_PTXAS.update(ptxas_by_mode(log, "rmsnorm_quant_regs"))
@@ -5135,6 +5563,7 @@ def main():
     main_rows["mix_gemm_a16"], main_rows["w8a16_matmul"] = kernel_a16(
         dev, gen, rows)
     main_rows["int8_matmul_dequant"] = kernel_int8_matmul(dev, gen, rows)
+    main_rows["quik_w8a8"], main_rows["quik_w4"] = kernel_quik(dev, rows)
     main_rows["flash_decode"] = kernel_flash(dev, gen, rows)
     main_rows["flash_decode_softcap"] = kernel_flash_softcap(dev, gen, rows)
     main_rows["decode_attention"] = kernel_decode_attention(dev, gen, rows)
@@ -5204,10 +5633,18 @@ def main():
     report["paths"] = {}
     for model, name, label, tag, kv_dtype, attn_impl in PATHS:
         cfg, specs = MODELS[model](), path_specs(name, attn_impl)
+        if model in SERVE_LAYERS:
+            cfg = dataclasses.replace(
+                cfg, num_hidden_layers=SERVE_LAYERS[model])
         t0 = time.perf_counter()
-        params = init_decoder_params(cfg, specs, gen, device=dev,
+        # QUIK's path draws from its own generator: the other phases keep
+        # their inputs
+        g = (torch.Generator(device=dev).manual_seed(19) if name == "QUIK"
+             else gen)
+        params = init_decoder_params(cfg, specs, g, device=dev,
                                      dtype=torch.bfloat16,
-                                     outlier_budget=128)
+                                     outlier_budget=INIT_BUDGET.get(name,
+                                                                    128))
         torch.cuda.synchronize()
         path = {"init_s": time.perf_counter() - t0,
                 "param_gib": tensor_bytes(params) / 2 ** 30}
@@ -5222,7 +5659,11 @@ def main():
             path["prefill"] = prefill_timing(dev, eng, cfg)
             print(f"prefill {label}: {path['prefill']} on {card}",
                   flush=True)
-            path["decode"] = decode_timing(dev, eng, cfg, gen, tag, name)
+            path["decode"] = decode_timing(dev, eng, cfg, g, tag, name)
+            if name == "QUIK":
+                path["decode"]["split"] = quik_step_split(dev, eng, cfg, g)
+                print(f"decode split {label}: {path['decode']['split']} on "
+                      f"{card}", flush=True)
             if label in PREV_KERNEL8_STEP_MS:
                 path["decode"].update(
                     previous_attention_ms_per_step=PREV_KERNEL8_STEP_MS[

@@ -5,11 +5,12 @@ a JSON row and optional CSV output.
 
   python evalppl_torch.py --model_path <hf_dir or quantized_dir> \
       [--eval_tokens wiki.npy | --eval_text wiki.txt] \
-      [--model_type fp16|mix8|mix4] [--n_ctx 512] [--batch 8] [--device cpu]
+      [--model_type fp16|mix8|mix4|quik] [--n_ctx 512] [--batch 8] \
+      [--device cpu]
 
-Quantizing at eval time (mix8, mix4 on an HF directory) calibrates on
---calib_tokens, never on the eval stream unless --allow_eval_calib says
-so. The quik backend waits for its port (ROADMAP Queue A item 4).
+Quantizing at eval time (mix8, mix4, quik on an HF directory) calibrates
+on --calib_tokens, never on the eval stream unless --allow_eval_calib says
+so.
 --eval_text tokenizes with transformers. Runs on the card unless --device
 cpu; the row names the device.
 """
@@ -24,7 +25,7 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model_path", required=True)
     ap.add_argument("--model_type", default="auto",
-                    help="auto|fp16|mix8|mix4 (auto = whatever the "
+                    help="auto|fp16|mix8|mix4|quik (auto = whatever the "
                          "checkpoint is)")
     ap.add_argument("--eval_tokens", default=None, help=".npy token stream")
     ap.add_argument("--eval_text", default=None)
@@ -45,9 +46,6 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.model_type == "quik":
-        raise SystemExit("the quik backend is not ported yet (ROADMAP Queue "
-                         "A item 4)")
 
     import numpy as np
     import torch
@@ -74,6 +72,7 @@ def main(argv=None):
         "fp16": None,
         "mix8": QuantConfig.w8a8(),
         "mix4": QuantConfig.w4a4(),
+        "quik": QuantConfig.quik_w4a4(),
     }.get(args.model_type, "auto")
 
     dev = args.device

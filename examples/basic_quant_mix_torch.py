@@ -1,4 +1,4 @@
-"""Offline MIX quantization on the PyTorch port (mirrors
+"""Offline MIX / QUIK quantization on the PyTorch port (mirrors
 examples/basic_quant_mix.py): an HF safetensors directory in, a quantized
 checkpoint out in the JAX package's layout (either package loads it).
 
@@ -7,9 +7,10 @@ checkpoint out in the JAX package's layout (either package loads it).
       [--calib_tokens tokens.npy | --calib_text file.txt] [--device cpu]
 
 MIX (W8A8O16: empty outlier sets that the online predictor fills at
-serving warmup; W4A4O16: sets from calibration) and WEIGHT_ONLY (W8A16).
-QUIK waits for its port (ROADMAP Queue A item 4). Runs on the card unless
---device cpu; --calib_text tokenizes with transformers.
+serving warmup; W4A4O16: sets from calibration), QUIK (--version QUIK,
+W4A4 with o/down in W8A8, 256 calibrated outlier channels by default;
+examples/basic_quant_quik_torch.py) and WEIGHT_ONLY (W8A16). Runs on the
+card unless --device cpu; --calib_text tokenizes with transformers.
 """
 import argparse
 import os
@@ -36,10 +37,6 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.version == "QUIK":
-        sys.exit("QUIK quantization is not ported yet (ROADMAP Queue A "
-                 "item 4)")
-
     from mixq_tpu_torch.config import QuantConfig
     from mixq_tpu_torch.models.auto import AutoModel
     from mixq_tpu_torch.models.hf import load_hf_config
@@ -53,7 +50,7 @@ def main(argv=None):
         version=args.version, outlier_budget=budget)
 
     calib = None
-    if args.w_bit <= 4:
+    if args.w_bit <= 4 or args.version == "QUIK":
         cfg = load_hf_config(args.model_path)
         tokenizer = (load_tokenizer(args.model_path) if args.calib_text
                      else None)

@@ -17,9 +17,9 @@ make_markov_state):
   * outlier channels are planted once, on the shared block (every layer
     aliases it; planting per layer would compound the gain 32 times).
 
-Rows: {fp16, mix8, mix4} x {bfloat16, int8 KV}, PPL per held-out chain
-segment, deltas paired with FP16 on the same segments, and the
-monotone-separation gate. QUIK rows wait for the port of QUIK. The
+Rows: {fp16, mix8, mix4, quik} x {bfloat16, int8 KV}, PPL per held-out
+chain segment, deltas paired with FP16 on the same segments, and the
+monotone-separation gate (fp16, mix8, mix4). The
 state's arrays go to the card once (substrate.device_state: one block's
 worth, shared by every layer) and each config is quantized from there.
 Runs on the card unless --device cpu.
@@ -52,7 +52,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--windows", type=int, default=8)
     ap.add_argument("--n_ctx", type=int, default=256)
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--configs", default="fp16,mix8,mix4")
+    ap.add_argument("--configs", default="fp16,mix8,mix4,quik")
     ap.add_argument("--kv", default="bfloat16,int8")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--output", default=None)
@@ -173,12 +173,9 @@ def run(args, on_config=None):
     cfg = gate.cfg
     rows = [gate.row]
     qconfigs = {"fp16": None, "mix8": QuantConfig.w8a8(),
-                "mix4": QuantConfig.w4a4()}
+                "mix4": QuantConfig.w4a4(),
+                "quik": QuantConfig.quik_w4a4()}
     want = args.configs.split(",")
-    if "quik" in want:
-        print("# quik: not run; QUIK linears wait for their port "
-              "(ROADMAP.md Queue A item 4)", flush=True)
-        want.remove("quik")
     kvs = args.kv.split(",")
     seg_ppls = {}
     for name in want:

@@ -16,8 +16,11 @@ function-preserving outlier channels. On it:
 The mix8 rows are W8A8 as quantize_model gives it (empty, budget-reserved
 outlier sets, no warmup), as in the JAX script, so they compare with its
 records; `mix8_warmed` is the model the convergence check warmed, W8A8O16
-with the outliers the predictor found (budget 32). QUIK rows wait for the
-port of QUIK. Runs on the card unless --device cpu; trains every run.
+with the outliers the predictor found (budget 32). The quik rows are QUIK
+W4A4 with JAX's budget of 256 calibrated outlier channels: at this
+preset's width (H=256) every input channel of q/k/v, o and up/gate is an
+outlier, so their int GEMMs see rows of zeros. Runs on the card unless
+--device cpu; trains every run.
 
   python examples/realistic_gate_torch.py --output gate.json
   python examples/realistic_gate_torch.py --device cpu --steps 40 --segments 2
@@ -165,10 +168,9 @@ def run(args, on_config=None):
         "mix4_g64": QuantConfig.w4a4(q_group_size=64),
         "mix4_full_g64": QuantConfig.w4a4(q_group_size=64,
                                           eightbit_only_names=()),
+        "quik": QuantConfig.quik_w4a4(),
         "mix8_warmed": "warmed",
     }
-    print("# quik: not run; QUIK linears wait for their port "
-          "(ROADMAP.md Queue A item 4)", flush=True)
     seg_len = args.windows * args.n_ctx
     segments = [held_out[s * seg_len:(s + 1) * seg_len + 1]
                 for s in range(args.segments)]

@@ -5,8 +5,9 @@
 numpy arrays, bf16 as ml_dtypes' bfloat16) and builds the port's
 `DecoderParams` with the same field layout and dtypes: int8 q_weight (or
 packed int4 uint8 [K/2, N], halves layout), f32 w_scale [N] or [G, N],
-f32 k_mask / out_mask, bf16 w_outlier, int32 out_ind, embed and lm_head
-(None = tied). Every array is carried bit for bit. It reads fields by name
+f32 k_mask / out_mask, bf16 w_outlier, int32 out_ind, QUIK's f32
+reduced_w, embed and lm_head (None = tied). Every array is carried bit for
+bit. It reads fields by name
 and imports nothing of JAX. jnp.int4 weight storage is not carried: the
 port keeps int4 weights packed, JAX's default storage.
 """
@@ -41,8 +42,6 @@ def _opt(a, device):
 def _linear(p, device) -> MixLinearParams:
     if p is None:
         return None
-    if getattr(p, "reduced_w", None) is not None:
-        raise NotImplementedError("QUIK linears are not ported")
     return MixLinearParams(**{f: _opt(getattr(p, f), device)
                               for f in MixLinearParams._fields})
 

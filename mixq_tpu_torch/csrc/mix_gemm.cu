@@ -1,5 +1,6 @@
 // The int8-activation mix-GEMM with the fused MixQ epilogue, for decode: one
-// template over <W4, GROUPED> serves its four weight modes.
+// template over <W4, GROUPED> serves its four weight modes, and over <W4>
+// QUIK's two zero-point modes (mix_gemm_zp_kernel).
 //   W8: w int8 [K, N]; W4: w packed int4 uint8 [K/2, N] in the halves layout
 //   of ops/quant.py::pack_int4 (packed row p holds K-row p in its low nibble
 //   and K-row K/2 + p in its high one).
@@ -9,12 +10,18 @@
 //   grouped (w_scale [G, N], group_size gs = K / G):
 //     y = (sum_g float(acc_g[m,n]) * w_scale[g,n]) * x_scale[m],
 //     acc_g the int32 sum over the K-rows of group g
+//   zero point (QUIK; per-channel W8 or W4, x_zero [M], reduced_w [N]):
+//     y = (x_scale[m] * w_scale[n]) * (float(acc) + x_zero[m] * reduced_w[n])
+//     (JAX's order in mixq_tpu/ops/mixed_linear.py::quik_linear; the
+//     activations are asymmetric, int8 values down to -128, A4 down to -8)
 //   then + sum_b x_out[m,b] * w_out[b,n] (fp outlier channels, optional;
 //   bf16 operands, f32 sum), the activation epilogue (none, SiLU, exact GELU
 //   or tanh GELU "gelu_new"; csrc/epilogue.cuh) and the cast to bf16 or f32.
 // <false, false> is kernel 2 (W8A8, also int8_matmul_dequant's contract);
 // <true, false>, <true, true> and <false, true> are kernel A (W4, W4
-// grouped, W8 grouped).
+// grouped, W8 grouped). mix_gemm_zp_kernel<false> and <true> are the same
+// per-channel kernels with the zero-point term (the tile's template
+// argument ZP, so the MIX instantiations compile as before).
 //
 // Replaces: mixq_tpu/ops/pallas/mix_gemm.py::mix_gemm with an int8
 // activation (the int32 dot of `_kernel`/`_kernel_outlier`, `_unpack_w4`
@@ -106,6 +113,10 @@
 //   tiles, loaded after the main loop.
 // - The scales in JAX's order with non-contractible multiplies/adds
 //   (__fmul_rn, __fadd_rn), so the epilogue rounds as the f32 reference.
+// - The zero point: x_zero and reduced_w are loaded with the scales (one
+//   more register a thread through the main loop), staged beside them, and
+//   the term is added once, to the sum of the S partials, where the scales
+//   apply; so the result is the same bits at every S.
 //
 // Requirements (checked by the Python wrapper): K % 16 == 0 (W4: K % 32),
 // N % 16 == 0, Bo % 16 == 0, 16-byte aligned operands, 1 <= S <= 8;
@@ -153,6 +164,9 @@ constexpr int XO_BYTES = BM * O_PITCH * 2;
 constexpr int OUTLIERS = XO_BYTES + OB * O_PITCH * 2;
 // blocks an SM holds: 228 KB of shared memory, 1 KB of it reserved a block
 constexpr int MIN_BLOCKS = 1;
+// the scales staged after the main loop: x_scale [BM], w_scale [BN], then
+// (zero point) x_zero [BM], reduced_w [BN]
+constexpr int STAGED = 2 * (BM + BN) * 4;
 static_assert(KSTEP % 64 == 0, "a stage is whole k32 steps of both quads");
 static_assert(OB == 128 && BN == 128, "the outlier tiles share O_PITCH");
 static_assert(BM * Y_PITCH * 4 <= OUTLIERS,
@@ -170,7 +184,7 @@ struct Layout {
   static constexpr int SMEM = RING + OUTLIERS;
   static_assert(SMEM <= 227 * 1024, "more shared memory than a block gets");
   static_assert(2 * (SMEM + 1024) > 228 * 1024, "two blocks would fit an SM");
-  static_assert(PARTIAL + (BM + BN) * 4 <= RING,
+  static_assert(PARTIAL + STAGED <= RING,
                 "the partial tile and the scales reuse the ring");
 };
 
@@ -184,6 +198,8 @@ struct Args {
   void* out;                // [M, N]
   int M, N, K, Bo, fuse, out_f32;
   int gs, su;               // grouped: group size; stages of a split unit
+  const float* xz;          // [M] / null: x_zero (zero point)
+  const float* rw;          // [N] / null: reduced_w (zero point)
 };
 
 // This thread's share of every stage's copies, addressed once per block:
@@ -403,10 +419,12 @@ __device__ __forceinline__ void finish(const Args& a, const float* Ys,
 }
 
 // One output tile's split, MT live 16-row M-tiles (1-4); grouped,
-// STEPWISE for a group size that is not a multiple of KSTEP.
-template <bool W4, bool GROUPED, int MT, bool STEPWISE>
+// STEPWISE for a group size that is not a multiple of KSTEP; ZP adds the
+// zero-point term (per-channel only).
+template <bool W4, bool GROUPED, int MT, bool STEPWISE, bool ZP>
 __device__ __forceinline__ void gemm_tile(const Args& a,
                                           unsigned char* smem) {
+  static_assert(!(ZP && GROUPED), "a zero point takes per-channel scales");
   using L = Layout<W4>;
   // the partial tile and the sums of its S copies: int32 (exact), or f32
   using Sum4 = std::conditional_t<GROUPED, float4, int4>;
@@ -436,15 +454,20 @@ __device__ __forceinline__ void gemm_tile(const Args& a,
   const bool has_out = a.xo != nullptr && a.Bo > 0;
 
   // x_scale of tile row t (t < BM) or w_scale of tile column t - BM
-  // (per-channel), held through the main loop (its load latency hides
+  // (per-channel), and with a zero point x_zero or reduced_w of the same
+  // row or column, held through the main loop (their load latency hides
   // there)
-  float scale = 0.f;
+  float scale = 0.f, zero = 0.f;
   {
     const int t = threadIdx.x;
     if (t < BM) {
-      if (m0 + t < a.M) scale = a.xs[m0 + t];
+      if (m0 + t < a.M) {
+        scale = a.xs[m0 + t];
+        if constexpr (ZP) zero = a.xz[m0 + t];
+      }
     } else if (!GROUPED && t < BM + BN && n0 + t - BM < a.N) {
       scale = a.ws[n0 + t - BM];
+      if constexpr (ZP) zero = a.rw[n0 + t - BM];
     }
   }
   const Loader<W4, MT> ld(a, m0, n0);
@@ -609,7 +632,10 @@ __device__ __forceinline__ void gemm_tile(const Args& a,
   // 32 distinct banks).
   int* Cs = reinterpret_cast<int*>(smem);
   float* Ss = reinterpret_cast<float*>(smem + PARTIAL);
-  if (threadIdx.x < BM + BN) Ss[threadIdx.x] = scale;
+  if (threadIdx.x < BM + BN) {
+    Ss[threadIdx.x] = scale;
+    if constexpr (ZP) Ss[BM + BN + threadIdx.x] = zero;
+  }
   for (int pass = 1; pass >= 0; --pass) {
     if (wk == pass) {
 #pragma unroll
@@ -728,6 +754,21 @@ __device__ __forceinline__ void gemm_tile(const Args& a,
     if constexpr (GROUPED) {
       v = make_float4(__fmul_rn(sum.x, xsv), __fmul_rn(sum.y, xsv),
                       __fmul_rn(sum.z, xsv), __fmul_rn(sum.w, xsv));
+    } else if constexpr (ZP) {
+      // (x_scale * w_scale) * (acc + x_zero * reduced_w)
+      const float4 wsv = *reinterpret_cast<const float4*>(Ss + BM + c);
+      const float xzv = Ss[BM + BN + r];
+      const float4 rwv =
+          *reinterpret_cast<const float4*>(Ss + 2 * BM + BN + c);
+      v = make_float4(
+          __fmul_rn(__fmul_rn(xsv, wsv.x),
+                    __fadd_rn((float)sum.x, __fmul_rn(xzv, rwv.x))),
+          __fmul_rn(__fmul_rn(xsv, wsv.y),
+                    __fadd_rn((float)sum.y, __fmul_rn(xzv, rwv.y))),
+          __fmul_rn(__fmul_rn(xsv, wsv.z),
+                    __fadd_rn((float)sum.z, __fmul_rn(xzv, rwv.z))),
+          __fmul_rn(__fmul_rn(xsv, wsv.w),
+                    __fadd_rn((float)sum.w, __fmul_rn(xzv, rwv.w))));
     } else {
       const float4 wsv = *reinterpret_cast<const float4*>(Ss + BM + c);
       v = make_float4(__fmul_rn(__fmul_rn((float)sum.x, xsv), wsv.x),
@@ -806,14 +847,14 @@ __device__ __forceinline__ void gemm_tile(const Args& a,
   if (S > 1) cluster_wait();  // the peers are done reading my tile
 }
 
-template <bool W4, bool GROUPED, bool STEPWISE>
+template <bool W4, bool GROUPED, bool STEPWISE, bool ZP = false>
 __device__ __forceinline__ void gemm_tiles(const Args& a,
                                            unsigned char* smem) {
   switch (min(BM, a.M - (int)blockIdx.y * BM + 15) / 16) {
-    case 1: gemm_tile<W4, GROUPED, 1, STEPWISE>(a, smem); break;
-    case 2: gemm_tile<W4, GROUPED, 2, STEPWISE>(a, smem); break;
-    case 3: gemm_tile<W4, GROUPED, 3, STEPWISE>(a, smem); break;
-    default: gemm_tile<W4, GROUPED, 4, STEPWISE>(a, smem); break;
+    case 1: gemm_tile<W4, GROUPED, 1, STEPWISE, ZP>(a, smem); break;
+    case 2: gemm_tile<W4, GROUPED, 2, STEPWISE, ZP>(a, smem); break;
+    case 3: gemm_tile<W4, GROUPED, 3, STEPWISE, ZP>(a, smem); break;
+    default: gemm_tile<W4, GROUPED, 4, STEPWISE, ZP>(a, smem); break;
   }
 }
 
@@ -833,12 +874,30 @@ mix_gemm_kernel(const Args a) {
   gemm_tiles<W4, GROUPED, false>(a, smem);
 }
 
-template <bool W4, bool GROUPED>
+// QUIK: the per-channel kernel with the zero-point term
+template <bool W4>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+mix_gemm_zp_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  gemm_tiles<W4, false, false, true>(a, smem);
+}
+
+using KernelFn = void (*)(const Args);
+
+template <bool W4, bool GROUPED, bool ZP>
+KernelFn kernel_fn() {
+  if constexpr (ZP)
+    return mix_gemm_zp_kernel<W4>;
+  else
+    return mix_gemm_kernel<W4, GROUPED>;
+}
+
+template <bool W4, bool GROUPED, bool ZP>
 cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
                       int S) {
   static unsigned long long smem_set = 0;   // per instantiation and device
   constexpr int smem = Layout<W4>::SMEM;
-  cudaError_t e = mixq::allow_smem(mix_gemm_kernel<W4, GROUPED>, smem,
+  cudaError_t e = mixq::allow_smem(kernel_fn<W4, GROUPED, ZP>(), smem,
                                    smem_set);
   if (e != cudaSuccess) return e;
   cfg.blockDim = dim3(THREADS);
@@ -852,28 +911,28 @@ cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
   return cudaSuccess;
 }
 
-template <bool W4, bool GROUPED>
+template <bool W4, bool GROUPED, bool ZP = false>
 int launch(const Args& a, int S, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t e = configure<W4, GROUPED>(cfg, attr, S);
+  cudaError_t e = configure<W4, GROUPED, ZP>(cfg, attr, S);
   if (e != cudaSuccess) return (int)e;
   cfg.gridDim = dim3((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, S);
   cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, mix_gemm_kernel<W4, GROUPED>, a);
+  e = cudaLaunchKernelEx(&cfg, kernel_fn<W4, GROUPED, ZP>(), a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <bool W4, bool GROUPED>
+template <bool W4, bool GROUPED, bool ZP = false>
 int max_clusters(int S, int* n) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t e = configure<W4, GROUPED>(cfg, attr, S);
+  cudaError_t e = configure<W4, GROUPED, ZP>(cfg, attr, S);
   if (e != cudaSuccess) return (int)e;
   cfg.gridDim = dim3(1, 1, S);
-  return (int)cudaOccupancyMaxActiveClusters(n, mix_gemm_kernel<W4, GROUPED>,
-                                             &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(
+      n, kernel_fn<W4, GROUPED, ZP>(), &cfg);
 }
 
 int gcd(int x, int y) { return y ? gcd(y, x % y) : x; }
@@ -882,20 +941,29 @@ int gcd(int x, int y) { return y ? gcd(y, x % y) : x; }
 
 // w4: the weight is packed uint8 [K/2, N]; G > 1: w_scale is [G, N];
 // fuse: the epilogue's code (mixq::Epilogue, csrc/epilogue.cuh); splits: S,
-// the split-K factor of kernels/mix_gemm.py::plan_mix (the cluster size).
+// the split-K factor of kernels/mix_gemm.py::plan_mix (the cluster size);
+// xz, rw: x_zero [M] and reduced_w [N] (QUIK's zero point, G = 1), or both
+// null.
 extern "C" int mix_gemm_launch(const void* qx, const void* w, const void* xs,
                                const void* ws, const void* xo, const void* wo,
-                               void* out, int M, int N, int K, int Bo, int G,
-                               int w4, int fuse, int out_f32, int splits,
+                               void* out, const void* xz, const void* rw,
+                               int M, int N, int K, int Bo, int G, int w4,
+                               int fuse, int out_f32, int splits,
                                void* stream) {
   if (splits < 1 || splits > MAX_SPLITS) return (int)cudaErrorInvalidValue;
+  if ((xz == nullptr) != (rw == nullptr) || (xz && G > 1))
+    return (int)cudaErrorInvalidValue;
   const int gs = G > 1 ? K / G : K;
   // grouped: a split unit is lcm(KSTEP, gs) stored rows
   const Args a{(const int8_t*)qx, (const int8_t*)w, (const float*)xs,
                (const float*)ws, (const __nv_bfloat16*)xo,
                (const __nv_bfloat16*)wo, out, M, N, K, xo ? Bo : 0, fuse,
-               out_f32, gs, G > 1 ? gs / gcd(KSTEP, gs) : 1};
+               out_f32, gs, G > 1 ? gs / gcd(KSTEP, gs) : 1,
+               (const float*)xz, (const float*)rw};
   cudaStream_t st = (cudaStream_t)stream;
+  if (xz)
+    return w4 ? launch<true, false, true>(a, splits, st)
+              : launch<false, false, true>(a, splits, st);
   if (w4)
     return G > 1 ? launch<true, true>(a, splits, st)
                  : launch<true, false>(a, splits, st);
@@ -912,4 +980,10 @@ extern "C" int mix_gemm_max_active_clusters(int splits, int w4, int grouped,
                    : max_clusters<true, false>(splits, n);
   return grouped ? max_clusters<false, true>(splits, n)
                  : max_clusters<false, false>(splits, n);
+}
+
+// The same for the zero-point kernel of one weight mode.
+extern "C" int mix_gemm_zp_max_active_clusters(int splits, int w4, int* n) {
+  return w4 ? max_clusters<true, false, true>(splits, n)
+            : max_clusters<false, false, true>(splits, n);
 }

@@ -63,17 +63,18 @@ def launch_counts() -> dict:
 
 
 # each wrapper's kernels as a profiler names them (demangled), with the
-# template arguments that carry a mode: <W4, GROUPED> of the GEMMs, <G,
-# int8, softcap> of the decode attentions
+# template arguments that carry a mode: <W4, GROUPED> of the GEMMs, <W4> of
+# the zero-point GEMM, <G, int8, softcap> of the decode attentions
 _SYMBOL = re.compile(
     r"\b(?:(?P<gemm>mix_gemm|w8a16)_kernel<(?P<w4>true|false), "
     r"(?P<grouped>true|false)>"
+    r"|(?P<zp>mix_gemm)_zp_kernel<(?P<zp_w4>true|false)>"
     r"|(?P<attn>flash_decode|decode_attention)_kernel<\d+, "
     r"(?P<int8>true|false), (?P<softcap>true|false)>"
     r"|(?P<norm>rmsnorm_quant)_(?:regs|loop)\b)")
-_BASES = ("mix_gemm_kernel", "w8a16_kernel", "flash_decode_kernel",
-          "decode_attention_kernel", "rmsnorm_quant_regs",
-          "rmsnorm_quant_loop")
+_BASES = ("mix_gemm_kernel", "mix_gemm_zp_kernel", "w8a16_kernel",
+          "flash_decode_kernel", "decode_attention_kernel",
+          "rmsnorm_quant_regs", "rmsnorm_quant_loop")
 # the launch-count keys a kernel's name does not show: the GEMMs'
 # epilogues, decode attention's ring and both attentions' ALiBi slopes are
 # runtime arguments
@@ -84,6 +85,9 @@ UNNAMED = frozenset([f"mix_gemm.{e}" for e in mix_gemm.EPILOGUES]
 
 
 def _keys_of(m) -> list:
+    if m["zp"]:
+        return ["mix_gemm", "mix_gemm." + mix_gemm._mode(
+            m["zp_w4"] == "true", 1, zp=True)]
     if m["gemm"]:
         mod = mix_gemm if m["gemm"] == "mix_gemm" else w8a16
         return [m["gemm"], m["gemm"] + "." + mod._mode(

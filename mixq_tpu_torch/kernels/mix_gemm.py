@@ -11,13 +11,19 @@ from dtypes and shapes:
     w_scale [N]             per-channel: y = float(q_x @ w) * x_scale * w_scale
     w_scale [G, N], G > 1   grouped: y = (sum_g float(acc_g) * w_scale[g])
                             * x_scale ("w8a8_grouped", "w4_grouped")
+    x_zero [M, 1], reduced_w [N]
+                            QUIK's zero point (per-channel W8 or W4 only):
+                            y = (x_scale * w_scale) * (float(acc)
+                            + x_zero * reduced_w) ("w8a8_zp", "w4_zp")
     (+ x_outlier @ w_outlier in f32); the epilogue `fuse` ("silu", "gelu",
     "gelu_new"; _build.apply_epilogue); cast to out_dtype
 
-W8 per-channel ("w8a8") is kernel 2, the other three modes kernel A. The
-kernel splits K over a thread-block cluster when the output tiles alone
-would not fill the card, and `plan_mix` chooses the split and gives the
-bounds the kernel walks, so the plan can be checked on the CPU.
+W8 per-channel ("w8a8") is kernel 2, the other three modes kernel A; the
+zero-point modes ("w8a8_zp", "w4_zp") are the per-channel W8 and W4
+kernels with the term compiled in (mix_gemm_zp_kernel<W4> in the source).
+The kernel splits K over a thread-block cluster when the output tiles
+alone would not fill the card, and `plan_mix` chooses the split and gives
+the bounds the kernel walks, so the plan can be checked on the CPU.
 
 A bf16 activation is the a16 (weight-only) mode, which runs on kernel B
 (kernels/w8a16.py); `mix_gemm` hands it over, as the Pallas kernel
@@ -48,7 +54,10 @@ SOURCE = "mixq_tpu_torch/csrc/mix_gemm.cu"          # kernels 2 and A
 REPLACES = "mixq_tpu/ops/pallas/mix_gemm.py:140"
 REPLACES_W4 = "mixq_tpu/ops/pallas/mix_gemm.py:43"     # _unpack_w4, grouped
 REPLACES_INT8_MATMUL = "mixq_tpu/ops/pallas/int8_matmul.py:53"
-MODES = ("w8a8", "w8a8_grouped", "w4", "w4_grouped")
+# QUIK's GEMM has no Pallas kernel: JAX runs its int8 dot_general and the
+# zero-point epilogue in jnp (quik_linear)
+REPLACES_QUIK = "mixq_tpu/ops/mixed_linear.py:341"
+MODES = ("w8a8", "w8a8_grouped", "w4", "w4_grouped", "w8a8_zp", "w4_zp")
 EPILOGUES = _build.FUSES[1:]              # "silu", "gelu", "gelu_new"
 # the kernel's tiling (csrc/mix_gemm.cu): an output tile, the stored weight
 # rows of one stage of the cp.async ring (W4: packed rows), the ring's
@@ -83,14 +92,32 @@ def plan_mix(M: int, N: int, K: int, w4: bool, G: int, sm_count: int,
     return _build.SplitPlan(BM, BN, S, STAGES, KSTEP, bounds, tiles * S)
 
 
-def _clusters(index: int, w4: bool, grouped: bool) -> Tuple[int, ...]:
-    """The card's clusters of 1..8 blocks of one weight mode at once."""
+def _clusters(index: int, w4: bool, grouped: bool,
+              zp: bool = False) -> Tuple[int, ...]:
+    """The card's clusters of 1..8 blocks of one weight mode at once (the
+    zero-point modes are instantiations of their own)."""
+    if zp:
+        return _build.cluster_table("mix_gemm",
+                                    "mix_gemm_zp_max_active_clusters",
+                                    index, int(w4))
     return _build.cluster_table("mix_gemm", "mix_gemm_max_active_clusters",
                                 index, int(w4), int(grouped))
 
 
-def _mode(w4: bool, G: int) -> str:
-    return ("w4" if w4 else "w8a8") + ("_grouped" if G > 1 else "")
+def _mode(w4: bool, G: int, zp: bool = False) -> str:
+    return (("w4" if w4 else "w8a8") + ("_grouped" if G > 1 else "")
+            + ("_zp" if zp else ""))
+
+
+def _zero_point(x_zero, reduced_w, grouped: bool) -> bool:
+    """Whether a call is in a zero-point mode; both operands or neither,
+    and per-channel scales only (JAX refuses QUIK with groups)."""
+    if (x_zero is None) != (reduced_w is None):
+        raise ValueError("the zero point needs both x_zero and reduced_w")
+    if x_zero is not None and grouped:
+        raise ValueError("a zero point with grouped [G, N] weight scales: "
+                         "QUIK takes per-channel scales only")
+    return x_zero is not None
 
 
 def mix_gemm_plain(
@@ -98,18 +125,29 @@ def mix_gemm_plain(
     w_scale: torch.Tensor, x_outlier: Optional[torch.Tensor] = None,
     w_outlier: Optional[torch.Tensor] = None, fuse: str = "none",
     out_dtype: torch.dtype = torch.bfloat16,
+    x_zero: Optional[torch.Tensor] = None,
+    reduced_w: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """PyTorch version of the kernel, in the JAX order of operations. A
     packed weight is unpacked first. The int32 accumulator (per group when
     grouped) is computed in float64, which holds every partial sum of int8
-    products exactly (|acc| <= 127*127*K < 2**53), and is rounded to f32 as
-    JAX's int32 -> f32 cast rounds it."""
+    products exactly (|acc| <= 128*127*K < 2**53), and is rounded to f32 as
+    JAX's int32 -> f32 cast rounds it. With a zero point (QUIK,
+    mixq_tpu/ops/mixed_linear.py::quik_linear) the scales multiply first,
+    then the sum of the accumulator and x_zero * reduced_w, each step
+    rounded to f32 on its own."""
     _build.check_fuse(fuse, "mix_gemm")
+    grouped = w_scale.dim() == 2 and w_scale.shape[0] > 1
+    zp = _zero_point(x_zero, reduced_w, grouped)
     if w.dtype == torch.uint8:
         w = unpack_int4(w)
-    if w_scale.dim() == 2 and w_scale.shape[0] > 1:
+    if grouped:
         y = grouped_int8_matmul_dequant(q_x, x_scale.reshape(-1, 1), w,
                                         w_scale)
+    elif zp:
+        acc = torch.matmul(q_x.double(), w.double()).float()
+        corr = x_zero.reshape(-1, 1) * reduced_w.reshape(1, -1)
+        y = (x_scale.reshape(-1, 1) * w_scale.reshape(1, -1)) * (acc + corr)
     else:
         acc = torch.matmul(q_x.double(), w.double()).float()
         y = acc * x_scale.reshape(-1, 1) * w_scale.reshape(1, -1)
@@ -121,7 +159,7 @@ def mix_gemm_plain(
 @functools.cache
 def _launcher():
     fn = _build.load("mix_gemm").mix_gemm_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -136,22 +174,27 @@ def mix_gemm(
     w_outlier: Optional[torch.Tensor] = None,  # bf16 [B, N]
     fuse: str = "none",
     out_dtype: torch.dtype = torch.bfloat16,
+    x_zero: Optional[torch.Tensor] = None,    # f32 [M, 1] (QUIK)
+    reduced_w: Optional[torch.Tensor] = None,  # f32 [N] (QUIK)
 ) -> torch.Tensor:
     """Returns y [M, N] in out_dtype (bf16 or f32)."""
     return _mix_gemm(q_x, w, x_scale, w_scale, x_outlier, w_outlier, fuse,
-                     out_dtype)
+                     out_dtype, x_zero=x_zero, reduced_w=reduced_w)
 
 
 def _mix_gemm(q_x, w, x_scale, w_scale, x_outlier, w_outlier, fuse,
-              out_dtype, splits: Optional[int] = None) -> torch.Tensor:
+              out_dtype, splits: Optional[int] = None, x_zero=None,
+              reduced_w=None) -> torch.Tensor:
     """`mix_gemm`; `splits` forces the split-K factor S (1-8) instead of
     plan_mix's, so a card test can hold the result across plans."""
     if q_x.dtype != torch.int8:               # the a16 mode: kernel B
+        if x_zero is not None or reduced_w is not None:
+            raise ValueError("a zero point needs an int8 activation")
         return mix_gemm_a16(q_x, w, w_scale, x_outlier, w_outlier, fuse,
                             out_dtype)
     if q_x.device.type == "cpu":
         return mix_gemm_plain(q_x, w, x_scale, w_scale, x_outlier, w_outlier,
-                              fuse, out_dtype)
+                              fuse, out_dtype, x_zero, reduced_w)
     if q_x.device.type != "cuda":
         raise ValueError(f"unsupported device {q_x.device}")
     fuse_code = _build.check_fuse(fuse, "mix_gemm")
@@ -173,6 +216,11 @@ def _mix_gemm(q_x, w, x_scale, w_scale, x_outlier, w_outlier, fuse,
                    (G, N) if G > 1 else tuple(w_scale.shape), "w_scale", dev)
     if w_scale.numel() != G * N:
         raise ValueError(f"w_scale {tuple(w_scale.shape)} for N={N}")
+    zp = _zero_point(x_zero, reduced_w, G > 1)
+    if zp:
+        _build.require(x_zero.reshape(M), torch.float32, (M,), "x_zero",
+                       dev)
+        _build.require(reduced_w, torch.float32, (N,), "reduced_w", dev)
     has_out = x_outlier is not None and w_outlier is not None
     Bo = 0
     if has_out:
@@ -185,16 +233,18 @@ def _mix_gemm(q_x, w, x_scale, w_scale, x_outlier, w_outlier, fuse,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (q_x.data_ptr(), w.data_ptr(), x_scale.data_ptr(),
             w_scale.data_ptr(), x_outlier.data_ptr() if has_out else None,
-            w_outlier.data_ptr() if has_out else None, out.data_ptr())
+            w_outlier.data_ptr() if has_out else None, out.data_ptr(),
+            x_zero.data_ptr() if zp else None,
+            reduced_w.data_ptr() if zp else None)
     if splits is None:
         index = q_x.get_device()
         splits = plan_mix(M, N, K, w4, G, _build.sm_count(index),
-                          _clusters(index, w4, G > 1)).splits
+                          _clusters(index, w4, G > 1, zp)).splits
     rc = _launcher()(*ptrs, M, N, K, Bo, G, int(w4), fuse_code,
                      int(out_dtype == torch.float32), splits, stream)
     _build.check(rc, "mix_gemm")
     mix_gemm.launches += 1
-    mix_gemm.mode_launches[_mode(w4, G)] += 1
+    mix_gemm.mode_launches[_mode(w4, G, zp)] += 1
     if fuse_code:
         mix_gemm.mode_launches[fuse] += 1
     return out

@@ -517,8 +517,8 @@ def init_decoder_params(
     says (e.g. resolve_specs(QuantConfig.w4a4()): q/k/v/up/gate W4A4, o/down
     W8A8).
 
-    With `outlier_budget` > 0 every MIX linear INPUT gets that many seeded
-    fp outlier channels (through outlier_set_from_indices and
+    With `outlier_budget` > 0 every MIX or QUIK linear INPUT gets that many
+    seeded fp outlier channels (through outlier_set_from_indices and
     from_float(outlier_set=...)): q/k/v share one set, as they share one
     activation, and so do up/gate; o and down have their own. FP16 and
     WEIGHT_ONLY linears get none. JAX's init makes no outlier sets, so this
@@ -537,7 +537,7 @@ def init_decoder_params(
                            dtype=dtype) * 0.02
 
     def oset(K: int, spec: LinearSpec):
-        if not outlier_budget or spec.version != "MIX":
+        if not outlier_budget or spec.version not in ("MIX", "QUIK"):
             return None
         idx = torch.randperm(K, generator=generator, device=device)
         return Q.outlier_set_from_indices(

@@ -6,15 +6,17 @@ A quantized linear is a plain tensor container plus a static spec:
 
 Every int8-activation linear (MIX: W8 or packed W4, per-channel [N] or
 grouped [G, N] scales) runs its GEMM with the dequant/outlier/SiLU epilogue
-on the card through kernels/mix_gemm.py (kernel 2 / kernel A); a
-WEIGHT_ONLY (W8A16) linear runs on the a16 kernel (kernels/w8a16.py, kernel
-B). The activation preparation (outlier extract, inlier mask, per-token
-quantization) is PyTorch glue, as it is jnp glue in JAX.
+on the card through kernels/mix_gemm.py (kernel 2 / kernel A); a QUIK
+linear (`quik_linear`: static outlier set, asymmetric activations) runs on
+the same kernels in their zero-point modes; a WEIGHT_ONLY (W8A16) linear
+runs on the a16 kernel (kernels/w8a16.py, kernel B). The activation
+preparation (outlier extract, inlier mask, per-token quantization) is
+PyTorch glue, as it is jnp glue in JAX.
 
 Int4 weights are stored packed, two per uint8 in the halves layout
 (ops/quant.py::pack_int4): the port has no jnp.int4 storage and no storage
-switches. QUIK linears raise NotImplementedError (ROADMAP.md Queue A).
-`promote_outliers` is the online predictor's weight update (warmup only).
+switches. `promote_outliers` is the online predictor's weight update
+(warmup only).
 """
 from __future__ import annotations
 
@@ -30,6 +32,10 @@ from mixq_tpu_torch.ops import quant as Q
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+# the profiler range of quik_linear's activation glue (outlier extract,
+# inlier mask, asymmetric quantization), which a profile of the QUIK
+# decode step reads as its own share
+QUIK_QUANT = "quik_act_quant"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +67,8 @@ class MixLinearParams(NamedTuple):
     k_mask:    f32 [K]     | None   1 for inlier channels
     out_count: int32 []    | None
     bias:      [N]         | None
-    reduced_w: f32 [N]     | None   (QUIK; not ported)
+    reduced_w: f32 [N]     | None   QUIK's zero-point term: the column
+                                    sums of the int weight values
     """
 
     q_weight: torch.Tensor
@@ -154,7 +161,7 @@ def mixed_linear(params: MixLinearParams, x: torch.Tensor,
     if spec.version == "WEIGHT_ONLY":
         return w8a16_linear(params, x, spec)
     if spec.version == "QUIK":
-        raise NotImplementedError("QUIK linears are not ported")
+        return quik_linear(params, x, spec)
     return mixed_linear_prepared(params, prepare_act(x, params, spec), spec)
 
 
@@ -177,6 +184,40 @@ def w8a16_linear(params: MixLinearParams, x: torch.Tensor,
     return y.reshape(*lead, params.q_weight.shape[1])
 
 
+def quik_linear(params: MixLinearParams, x: torch.Tensor,
+                spec: LinearSpec) -> torch.Tensor:
+    """QUIK's static-split linear (mirrors mixq_tpu/ops/mixed_linear.py::
+    quik_linear): the calibrated outlier channels extracted and masked,
+    asymmetric per-row quantization of the inliers, then the GEMM with the
+    zero-point term x_scale * w_scale * (acc + x_zero * reduced_w), the
+    outlier term and the epilogue on the mix_gemm wrapper (kernels 2 and A
+    in their zero-point modes). A bias is added to the f32 result and the
+    epilogue applied outside, as mixed_linear_prepared does."""
+    oset = params.outlier_set
+    with torch.profiler.record_function(QUIK_QUANT):
+        if oset is not None:
+            x_out = Q.extract_outliers(x, oset)
+            x_in = Q.mask_inliers(x, oset)
+        else:
+            x_out, x_in = None, x
+        q_x, x_scale, x_zero = Q.quantize_act_asymmetric(
+            x_in, bits=min(spec.a_bit, 8))
+    lead, K = q_x.shape[:-1], q_x.shape[-1]
+    if x_out is not None and params.w_outlier is not None:
+        x_out = x_out.reshape(-1, x_out.shape[-1])
+    else:
+        x_out = None
+    args = (q_x.reshape(-1, K), params.q_weight, x_scale.reshape(-1, 1),
+            params.w_scale, x_out, params.w_outlier)
+    zp = dict(x_zero=x_zero.reshape(-1, 1), reduced_w=params.reduced_w)
+    if params.bias is None:
+        y = mix_gemm(*args, fuse=spec.fuse, out_dtype=spec.odtype, **zp)
+    else:
+        y = mix_gemm(*args, out_dtype=torch.float32, **zp)
+        y = _apply_fuse(y + params.bias.float(), spec.fuse, spec.odtype)
+    return y.reshape(*lead, params.q_weight.shape[1])
+
+
 def from_float(
     w: torch.Tensor,
     spec: LinearSpec,
@@ -188,7 +229,8 @@ def from_float(
     keep an fp copy in w_outlier and their int rows are zeroed (not for
     WEIGHT_ONLY linears, which take no outlier set, as in JAX). int4
     weights are packed (halves layout); group_size > 0 gives [G, N]
-    scales."""
+    scales. A QUIK linear also gets reduced_w, the column sums of its
+    unpacked int weight values."""
     K, N = w.shape
     b = None if bias is None else bias.to(store_dtype)
     if spec.version == "FP16" or spec.w_bit == 16:
@@ -196,8 +238,6 @@ def from_float(
             q_weight=w.to(store_dtype),
             w_scale=torch.ones((N,), dtype=torch.float32, device=w.device),
             bias=b)
-    if spec.version == "QUIK":
-        raise NotImplementedError("from_float: QUIK linears are not ported")
     w_outlier = None
     oset_fields = (None, None, None, None)
     w_for_quant = w
@@ -217,10 +257,16 @@ def from_float(
         q_w = Q.pack_int4(q_w)
     else:
         raise ValueError(f"unsupported w_bit {spec.w_bit}")
+    reduced_w = None
+    if spec.version == "QUIK":
+        # the sums of the int VALUES: packed storage is unpacked first
+        reduced_w = Q.reduced_weight_rowsum(
+            Q.unpack_int4(q_w) if q_w.dtype == torch.uint8 else q_w)
     return MixLinearParams(
         q_weight=q_w, w_scale=w_scale, w_outlier=w_outlier,
         out_ind=oset_fields[0], out_mask=oset_fields[1],
-        k_mask=oset_fields[2], out_count=oset_fields[3], bias=b)
+        k_mask=oset_fields[2], out_count=oset_fields[3], bias=b,
+        reduced_w=reduced_w)
 
 
 def promote_outliers(

@@ -10,8 +10,9 @@ quantization, the static-budget outlier set and its helpers, the dequant
 epilogue, the grouped int8 GEMM reference, and the online outlier detector
 (`detect_new_outliers`, `detect_new_outliers_from_absmax`). Every pick of
 channels by magnitude goes through `top_indices`, which orders ties as
-jax.lax.top_k does (the lower index first). Asymmetric (QUIK) quantization
-is still to be ported (ROADMAP.md Queue A).
+jax.lax.top_k does (the lower index first). QUIK's asymmetric per-row
+activation quantizer (`quantize_act_asymmetric`) and its zero-point
+column sums (`reduced_weight_rowsum`) divide and round as JAX's do.
 """
 from __future__ import annotations
 
@@ -126,6 +127,28 @@ def quantize_act_per_token(
     scale = torch.clamp_min(true_div(absmax, qmax), 1e-8)
     q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
     return q, scale
+
+
+def quantize_act_asymmetric(
+    x: torch.Tensor, bits: int = 4
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Asymmetric per-row activation quant (QUIK).
+
+    x: [..., K] -> (q int8 [..., K], scale f32 [..., 1], zero f32 [..., 1])
+    with x ~ (q + zero) * scale and q in [-2^(b-1), 2^(b-1) - 1]: the
+    range's low end is reached (-8 at 4 bits, -128 at 8), which the
+    symmetric quantizer never gives. `zero` is not an integer. A row of
+    zeros (every channel an outlier) gives scale 1e-8, zero 2^(b-1) and q
+    at the low end."""
+    qlevels = 2.0 ** bits - 1.0
+    xf = x.float()
+    xmin = xf.amin(dim=-1, keepdim=True)
+    xmax = xf.amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(true_div(xmax - xmin, qlevels), 1e-8)
+    lo = -(2.0 ** (bits - 1))
+    zero = xmin / scale - lo
+    q = torch.clamp(torch.round(xf / scale - zero), lo, -lo - 1)
+    return q.to(torch.int8), scale, zero
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -283,3 +306,10 @@ def dequant_epilogue(
     if outlier_part is not None:
         y = y + outlier_part.float()
     return y.to(out_dtype)
+
+
+def reduced_weight_rowsum(q_w: torch.Tensor) -> torch.Tensor:
+    """QUIK's zero-point correction term: the column sums over K of the int
+    weight values. q_w: int8 [K, N] (packed W4 unpacked first) -> f32
+    [N]."""
+    return q_w.to(torch.int32).sum(dim=0).float()

@@ -172,10 +172,6 @@ def load_checkpoint(path: str, device="cuda"
         model_cfg = ModelConfig.from_dict(json.load(f))
     with open(os.path.join(path, "quant_config.json")) as f:
         quant_cfg = QuantConfig.from_dict(json.load(f))
-    if quant_cfg.version == "QUIK":
-        raise NotImplementedError(
-            "QUIK checkpoints are not ported (ROADMAP Queue A item 4)")
-
     reader = _CheckpointReader(path, device)
     if any(n.startswith("stacked.") for n in reader.names()):
         raise NotImplementedError(
@@ -192,10 +188,6 @@ def load_checkpoint(path: str, device="cuda"
                     f"'{prefix}.q_weight' (available prefixes: "
                     f"{sorted(set(n.split('.')[0] for n in reader.names()))})")
             return None
-        if get(prefix + ".reduced_w") is not None:
-            raise NotImplementedError(
-                f"{prefix}: QUIK linears are not ported (ROADMAP Queue A "
-                "item 4)")
         return MixLinearParams(
             q_weight=q,
             w_scale=get(prefix + ".w_scale"),
@@ -205,6 +197,7 @@ def load_checkpoint(path: str, device="cuda"
             k_mask=get(prefix + ".k_mask"),
             out_count=get(prefix + ".out_count"),
             bias=get(prefix + ".bias"),
+            reduced_w=get(prefix + ".reduced_w"),
         )
 
     try:

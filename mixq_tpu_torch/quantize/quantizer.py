@@ -9,9 +9,10 @@ The reference policy tables: in 4-bit models the eightbit-only linears
 (down_proj / o_proj / fc_out) stay W8A8, weight-only names (and a
 WEIGHT_ONLY config) give W8A16 linears, and the gate linear fuses SiLU.
 W8A8 MIX models start with empty, budget-reserved outlier sets that the
-online predictor fills at warmup (quantize/online.py); 4-bit models take
-the top-budget channels of calibration. QUIK raises NotImplementedError,
-as the port's QUIK linears do.
+online predictor fills at warmup (quantize/online.py); 4-bit and QUIK
+models take the top-budget channels of calibration (QUIK: 256 by default,
+q/k/v sharing "{i}.wqkv"'s set). QUIK refuses scale groups (ValueError),
+as JAX does.
 """
 from __future__ import annotations
 
@@ -88,20 +89,19 @@ def quantize_model(
     """Full offline quantization onto `device`.
 
     W8A8 MIX: outlier sets start empty, the whole budget reserved (the
-    online predictor fills them during engine warmup). 4-bit: the sets are
-    the top-budget channels of the calibration scales, from `act_scales`
-    or from fp forwards over `calib_batches` (on `fp_params`, else on an
-    FP16-spec copy of the weights built here and freed after)."""
+    online predictor fills them during engine warmup). 4-bit and QUIK: the
+    sets are the top-budget channels of the calibration scales, from
+    `act_scales` or from fp forwards over `calib_batches` (on `fp_params`,
+    else on an FP16-spec copy of the weights built here and freed
+    after)."""
     qcfg = apply_arch_policy(qcfg, cfg.model_type)
-    if qcfg.version == "QUIK":
-        raise NotImplementedError("quantize_model: QUIK is not ported")
     specs = resolve_specs(qcfg)
     osets: Optional[Dict[str, Q.OutlierSet]] = None
-    if qcfg.w_bit <= 4:
+    if qcfg.w_bit <= 4 or qcfg.version == "QUIK":
         if act_scales is None:
             if calib_batches is None:
-                raise ValueError(
-                    "4-bit quantization needs calib_batches or act_scales")
+                raise ValueError("4-bit/QUIK quantization needs "
+                                 "calib_batches or act_scales")
             if fp_params is None:
                 fp_params = params_from_source(src, cfg, DecoderSpecs.fp16(),
                                                device=device)

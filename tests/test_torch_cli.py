@@ -1,23 +1,26 @@
 """PyTorch port: the CLIs that load checkpoints (basic_quant_mix_torch,
-get_act_scales_torch, generate_torch, evalppl_torch, benchflops_torch,
-serve_cb_torch, lm_eval_run_torch), on the CPU with --device cpu, over a
-tiny HF llama written by transformers (tests/test_torch_auto.py's).
+basic_quant_quik_torch, get_act_scales_torch, generate_torch,
+evalppl_torch, benchflops_torch, serve_cb_torch, lm_eval_run_torch), on
+the CPU with --device cpu, over a tiny HF llama written by transformers
+(tests/test_torch_auto.py's).
 
-Five run as scripts in subprocesses where importing jax, mixq_tpu,
+Six run as scripts in subprocesses where importing jax, mixq_tpu,
 safetensors or transformers raises; the rest call the scripts'
 main(argv) in this process.
-- basic_quant_mix_torch.py's W8A8O16 checkpoint loads in JAX's
-  load_checkpoint bit-equal to the port's in-process AutoModel.
-  from_pretrained of the same directory.
-- evalppl_torch.py's PPL equals the in-process compute_perplexity's.
+- basic_quant_mix_torch.py's W8A8O16 checkpoint and
+  basic_quant_quik_torch.py's QUIK W4A4 checkpoint (calibrated on a token
+  file) load in JAX's load_checkpoint bit-equal to the port's in-process
+  AutoModel.from_pretrained of the same directory.
+- evalppl_torch.py's PPL equals the in-process compute_perplexity's, on a
+  checkpoint and with --model_type quik on the HF directory.
 - generate_torch.py --prompt_ids and serve_cb_torch.py give the
   in-process engine's greedy tokens; benchflops_torch.py writes a row per
   batch size naming the device.
 - get_act_scales_torch.py's scales equal the in-process
   collect_act_scales'; lm_eval_run_torch.py's offline mode scores the
   checkpoint and the Markov substrate (>= 0.9 on the substrate, as JAX's).
-- The calibration-leak guard, the QUIK paths and the harness mode without
-  lm_eval exit with their message.
+- The calibration-leak guard and the harness mode without lm_eval exit
+  with their message.
 - Every module of the package and chip_smoke.py import with those four
   packages refused; the entry points and the CLIs default to the card."""
 import importlib.util
@@ -123,6 +126,53 @@ def test_evalppl_equals_in_process(ckpt, tmp_path):
     assert row["device"] == "cpu" and os.path.exists(csv_path)
 
 
+def calib_tokens(tmp_path):
+    path = str(tmp_path / "calib.npy")
+    np.save(path, np.random.RandomState(1).randint(0, 256, 4096).astype(
+        np.int32))
+    return path
+
+
+def test_quik_checkpoint_loads_in_jax(hf_dirs, tmp_path):
+    calib = calib_tokens(tmp_path)
+    d = str(tmp_path / "quik")
+    run("examples/basic_quant_quik_torch.py", "--model_path",
+        hf_dirs["bf16"], "--quant_file", d, "--outlier_budget", "16",
+        "--calib_tokens", calib, "--calib_samples", "2")
+    jp, jcfg, jq = j_load_checkpoint(d)
+    assert (jq.w_bit, jq.a_bit, jq.version, jq.outlier_budget) == (
+        4, 4, "QUIK", 16)
+    tp, tcfg, specs = AutoModel.from_pretrained(
+        hf_dirs["bf16"], QuantConfig.quik_w4a4(outlier_budget=16),
+        calib_batches=get_calib_dataset(tokens_path=calib, n_samples=2,
+                                        vocab_size=256), device="cpu")
+    assert tcfg == ck.cfg_port(jcfg) and specs.wqkv.version == "QUIK"
+    assert tp.blocks[0].attn.wq.reduced_w is not None
+    ck.assert_bit_equal_to_jax(tp, jp)
+
+
+def test_evalppl_quik_equals_in_process(hf_dirs, tmp_path, capsys):
+    from mixq_tpu_torch.utils.calib_data import blocks_from_tokens
+
+    tokens = np.random.RandomState(0).randint(0, 256, 1024).astype(np.int32)
+    path = str(tmp_path / "tokens.npy")
+    np.save(path, tokens)
+    calib = calib_tokens(tmp_path)
+    script("evalppl_torch.py").main([
+        "--model_path", hf_dirs["f32"], "--model_type", "quik",
+        "--eval_tokens", path, "--calib_tokens", calib, "--n_ctx", "64",
+        "--batch", "4", "--max_windows", "4", "--device", "cpu"])
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    params, cfg, specs = AutoModel.from_pretrained(
+        hf_dirs["f32"], QuantConfig.quik_w4a4(),
+        calib_batches=blocks_from_tokens(np.load(calib), n_samples=16,
+                                         block_len=64), device="cpu")
+    ref = compute_perplexity(params, cfg, tokens, specs, n_ctx=64,
+                             batch_size=4, max_windows=4)
+    assert row["backend"] == "quik" and row["ppl"] == ref.ppl
+    assert np.isfinite(row["ppl"]) and row["windows"] == 4
+
+
 def test_generate_and_serve_give_in_process_tokens(ckpt, tmp_path):
     eng = AutoModel.engine(ckpt, EngineConfig(max_seq_len=2048),
                            device="cpu")
@@ -187,9 +237,7 @@ def test_lm_eval_offline(ckpt):
 
 @pytest.mark.parametrize("path,argv,message", [
     ("evalppl_torch.py", ["--model_type", "mix4"], "leaks eval data"),
-    ("evalppl_torch.py", ["--model_type", "quik"], "item 4"),
-    ("examples/basic_quant_mix_torch.py",
-     ["--quant_file", "unused", "--version", "QUIK"], "item 4"),
+    ("evalppl_torch.py", ["--model_type", "quik"], "leaks eval data"),
     ("examples/lm_eval_run_torch.py", ["--tasks", "lambada"],
      "lm_eval is not installed"),
 ])
@@ -233,6 +281,7 @@ def test_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     for path in ("generate_torch.py", "evalppl_torch.py",
                  "benchflops_torch.py", "examples/basic_quant_mix_torch.py",
+                 "examples/basic_quant_quik_torch.py",
                  "examples/get_act_scales_torch.py",
                  "examples/serve_cb_torch.py",
                  "examples/lm_eval_run_torch.py"):

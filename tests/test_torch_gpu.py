@@ -6,7 +6,11 @@ instantiations, its q_x, x_scale and x_out bit-equal to the plain quantizer
 and gather fed its own y; the quantizers on the card bit-equal to the CPU's;
 the int8
 GEMM in its W8, packed-W4 and grouped modes, kernel 2 and W4 per-channel
-bit-equal across their split-K plans, grouped deterministic at each; the
+bit-equal across their split-K plans, grouped deterministic at each; its
+QUIK zero-point modes (W8 and packed W4) on asymmetric activations that
+reach -128 / -8 and rows of zeros, with 256 outlier channels, bit-equal to
+the plain version without an outlier term or epilogue and across split
+plans, and a tiny QUIK model's logits on the card against the CPU; the
 a16 GEMM with int8 and packed weights, per-channel and grouped scales and
 outliers; every GEMM epilogue: SiLU, exact GELU and tanh GELU; flash
 decode with gemma2's softcap and score scale, up to its 4096-slot window,
@@ -18,8 +22,8 @@ peaked softmax; flash decode and decode attention split over clusters of
 decode's peaked Gemma-2-9B case over 8 seeds against the plain version on
 the card and on the CPU; both with ALiBi at every cluster size, kernel 3
 with its rows held in probability levels, since ALiBi rows are peaked)
-and the wrappers' refusals; W4A4O16 g128 (kernel A) and W8A16 (kernel
-B) checkpoints saved from the card and loaded back onto it (the greedy
+and the wrappers' refusals; W4A4O16 g128 (kernel A), QUIK W4A4 (the
+zero-point modes) and W8A16 (kernel B) checkpoints saved from the card and loaded back onto it (the greedy
 tokens of the params before the save; the CPU's load bit-equal), and the
 safetensors reader copying a tensor onto the card in its stored dtype.
 The tiny models served on the card against the same models on the CPU
@@ -470,6 +474,169 @@ def test_kernel_a_one_launch_per_call(cuda, w4, G):
         p = plan_mix(M, 4096, 4096, w4, G, _build.sm_count(0), clusters)
         assert (p.splits == 1) == (M == 512)
         assert p.splits == 1 or 32 <= clusters[p.splits - 1]
+
+
+def _zp_operands(cuda, g, M, K, N, B, w4):
+    """QUIK operands: bf16 activations through the asymmetric quantizer (A4
+    for packed W4, A8 for W8), row 0 all zeros (every channel an outlier)
+    and row 1 with one large negative channel (q at -8 / -128); random
+    int weights, their reduced_w, w_scale, and B outlier channels."""
+    x = (torch.randn(M, K, generator=g, device=cuda) * 0.5)
+    x[0] = 0.0
+    if M > 1:
+        x[1, 3] = -40.0
+    q_x, xs, xz = Q.quantize_act_asymmetric(x.to(torch.bfloat16),
+                                            bits=4 if w4 else 8)
+    lo, hi = (-8, 8) if w4 else (-127, 128)
+    q_w = torch.randint(lo, hi, (K, N), generator=g, device=cuda,
+                        dtype=torch.int8)
+    ws = torch.rand(N, generator=g, device=cuda) * 1e-2 + 1e-3
+    xo = wo = None
+    if B:
+        xo = torch.randn(M, B, generator=g, device=cuda).to(torch.bfloat16)
+        wo = (torch.randn(B, N, generator=g, device=cuda) * 0.05).to(
+            torch.bfloat16)
+    zp = dict(x_zero=xz, reduced_w=Q.reduced_weight_rowsum(q_w))
+    return (q_x, Q.pack_int4(q_w) if w4 else q_w, xs, ws, xo, wo), zp
+
+
+def _zp_close(got, ref):
+    """f32 within 1e-4 |y| + 1e-4 (the outlier dot on tensor cores, the
+    epilogue's expf); bf16 one ulp more."""
+    tol = 1e-4 * ref.float().abs() + 1e-4
+    if got.dtype == torch.bfloat16:
+        tol = tol + BF16_ULP * ref.float().abs()
+    err = (got.float() - ref.float()).abs()
+    assert err.le(tol).all(), float((err - tol).max())
+
+
+@pytest.mark.parametrize("M,K,N,B", [
+    (1, 256, 384, 0), (8, 4096, 4096, 256), (64, 4096, 11008, 256),
+    (33, 1056, 400, 16), (130, 512, 2064, 144), (64, 11008, 4096, 256)])
+@pytest.mark.parametrize("w4", [True, False])
+@pytest.mark.parametrize("fuse", ["none", "silu"])
+def test_zero_point_gemm(cuda, M, K, N, B, w4, fuse):
+    """QUIK's zero-point modes against the plain version (M-tiles of 1
+    and 17 live rows, K tails inside a stage: 1056, N not a multiple of
+    128, 256 outlier channels in two chunks); without an outlier term and
+    epilogue the f32 result is the plain version's bits (the same f32
+    steps, none contracted)."""
+    ops, zp = _zp_operands(cuda, _gen(M + K + N + B), M, K, N, B, w4)
+    q_x = ops[0]
+    assert int(q_x.min()) == (-8 if w4 else -128)
+    assert bool((q_x[0] == q_x.min()).all())         # the row of zeros
+    mode = "w4_zp" if w4 else "w8a8_zp"
+    before = mix_gemm.mode_launches[mode]
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = mix_gemm(*ops, fuse, out_dtype, **zp)
+        torch.cuda.synchronize()
+        ref = mix_gemm_plain(*ops, fuse, out_dtype, **zp)
+        assert got.shape == (M, N) and got.dtype == out_dtype
+        assert bool(torch.isfinite(got).all())
+        if not B and fuse == "none":
+            assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+        else:
+            _zp_close(got, ref)
+    assert mix_gemm.mode_launches[mode] == before + 2
+
+
+@pytest.mark.parametrize("w4,K,N", [(True, 4096, 4096), (True, 4096, 11008),
+                                    (False, 11008, 4096)])
+def test_zero_point_bit_equal_across_plans(cuda, w4, K, N):
+    """The zero-point term is added once, to the sum of the splits' int32
+    partials: S = 1..8, the plan's S and two launches give the same bits,
+    with 256 outlier channels (two chunks of 128) and SiLU, at Llama-2-7B's
+    shapes and M = 64 (and M = 8)."""
+    for M in (64, 8):
+        ops, zp = _zp_operands(cuda, _gen(M + K), M, K, N, 256, w4)
+        plan = plan_mix(M, N, K, w4, 1, _build.sm_count(0),
+                        _clusters_mix(0, w4, False, True))
+        for out_dtype in (torch.float32, torch.bfloat16):
+            runs = [_mix_gemm(*ops, "silu", out_dtype, splits=S, **zp)
+                    for S in (1, 2, 3, 4, 5, 6, 7, 8, 8)]
+            runs.append(mix_gemm(*ops, "silu", out_dtype, **zp))
+            torch.cuda.synchronize()
+            for r in runs[1:]:
+                assert torch.equal(runs[0].view(torch.uint8),
+                                   r.view(torch.uint8))
+            _zp_close(runs[0], mix_gemm_plain(*ops, "silu", out_dtype, **zp))
+        assert 1 <= plan.splits <= 8
+
+
+@pytest.mark.parametrize("w4", [True, False])
+def test_zero_point_one_launch_per_call(cuda, w4):
+    """One launch per call, counted once by its zero-point mode and once
+    by epilogue; every split count fits the card as a cluster; grouped
+    scales or half a zero point raise, on the card too."""
+    mode = "w4_zp" if w4 else "w8a8_zp"
+    clusters = _clusters_mix(0, w4, False, True)
+    assert all(n > 0 for n in clusters)
+    ops, zp = _zp_operands(cuda, _gen(3), 64, 4096, 4096, 16, w4)
+    before = mix_gemm.launches
+    modes = dict(mix_gemm.mode_launches)
+    for i in range(3):
+        mix_gemm(*ops, "silu", **zp)
+        assert mix_gemm.launches == before + i + 1
+    assert mix_gemm.mode_launches[mode] == modes[mode] + 3
+    assert mix_gemm.mode_launches["silu"] == modes["silu"] + 3
+    assert mix_gemm.mode_launches["w4" if w4 else "w8a8"] == modes[
+        "w4" if w4 else "w8a8"]
+    with pytest.raises(ValueError):
+        mix_gemm(*ops, x_zero=zp["x_zero"])
+    grouped = torch.ones(32, 4096, device=cuda)
+    with pytest.raises(ValueError):
+        mix_gemm(ops[0], ops[1], ops[2], grouped, **zp)
+
+
+def test_quik_model_on_the_card_equals_the_cpu(cuda, record_property):
+    """A tiny QUIK W4A4 llama (o/down W8A8, 16 outlier channels on every
+    linear input) on the card through the zero-point modes against the
+    same params on the CPU (the plain versions), int8 KV on the head-major
+    cache: one prefill's and three decode steps' logits within 1e-5 of
+    max|logits| (chip_smoke.py's TINY_TOL for the tiny W4A4 llama), and the
+    same greedy tokens."""
+    import dataclasses
+
+    from mixq_tpu_torch.config import EngineConfig, QuantConfig
+    from mixq_tpu_torch.convert import params_to
+    from mixq_tpu_torch.engine import InferenceEngine
+    from mixq_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mixq_tpu_torch.models.decoder import init_decoder_params
+    from mixq_tpu_torch.quantize import resolve_specs
+
+    cfg = _tiny_cfg("llama")
+    # the head-major cache (kernel 3): kernel 8 sums in another order
+    specs = dataclasses.replace(resolve_specs(QuantConfig.quik_w4a4(
+        outlier_budget=16)), attn_impl="flash")
+    params = init_decoder_params(cfg, specs, torch.Generator().manual_seed(
+        4), device="cpu", dtype=torch.bfloat16, outlier_budget=16)
+    ecfg = EngineConfig(max_seq_len=64, prefill_chunk=8, kv_dtype="int8")
+    toks = torch.randint(1, cfg.vocab_size, (3, 8),
+                         generator=torch.Generator().manual_seed(5))
+    logits = {}
+    for dev in ("cpu", cuda):
+        eng = InferenceEngine(params_to(params, dev), cfg, specs, ecfg,
+                              device=dev)
+        cache = eng.new_cache(3, 64)
+        reset_launch_counts()
+        out, cache = eng.prefill(toks.to(dev), cache)
+        steps = [out]
+        for _ in range(3):
+            tok = torch.argmax(steps[-1], -1).to(torch.int32)[:, None]
+            out, cache = eng.decode_step(tok, cache)
+            steps.append(out)
+        logits[str(dev)] = torch.stack([s.float().cpu() for s in steps])
+        if dev != "cpu":
+            counts = launch_counts()
+    cpu, card = logits["cpu"], logits[str(cuda)]
+    rel = float((card - cpu).abs().max() / cpu.abs().max())
+    record_property("max_rel_logits_gap", rel)
+    L = cfg.num_hidden_layers
+    assert counts["mix_gemm.w4_zp"] == 5 * L * 4
+    assert counts["mix_gemm.w8a8_zp"] == 2 * L * 4
+    assert counts["rmsnorm_quant"] == 0
+    assert rel <= 1e-5, rel
+    assert torch.equal(card.argmax(-1), cpu.argmax(-1))
 
 
 def _a16_operands(cuda, g, M, K, N, G, B, w4):
@@ -2165,9 +2332,10 @@ def test_rmsnorm_on_the_card_equals_the_cpu(cuda, H, record_property):
     assert differ <= 1e-4
 
 
-@pytest.mark.parametrize("config", ["w4a4_g128", "w8a16"])
+@pytest.mark.parametrize("config", ["w4a4_g128", "w8a16", "quik"])
 def test_checkpoint_round_trip_on_the_card(cuda, config, tmp_path):
-    """A small model's W4A4O16 g128 (kernel A) or W8A16 (kernel B) params,
+    """A small model's W4A4O16 g128 (kernel A), QUIK W4A4 (kernels 2 and A
+    in their zero-point modes) or W8A16 (kernel B) params,
     saved from the card and loaded straight back onto it: the loaded params
     serve the greedy tokens of the params before the save, through the
     kernel of their mode; the same checkpoint loaded on the CPU gives the
@@ -2182,8 +2350,10 @@ def test_checkpoint_round_trip_on_the_card(cuda, config, tmp_path):
 
     cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512,
                            num_attention_heads=8, num_key_value_heads=4)
-    qcfg = (QuantConfig.w4a4(outlier_budget=16, q_group_size=128)
-            if config == "w4a4_g128" else QuantConfig.w8a16())
+    qcfg = {"w4a4_g128": QuantConfig.w4a4(outlier_budget=16,
+                                          q_group_size=128),
+            "quik": QuantConfig.quik_w4a4(outlier_budget=16),
+            "w8a16": QuantConfig.w8a16()}[config]
     specs = resolve_specs(qcfg)
     params = init_decoder_params(cfg, specs, _gen(17), device=cuda,
                                  dtype=torch.bfloat16, outlier_budget=16)
@@ -2202,8 +2372,8 @@ def test_checkpoint_round_trip_on_the_card(cuda, config, tmp_path):
                             device=cuda).generate(prompts, 8)
     counts = launch_counts()
     assert after == before
-    mode = ("mix_gemm.w4_grouped" if config == "w4a4_g128"
-            else "w8a16.w8")
+    mode = {"w4a4_g128": "mix_gemm.w4_grouped", "quik": "mix_gemm.w4_zp",
+            "w8a16": "w8a16.w8"}[config]
     assert counts[mode] > 0, counts
 
 

@@ -5,7 +5,6 @@ tests/test_mix_gemm.py, against the JAX main path
 the Pallas int8_matmul kernel on the cases of tests/test_pallas_kernels.py.
 f32 outputs agree to rtol = atol = 1e-5: the int32 accumulator is exact on
 both sides and only the outlier dot's summation order differs."""
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -141,10 +140,3 @@ def test_unported_modes_raise():
     w = torch.zeros((32, 16), dtype=torch.int8)
     with pytest.raises(NotImplementedError):
         mix_gemm(q_x, w, torch.ones(2, 1), torch.ones(16), fuse="relu")
-    with pytest.raises(NotImplementedError):
-        TML.from_float(torch.zeros(32, 16),
-                       TML.LinearSpec(w_bit=4, version="QUIK"))
-    spec = dataclasses.replace(TML.LinearSpec(), version="QUIK")
-    with pytest.raises(NotImplementedError):
-        TML.mixed_linear(TML.MixLinearParams(w, torch.ones(16)),
-                         torch.zeros(2, 32), spec)

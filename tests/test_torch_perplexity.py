@@ -148,7 +148,7 @@ def test_tiny_gate_run_gives_jax_rows():
     assert rows[0]["loss"] < rows[0]["chance"]
     assert rows[1]["drift"] < 0.02
     cells = {(r["config"], r["kv"]): r for r in rows if "config" in r}
-    names = ["fp16", "mix8", "mix4", "mix4_g64", "mix4_full_g64",
+    names = ["fp16", "mix8", "mix4", "mix4_g64", "mix4_full_g64", "quik",
              "mix8_warmed"]
     assert sorted(cells) == sorted((n, kv) for n in names
                                    for kv in ("bfloat16", "int8"))

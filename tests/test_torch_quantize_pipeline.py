@@ -222,6 +222,3 @@ def test_quantize_model_errors():
     src = TensorSource.from_dict(make_hf_style_state(cfg))
     with pytest.raises(ValueError, match="calib"):
         quantize_model(src, *port(cfg, QuantConfig.w4a4()), device="cpu")
-    with pytest.raises(NotImplementedError, match="QUIK"):
-        quantize_model(src, *port(cfg, QuantConfig.quik_w4a4()),
-                       calib_batches=batches(cfg), device="cpu")

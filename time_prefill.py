@@ -17,11 +17,16 @@ one beside this script; the helpers come from the chip_smoke.py beside it):
   - kernel 2 at decode (M=64, 128 outlier channels): Gemma-2-9B's gate
     (3584x14336) with the gelu_new epilogue, in a fresh process and
     before any other kernel, so that two trees time it in the same order;
+  - kernel 2 at decode (M=64, 128 outlier channels): the seven W8A8
+    linears of one Llama-2-7B block as the decode step runs them
+    (chip_smoke.gemm_block);
   - kernel A at decode (M=64, 128 outlier channels): the blocks of
     chip_smoke.kernel_a_blocks as the decode step runs them, and
     Gemma-2-9B's W4 gate (3584x14336) with the gelu_new epilogue;
   - for each of chip_smoke.py's serve paths, one prefill of 8 prompts x 64
-    tokens into a fresh cache (chip_smoke.prefill_timing).
+    tokens into a fresh cache (chip_smoke.prefill_timing); a path the
+    timed tree does not serve yet (building its params raises
+    NotImplementedError, e.g. QUIK before its port) is listed as skipped.
 With --kernel1 it times only kernel 1 (fused RMSNorm + quantization) at
 chip_smoke.py's phase-3 rows, on the same inputs and beside the same
 trivial-launch floor (chip_smoke.kernel_rmsnorm), each held first to the
@@ -128,6 +133,14 @@ def main():
     print(f"kernel 2 prefill: {res['kernel2_prefill']}", flush=True)
     res["kernel_a_prefill"] = [gemm_row(512, 4096, 11008, "silu", True, G, 8)
                                for G in (1, 32)]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    res["kernel2_decode_block"] = cs.gemm_block(
+        dev, gen, 64, Bo, cs.block_linears([n for n, *_ in cs.BLOCK], False,
+                                           lambda K: 1),
+        mode="W8A8", work=f"the 7 linears of one Llama-2-7B block at M=64, "
+                          f"{Bo} outlier channels each")
+    print(f"kernel 2 Llama block: {res['kernel2_decode_block']['ms']:.4f} "
+          "ms", flush=True)
     gen = torch.Generator(device=dev).manual_seed(9)
     res["kernel_a_decode"] = [
         cs.gemm_block(dev, gen, 64, Bo, linears, key=key, mode=mode,
@@ -144,9 +157,14 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     for model, name, label, _, kv_dtype, attn_impl in cs.PATHS:
         cfg, specs = cs.MODELS[model](), cs.path_specs(name, attn_impl)
-        params = init_decoder_params(cfg, specs, gen, device=dev,
-                                     dtype=torch.bfloat16,
-                                     outlier_budget=128)
+        try:
+            params = init_decoder_params(
+                cfg, specs, gen, device=dev, dtype=torch.bfloat16,
+                outlier_budget=cs.INIT_BUDGET.get(name, 128))
+        except NotImplementedError as e:
+            res["paths"][label] = {"skipped": str(e)}
+            print(f"prefill {label}: skipped ({e})", flush=True)
+            continue
         eng = cs.new_engine(dev, params, cfg, specs, kv_dtype)
         res["paths"][label] = cs.prefill_timing(dev, eng, cfg)
         print(f"prefill {label}: {res['paths'][label]}", flush=True)
