@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      int8-activation GEMM (kernels 2 and A; the four MIX instantiations
      held at their registers from before QUIK's zero-point mode, and the
      two zero-point ones), of flash decode and of
-     decode attention (16 instantiations each, g x int8 x softcap), of
+     decode attention (24 instantiations each: g = 1, 2, 4, 8 x int8 x
+     softcap, and g = 3, 5, 6, 7 x int8 without a softcap), of
      kernel 1's register kernel (512 threads of one chunk, 256 of two; a
      spill in any of these fails) and of kernel B, and the clusters of 1..8
      blocks the card holds at once (kernels 3 and 8 at the served heads);
@@ -87,19 +88,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      its two W8 ones and its seven at M=64, M=8 and M=2,048 (phase 10's
      window batch), beside torch._int_mm with the epilogue in torch ops,
      and the bits held across forced splits S = 1..8 in both modes;
+     then the RMSNorm families' heads (kernel_family_heads): kernels 3 and
+     8 at Qwen2.5-7B's 28/4 (g = 7) and Phi-3's 32/32 at D = 96, and at a
+     32/4 yardstick (g = 8, the same K/V bytes as 28/4), B=64 S=512, int8
+     and bf16 KV (bf16 beside SDPA with enable_gqa); and their linears
+     (kernel_family_linears): kernel 2 at each distinct shape of the five
+     presets' blocks at M=8 (Qwen2.5-7B's q/k/v in the f32-output mode
+     its bias takes, Gemma-7B's exact-GELU gate at N=24576, K up to
+     24,576) against its plain version, each block of seven timed, and
+     kernel 1 at each preset's width and eps;
   4. reference: tiny W8A8, W4A4 (per-channel and grouped) and W8A16 llama
      models, and tiny W8A8, W4A4 and W8A16 gemma2 models (caps that bind
      without saturating), on the head-major cache (attn_impl="flash"); a
      tiny W8A8 llama on the batch-major cache and a tiny W8A8 mistral on an
      8-slot ring that wraps twice (attn_impl="auto"); a tiny W8A8 ALiBi
      llama-shaped model (6 heads: slopes of a head count that is not a
-     power of two; rope style "none") under "flash" and under "auto"; each
+     power of two; rope style "none") under "flash" and under "auto"; the
+     RMSNorm families' tiny W8A8 models (tiny_families: qwen2 at g = 7
+     with q/k/v bias and phi3 at D = 96 under both policies, qwen3's
+     QK-norm, gemma, and phi3 with partial rotary and longrope under
+     "flash", llama with llama3 rope scaling under "auto"); each
      on the card against the same model on the CPU (the plain versions),
      teacher-forced
      logits, bf16 and int8 KV, each limit below the int8-vs-bf16 KV
      control; every flash decode and decode attention launch against its
      plain version on the model's own inputs, where the card first leaves
-     the CPU, and launch counts by mode; and the tiny W8A8 llama served by
+     the CPU, and every launch of kernels 1 and 2 against its plain
+     version (LinearTap: the values each mode leaves apart), and launch
+     counts by mode; and the tiny W8A8 llama served by
      the continuous-batching engine (10 requests on 4 slots, int8 KV,
      "flash" and "auto") on the card and on the CPU: each request replayed
      teacher-forced within the layout's logits limit, and the same tokens
@@ -286,15 +302,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      bit-equal to the uninterrupted run (sampled rows included);
      generate_speculative on a 64-token chain prompt equals greedy
      generate up to its first near-tie (forwards per token printed).
+ 12. families (run last; families_phase): the RMSNorm families' presets,
+     each from its published config.json through config_from_hf, at full
+     width: Qwen2.5-7B (28/4 heads: g = 7; q/k/v bias) at full depth
+     under "flash" (int8 KV, kernel 3) and "auto" (bf16 KV, kernel 8);
+     Phi-3-mini-4k (D = 96) under both ("auto": its window's ring);
+     Phi-3's shape with longrope and 48 seeded factors (phi3_longrope:
+     the published lists are not in the repository) under "flash";
+     Qwen3-8B (QK-norm) and Gemma-7B (exact GELU, tied head) under
+     "flash"; Llama-3.1-8B (llama3 rope scaling) under "auto"; all but
+     Qwen2.5-7B at FAMILY_LAYERS = 8 layers (a depth cut for the time
+     limit). Each from a seeded HF-named bf16 dict on the card
+     (family_state_dict: qwen2's biases, qwen3's q_norm / k_norm, phi3's
+     packed qkv_proj and gate_up_proj, gemma's tied head) through
+     quantize_model (W8A8, empty sets) and warmup_online (two batches of 8
+     x 64 tokens); each preset's 2-layer model at full width
+     (family_reference_model: its own seeded dict, planted channels at
+     FAMILY_REF_BOOST) on the card against the same params on the CPU
+     under each path's policy (family_reference: teacher-forced logits
+     within FAMILY_GAP_TOL of the CPU's over their spread, below the gap
+     of the card's run without RoPE; every launch of kernels 1, 2, 3 and
+     8 against its plain version);
+     then phase 5's generate (launches by mode asserted, kernels 3 and 8
+     in their g7 and d96 modes among them) and the decode
+     step at B=8 with 512 of 640 positions as graph replays (family_step:
+     device ms, bound, peak memory; the longrope model's on 4,608 slots,
+     its long factors). It prints the host seconds of the dict,
+     quantize_model and warmup_online and each model's peak memory.
 It prints each phase's host seconds as it ends. It then prints the
 kernels line (one entry per ported TPU kernel, and one
 per mode a later slice added to a path: the GEMMs' gelu_new epilogue,
 flash decode's softcap and both attentions' ALiBi, kernels 3 and 8 at
-phase 9's pools, kernels 1, 2 and 3 at phase 11's verify, and QUIK's
-zero-point modes of kernels 2 and A; launches
-summed over phases 5-11) and, last, the device line. Details go to
-OUT_DIR/chip_smoke.json. Without a CUDA card, or without the package beside
-it, the script exits non-zero and prints no result.
+phase 9's pools, kernels 1, 2 and 3 at phase 11's verify, QUIK's
+zero-point modes of kernels 2 and A, and kernels 3 and 8 at g = 7 and at
+D = 96; launches summed over phases 5-12) and, last, the device line.
+Details go to OUT_DIR/chip_smoke.json. Without a CUDA card, or without
+the package beside it, the script exits non-zero and prints no result.
 """
 import functools
 import gc
@@ -415,7 +458,7 @@ def trivial_launch_ms(dev):
     return device_ms(z.zero_, 200)
 
 
-def kernel1_inputs(dev, gen, M, H, a_bits, Bo=128):
+def kernel1_inputs(dev, gen, M, H, a_bits, Bo=128, eps=1e-5):
     """Kernel 1's arguments at M rows of H channels with Bo outlier
     channels, A8 or A4, drawn from `gen`."""
     from mixq_tpu_torch.ops import quant as Q
@@ -424,7 +467,7 @@ def kernel1_inputs(dev, gen, M, H, a_bits, Bo=128):
     gamma = 1 + 0.1 * torch.randn(H, generator=gen, device=dev)
     oset = Q.outlier_set_from_indices(
         torch.randperm(H, generator=gen, device=dev)[:Bo], H, Bo, device=dev)
-    return (x, gamma, oset.k_mask, 1e-5, a_bits, oset.ind, oset.mask)
+    return (x, gamma, oset.k_mask, eps, a_bits, oset.ind, oset.mask)
 
 
 def kernel1_close(got, ref, a_bits, k_mask):
@@ -475,15 +518,17 @@ def kernel1_held(got, args, what):
     return found["card"]
 
 
-def rmsnorm_row(dev, gen, M, H, a_bits, floor_ms, Bo=128):
-    """Kernel 1 at M rows of H channels with Bo outlier channels, A8 or A4:
-    held to KERNEL1_TOL (kernel1_held), then timed beside its bound, its
-    plain version and `floor_ms`; each instantiation that takes the shape
-    is held the same way, then timed."""
+def rmsnorm_row(dev, gen, M, H, a_bits, floor_ms, Bo=128, eps=1e-5,
+                by_plan=True):
+    """Kernel 1 at M rows of H channels with Bo outlier channels, A8 or A4,
+    at `eps`: held to KERNEL1_TOL (kernel1_held), then timed beside its
+    bound, its plain version and `floor_ms`; with `by_plan`, each
+    instantiation that takes the shape is held the same way, then
+    timed."""
     from mixq_tpu_torch.kernels import rmsnorm_quant as RQ
 
-    args = kernel1_inputs(dev, gen, M, H, a_bits, Bo)
-    what = f"rmsnorm_quant M={M} H={H} A{a_bits}"
+    args = kernel1_inputs(dev, gen, M, H, a_bits, Bo, eps)
+    what = f"rmsnorm_quant M={M} H={H} A{a_bits} eps={eps}"
     got = RQ.fused_rmsnorm_quant(*args)
     torch.cuda.synchronize()
     dy, dq = kernel1_held(got, args, what)
@@ -492,14 +537,15 @@ def rmsnorm_row(dev, gen, M, H, a_bits, floor_ms, Bo=128):
     b, by = bound_ms(nbytes, [(8 * M * H, "f32")])
     row = dict(
         mode=f"A{a_bits}", work=f"M={M} H={H}, {Bo} outlier channels, "
-                                f"A{a_bits}",
+                                f"A{a_bits}" + ("" if eps == 1e-5 else
+                                                f", eps {eps}"),
         tolerance=KERNEL1_TOL, max_abs_err=dy, q_lsb_err=dq,
         exact_from_own_y=True,
         ms=device_ms(lambda: RQ.fused_rmsnorm_quant(*args), 200),
         plain_ms=device_ms(lambda: RQ.rmsnorm_quant_plain(*args), 10),
         bound_ms=b, bound_by=by, library_ms=None, trivial_launch_ms=floor_ms,
         plan=RQ.plan_rmsnorm(H), ms_by_plan={})
-    for plan in RQ.INSTANTIATIONS:
+    for plan in RQ.INSTANTIATIONS if by_plan else ():
         if plan[1] and not row["plan"][1]:
             continue                      # the register kernel refuses H
         forced = RQ._rmsnorm(*args, plan=plan)
@@ -508,7 +554,7 @@ def rmsnorm_row(dev, gen, M, H, a_bits, floor_ms, Bo=128):
         row["ms_by_plan"][str(plan)] = device_ms(
             lambda: RQ._rmsnorm(*args, plan=plan), 200)
     key = (M, H, a_bits)
-    if key in PREV_KERNEL1_MS:
+    if key in PREV_KERNEL1_MS and eps == 1e-5:
         row.update(previous_ms=PREV_KERNEL1_MS[key], previous_from="64bb7fb")
     return row
 
@@ -624,9 +670,9 @@ def gemm_inputs(dev, gen, M, K, N, Bo, G=1, w4=False):
     return (q_x, w, xs, ws, xo, wo), q_w.t().contiguous().t()
 
 
-def gemm_bound(M, K, N, Bo, G=1, w4=False, fuse="none"):
+def gemm_bound(M, K, N, Bo, G=1, w4=False, fuse="none", out_bytes=2):
     nbytes = (M * K + K * N // (2 if w4 else 1) + M * 4 + G * N * 4
-              + M * Bo * 2 + Bo * N * 2 + M * N * 2)
+              + M * Bo * 2 + Bo * N * 2 + M * N * out_bytes)
     return bound_ms(nbytes, [(2 * M * N * K, "int8"), (2 * M * N * Bo,
                                                        "bf16"),
                              (EPILOGUE_OPS[fuse] * M * N, "f32")])
@@ -1533,6 +1579,7 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
     b, by = bound_ms(nbytes, [(4 * valid * n_q * D, kv),
                               (3 * valid * n_q if softcap else 0, "f32")])
     lib = None
+    gqa = {"enable_gqa": True} if n_q != n_kv else {}
     if not int8 and not softcap:
         # SDPA over the same bf16 cache, batch-major, with the same mask
         # (ALiBi: the bias as an additive float mask, -inf where masked)
@@ -1546,7 +1593,7 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
                                * pos.float(), float("-inf"))
         qb = q[:, :, None, :]
         lib = device_ms(lambda: F.scaled_dot_product_attention(
-            qb, kb, vb, attn_mask=mask, scale=scale), 20)
+            qb, kb, vb, attn_mask=mask, scale=scale, **gqa), 20)
     rows_of = (f"spec pool rows at the last of {verify} verify tokens: "
                f"lengths {verify} to {S}, no kv_start" if verify
                else f"CB pool rows: lengths 1 to {S}, no kv_start" if pool
@@ -1563,6 +1610,7 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
                                   5),
                library_ms=lib,
                library=("F.scaled_dot_product_attention, bf16"
+                        + (", enable_gqa" if gqa else "")
                         + (", ALiBi as an additive float mask" if alibi
                            else "") if lib
                         is not None else "none: " + (
@@ -1636,14 +1684,18 @@ def kernel_flash_small_batch(dev, rows):
 FLASH_SHAPES = {"llama": (32, 32, 128, False), "gqa": (32, 8, 128, False),
                 "gemma2-9b": (16, 8, 256, True),
                 "gemma2-27b": (32, 16, 128, True),
-                "baichuan-13b": (40, 40, 128, False)}
+                "baichuan-13b": (40, 40, 128, False),
+                "qwen2.5-7b": (28, 4, 128, False),
+                "phi3": (32, 32, 96, False)}
 
 
 # the heads kernel 8 serves (n_q, n_kv, head_dim, softcap): Mistral-7B,
 # Llama-2-7B with bf16 KV, Gemma-2-9B under "auto", Baichuan-13B
 DECODE_SHAPES = {"mistral": (32, 8, 128, False), "llama": (32, 32, 128, False),
                  "gemma2-9b": (16, 8, 256, True),
-                 "baichuan-13b": (40, 40, 128, False)}
+                 "baichuan-13b": (40, 40, 128, False),
+                 "qwen2.5-7b": (28, 4, 128, False),
+                 "phi3": (32, 32, 96, False)}
 
 
 # gemma2's attention: the published logit softcap and query_pre_attn_scalar
@@ -2008,6 +2060,125 @@ def kernel_pool_rows(dev, rows):
     return tuple(rows["cb_pool"])
 
 
+# the RMSNorm families' heads in phase 3: (model, n_q, n_kv, D), and the
+# g = 8 yardstick of Qwen2.5-7B's g = 7 (32/4 reads the same K/V bytes)
+FAMILY_HEADS = [("Qwen2.5-7B", 28, 4, 128), ("Qwen-shaped g=8", 32, 4, 128),
+                ("Phi-3-mini", 32, 32, 96)]
+
+
+def kernel_family_heads(dev, rows):
+    """Kernels 3 and 8 at the RMSNorm families' new modes: Qwen2.5-7B's
+    28/4 heads (g = 7), a 32/4 yardstick (g = 8, the same K/V bytes) and
+    Phi-3's 32/32 of D = 96, at B=64 S=512, int8 and bf16 KV (bf16 beside
+    SDPA with enable_gqa), on a generator of their own. Returns kernel 3's
+    int8 g = 7 and D = 96 rows and kernel 8's bf16 ones (the ones with a
+    library call)."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rows["family_flash"] = [
+        flash_row(dev, gen, 64, 512, n_q, n_kv, D, int8, model=model)
+        for model, n_q, n_kv, D in FAMILY_HEADS for int8 in (True, False)]
+    rows["family_decode"] = [
+        decode_row(dev, gen, 64, 512, n_q, n_kv, D, int8, model)
+        for model, n_q, n_kv, D in FAMILY_HEADS for int8 in (True, False)]
+    torch.cuda.empty_cache()
+    f, d = rows["family_flash"], rows["family_decode"]
+    return f[0], f[4], d[1], d[5]
+
+
+# the RMSNorm families' presets whose linears and norms phase 3 holds
+# (kernel_family_linears), at phase 12's batch (generate's decode step and
+# family_step's B=8)
+FAMILY_PRESETS = ("qwen25_7b", "phi3_mini_4k", "qwen3_8b", "gemma_7b",
+                  "llama31_8b")
+FAMILY_M = 8
+
+
+def family_linears(cfg):
+    """(name, K, N, fuse, f32) of one block's linears of `cfg` as its decode
+    runs them: the gate with its hidden_act's epilogue; f32 where kernel 2
+    returns f32 for a bias added outside it (q/k/v of an attention_bias
+    model, ops/mixed_linear.py::mixed_linear_prepared)."""
+    from mixq_tpu_torch.models.decoder import GATE_FUSE
+
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    q = cfg.num_attention_heads * cfg.head_dim_
+    kv = cfg.num_key_value_heads * cfg.head_dim_
+    bias = bool(cfg.attention_bias)
+    return [("q", H, q, "none", bias), ("k", H, kv, "none", bias),
+            ("v", H, kv, "none", bias), ("o", q, H, "none", False),
+            ("up", H, I, "none", False),
+            ("gate", H, I, GATE_FUSE[cfg.hidden_act], False),
+            ("down", I, H, "none", False)]
+
+
+def kernel_family_linears(dev, rows):
+    """Kernels 1 and 2 at the RMSNorm families' shapes (FAMILY_PRESETS) at
+    M=FAMILY_M with 128 outlier channels, on a generator of their own:
+    each distinct (K, N, fuse, output dtype) of a preset's block held to
+    GEMM_TOL against the plain version on the same inputs (kernel 2's f32
+    output mode at Qwen2.5-7B's q/k/v among them, with the count of its
+    values that differ from the plain version's), then the block of seven
+    timed as the decode step runs it (block_row; no library row at M=8:
+    `torch._int_mm` takes more than 16 rows); kernel 1 at each distinct
+    width and eps of the presets (rmsnorm_row, A8, its own plan only)."""
+    from mixq_tpu_torch import presets
+    from mixq_tpu_torch.kernels.mix_gemm import mix_gemm, mix_gemm_plain
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    M, Bo = FAMILY_M, 128
+    blocks, checked = [], {}
+    for preset in FAMILY_PRESETS:
+        cfg = getattr(presets, preset)()
+        linears = family_linears(cfg)
+        seq, errs, bounds = [], [], []
+        for name, K, N, fuse, f32 in linears:
+            ins, _ = gemm_inputs(dev, gen, M, K, N, Bo)
+            odt = torch.float32 if f32 else torch.bfloat16
+            key = (K, N, fuse, f32)
+            if key not in checked:
+                got = mix_gemm(*ins, fuse=fuse, out_dtype=odt)
+                torch.cuda.synchronize()
+                ref = mix_gemm_plain(*ins, fuse=fuse, out_dtype=odt)
+                checked[key] = dict(
+                    work=f"{K}x{N} {fuse} out {'f32' if f32 else 'bf16'}",
+                    max_abs_err=check_gemm(
+                        got, ref, f"mix_gemm {cfg.model_type} {name} "
+                                  f"{K}x{N} {fuse} f32={f32}"),
+                    differing=int((got != ref).sum()), values=got.numel(),
+                    plan=mix_plan(M, K, N))
+            errs.append(checked[key]["max_abs_err"])
+            seq.append((ins, fuse, odt))
+            bounds.append(gemm_bound(M, K, N, Bo, fuse=fuse,
+                                     out_bytes=4 if f32 else 2))
+        blocks.append(block_row(
+            lambda seq=seq: [mix_gemm(*i, fuse=f, out_dtype=o)
+                             for i, f, o in seq],
+            lambda seq=seq: [mix_gemm_plain(*i, fuse=f, out_dtype=o)
+                             for i, f, o in seq],
+            None, bounds, mode="W8A8", max_abs_err=max(errs),
+            tolerance=GEMM_TOL,
+            library="none: torch._int_mm takes more than 16 rows",
+            work=f"the 7 linears of one {cfg.model_type} block "
+                 f"({preset}) at M={M}, {Bo} outlier channels each: "
+                 + ", ".join(f"{n} {K}x{N}" + ("" if fu == "none" else
+                                               f"+{fu}") + (" f32" if f
+                                                            else "")
+                             for n, K, N, fu, f in linears),
+            plan=block_plans(M, [(n, K, N, fu, False, 1)
+                                 for n, K, N, fu, _ in linears]),
+            shapes=[checked[(K, N, fu, f)]
+                    for _, K, N, fu, f in linears]))
+        del seq
+        torch.cuda.empty_cache()
+    floor = trivial_launch_ms(dev)
+    widths = sorted({(c.hidden_size, c.rms_norm_eps) for c in
+                     (getattr(presets, p)() for p in FAMILY_PRESETS)})
+    rows["family_rmsnorm_quant"] = [
+        rmsnorm_row(dev, gen, M, H, 8, floor, eps=eps, by_plan=False)
+        for H, eps in widths]
+    rows["family_mix_gemm"] = blocks
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-6
 # ---------------------------------------------------------------------------
@@ -2076,6 +2247,48 @@ def tiny_baichuan():
                             num_key_value_heads=6)
 
 
+def tiny_families():
+    """The RMSNorm families at phase 4's tiny widths, W8A8 with seeded
+    outliers: {name: (cfg, attn_impls)}. qwen2 at g = 7 (7 heads of 64 on
+    one kv head) with q/k/v bias and phi3 at D = 96 (4 heads of 96) under
+    both policies; qwen3's QK-norm, gemma (exact GELU, the embedding
+    multiplier, a tied head) and phi3 with partial rotary (3/4 of each
+    head) and longrope factors under "flash"; llama with llama3 rope
+    scaling (an original context of 16, so the scaled frequencies bind)
+    under "auto"."""
+    from mixq_tpu_torch.config import ModelConfig
+
+    tiny = dict(hidden_size=256, intermediate_size=512,
+                num_attention_heads=4, num_key_value_heads=2)
+    rot = 48
+    return {
+        "qwen2": (ModelConfig.tiny(
+            model_type="qwen2", hidden_size=448, intermediate_size=512,
+            num_attention_heads=7, num_key_value_heads=1,
+            attention_bias=True, rms_norm_eps=1e-6, rope_theta=1e6),
+            ("flash", "auto")),
+        "phi3": (ModelConfig.tiny(
+            model_type="phi3", hidden_size=384, intermediate_size=512,
+            num_attention_heads=4, num_key_value_heads=4), ("flash", "auto")),
+        "qwen3": (ModelConfig.tiny(model_type="qwen3", qk_norm=True,
+                                   rms_norm_eps=1e-6, **tiny), ("flash",)),
+        "gemma": (ModelConfig.tiny(
+            model_type="gemma", hidden_act="gelu", gated_mlp=True,
+            tie_word_embeddings=True, embed_multiplier=256 ** 0.5,
+            rms_norm_eps=1e-6, **tiny), ("flash",)),
+        "phi3 partial longrope": (ModelConfig.tiny(
+            model_type="phi3", rotary_dim=rot,
+            rope_scaling_type="longrope", rope_original_max_position=8,
+            rope_short_factor=tuple(1.0 + 0.1 * i for i in range(rot // 2)),
+            rope_long_factor=tuple(2.0 + 0.2 * i for i in range(rot // 2)),
+            rope_attention_factor=1.2, **tiny), ("flash",)),
+        "llama3": (ModelConfig.tiny(
+            rope_scaling_type="llama3", rope_scaling_factor=8.0,
+            rope_low_freq_factor=1.0, rope_high_freq_factor=4.0,
+            rope_original_max_position=16, **tiny), ("auto",)),
+    }
+
+
 # launches per layer and forward of each configuration's linears, by weight
 # mode (kernels.launch_counts keys); the gate GEMM adds one of its epilogue
 # (silu, or gemma2's gelu_new), the decode attention one per layer and decode
@@ -2123,20 +2336,28 @@ def attn_modes(cfg, specs, kv_dtype, max_seq):
     (flash_decode, in its softcap mode for gemma2, its ALiBi mode for an
     ALiBi model) on the head-major cache, kernel 8 (decode_attention, by
     KV type, ring for a uniform window, softcap, ALiBi) on the batch-major
-    one."""
+    one; either in its mode of a group that is not a power of two ("g7")
+    and of head dim 96 ("d96")."""
     from mixq_tpu_torch.kernels.flash_decode import use_head_major_cache
+
+    from mixq_tpu_torch.kernels.flash_decode import GROUP_MODES
 
     itemsize = 1 if kv_dtype == "int8" else 2
     cap = bool(cfg.attn_logit_softcap)
+    g = cfg.num_attention_heads // cfg.num_key_value_heads
+    shape = ([f"g{g}"] if g in GROUP_MODES else []) + (
+        ["d96"] if cfg.head_dim_ == 96 else [])
     if use_head_major_cache(specs.attn_impl, cfg, max_seq, itemsize):
         return (["flash_decode"] + (["flash_decode.softcap"] if cap else [])
-                + (["flash_decode.alibi"] if cfg.alibi else []))
+                + (["flash_decode.alibi"] if cfg.alibi else [])
+                + [f"flash_decode.{m}" for m in shape])
     ring = cfg.sliding_window is not None and cfg.sliding_window_pattern == 1
     return (["decode_attention", "decode_attention."
              + ("int8" if kv_dtype == "int8" else "bf16")]
             + (["decode_attention.ring"] if ring else [])
             + (["decode_attention.softcap"] if cap else [])
-            + (["decode_attention.alibi"] if cfg.alibi else []))
+            + (["decode_attention.alibi"] if cfg.alibi else [])
+            + [f"decode_attention.{m}" for m in shape])
 
 
 def expect_launches(name, cfg, forwards, decode_steps, attn):
@@ -2204,7 +2425,31 @@ TINY_TOL = {
     ("gemma2", "W8A8"): 1e-5, ("gemma2", "W4A4"): 1e-5,
     ("gemma2", "W8A16"): 8e-3,
     ("llama batch-major", "W8A8"): 1.35e-2, ("mistral ring", "W8A8"): 1e-2,
-    ("baichuan", "W8A8"): 1e-5, ("baichuan batch-major", "W8A8"): 1.35e-2}
+    ("baichuan", "W8A8"): 1e-5, ("baichuan batch-major", "W8A8"): 1.35e-2,
+    # the RMSNorm families (tiny_families) take the llama limits of their
+    # layout: 1e-5 under "flash" (kernel 3's new modes keep the plain
+    # version's bits: at most 4.8e-7 on an H100), 1.35e-2 batch-major
+    # (kernel 8 sums in another order), but for qwen2 under "flash" with
+    # int8 KV (a limit by KV dtype): its q/k/v bias makes kernel 2 return
+    # f32 (the bias added outside), whose outlier term sums on tensor cores
+    # in another order (phase 4's LinearTap counts the f32 launches' values
+    # that differ from the plain version's), so a K or V value rounds to
+    # bf16 an ulp apart now and then and an int8 KV entry quantizes a level
+    # apart (65 entries of the tiny cache; 9.6e-3 on an H100, 2.7e-7 with
+    # bf16 KV, which keeps 1e-5; the control 2.03e-2)
+    ("qwen2", "W8A8"): {"bfloat16": 1e-5, "int8": 1.35e-2},
+    ("qwen2 batch-major", "W8A8"): 1.35e-2,
+    ("phi3", "W8A8"): 1e-5, ("phi3 batch-major", "W8A8"): 1.35e-2,
+    ("qwen3", "W8A8"): 1e-5, ("gemma", "W8A8"): 1e-5,
+    ("phi3 partial longrope", "W8A8"): 1e-5,
+    ("llama3 batch-major", "W8A8"): 1.35e-2}
+
+
+def tiny_tol(family, name, kv_dtype):
+    """TINY_TOL's limit of a tiny model's run, by KV dtype where it has
+    one of each."""
+    tol = TINY_TOL[family, name]
+    return tol[kv_dtype] if isinstance(tol, dict) else tol
 
 
 class Tap:
@@ -2270,6 +2515,103 @@ class Tap:
         return max(runs, key=lambda r: r[by], default=None)
 
 
+class LinearTap:
+    """Holds every card launch of kernels 1 and 2 inside a `with` block
+    against its plain version on the same inputs: kernel 2 (`mix_gemm` as
+    ops/mixed_linear.py calls it: its bf16- and f32-output modes, QUIK's
+    zero point) within GEMM_TOL, kernel 1 (`fused_rmsnorm_quant` as
+    models/layers.py calls it) within KERNEL1_TOL (kernel1_close). Records
+    by kernel and shape the launches, the rows seen, the largest error and
+    the output values not bit-equal to the plain version's. Used as
+    `with LinearTap() as lin:` around eager calls (it reads the card)."""
+
+    def __enter__(self):
+        from mixq_tpu_torch.kernels.mix_gemm import mix_gemm_plain
+        from mixq_tpu_torch.kernels.rmsnorm_quant import rmsnorm_quant_plain
+        from mixq_tpu_torch.models import layers as Lm
+        from mixq_tpu_torch.ops import mixed_linear as ML
+
+        self.shapes = {}
+        self._mods = (ML, Lm)
+        self._real = (ML.mix_gemm, Lm.fused_rmsnorm_quant)
+        real_mg, real_rq = self._real
+
+        def mg(*a, **kw):
+            out = real_mg(*a, **kw)
+            if out.is_cuda:
+                ref = mix_gemm_plain(*a, **kw)
+                err = (out.float() - ref.float()).abs()
+                tol = (BF16_ULP * ref.float().abs()
+                       + 1e-4 * ref.float().abs().max())
+                ok = (bool((err <= tol).all())
+                      and bool(torch.isfinite(out).all()))
+                M, K = a[0].shape
+                dt = "f32" if out.dtype == torch.float32 else "bf16"
+                zp = " zero point" if kw.get("x_zero") is not None else ""
+                self._add(f"mix_gemm K={K} N={out.shape[-1]} "
+                          f"{kw.get('fuse', 'none')} out {dt}{zp}", M, ok,
+                          err.max().item(), int((out != ref).sum()),
+                          out.numel())
+            return out
+
+        def rq(*a, **kw):
+            out = real_rq(*a, **kw)
+            if out[0].is_cuda:
+                x, k_mask = a[0], a[2]
+                ref = rmsnorm_quant_plain(*a, **kw)
+                if k_mask is None:
+                    k_mask = torch.ones(x.shape[-1], device=x.device)
+
+                def some(t):
+                    return torch.zeros(0, device=x.device) if t is None else t
+                ok, dy, _, _ = kernel1_close(
+                    tuple(map(some, out)), tuple(map(some, ref)),
+                    kw.get("a_bits", 8), k_mask)
+                self._add(f"rmsnorm_quant H={x.shape[-1]} "
+                          f"A{kw.get('a_bits', 8)} eps={kw.get('eps')}",
+                          x.numel() // x.shape[-1], ok, dy,
+                          int((out[0] != ref[0]).sum()), out[0].numel())
+            return out
+        ML.mix_gemm, Lm.fused_rmsnorm_quant = mg, rq
+        return self
+
+    def __exit__(self, *exc):
+        ML, Lm = self._mods
+        ML.mix_gemm, Lm.fused_rmsnorm_quant = self._real
+        return False
+
+    def _add(self, key, M, ok, err, differing, values):
+        r = self.shapes.setdefault(key, dict(
+            launches=0, rows=[], max_abs_err=0.0, differing=0, values=0,
+            ok=True))
+        r["launches"] += 1
+        if M not in r["rows"]:
+            r["rows"].append(M)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["differing"] += differing
+        r["values"] += values
+        r["ok"] = r["ok"] and ok
+
+    def failures(self, what):
+        return [f"{what}: a {key} launch is past its plain version's limit "
+                f"({r['max_abs_err']})" for key, r in self.shapes.items()
+                if not r["ok"]]
+
+    def by_mode(self):
+        """The records summed by kernel and output mode."""
+        out = {}
+        for key, r in self.shapes.items():
+            mode = key.split(" ")[0] + (
+                " " + key.split(" out ")[1] if " out " in key else "")
+            m = out.setdefault(mode, dict(launches=0, max_abs_err=0.0,
+                                          differing=0, values=0))
+            m["launches"] += r["launches"]
+            m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
+            m["differing"] += r["differing"]
+            m["values"] += r["values"]
+        return out
+
+
 def first_divergence(cpu, card, L, prefills):
     """Where the card's run first leaves the CPU's: the first (forward,
     layer) whose block output differs, whether the decode-step attention
@@ -2321,8 +2663,10 @@ def reference_check(dev):
     and W8A16. On the batch-major cache under attn_impl="auto" (kernel 8):
     llama W8A8 on 64 slots (a prefill of 8, 4 decode steps), and mistral
     W8A8 with a window of 4 on a ring of 8 slots (a prefill in two chunks of
-    4, then 12 decode steps: the ring wraps twice). Every configuration runs
-    before the checks, so a failing one still shows the others' numbers."""
+    4, then 12 decode steps: the ring wraps twice); the RMSNorm families'
+    tiny W8A8 models (tiny_families) under their policies, as llama's.
+    Every configuration runs before the checks, so a failing one still
+    shows the others' numbers."""
     from mixq_tpu_torch.config import EngineConfig, ModelConfig
     from mixq_tpu_torch.convert import params_to
     from mixq_tpu_torch.engine import InferenceEngine
@@ -2346,7 +2690,11 @@ def reference_check(dev):
             (long, 8, [4, 4])),
            ("baichuan", tiny_baichuan(), "W8A8", "flash", short),
            ("baichuan batch-major", tiny_baichuan(), "W8A8", "auto",
-            (toks, 64, [8]))])
+            (toks, 64, [8]))]
+        + [(family + (" batch-major" if impl == "auto" else ""), fcfg,
+            "W8A8", impl, short if impl == "flash" else (toks, 64, [8]))
+           for family, (fcfg, impls) in tiny_families().items()
+           for impl in impls])
     res, failures = {}, []
     for family, cfg, name, attn_impl, (tk, slots, prefill) in runs_of:
         specs = path_specs(name, attn_impl, group_size=64, outlier_budget=16)
@@ -2362,7 +2710,7 @@ def reference_check(dev):
             runs = []
             for params, d in ((cpu, "cpu"), (card, dev)):
                 eng = InferenceEngine(params, cfg, specs, ecfg, device=d)
-                with Tap() as tap:
+                with Tap() as tap, LinearTap() as lin:
                     logits, cache = teacher_forced(eng, tk, kv_start, slots,
                                                    prefill)
                 runs.append((logits, cache, tap))
@@ -2370,7 +2718,7 @@ def reference_check(dev):
             (ref[kv_dtype], c_cpu, t_cpu), (got, c_card, t_card) = runs
             scale = ref[kv_dtype].abs().max().item()
             err = (got - ref[kv_dtype]).abs().max().item()
-            tol = TINY_TOL[family, name] * scale
+            tol = tiny_tol(family, name, kv_dtype) * scale
             kv_diff = sum(int((a.cpu() != b.cpu()).sum()) for a, b in (
                 (c_cpu.k, c_card.k), (c_cpu.v, c_card.v)))
             key = f"{family} {name} {kv_dtype} KV"
@@ -2380,7 +2728,9 @@ def reference_check(dev):
                 shape=list(got.shape), head_major=c_card.head_major,
                 kv_cache_entries_differing=kv_diff,
                 first_divergence=first_divergence(t_cpu, t_card, L,
-                                                  len(prefill)))
+                                                  len(prefill)),
+                kernels_1_2=lin.by_mode())
+            failures += lin.failures(f"tiny {key}")
             if not (bool(torch.isfinite(got).all()) and err <= tol):
                 failures.append(f"tiny {key} card vs CPU: max |dlogits| "
                                 f"{err} > {tol}")
@@ -2407,10 +2757,12 @@ def reference_check(dev):
         control = ((ref["int8"] - ref["bfloat16"]).abs().max().item()
                    / ref["bfloat16"].abs().max().item())
         res[f"{family} {name} control"] = control
-        if not TINY_TOL[family, name] < control:
-            failures.append(f"tiny {family} {name}: limit "
-                            f"{TINY_TOL[family, name]} of max|logits| is not "
-                            f"below the int8-vs-bf16 KV control {control}")
+        for kv_dtype in ("bfloat16", "int8"):
+            if not tiny_tol(family, name, kv_dtype) < control:
+                failures.append(
+                    f"tiny {family} {name} {kv_dtype} KV: limit "
+                    f"{tiny_tol(family, name, kv_dtype)} of max|logits| is "
+                    f"not below the int8-vs-bf16 KV control {control}")
     print(f"reference: tiny models card vs CPU, teacher-forced logits {res}",
           flush=True)
     check(not failures, "; ".join(failures))
@@ -3046,6 +3398,70 @@ BAICHUAN_PATHS = [
     ("Baichuan-13B W8A8O16 int8 KV (flash)", "baichuan_flash_int8kv",
      "flash", "int8")]
 
+# layers the reduced families serve (full width; a depth cut for the time
+# limit)
+FAMILY_LAYERS = 8
+# (config, label, layers served (None: all), [(attn_impl, kv_dtype)]):
+# Qwen2.5-7B at full width and depth under both policies (kernel 3 and
+# kernel 8 at g = 7), Phi-3-mini under both (D = 96 on both kernels; its
+# 2047-position window makes "auto" a batch-major ring), Phi-3's shape
+# with longrope (phi3_longrope: seeded factors), Qwen3-8B and Gemma-7B
+# under "flash", Llama-3.1-8B under "auto". A config is a preset's name
+# or a function of this script.
+FAMILY_PATHS = [
+    ("qwen25_7b", "Qwen2.5-7B", None,
+     (("flash", "int8"), ("auto", "bfloat16"))),
+    ("phi3_mini_4k", "Phi-3-mini-4k", FAMILY_LAYERS,
+     (("flash", "int8"), ("auto", "bfloat16"))),
+    ("phi3_longrope", "Phi-3-mini longrope (48 seeded factors)",
+     FAMILY_LAYERS, (("flash", "int8"),)),
+    ("qwen3_8b", "Qwen3-8B", FAMILY_LAYERS, (("flash", "int8"),)),
+    ("gemma_7b", "Gemma-7B", FAMILY_LAYERS, (("flash", "int8"),)),
+    ("llama31_8b", "Llama-3.1-8B", FAMILY_LAYERS, (("auto", "bfloat16"),)),
+]
+# slots of family_step's cache for a longrope model: past its original
+# context + 256, so the step runs the long factors (serve's 128-slot cache
+# runs the short ones)
+LONGROPE_SLOTS = 4608
+
+
+def phi3_longrope():
+    """Phi-3-mini-4k's shape with longrope as Phi-3-mini-128k configures
+    it (original context 4096, 131,072 positions, attention factor from
+    config_from_hf's rule): the published factor lists are not in the
+    repository, so 48 short factors in [1, 3) and 48 long ones in [1, 48)
+    (head dim 96 / 2) come from a seeded generator."""
+    import dataclasses
+
+    from mixq_tpu_torch import presets
+    from mixq_tpu_torch.models.hf import config_from_hf
+
+    g = torch.Generator().manual_seed(96)
+    short = (1.0 + 2.0 * torch.rand(48, generator=g)).tolist()
+    long = (1.0 + 47.0 * torch.rand(48, generator=g)).sort().values.tolist()
+    scaled = config_from_hf(dict(
+        model_type="phi3", vocab_size=32064, hidden_size=3072,
+        intermediate_size=8192, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=32,
+        max_position_embeddings=131072,
+        original_max_position_embeddings=4096, rope_theta=10000.0,
+        sliding_window=None, rope_scaling={"type": "longrope",
+                                           "short_factor": short,
+                                           "long_factor": long}))
+    check(dataclasses.replace(scaled, max_position_embeddings=4096,
+                              rope_scaling_type=None,
+                              rope_short_factor=None, rope_long_factor=None,
+                              rope_original_max_position=8192,
+                              rope_attention_factor=1.0, sliding_window=2047)
+          == presets.phi3_mini_4k(), "phi3_longrope: not Phi-3's shape")
+    return scaled
+
+
+def family_label(label, attn_impl, kv_dtype):
+    kv = "int8" if kv_dtype == "int8" else "bf16"
+    return f"{label} W8A8O16 {kv} KV ({attn_impl})"
+
+
 # phase 11's pools (SPEC_POOLS): bf16 KV batch-major, int8 KV head-major
 SPEC_LABELS = (
     "Llama-2-7B W8A8O16 Markov spec bf16 KV (auto, batch-major)",
@@ -3104,6 +3520,16 @@ KERNEL_ROWS = [
      ("mix_gemm.w8a8_zp",), None),
     ("mix_gemm_w4_zp", "mix_gemm", "REPLACES_QUIK", "quik_w4",
      ("mix_gemm.w4_zp",), None),
+    ("flash_decode_g7", "flash_decode", "REPLACES", "flash_decode_g7",
+     ("flash_decode.g7",), None),
+    ("flash_decode_d96", "flash_decode", "REPLACES", "flash_decode_d96",
+     ("flash_decode.d96",),
+     (family_label("Phi-3-mini-4k", "flash", "int8"),)),
+    ("decode_attention_g7", "decode_attention", "REPLACES",
+     "decode_attention_g7", ("decode_attention.g7",), None),
+    ("decode_attention_d96", "decode_attention", "REPLACES",
+     "decode_attention_d96", ("decode_attention.d96",),
+     (family_label("Phi-3-mini-4k", "auto", "bfloat16"),)),
 ]
 # entries whose mode is a runtime argument (the gelu_new epilogue), which
 # a kernel's name does not show: the card's runs are counted by the
@@ -3112,8 +3538,32 @@ EXECUTED_AS = {"mix_gemm_w8a8_gelu_new": ("mix_gemm.w8a8",),
                "mix_gemm_w4_gelu_new": ("mix_gemm.w4",),
                "mix_gemm_a16_gelu_new": ("w8a16.w8",),
                "flash_decode_alibi": ("flash_decode",),
-               "decode_attention_alibi": ("decode_attention",)}
+               "decode_attention_alibi": ("decode_attention",),
+               "flash_decode_d96": ("flash_decode",),
+               "decode_attention_d96": ("decode_attention",)}
 KERNEL_NOTES = {
+    "flash_decode_g7": "kernel 3 at a group of 7 query heads a kv head "
+                       "(flash_decode_kernel<7, ...>); timed row: "
+                       "Qwen2.5-7B's 28/4 heads, int8 KV; launches: the "
+                       "card's runs in phase 12's Qwen2.5-7B \"flash\" "
+                       "serve",
+    "flash_decode_d96": "kernel 3 at head dim 96 (rows of 6 int8 or 12 "
+                        "bf16 chunks on 8 or 16 lanes); timed row: "
+                        "Phi-3's 32/32 heads, int8 KV; launches: the "
+                        "card's kernel-3 runs in phase 12's Phi-3 "
+                        "\"flash\" serve (the head dim is not in the "
+                        "kernel's name), wrapper_launches its d96 launches",
+    "decode_attention_g7": "kernel 8 at a group of 7 query heads a kv head "
+                           "(decode_attention_kernel<7, ...>); timed row: "
+                           "Qwen2.5-7B's 28/4 heads, bf16 KV, beside SDPA; "
+                           "launches: the card's runs in phase 12's "
+                           "Qwen2.5-7B \"auto\" serve",
+    "decode_attention_d96": "kernel 8 at head dim 96 (ring rows padded to 8 "
+                            "or 16 chunks); timed row: Phi-3's 32/32 heads, "
+                            "bf16 KV, beside SDPA; launches: the card's "
+                            "kernel-8 runs in phase 12's Phi-3 \"auto\" "
+                            "serve (its window's ring), wrapper_launches "
+                            "its d96 launches",
     "mix_gemm_w8a8_zp": "kernel 2 (W8) in QUIK's zero-point mode "
                         "(mix_gemm_zp_kernel<false>: o/down of QUIK W4A4, "
                         "A8 asymmetric); timed row: o and down of one "
@@ -4500,6 +4950,349 @@ def verify_vs_steps(eng, cfg, label, control=True, seed=9):
     return out
 
 # ---------------------------------------------------------------------------
+# Phase 12: the RMSNorm families at full width
+# ---------------------------------------------------------------------------
+
+def family_state_dict(cfg, dev, seed=7, boost=BOOST):
+    """A bf16 state dict of `cfg` under its family's HF names on the card
+    from `seed`, as float_state_dict makes llama's (N(0, EMBED_STD)
+    embedding rows with the PLANTED channels raised by `boost`, N(0, 0.02)
+    weights): qwen2's q/k/v biases N(0, 0.02); qwen3's q_norm and k_norm
+    scales; phi3's q/k/v packed in qkv_proj (rows [q | k | v]) and gate/up
+    in gate_up_proj (rows [gate | up]); gemma's norms stored as w of its
+    (1 + w) at 0, no head (tied) and the embedding divided by its
+    multiplier sqrt(H), so that the blocks' input is llama's (at sqrt(H)
+    times llama's, the residual would hide the blocks' output from the
+    logits, and family_reference a fault of the attention); norms of ones
+    elsewhere."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.head_dim_)
+    mt = cfg.model_type
+
+    def w(*shape, std=0.02):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16) * std
+
+    def norm(n=H):
+        fill = 0.0 if mt == "gemma" else 1.0
+        return torch.full((n,), fill, device=dev, dtype=torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": w(V, H, std=EMBED_STD),
+          "model.norm.weight": norm()}
+    sd["model.embed_tokens.weight"][:, list(PLANTED)] += boost
+    if mt == "gemma":
+        sd["model.embed_tokens.weight"] /= cfg.embed_multiplier
+    if not cfg.tie_word_embeddings:
+        sd["lm_head.weight"] = w(V, H)
+    attn = ((("self_attn.qkv_proj", ((nq + 2 * nkv) * hd, H)),)
+            if mt == "phi3" else
+            (("self_attn.q_proj", (nq * hd, H)),
+             ("self_attn.k_proj", (nkv * hd, H)),
+             ("self_attn.v_proj", (nkv * hd, H))))
+    mlp = ((("mlp.gate_up_proj", (2 * I, H)),) if mt == "phi3" else
+           (("mlp.gate_proj", (I, H)), ("mlp.up_proj", (I, H))))
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = norm()
+        sd[p + "post_attention_layernorm.weight"] = norm()
+        for name, shape in attn + (("self_attn.o_proj", (H, nq * hd)),) + (
+                mlp + (("mlp.down_proj", (H, I)),)):
+            sd[p + name + ".weight"] = w(*shape)
+        if cfg.attention_bias:
+            for name, n in (("q", nq), ("k", nkv), ("v", nkv)):
+                sd[p + f"self_attn.{name}_proj.bias"] = w(n * hd)
+        if cfg.qk_norm:
+            sd[p + "self_attn.q_norm.weight"] = norm(hd)
+            sd[p + "self_attn.k_norm.weight"] = norm(hd)
+    torch.cuda.synchronize()
+    return sd
+
+
+def step_bound_ms(eng, cfg, B, kv_len):
+    """The least time of a decode step: every weight read once (of an
+    untied embedding only the B gathered rows), and the valid K/V rows
+    (int8 with their f32 scales, or bf16) at `kv_len` positions."""
+    p = eng.params
+    unread = (0 if p.lm_head is None else tensor_bytes(p.embed)
+              - B * cfg.hidden_size * p.embed.element_size())
+    slot_bytes = (cfg.head_dim_ + 4 if eng.engine_cfg.kv_dtype == "int8"
+                  else 2 * cfg.head_dim_)
+    nbytes = (tensor_bytes(p) - unread + 2 * cfg.num_hidden_layers
+              * cfg.num_key_value_heads * B * kv_len * slot_bytes)
+    return bound_ms(nbytes, [])[0]
+
+
+def family_step(dev, eng, cfg, gen, B=8, fill=512, slots=640, steps=8):
+    """The decode step at generate's batch B=8 with 512 of 640 positions
+    filled, as replays of the device loop's CUDA graph: device ms a step
+    (CUPTI over 8 replays from the same state; the three small kernels of
+    the rewind, a few microseconds, included), its bound, the logits
+    finite, and the peak memory while it ran."""
+    from mixq_tpu_torch.engine.engine import DecodeLoop
+    from mixq_tpu_torch.engine.sampling import SamplingParams
+
+    from mixq_tpu_torch.models.decoder import rope_scaling
+
+    if cfg.rope_scaling_type == "longrope":
+        slots = LONGROPE_SLOTS
+    cache = eng.new_cache(B, slots)
+    seed_cache(cache, gen)
+    kv_start = torch.zeros(B, dtype=torch.int32, device=dev)
+    tok0 = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    loop = DecodeLoop(eng, cache, kv_start, tok0, 1 + steps,
+                      SamplingParams(), None)
+
+    def rewind():
+        cache.set_length(fill)
+        loop.tok.copy_(tok0[:, None])
+        loop.col.fill_(1)
+
+    scaling = rope_scaling(cfg, cache.max_seq)
+    rope = None if scaling is None else scaling[0]
+    if rope == "longrope":
+        check(scaling[1] == cfg.rope_long_factor,
+              "family step: longrope's long factors not taken")
+        rope = "longrope, long factors"
+    rewind()
+    loop.step()                      # eager: the step's constants, warm
+    rewind()
+    loop.capture()
+
+    def run():
+        rewind()
+        loop.replay(steps)
+
+    ms = device_ms(run, 3, warmup=1) / steps
+    logits = loop.logits
+    check(tuple(logits.shape) == (B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "family decode step: logits not finite")
+    return dict(batch=B, kv_filled=fill, slots=slots, rope_scaling=rope,
+                head_major=cache.head_major, graph_device_ms=ms,
+                bound_ms=step_bound_ms(eng, cfg, B, fill + (steps + 1) / 2),
+                max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+                / 2 ** 30)
+
+
+# phase 12's card-vs-CPU check (family_reference): its layers, the boost of
+# its model's planted channels (past SIGMA once normed, so warmup promotes
+# them, but not so far past that they fill every v and the attention
+# vanishes from the logits, as BOOST makes them), and its limit on the
+# logits' distance over their spread over positions (logits_gap): on an
+# H100 the card read at most 0.0183 (a value of layer 0 an ulp apart moves
+# a 2-layer full-width model's logits that far) and the control (RoPE
+# left out) at least 0.325, so the limit lies near their geometric mean
+FAMILY_REF_LAYERS = 2
+FAMILY_REF_BOOST = 10.0
+FAMILY_GAP_TOL = 0.08
+
+
+def family_reference_model(dev, cfg, qcfg):
+    """The model of family_reference: `cfg` at full width and
+    FAMILY_REF_LAYERS layers from family_state_dict at FAMILY_REF_BOOST,
+    through quantize_model and warmup_online_outliers (2 batches of 2 x 32
+    tokens) on the card: (params, cfg, specs, promoted counts)."""
+    import dataclasses
+
+    from mixq_tpu_torch.models.hf import TensorSource
+    from mixq_tpu_torch.quantize import quantize_model, warmup_online_outliers
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=FAMILY_REF_LAYERS)
+    sd = family_state_dict(cfg2, dev, seed=8, boost=FAMILY_REF_BOOST)
+    params, specs = quantize_model(TensorSource.from_torch_state_dict(sd),
+                                   cfg2, qcfg, device=dev)
+    del sd
+    params, counts = warmup_online_outliers(
+        params, cfg2, specs, token_batches(cfg2, 2, 2, 32, seed=24))
+    return params, cfg2, specs, counts
+
+
+def family_reference(dev, model, attn_impl, kv_dtype, label):
+    """A family's reference model (family_reference_model) on the card
+    against the same params on the CPU (the plain versions),
+    teacher-forced in the path's policy and KV dtype: a prefill of 2 x 8
+    tokens (rows starting at 0 and 3) and a decode step on 128 slots (a
+    longrope model's on LONGROPE_SLOTS: its long factors). Holds the
+    card's logits within FAMILY_GAP_TOL of the CPU's (logits_gap), that
+    limit below the gap of the control (the card's run with RoPE left out:
+    a fault of the glue), every decode attention launch within its plain
+    version's limit (Tap), and every launch of kernels 1 and 2 within
+    theirs (LinearTap: the path's shapes and modes, qwen2's f32 q/k/v, the
+    3072- and 3584-wide norms, gemma's exact GELU at N=24576, ...)."""
+    import dataclasses
+
+    from mixq_tpu_torch.config import EngineConfig
+    from mixq_tpu_torch.convert import params_to
+    from mixq_tpu_torch.engine import InferenceEngine
+    from mixq_tpu_torch.kernels.decode_attention import DECODE_ATOL
+    from mixq_tpu_torch.models import decoder as D
+
+    t0 = time.perf_counter()
+    card, cfg, specs, counts = model
+    specs = dataclasses.replace(specs, attn_impl=attn_impl)
+    cpu = params_to(card, "cpu")
+    toks = torch.randint(1, cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(5))
+    kv_start = torch.tensor([0, 3], dtype=torch.int32)
+    slots = (LONGROPE_SLOTS if cfg.rope_scaling_type == "longrope"
+             else 128)
+    runs, rope = {}, D.apply_rope
+    for name, p, d in (("cpu", cpu, "cpu"), ("card", card, dev),
+                       ("control", card, dev)):
+        eng = InferenceEngine(p, cfg, specs, EngineConfig(
+            max_seq_len=slots, prefill_chunk=8, kv_dtype=kv_dtype), device=d)
+        if name == "control":
+            D.apply_rope = lambda x, *a, **kw: x
+        try:
+            with Tap() as tap, LinearTap() as lin:
+                logits, cache = teacher_forced(eng, toks, kv_start, slots,
+                                               [8])
+        finally:
+            D.apply_rope = rope
+        runs[name] = (logits, cache.head_major, tap, lin)
+        del eng, cache
+    ref, head_major = runs["cpu"][0], runs["cpu"][1]
+    got, card_hm, tap, lin = runs["card"]
+    gap = logits_gap(got, ref)
+    control = logits_gap(runs["control"][0], got)["rel"]
+
+    def attn_gap(a, b):
+        """The decode attention outputs' largest distance over b's max."""
+        return max(((x - y).abs().max() / y.abs().max()).item()
+                   for x, y in zip(a.attn, b.attn))
+    L = cfg.num_hidden_layers
+    out = dict(layers=L, slots=slots, head_major=head_major, gap=gap,
+               share_of_max=((got - ref).abs().max()
+                             / ref.abs().max()).item(),
+               tolerance=FAMILY_GAP_TOL, control=control,
+               attention_gap=attn_gap(tap, runs["cpu"][2]),
+               attention_control=attn_gap(runs["control"][2], tap),
+               outliers_promoted=counts,
+               first_divergence=first_divergence(runs["cpu"][2], tap, L, 1),
+               kernels_1_2=lin.shapes)
+    failures = lin.failures(f"{label} reference")
+    kv = "int8" if kv_dtype == "int8" else "bf16"
+    for kernel, limit in (("flash_decode", FLASH_ATOL[kv]),
+                          ("decode_attention", DECODE_ATOL)):
+        worst = tap.worst(kernel)
+        if worst is not None:
+            out[f"{kernel}_worst_launch"] = worst
+            if worst["beyond"] > limit:
+                failures.append(f"{label} reference: a {kernel} launch is "
+                                f"{worst['beyond']} beyond two ulps of its "
+                                "plain version")
+    if card_hm != head_major:
+        failures.append(f"{label} reference: the card's cache layout is "
+                        "not the CPU's")
+    if not (bool(torch.isfinite(got).all())
+            and gap["rel"] <= FAMILY_GAP_TOL < control):
+        failures.append(f"{label} reference: logits {gap['rel']} apart "
+                        f"(logits_gap) against the limit {FAMILY_GAP_TOL}, "
+                        f"the control {control}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"reference {label}: {L} layers at full width, card vs CPU: "
+          f"{out}", flush=True)
+    check(not failures, "; ".join(failures))
+    del cpu, runs
+    gc.collect()
+    return out
+
+
+def families_phase(dev):
+    """Phase 12: each preset of FAMILY_PATHS from a seeded HF-named bf16
+    dict on the card (family_state_dict) through quantize_model (W8A8:
+    empty outlier sets, the budget reserved) and warmup_online (two
+    batches of 8 x 64 tokens; counts within the budget), served by
+    generate (8 requests x 32 tokens, the decode steps as graph replays;
+    the wrappers' and the card's launches by mode asserted, tokens equal
+    to the stepwise loop's) under each of its policies, then its decode
+    step at B=8 timed (family_step; a longrope model's on a cache of
+    LONGROPE_SLOTS, its long factors). It prints, per model, the host
+    seconds of the dict, quantize_model and warmup_online and the peak
+    memory, and per path the serve and the step."""
+    import dataclasses
+
+    from mixq_tpu_torch import presets
+    from mixq_tpu_torch.config import QuantConfig
+    from mixq_tpu_torch.models.hf import TensorSource
+    from mixq_tpu_torch.quantize import quantize_model
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    qcfg = QuantConfig.w8a8()
+    out = {"paths": {}, "models": {}}
+    for preset, label, layers, policies in FAMILY_PATHS:
+        full = (getattr(presets, preset) if hasattr(presets, preset)
+                else globals()[preset])()
+        cfg = (full if layers is None else
+               dataclasses.replace(full, num_hidden_layers=layers))
+        model = {"layers": cfg.num_hidden_layers,
+                 "published_layers": full.num_hidden_layers,
+                 "heads": [cfg.num_attention_heads, cfg.num_key_value_heads,
+                           cfg.head_dim_]}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sd = family_state_dict(cfg, dev)
+        secs = {"float_dict": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        params, specs = quantize_model(TensorSource.from_torch_state_dict(sd),
+                                       cfg, qcfg, device=dev)
+        torch.cuda.synchronize()
+        secs["quantize_model"] = time.perf_counter() - t0
+        del sd
+        gc.collect()
+        torch.cuda.empty_cache()
+        model["param_gib"] = tensor_bytes(params) / 2 ** 30
+        ref_model = family_reference_model(dev, full, qcfg)
+        for i, (attn_impl, kv_dtype) in enumerate(policies):
+            eng = new_engine(dev, params, cfg, dataclasses.replace(
+                specs, attn_impl=attn_impl), kv_dtype)
+            del params
+            if i == 0:
+                t0 = time.perf_counter()
+                counts = eng.warmup_online(token_batches(cfg, 2, 8, 64,
+                                                         seed=23))
+                torch.cuda.synchronize()
+                secs["warmup_online"] = time.perf_counter() - t0
+                check(all(0 <= n <= qcfg.outlier_budget
+                          for n in counts.values()),
+                      f"{label}: warmup counts past the budget: {counts}")
+                model["outliers_promoted"] = sum(counts.values())
+                model["max_memory_allocated_gib"] = (
+                    torch.cuda.max_memory_allocated() / 2 ** 30)
+            path = {"attn_impl": attn_impl, "kv_dtype": kv_dtype}
+            path["reference"] = family_reference(
+                dev, ref_model, attn_impl, kv_dtype,
+                family_label(label, attn_impl, kv_dtype))
+            t0 = time.perf_counter()
+            eng, path["serve"] = serve(dev, None, cfg, eng.specs, "W8A8",
+                                       kv_dtype, eng=eng)
+            path["step"] = family_step(dev, eng, cfg, gen)
+            path["host_s"] = time.perf_counter() - t0
+            name = family_label(label, attn_impl, kv_dtype)
+            print(f"serve {name}, {cfg.num_hidden_layers} of "
+                  f"{full.num_hidden_layers} layers: {path['serve']}",
+                  flush=True)
+            print(f"step {name}: {path['step']}", flush=True)
+            out["paths"][name] = path
+            params = eng.params
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params, ref_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model["host_s"] = secs
+        out["models"][label] = model
+        print(f"family {label}: {model}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: speculative serving
 # ---------------------------------------------------------------------------
 
@@ -5444,8 +6237,10 @@ def main():
     t0 = time.perf_counter()
     ptxas = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
+    report["nvcc_s"] = dict(_build.NVCC_SECONDS)
     print(f"build: {report['build_s']:.1f} s for {len(ptxas)} kernel "
-          "libraries", flush=True)
+          f"libraries; each nvcc's end from the common start (s): "
+          f"{report['nvcc_s']}", flush=True)
     for name, log in ptxas.items():
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -5504,7 +6299,7 @@ def main():
     # no instantiation of flash decode spills
     log = ptxas.get("flash_decode", "")
     FLASH_PTXAS.update(ptxas_by_mode(log, "flash_decode_kernel"))
-    check(log == "(cached)" or len(FLASH_PTXAS) == 16,
+    check(log == "(cached)" or len(FLASH_PTXAS) == 24,
           f"flash_decode: ptxas reported {len(FLASH_PTXAS)} instantiations")
     for (g, int8, cap), r in FLASH_PTXAS.items():
         check(" 0 bytes spill stores" in r.get("spills", ""),
@@ -5517,7 +6312,7 @@ def main():
     # no instantiation of decode attention (kernel 8) spills
     log = ptxas.get("decode_attention", "")
     DECODE_PTXAS.update(ptxas_by_mode(log, "decode_attention_kernel"))
-    check(log == "(cached)" or len(DECODE_PTXAS) == 16,
+    check(log == "(cached)" or len(DECODE_PTXAS) == 24,
           f"decode_attention: ptxas reported {len(DECODE_PTXAS)} "
           "instantiations")
     for (g, int8, cap), r in DECODE_PTXAS.items():
@@ -5578,6 +6373,10 @@ def main():
     kernel_eval_shapes(dev, rows)
     (main_rows["rmsnorm_quant_verify"], main_rows["mix_gemm_verify"],
      main_rows["flash_decode_verify"]) = kernel_verify_shapes(dev, rows)
+    (main_rows["flash_decode_g7"], main_rows["flash_decode_d96"],
+     main_rows["decode_attention_g7"],
+     main_rows["decode_attention_d96"]) = kernel_family_heads(dev, rows)
+    kernel_family_linears(dev, rows)
     for name, rs in rows.items():
         for r in rs:
             lib = ("-" if r.get("library_ms") is None
@@ -5699,12 +6498,14 @@ def main():
     phase_done("10 evaluation")
     report["spec"] = spec_phase(dev)
     phase_done("11 speculative serving")
+    report["families"] = families_phase(dev)
+    phase_done("12 families")
     report["total_s"] = time.perf_counter() - t_start
 
     kernels = []
     served = {**report["paths"], **report["baichuan"]["paths"],
               **report["cb"]["pools"], "evaluation": report["evaluation"],
-              **report["spec"]["pools"]}
+              **report["spec"]["pools"], **report["families"]["paths"]}
     for name, mod, attr, row, keys, labels in KERNEL_ROWS:
         source = MODULES[mod].SOURCE
         r = main_rows[row]

@@ -5,6 +5,15 @@
 
 namespace mixq {
 
+// 16-byte chunks of a row of `row_bytes`, rounded up to a power of two: the
+// attention kernels' layout of a cache row (kernel 3's lanes a row takes,
+// kernel 8's ring row), so the copies and slices stay shifts at D = 96
+__host__ __device__ inline int pow2_chunks(int row_bytes) {
+  int n = 1;
+  while (n < row_bytes / 16) n <<= 1;
+  return n;
+}
+
 // 16-byte global -> shared copy; `valid == false` copies 0 source bytes,
 // which zero-fills the 16 destination bytes (masked edges).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,

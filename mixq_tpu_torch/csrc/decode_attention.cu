@@ -1,7 +1,8 @@
 // T=1 decode attention over one layer of a batch-major KV cache
 // [B, S, n_kv, D] (bf16, or int8 with per-(token, head) f32 scales
 // [B, S, n_kv]), with per-row valid lengths and first valid positions, GQA
-// groups of g query heads per kv head, an optional ring layout
+// groups of g query heads per kv head (g = 1, 2, 4, 8 in every mode; 3, 5,
+// 6, 7 without the softcap), an optional ring layout
 // (sliding-window caches), gemma2's score scale and logit softcap, and
 // Baichuan-13B's ALiBi bias.
 //
@@ -83,6 +84,16 @@
 // - Shared-memory reads are conflict-free: a row's 16-byte chunks are
 //   swizzled (swz) so that the K reads (two rows, four chunks) and the V
 //   reads (four rows, two chunks) of each 8-lane phase hit distinct banks.
+// - A row whose 16-byte chunks are not a power of two (D = 96: 6 int8 or
+//   12 bf16 chunks) takes the next power of two of chunks in the ring
+//   (mixq::pow2_chunks), so the copies, the swizzle and the slices stay
+//   shifts and masks; the chunks past the row are neither copied nor read
+//   (the dots and p . v take zeros there), and the output skips their
+//   values.
+// - g need not be a power of two: the mma tiles hold up to 8 heads (rows
+//   and columns past g are zeros), a tile of scores holds a multiple of 64
+//   positions, and the softmax's per-(head, position) shares cover 16 * g
+//   entries in ceil(g / 2) rounds of 32 lanes.
 // - At most 128 registers (no spill; chip_smoke.py's build phase prints
 //   them) and under 48 KB of shared memory at the served heads: 4 blocks
 //   an SM.
@@ -116,10 +127,11 @@ template <bool kInt8>
 __host__ __device__ constexpr int stages() {
   return kInt8 ? 4 : 2;
 }
-// positions a tile of scores holds (f32 scores of the g heads: 4-8 KB)
+// positions a tile of scores holds (f32 scores of the g heads: 4-8 KB), a
+// multiple of every stage's positions (64 or 32)
 template <int G>
 __host__ __device__ constexpr int tile_rows() {
-  return G <= 2 ? 1024 : 2048 / G;
+  return G <= 2 ? 1024 : 2048 / G / 64 * 64;
 }
 // head-dim slices a V row is cut into: one per warp group
 __host__ __device__ inline int n_slices(int D) {
@@ -133,7 +145,8 @@ __host__ __device__ inline int stage_rows(int D) {
 // one stage: its rows, then (int8) their scales
 template <bool kInt8>
 __host__ __device__ inline int stage_bytes(int D) {
-  return stage_rows(D) * (D * (kInt8 ? 1 : 2) + (kInt8 ? 4 : 0));
+  return stage_rows(D) *
+         (16 * mixq::pow2_chunks(D * (kInt8 ? 1 : 2)) + (kInt8 ? 4 : 0));
 }
 // q's fragments: a k16 step per 4 values of a lane's chunk
 template <bool kInt8>
@@ -262,8 +275,11 @@ decode_attention_kernel(const Args a) {
   constexpr int NS = stages<kInt8>(), T = tile_rows<G>();
   const float kNegInf = __int_as_float(0xff800000);
   extern __shared__ __align__(16) unsigned char smem[];
+  // a cache row: rb bytes, `chunks` chunks; a ring row: rbs bytes, cpad
+  // chunks (a power of two)
   const int D = a.D, S = a.S, rb = D * esize, chunks = rb / 16;
-  const int cshift = __ffs(chunks) - 1, dshift = __ffs(D) - 1;
+  const int cpad = mixq::pow2_chunks(rb), rbs = 16 * cpad;
+  const int cshift = __ffs(cpad) - 1;
   const int slices = n_slices(D), P = stage_rows(D);
   const int KC = q_steps<kInt8>(D), iters = KC / U;
   unsigned char* ring = smem;
@@ -314,31 +330,34 @@ decode_attention_kernel(const Args a) {
   // its rows (zeros past the tile) and, int8, their scales; one commit
   // group a call, empty or not.
   // this thread's copies of a stage: rows rt + k * rstep, chunk ch (the
-  // row's swizzled chunk is the same for every k when rstep % 16 == 0)
-  const int ch = tid & (chunks - 1), rt = tid >> cshift;
-  const int rstep = kThreads >> cshift, ncopy = (P * chunks) / kThreads;
+  // row's swizzled chunk is the same for every k when rstep % 16 == 0);
+  // none for a chunk past the row
+  const int ch = tid & (cpad - 1), rt = tid >> cshift;
+  const int rstep = kThreads >> cshift, ncopy = (P * cpad) / kThreads;
   auto fetch = [&](const Cursor& c, int s) {
     if (c.t0 < p_hi) {
       unsigned char* dst = ring + s * sbytes;
       const int r0 = c.t0 + c.idx * P, end = c.t0 + c.tn;
       const char* src = (c.kind ? vbase : kbase) + 16 * ch;
-      if (ncopy == 0) {                 // a stage of fewer chunks than lanes
-        if (rt < P) {
-          const int p = r0 + rt;
+      if (ch < chunks) {
+        if (ncopy == 0) {               // a stage of fewer chunks than lanes
+          if (rt < P) {
+            const int p = r0 + rt;
+            const bool ok = p < end;
+            mixq::cp_async16(dst + rt * rbs + 16 * swz(rt, ch, cpad),
+                             ok ? src + slot_of(p) * pos_bytes : src, ok);
+          }
+        }
+        for (int k = 0; k < ncopy; ++k) {
+          const int r = rt + k * rstep, p = r0 + r;
           const bool ok = p < end;
-          mixq::cp_async16(dst + rt * rb + 16 * swz(rt, ch, chunks),
+          mixq::cp_async16(dst + r * rbs + 16 * swz(r, ch, cpad),
                            ok ? src + slot_of(p) * pos_bytes : src, ok);
         }
       }
-      for (int k = 0; k < ncopy; ++k) {
-        const int r = rt + k * rstep, p = r0 + r;
-        const bool ok = p < end;
-        mixq::cp_async16(dst + r * rb + 16 * swz(r, ch, chunks),
-                         ok ? src + slot_of(p) * pos_bytes : src, ok);
-      }
       if constexpr (kInt8) {
         if (tid < P) {
-          float* sdst = reinterpret_cast<float*>(dst + P * rb);
+          float* sdst = reinterpret_cast<float*>(dst + P * rbs);
           const float* ssrc = c.kind ? vsb : ksb;
           const int p = r0 + tid;
           const bool ok = p < end;
@@ -373,10 +392,10 @@ decode_attention_kernel(const Args a) {
   // tile, and for an empty part to the end
   // The softmax's per-(head, position) work (the cap, exp, v_scale) runs
   // on every lane: a warp's V group is 16 positions x G heads, lane L takes
-  // entries L + 32r (r < NR): head hr(r) = (L + 32r) / 16. Scores stay raw
-  // (scale and k_scale applied) until then; the cap is monotone, so the
-  // capped max is the cap of the raw max.
-  constexpr int NR = G >= 2 ? G / 2 : 1;
+  // entries L + 32r (r < NR; none past 16 G): head hr(r) = (L + 32r) / 16.
+  // Scores stay raw (scale and k_scale applied) until then; the cap is
+  // monotone, so the capped max is the cap of the raw max.
+  constexpr int NR = (G + 1) / 2;
   auto capped = [&](float x) {
     if constexpr (kSoftcap)
       return __fmul_rn(tanhf(__fdiv_rn(x, a.softcap)), a.softcap);
@@ -408,7 +427,7 @@ decode_attention_kernel(const Args a) {
     is = is + 1 == NS ? 0 : is + 1;
 
     const unsigned char* rows = ring + xs * sbytes;
-    const float* sscale = reinterpret_cast<const float*>(rows + P * rb);
+    const float* sscale = reinterpret_cast<const float*>(rows + P * rbs);
     const int r0 = cc.t0 + cc.idx * P, end = cc.t0 + cc.tn;
     if (cc.kind == 0) {
       // ---- K: the scores of 8 positions a group, head j's at 2t, 2t+1
@@ -426,8 +445,8 @@ decode_attention_kernel(const Args a) {
           const int ch = t + 4 * i;
           int4 raw = make_int4(0, 0, 0, 0);
           if (ch < chunks)
-            raw = *reinterpret_cast<const int4*>(rows + r * rb +
-                                                 16 * swz(r, ch, chunks));
+            raw = *reinterpret_cast<const int4*>(rows + r * rbs +
+                                                 16 * swz(r, ch, cpad));
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const uint2 qa = qf[(i * U + u) * 32 + lane];
@@ -544,7 +563,7 @@ decode_attention_kernel(const Args a) {
           for (int k = 0; k < 4; ++k) {
             const int r = rv + k;
             vr[k] = ch < chunks ? *reinterpret_cast<const int4*>(
-                                      rows + r * rb + 16 * swz(r, ch, chunks))
+                                      rows + r * rbs + 16 * swz(r, ch, cpad))
                                 : make_int4(0, 0, 0, 0);
           }
 #pragma unroll
@@ -614,7 +633,7 @@ decode_attention_kernel(const Args a) {
   }
   __syncthreads();
   for (int i = tid; i < G * D; i += kThreads) {
-    const int h = i >> dshift, d = i & (D - 1);
+    const int h = i / D, d = i - h * D;
     const int s = d / kSlice, dd = d % kSlice;
     float x = 0.f;
     for (int w = s; w < kWarps; w += slices)
@@ -656,7 +675,7 @@ decode_attention_kernel(const Args a) {
   __syncthreads();
   __nv_bfloat16* o = a.out + ((size_t)b * n_kv + hk) * G * D;
   for (int i = rank * kThreads + tid; i < G * D; i += R * kThreads) {
-    const int h = i >> dshift;
+    const int h = i / D;
     float y = res[i];
     if (R > 1) {
       y = 0.f;
@@ -726,9 +745,21 @@ int call(const Args& a, int B, int n_kv, int R, cudaStream_t stream,
            : launch<G, kInt8, kSoftcap>(a, B, n_kv, R, stream);
 }
 
+// g = 3, 5, 6, 7 (Phi-4-mini's 24/8, Qwen2.5-14B's 40/8, Qwen2-1.5B's
+// 12/2, Qwen2/2.5-7B's 28/4) only without the softcap: no family with a
+// softcap has such a group, and each instantiation costs build time
 template <bool kInt8, bool kSoftcap>
 int dispatch(int g, const Args& a, int B, int n_kv, int R,
              cudaStream_t stream, int* n) {
+  if constexpr (!kSoftcap) {
+    switch (g) {
+      case 3: return call<3, kInt8, false>(a, B, n_kv, R, stream, n);
+      case 5: return call<5, kInt8, false>(a, B, n_kv, R, stream, n);
+      case 6: return call<6, kInt8, false>(a, B, n_kv, R, stream, n);
+      case 7: return call<7, kInt8, false>(a, B, n_kv, R, stream, n);
+      default: break;
+    }
+  }
   switch (g) {
     case 1: return call<1, kInt8, kSoftcap>(a, B, n_kv, R, stream, n);
     case 2: return call<2, kInt8, kSoftcap>(a, B, n_kv, R, stream, n);
@@ -743,7 +774,11 @@ int smem_of(int g, int D) {
   switch (g) {
     case 1: return smem_bytes<1, kInt8>(D);
     case 2: return smem_bytes<2, kInt8>(D);
+    case 3: return smem_bytes<3, kInt8>(D);
     case 4: return smem_bytes<4, kInt8>(D);
+    case 5: return smem_bytes<5, kInt8>(D);
+    case 6: return smem_bytes<6, kInt8>(D);
+    case 7: return smem_bytes<7, kInt8>(D);
     case 8: return smem_bytes<8, kInt8>(D);
     default: return -1;
   }

@@ -1,7 +1,8 @@
 // T=1 decode attention over one layer of a head-major KV cache
 // [n_kv, B, S, D] (bf16, or int8 with per-(token, head) f32 scales), with
 // per-row valid lengths and first valid slots (left-padded prompts) and GQA
-// groups of g query heads per kv head.
+// groups of g query heads per kv head (g = 1, 2, 4, 8 in every mode; 3, 5,
+// 6, 7 without the softcap, which only gemma2 takes, at g = 2).
 //
 // Replaces: mixq_tpu/ops/pallas/flash_decode.py::flash_decode_attention
 // (its main-cache path, with the softcap and the score-scale override of
@@ -58,8 +59,12 @@
 // R; only l's f32 sum does. bf16: the f32 partials add in rank order. So a
 // plan always gives the same bits. With R = 1 no cluster barrier runs.
 // Each K and V row is read once, 16 bytes per lane with neighbouring lanes
-// on neighbouring bytes, in one of two load pipelines (uses_ring, chosen per
-// instantiation by what measured faster on the H100):
+// on neighbouring bytes: a row of c 16-byte chunks takes the next power of
+// two of c lanes (mixq::pow2_chunks), so a row of 96 bytes (int8 at
+// D = 96) takes 8 lanes and 192 (bf16) 16, the lanes past its chunks
+// reading zeros and writing nothing; the butterflies then sum a row over
+// whole lane bits. Rows are read in one of two load pipelines (uses_ring,
+// chosen per instantiation by what measured faster on the H100):
 //   the ring: a per-lane ring of 4 stages of 2 rows in shared memory filled
 //     by cp.async; each lane copies the 16 bytes it later reads, so no
 //     barrier guards the ring, and while a lane works on one stage the
@@ -122,11 +127,11 @@ struct Args {
   float scale, softcap;
 };
 
-// Slots per warp step for a row of `row_bytes` (one 16-byte chunk a lane),
-// the longest part of S slots a rank takes at R, and the dynamic shared
-// memory of a block.
+// Slots per warp step (a row takes mixq::pow2_chunks lanes), the longest
+// part of S slots a rank takes at R, and the dynamic shared memory of a
+// block.
 __host__ __device__ inline int rows_per_step(int row_bytes) {
-  return 32 / (row_bytes / 16);
+  return 32 / mixq::pow2_chunks(row_bytes);
 }
 inline int part_rows(int S, int rpw, int R) {
   return ((S + rpw - 1) / rpw + R - 1) / R * rpw;
@@ -168,7 +173,9 @@ __device__ void block_reduce(float (&v)[G], float* red) {
 // lane. A reduce-scatter butterfly: each level swaps half of the values a
 // lane still holds with its partner's, so NV/2 + NV/4 + ... shuffles do
 // the work of NV * log2(hi / lo * 2); the last levels, once a lane holds
-// one value, are a plain butterfly and the lanes with those bits 0 put.
+// an odd number of values (one when NV is a power of two; 7 of 14 at
+// g = 7), are a plain butterfly on each and the lanes with those bits 0
+// put.
 // p ? a : b as a register select (a ternary over array elements may become
 // a select of addresses, which puts the array in local memory)
 __device__ __forceinline__ int pick(bool p, int a, int b) {
@@ -200,7 +207,8 @@ __device__ __forceinline__ void halve(T (&v)[NV], int lo, int lane, int& off,
       if (up) base += HALF;
       held = HALF;
       off >>= 1;
-      halve<HALF / 2>(v, lo, lane, off, base, held);
+      if constexpr (HALF % 2 == 0)
+        halve<HALF / 2>(v, lo, lane, off, base, held);
     }
   }
 }
@@ -208,12 +216,16 @@ __device__ __forceinline__ void halve(T (&v)[NV], int lo, int lane, int& off,
 template <int NV, typename T, class Put>
 __device__ __forceinline__ void lane_sum(T (&v)[NV], int lo, int hi,
                                          Put put) {
+  // the values a lane holds once the halving levels are spent
+  constexpr int kOdd = NV / (NV & -NV);
   const int lane = threadIdx.x & 31;
   int base = 0, held = NV, off = hi;
   halve<NV / 2>(v, lo, lane, off, base, held);
   bool mine = true;
   for (; off >= lo; off >>= 1) {
-    v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+#pragma unroll
+    for (int j = 0; j < kOdd; ++j)
+      v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
     mine = mine && !(lane & off);
   }
   if (mine)
@@ -237,17 +249,19 @@ __device__ __forceinline__ int s8_at(const int4& r, int e) {
 
 // This lane's rows of one (kv head, batch row) stripe of the cache: at a
 // block step from row s0 of its warp, rows s0 + u * rpw + rr for
-// u < kUnroll, each the lane's 16-byte chunk; rows at or past `hi` read as
-// zeros. `each(raw, s0)` runs once per block step, with the rows loaded.
+// u < kUnroll, each the lane's 16-byte chunk; rows at or past `hi`, and
+// every row of a lane past the row's chunks (`on` false), read as zeros.
+// `each(raw, s0)` runs once per block step, with the rows loaded.
 template <bool kRing>
 struct Rows {
   static constexpr int kUnroll = Pipe<kRing>::kUnroll;
   static constexpr int kStages = Pipe<kRing>::kStages;
   const char* stripe;
   int row_bytes, chunk, rpw, rr, hi, step;
+  bool on;                  // the lane holds a chunk of the row
   int4* ring;               // this lane's ring slots
 
-  __device__ bool has(int s) const { return s < hi; }
+  __device__ bool has(int s) const { return on && s < hi; }
   __device__ const char* at(int s) const {
     return stripe + (size_t)s * row_bytes + chunk;
   }
@@ -332,9 +346,11 @@ flash_decode_kernel(const Args a) {
   const int len = min(a.lengths ? a.lengths[b] : a.length_all, a.S);
   const int st = max(a.starts ? a.starts[b] : 0, 0);
   const bool live = len > st;
+  // lpr lanes a row, the first cpr of them on its chunks
   const int row_bytes = D * esize, cpr = row_bytes / 16;
-  const int rpw = rows_per_step(row_bytes);
-  const int c = lane % cpr, rr = lane / cpr;
+  const int lpr = mixq::pow2_chunks(row_bytes), rpw = 32 / lpr;
+  const int c = lane % lpr, rr = lane / lpr;
+  const bool on = c < cpr;
   const int step = kWarps * rpw * kUnroll;           // rows a block step
   // this rank's part [lo, hi) of the valid slots, whole warp steps
   const int2 part = mixq::rank_part(st, len, rpw, R, rank);
@@ -345,9 +361,9 @@ flash_decode_kernel(const Args a) {
   const int first = lo + warp * rpw * kUnroll;       // this warp's first row
   int4* ring = reinterpret_cast<int4*>(smem) + tid;
   const Rows<kRing> krows{a.k + stripe * a.S * row_bytes, row_bytes, c * 16,
-                          rpw, rr, hi, step, ring};
+                          rpw, rr, hi, step, on, ring};
   const Rows<kRing> vrows{a.v + stripe * a.S * row_bytes, row_bytes, c * 16,
-                          rpw, rr, hi, step, ring};
+                          rpw, rr, hi, step, on, ring};
   int4 raw[kUnroll];
 
   // ---- 1. scores over the part. q's loads go out first, then the part's
@@ -393,22 +409,26 @@ flash_decode_kernel(const Args a) {
       }
       __syncthreads();
     }
+    // this lane's chunk of q (zeros on a lane past the row's chunks)
     int qreg[kInt8 ? G * 4 : 1];
     float qfr[kInt8 ? 1 : G * E];
 #pragma unroll
     for (int h = 0; h < G; ++h) {
       if constexpr (kInt8) {
-        const int4 w4 = *reinterpret_cast<const int4*>(qi + h * D + c * E);
+        const int4 w4 =
+            on ? *reinterpret_cast<const int4*>(qi + h * D + c * E)
+               : make_int4(0, 0, 0, 0);
         qreg[h * 4 + 0] = w4.x; qreg[h * 4 + 1] = w4.y;
         qreg[h * 4 + 2] = w4.z; qreg[h * 4 + 3] = w4.w;
       } else {
 #pragma unroll
-        for (int e = 0; e < E; ++e) qfr[h * E + e] = qf[h * D + c * E + e];
+        for (int e = 0; e < E; ++e)
+          qfr[h * E + e] = on ? qf[h * D + c * E + e] : 0.f;
       }
     }
     krows.walk(first, raw, [&](const int4 (&kr)[kUnroll], int s0) {
       // this lane's partial dots of its chunk, [u][h], summed over the
-      // row's cpr lanes
+      // row's lpr lanes
       using Dot = std::conditional_t<kInt8, int, float>;
       Dot dot[kUnroll * G];
 #pragma unroll
@@ -428,7 +448,7 @@ flash_decode_kernel(const Args a) {
             dot[u * G + h] = x;
           }
         }
-      lane_sum(dot, 1, cpr / 2, [&](int i, Dot x) {
+      lane_sum(dot, 1, lpr / 2, [&](int i, Dot x) {
         const int s = s0 + (i / G) * rpw + rr;
         if (s < hi) sc[(i % G) * P + s - lo] = (float)x;
       });
@@ -554,11 +574,12 @@ flash_decode_kernel(const Args a) {
   // the rows within a warp summed (over the lanes' rr bits), then the
   // warps in order
   auto put_pv = [&](int i, auto x) {
+    if (!on) return;
     float* to = pv_red + (warp * G + i / E) * D + c * E + i % E;
     if constexpr (kInt8) *to = __int_as_float(x); else *to = x;
   };
-  if constexpr (kInt8) lane_sum(acci, cpr, 16, put_pv);
-  else lane_sum(accf, cpr, 16, put_pv);
+  if constexpr (kInt8) lane_sum(acci, lpr, 16, put_pv);
+  else lane_sum(accf, lpr, 16, put_pv);
   __syncthreads();
   for (int i = tid; i < G * D; i += kThreads) {   // thread i alone on slot i
     if constexpr (kInt8) {
@@ -657,9 +678,21 @@ int call(const Args& a, int n_kv, int R, cudaStream_t stream, int* n) {
            : launch<G, kInt8, kSoftcap>(a, n_kv, R, stream);
 }
 
+// g = 3, 5, 6, 7 (Phi-4-mini's 24/8, Qwen2.5-14B's 40/8, Qwen2-1.5B's
+// 12/2, Qwen2/2.5-7B's 28/4) only without the softcap: no family with a
+// softcap has such a group, and each instantiation costs build time
 template <bool kInt8, bool kSoftcap>
 int dispatch(int g, const Args& a, int n_kv, int R, cudaStream_t stream,
              int* n) {
+  if constexpr (!kSoftcap) {
+    switch (g) {
+      case 3: return call<3, kInt8, false>(a, n_kv, R, stream, n);
+      case 5: return call<5, kInt8, false>(a, n_kv, R, stream, n);
+      case 6: return call<6, kInt8, false>(a, n_kv, R, stream, n);
+      case 7: return call<7, kInt8, false>(a, n_kv, R, stream, n);
+      default: break;
+    }
+  }
   switch (g) {
     case 1: return call<1, kInt8, kSoftcap>(a, n_kv, R, stream, n);
     case 2: return call<2, kInt8, kSoftcap>(a, n_kv, R, stream, n);

@@ -5,7 +5,9 @@ module's plain PyTorch version only for CPU tensors. Each keeps a plain
 integer count of its launches in its `launches` attribute, and a wrapper
 with several modes also counts them by mode in `mode_launches` (the GEMMs
 by weight mode and by epilogue, flash decode its softcap and ALiBi
-launches, decode attention its KV type, ring, softcap and ALiBi launches),
+launches, decode attention its KV type, ring, softcap and ALiBi launches,
+and both attentions their launches at a group that is not a power of two
+and at head dim 96),
 so a run can show that the main path went through the kernels, in the
 modes it expects.
 
@@ -64,24 +66,26 @@ def launch_counts() -> dict:
 
 # each wrapper's kernels as a profiler names them (demangled), with the
 # template arguments that carry a mode: <W4, GROUPED> of the GEMMs, <W4> of
-# the zero-point GEMM, <G, int8, softcap> of the decode attentions
+# the zero-point GEMM, <G, int8, softcap> of the decode attentions (G a
+# mode of its own when it is not a power of two)
 _SYMBOL = re.compile(
     r"\b(?:(?P<gemm>mix_gemm|w8a16)_kernel<(?P<w4>true|false), "
     r"(?P<grouped>true|false)>"
     r"|(?P<zp>mix_gemm)_zp_kernel<(?P<zp_w4>true|false)>"
-    r"|(?P<attn>flash_decode|decode_attention)_kernel<\d+, "
+    r"|(?P<attn>flash_decode|decode_attention)_kernel<(?P<g>\d+), "
     r"(?P<int8>true|false), (?P<softcap>true|false)>"
     r"|(?P<norm>rmsnorm_quant)_(?:regs|loop)\b)")
 _BASES = ("mix_gemm_kernel", "mix_gemm_zp_kernel", "w8a16_kernel",
           "flash_decode_kernel", "decode_attention_kernel",
           "rmsnorm_quant_regs", "rmsnorm_quant_loop")
 # the launch-count keys a kernel's name does not show: the GEMMs'
-# epilogues, decode attention's ring and both attentions' ALiBi slopes are
-# runtime arguments
+# epilogues, decode attention's ring, both attentions' ALiBi slopes and
+# head dim are runtime arguments
 UNNAMED = frozenset([f"mix_gemm.{e}" for e in mix_gemm.EPILOGUES]
                     + [f"w8a16.{e}" for e in w8a16.EPILOGUES]
                     + ["decode_attention.ring", "decode_attention.alibi",
-                       "flash_decode.alibi"])
+                       "flash_decode.alibi", "flash_decode.d96",
+                       "decode_attention.d96"])
 
 
 def _keys_of(m) -> list:
@@ -92,12 +96,14 @@ def _keys_of(m) -> list:
         mod = mix_gemm if m["gemm"] == "mix_gemm" else w8a16
         return [m["gemm"], m["gemm"] + "." + mod._mode(
             m["w4"] == "true", 2 if m["grouped"] == "true" else 1)]
-    if m["attn"] == "flash_decode":
-        return ["flash_decode"] + (["flash_decode.softcap"]
-                                   if m["softcap"] == "true" else [])
     if m["attn"]:
+        group = ([f"{m['attn']}.g{m['g']}"]
+                 if int(m["g"]) in flash_decode.GROUP_MODES else [])
+        if m["attn"] == "flash_decode":
+            return ["flash_decode"] + group + (
+                ["flash_decode.softcap"] if m["softcap"] == "true" else [])
         return (["decode_attention", "decode_attention."
-                 + ("int8" if m["int8"] == "true" else "bf16")]
+                 + ("int8" if m["int8"] == "true" else "bf16")] + group
                 + (["decode_attention.softcap"] if m["softcap"] == "true"
                    else []))
     return ["rmsnorm_quant"]

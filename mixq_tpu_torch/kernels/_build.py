@@ -20,6 +20,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 
@@ -44,6 +46,8 @@ NVCC_FLAGS = [
 BUILD_DIR = PKG_DIR / "build"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# seconds of each source's nvcc in this process's last build_all
+NVCC_SECONDS: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -67,32 +71,42 @@ def library_path(name: str) -> Path:
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile every named kernel library that is not built yet, one `nvcc`
     process per source, all started together. Returns each library's
-    `ptxas -v` report (registers, shared memory, spills); raises with the
-    compiler's output if any build fails."""
+    `ptxas -v` report (registers, shared memory, spills) and records in
+    NVCC_SECONDS each compiled source's seconds from the common start to
+    its nvcc's end; raises with the compiler's output if any build
+    fails."""
     names = list(names or SOURCES)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     reports = {}
+    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
             reports[name] = "(cached)"
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = tempfile.TemporaryFile("w+")    # a pipe could fill and block
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+                       log, tmp, out)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            failed.append(f"--- nvcc {SOURCES[name]} (rc {proc.returncode})"
-                          f"\n{log}")
-            continue
-        os.replace(tmp, out)          # atomic: concurrent builders agree
+    while len(reports) < len(names):
+        for name, (proc, log, tmp, out) in procs.items():
+            if name in reports or proc.poll() is None:
+                continue
+            NVCC_SECONDS[name] = time.perf_counter() - t0
+            log.seek(0)
+            reports[name] = log.read()
+            log.close()
+            if proc.returncode != 0:
+                failed.append(f"--- nvcc {SOURCES[name]} (rc "
+                              f"{proc.returncode})\n{reports[name]}")
+                continue
+            os.replace(tmp, out)      # atomic: concurrent builders agree
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports

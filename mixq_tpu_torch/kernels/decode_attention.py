@@ -4,7 +4,8 @@ Replaces mixq_tpu/ops/pallas/decode_attention.py::decode_attention with the
 CUDA kernel in mixq_tpu_torch/csrc/decode_attention.cu. q [B, n_q, D] bf16
 against one layer of the batch-major cache, k, v [B, S, n_kv, D] bf16 or
 int8 with per-(token, head) scales [B, S, n_kv] f32, GQA g = n_q / n_kv in
-{1, 2, 4, 8}, per-row valid lengths and first valid positions (each an int
+GROUPS (1-8; with a softcap 1, 2, 4, 8), head dims whose row is a power of
+two of 16-byte chunks or D = 96 (ROW_BYTES), per-row valid lengths and first valid positions (each an int
 or [B] int32). The recipe is the Pallas kernel's, which is `attend`'s over
 the cache: K and V widened to f32, scores = (q . k) * scale * k_scale,
 masked, a normalised softmax, p * v_scale, and the sum of p . v in f32.
@@ -48,7 +49,8 @@ in units of UNIT positions.
 `decode_attention_plain`, which is `attend` at T=1 (PyTorch ops), for CPU
 tensors. Besides its total `launches` the wrapper counts its
 launches by mode in `mode_launches`: "int8" or "bf16" (the KV type), "ring",
-"softcap" and "alibi".
+"softcap" and "alibi", and as kernel 3 does, "g3", "g5", "g6", "g7" (a
+group that is not a power of two) and "d96" (head dim 96).
 """
 from __future__ import annotations
 
@@ -59,10 +61,13 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from mixq_tpu_torch.kernels import _build
+from mixq_tpu_torch.kernels.flash_decode import (GROUPS, ROW_BYTES,
+                                                 SHAPE_MODES,
+                                                 SOFTCAP_GROUPS,
+                                                 count_shape_modes)
 
 SOURCE = "mixq_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "mixq_tpu/ops/pallas/decode_attention.py:85"
-GROUPS = (1, 2, 4, 8)
 # The kernel against its plain version: two bf16 ulps of |y| plus this
 # much. Both sides compute in f32 from the same widened operands and round
 # once to bf16, so they differ by the f32 summation order (tensor-core dots,
@@ -233,8 +238,11 @@ def _decode(q, k, v, kv_len, k_scale, v_scale, kv_start, ring, scale,
         raise ValueError(f"shapes q {tuple(q.shape)} / k {tuple(k.shape)}: "
                          f"need matching B, D and n_q/n_kv in {GROUPS}")
     esize = 1 if quantized else 2
-    if D * esize not in (16, 32, 64, 128, 256, 512):
+    if D * esize not in ROW_BYTES:
         raise ValueError(f"head dim {D} not supported for {kv_dtype}")
+    if softcap and n_q // n_kv not in SOFTCAP_GROUPS:
+        raise ValueError(f"a softcap needs n_q/n_kv in {SOFTCAP_GROUPS}, "
+                         f"not {n_q // n_kv}")
     dev = q.device
     _build.require(q, torch.bfloat16, (B, n_q, D), "q", dev)
     for t, name in ((k, "k"), (v, "v")):
@@ -283,9 +291,11 @@ def _decode(q, k, v, kv_len, k_scale, v_scale, kv_start, ring, scale,
         modes["softcap"] += 1
     if alibi_slopes is not None:
         modes["alibi"] += 1
+    count_shape_modes(modes, g, D)
     return out
 
 
 decode_attention.launches = 0
 decode_attention.mode_launches = {"int8": 0, "bf16": 0, "ring": 0,
-                                  "softcap": 0, "alibi": 0}
+                                  "softcap": 0, "alibi": 0,
+                                  **dict.fromkeys(SHAPE_MODES, 0)}

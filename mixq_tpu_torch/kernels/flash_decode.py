@@ -41,7 +41,9 @@ row's slots between the ranks, as the kernel computes it.
 the unit of the kernel's tolerance against the plain version on a peaked
 softmax.
 Besides its total `launches`, the wrapper counts its softcap and ALiBi
-launches in `mode_launches["softcap"]` and `mode_launches["alibi"]`.
+launches in `mode_launches["softcap"]` and `mode_launches["alibi"]`, its
+launches at a group that is not a power of two in `mode_launches["g3"]`,
+"g5", "g6" and "g7", and at head dim 96 in `mode_launches["d96"]`.
 """
 from __future__ import annotations
 
@@ -59,7 +61,17 @@ REPLACES = "mixq_tpu/ops/pallas/flash_decode.py:442"
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 SMEM_LIMIT = 227 * 1024          # H100 dynamic shared memory per block
 LAUNCH_SMEM = 226 * 1024         # a launch: room left for static smem
-GROUPS = (1, 2, 4, 8)
+# the GQA groups n_q / n_kv the kernel is built for; with a softcap only
+# the power-of-two ones (no family with a softcap has another group)
+GROUPS = (1, 2, 3, 4, 5, 6, 7, 8)
+SOFTCAP_GROUPS = (1, 2, 4, 8)
+# the groups that are not a power of two, each counted as a mode of its
+# own (mode_launches["g7"], ...), as is the head dim 96 ("d96") in both
+# attention kernels
+GROUP_MODES = (3, 5, 6, 7)
+# the bytes of one cache row (D * itemsize) it reads in whole 16-byte
+# chunks: the powers of two, and 96 / 192 (D = 96, Phi-3)
+ROW_BYTES = (16, 32, 64, 96, 128, 192, 256, 512)
 # the kernel's shape (csrc/flash_decode.cu): warps a block, the cluster
 # sizes R it is planned at, the blocks an SM holds for the default cluster
 # table (the card's own table replaces it)
@@ -206,9 +218,19 @@ def unroll(ring: bool) -> int:
     return 2 if ring else 4
 
 
+def row_lanes(row_bytes: int) -> int:
+    """Lanes a cache row takes (csrc/cp_async.cuh::pow2_chunks): its
+    16-byte chunks rounded up to a power of two."""
+    n = 1
+    while n < row_bytes // 16:
+        n *= 2
+    return n
+
+
 def rows_per_step(D: int, kv_itemsize: int) -> int:
-    """Cache rows a warp reads at once: one 16-byte chunk a lane."""
-    return 32 // (D * kv_itemsize // 16)
+    """Cache rows a warp reads at once: one 16-byte chunk a lane, a row on
+    row_lanes lanes."""
+    return 32 // row_lanes(D * kv_itemsize)
 
 
 def rank_bounds(start: int, length: int, unit: int,
@@ -256,9 +278,10 @@ def _row_smem(g: int, S: int, D: int) -> int:
 
 
 def flash_decode_supported(g: int, S: int, D: int, kv_itemsize: int) -> bool:
-    """Whether the kernel takes these shapes: a head dim it reads in whole
-    16-byte chunks, and a whole row's scores in shared memory."""
-    return (D * kv_itemsize in (16, 32, 64, 128, 256, 512)
+    """Whether the kernel takes these shapes: a group it is built for, a
+    head dim it reads in whole 16-byte chunks, and a whole row's scores in
+    shared memory."""
+    return (g in GROUPS and D * kv_itemsize in ROW_BYTES
             and _row_smem(g, S, D) <= SMEM_LIMIT)
 
 
@@ -400,12 +423,15 @@ def _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap,
         raise ValueError(f"shapes q {tuple(q.shape)} / k {tuple(k.shape)}: "
                          f"need matching B, D and n_q/n_kv in {GROUPS}")
     esize = 1 if quantized else 2
-    if D * esize not in (16, 32, 64, 128, 256, 512):
+    if D * esize not in ROW_BYTES:
         raise ValueError(f"head dim {D} not supported for {kv_dtype}")
     g = n_q // n_kv
     dev = q.device
     if softcap < 0:
         raise ValueError(f"softcap {softcap} must be >= 0 (0: none)")
+    if softcap and g not in SOFTCAP_GROUPS:
+        raise ValueError(f"a softcap needs n_q/n_kv in {SOFTCAP_GROUPS}, "
+                         f"not {g}")
     if (q.dtype != torch.bfloat16 or not q.is_contiguous()
             or q.data_ptr() % 16):
         raise ValueError("q must be a contiguous, 16-byte aligned bf16 "
@@ -468,8 +494,20 @@ def _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap,
         modes["softcap"] += 1
     if alibi_slopes is not None:
         modes["alibi"] += 1
+    count_shape_modes(modes, g, D)
     return out
 
 
+def count_shape_modes(modes: dict, g: int, D: int) -> None:
+    """Counts a launch at a group that is not a power of two, and at head
+    dim 96, in a wrapper's mode_launches."""
+    if g in GROUP_MODES:
+        modes[f"g{g}"] += 1
+    if D == 96:
+        modes["d96"] += 1
+
+
+SHAPE_MODES = tuple(f"g{g}" for g in GROUP_MODES) + ("d96",)
 flash_decode_attention.launches = 0
-flash_decode_attention.mode_launches = {"softcap": 0, "alibi": 0}
+flash_decode_attention.mode_launches = {
+    "softcap": 0, "alibi": 0, **dict.fromkeys(SHAPE_MODES, 0)}

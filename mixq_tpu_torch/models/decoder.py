@@ -4,7 +4,11 @@ mixq_tpu/models/decoder.py).
 A model is a plain tensor container (`DecoderParams`) plus `forward`; the
 per-linear precision policy and the decode-attention choice are a static
 `DecoderSpecs`. Ported: the llama family (RMSNorm, gated SiLU MLP, GQA,
-unscaled neox RoPE, or ALiBi with rope style "none": Baichuan-13B),
+neox RoPE with HF's linear, llama3 (Llama-3.1) or longrope (phi3) scaling
+and partial rotary dims, or ALiBi with rope style "none": Baichuan-13B),
+qwen2 (q/k/v bias), qwen3 (QK-norm: a per-head RMSNorm on q and k before
+RoPE), phi3 (packed q/k/v and gate/up at load, head dim 96), gemma (the
+embedding multiplier, the GeGLU MLP, (1 + w) norms folded at load),
 mistral (a uniform sliding window) and gemma2 (the
 embedding multiplier, post-attention and post-FFW norms, the GeGLU MLP with
 the tanh-GELU fused into the gate GEMM, the query_pre_attn_scalar score
@@ -53,8 +57,9 @@ cache `attend` then takes the [B, T] query positions (JAX's jnp path, f32),
 on the head-major cache kernel 3 runs once per verify token t at per-row
 length slot_lengths + t + 1 (JAX's one flash call per t over its tail,
 decoder.py:611-646; the port reads its main cache). The stacked `lax.scan`
-runtime, falcon's pre-scaled ALiBi slopes, rope scaling and the other
-families raise NotImplementedError (ROADMAP.md Queue A).
+runtime, LayerNorm, the parallel block, non-gated MLPs and MLP bias,
+gptj-style RoPE and falcon's pre-scaled ALiBi slopes (ROADMAP.md Queue A
+item 6) and MoE blocks (item 7) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -84,7 +89,7 @@ class AttnParams(NamedTuple):
     wk: MixLinearParams            # [H, nkv*hd]
     wv: MixLinearParams            # [H, nkv*hd]
     wo: MixLinearParams            # [nq*hd, H]
-    q_norm: Optional[torch.Tensor] = None   # qwen3 QK-norm (not ported)
+    q_norm: Optional[torch.Tensor] = None   # [hd] qwen3 QK-norm scales
     k_norm: Optional[torch.Tensor] = None
 
 
@@ -151,7 +156,14 @@ GATE_FUSE = {"silu": "silu", "gelu": "gelu", "gelu_new": "gelu_new",
               "gelu_pytorch_tanh": "gelu_new"}
 
 
+# the rope scalings forward builds (HF's rope_scaling through config_from_hf)
+ROPE_SCALINGS = (None, "linear", "llama3", "longrope")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError on the features the port does not run:
+    LayerNorm, the parallel block, non-gated MLPs, MLP bias, gptj-style
+    RoPE and falcon's ALiBi (ROADMAP.md Queue A item 6), MoE (item 7)."""
     gated = (cfg.gated_mlp if cfg.gated_mlp is not None
              else cfg.hidden_act == "silu")
     unsupported = {
@@ -159,23 +171,44 @@ def _check_supported(cfg: ModelConfig) -> None:
         "parallel_attn_mlp": cfg.parallel_attn_mlp,
         # ALiBi models rotate nothing (rope style "none")
         "rope_style": cfg.rope_style != ("none" if cfg.alibi else "neox"),
-        "rotary_dim": cfg.rotary_dim not in (None, cfg.head_dim_),
-        "qk_norm": cfg.qk_norm,
+        # partial rotary: an even part of the head (neox halves)
+        "rotary_dim": cfg.rotary_dim is not None and not (
+            0 < cfg.rotary_dim <= cfg.head_dim_ and cfg.rotary_dim % 2 == 0),
         "num_local_experts": cfg.num_local_experts > 0,
         "gated_mlp": not gated,
         "hidden_act": cfg.hidden_act not in GATE_FUSE,
-        "rope_scaling_type": cfg.rope_scaling_type is not None,
+        "rope_scaling_type": cfg.rope_scaling_type not in ROPE_SCALINGS,
         # falcon's slopes are pre-scaled by 1/sqrt(head_dim)
         # (mixq_tpu/models/decoder.py:489-494)
         "alibi": cfg.alibi and cfg.model_type == "falcon",
-        "attention_bias": cfg.attention_bias,
         "mlp_bias": cfg.mlp_bias,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"model features not ported yet: {bad} (llama, baichuan, "
-            "mistral and gemma2 families only)")
+            f"model features not ported yet: {bad} (ROADMAP.md Queue A "
+            "item 6: LayerNorm, the parallel block, non-gated MLPs with "
+            "bias, gptj-style RoPE, falcon; item 7: MoE)")
+
+
+def rope_scaling(cfg: ModelConfig, max_seq: int) -> Optional[tuple]:
+    """rope_cos_sin's `scaling` for a cache of `max_seq` positions, as
+    mixq_tpu/models/decoder.py:430-456 builds it: longrope takes its long
+    factors when the cache reaches past the pretrain length by more than
+    256 positions (JAX's slack for its engines' bucketing), else the short
+    ones."""
+    kind = cfg.rope_scaling_type
+    if kind == "llama3":
+        return ("llama3", cfg.rope_scaling_factor, cfg.rope_low_freq_factor,
+                cfg.rope_high_freq_factor, cfg.rope_original_max_position)
+    if kind == "linear":
+        return ("linear", cfg.rope_scaling_factor)
+    if kind == "longrope":
+        use_long = max_seq > cfg.rope_original_max_position + 256
+        return ("longrope",
+                cfg.rope_long_factor if use_long else cfg.rope_short_factor,
+                cfg.rope_attention_factor)
+    return None
 
 
 def _shares_act(spec: LinearSpec) -> bool:
@@ -240,8 +273,12 @@ def block_core(
     q = _linear(bp.attn.wq, h_ln, act, specs.wqkv).reshape(B, T, n_q, hd)
     k = _linear(bp.attn.wk, h_ln, act, specs.wqkv).reshape(B, T, n_kv, hd)
     v = _linear(bp.attn.wv, h_ln, act, specs.wqkv).reshape(B, T, n_kv, hd)
-    q = apply_rope(q, cos, sin, cfg.rope_style)
-    k = apply_rope(k, cos, sin, cfg.rope_style)
+    if bp.attn.q_norm is not None:
+        # qwen3's QK-norm: a per-head RMSNorm over head_dim before RoPE
+        q = rmsnorm(q, bp.attn.q_norm, cfg.rms_norm_eps)
+        k = rmsnorm(k, bp.attn.k_norm, cfg.rms_norm_eps)
+    q = apply_rope(q, cos, sin, cfg.rope_style, cfg.rotary_dim)
+    k = apply_rope(k, cos, sin, cfg.rope_style, cfg.rotary_dim)
     attn = kv_apply(q, k, v).reshape(B, T, n_q * hd)
     # o_proj quantizes its own input (the reference's unfused call)
     attn_out = mixed_linear(bp.attn.wo, attn, specs.wo)
@@ -392,8 +429,11 @@ def forward(
             rope_pos = q_slot
         kv_len = (cache.length + T).expand(B).contiguous()    # [B] int32
         slots = cache.slots(T, ring)
-    # ALiBi models rotate nothing (apply_rope's style "none")
-    cos, sin = (rope_cos_sin(rope_pos, cfg.head_dim_, cfg.rope_theta)
+    # ALiBi models rotate nothing (apply_rope's style "none"); partial
+    # rotary models take tables of their rotary dim
+    cos, sin = (rope_cos_sin(rope_pos, cfg.rotary_dim or cfg.head_dim_,
+                             cfg.rope_theta,
+                             rope_scaling(cfg, cache.max_seq))
                 if cfg.rope_style != "none" else (None, None))
     # gemma2's attention (None elsewhere)
     attn_scale = (cfg.query_pre_attn_scalar ** -0.5
@@ -523,7 +563,9 @@ def init_decoder_params(
     activation, and so do up/gate; o and down have their own. FP16 and
     WEIGHT_ONLY linears get none. JAX's init makes no outlier sets, so this
     is the port's way to run the outlier term of the GEMM on random
-    weights."""
+    weights; likewise a model with `attention_bias` (qwen2) gets N(0,
+    0.02) q/k/v biases, and a qk_norm model (qwen3) unit QK-norm scales,
+    as JAX's init makes them."""
     _check_supported(cfg)
     specs = specs or DecoderSpecs.fp16()
     if generator is None:
@@ -551,11 +593,16 @@ def init_decoder_params(
     for _ in range(cfg.num_hidden_layers):
         s_qkv, s_o = oset(H, specs.wqkv), oset(n_q * hd, specs.wo)
         s_up, s_down = oset(H, specs.up), oset(I, specs.down)
+        wq, wk, wv = (normal(H, n * hd) for n in (n_q, n_kv, n_kv))
+        bias = ((normal(n_q * hd), normal(n_kv * hd), normal(n_kv * hd))
+                if cfg.attention_bias else (None,) * 3)
         attn = AttnParams(
-            wq=from_float(normal(H, n_q * hd), specs.wqkv, outlier_set=s_qkv),
-            wk=from_float(normal(H, n_kv * hd), specs.wqkv, outlier_set=s_qkv),
-            wv=from_float(normal(H, n_kv * hd), specs.wqkv, outlier_set=s_qkv),
+            wq=from_float(wq, specs.wqkv, bias=bias[0], outlier_set=s_qkv),
+            wk=from_float(wk, specs.wqkv, bias=bias[1], outlier_set=s_qkv),
+            wv=from_float(wv, specs.wqkv, bias=bias[2], outlier_set=s_qkv),
             wo=from_float(normal(n_q * hd, H), specs.wo, outlier_set=s_o),
+            q_norm=ones(hd) if cfg.qk_norm else None,
+            k_norm=ones(hd) if cfg.qk_norm else None,
         )
         mlp = MLPParams(
             up=from_float(normal(H, I), specs.up, outlier_set=s_up),

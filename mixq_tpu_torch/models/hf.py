@@ -9,16 +9,20 @@ mixq_tpu/models/hf.py).
 
 Ported: `TensorSource` over a dict, a torch state dict or an HF
 safetensors directory (read by the port's own utils/safetensors_io.py),
-`config_from_hf`, `load_hf_config`, `load_model`, and the weight-name
-schemes for the llama, baichuan, mistral and gemma2 families, and
-`params_from_source` for their dense blocks (separate q/k/v, or
-baichuan's fused `W_pack` split at load, gated MLP, gemma's +1 norm
-offset, gemma2's post-norms, a tied head). Every weight is quantized where
+`config_from_hf` with HF's linear, llama3 and (phi3) longrope rope
+scaling, `load_hf_config`, `load_model`, and the weight-name schemes of
+the RMSNorm families (PORTED_FAMILIES: llama, aquila, baichuan, mistral,
+qwen2, qwen3, phi3, gemma, gemma2), and `params_from_source` for their
+dense blocks (separate q/k/v with qwen2's bias, or baichuan's fused
+`W_pack` and phi3's `qkv_proj` split at load; phi3's packed `gate_up_proj`
+split gate first; qwen3's q_norm / k_norm; gated MLP; gemma's +1 norm
+offset; gemma2's post-norms; a tied head). Every weight is quantized where
 its tensor lies or on `device`: a state dict on the card is quantized on
 the card, one tensor at a time, never through numpy; a tensor goes to
-`device` in its stored dtype and is widened there. The other families,
-falcon's interleaved query_key_value, MoE blocks and rope scaling are
-still to be ported (ROADMAP.md Queue A); they raise.
+`device` in its stored dtype and is widened there. The other families
+(falcon, gptj, opt, chatglm, starcoder2: ROADMAP.md Queue A item 6) and
+the MoE ones (mixtral, qwen2_moe: item 7) raise NotImplementedError; yarn,
+dynamic and other rope scalings raise ValueError, as in JAX.
 """
 from __future__ import annotations
 
@@ -38,38 +42,83 @@ from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
                                              from_float)
 from mixq_tpu_torch.utils.safetensors_io import SafeTensorsFile
 
-PORTED_FAMILIES = ("llama", "baichuan", "mistral", "gemma2")
+PORTED_FAMILIES = ("llama", "aquila", "baichuan", "mistral", "qwen2",
+                   "qwen3", "phi3", "gemma", "gemma2")
 
 
 # ---------------------------------------------------------------------------
 # Config mapping
 # ---------------------------------------------------------------------------
 
-def _check_rope_scaling(hf: Dict) -> None:
-    """JAX maps "linear" and "llama3" rope scaling and raises on any other
-    type; the port's RoPE is unscaled, so every scaled rope raises."""
+def rope_scaling_kw(hf: Dict) -> Dict:
+    """HF `rope_scaling` -> ModelConfig fields (JAX's rope_scaling_kw,
+    mixq_tpu/models/hf.py:49-72): "linear" and "llama3" map; "default" and
+    None pass through; any other type (yarn, dynamic NTK) raises
+    ValueError rather than compute wrong positions. phi3's longrope is
+    config_from_hf's own branch."""
     rs = hf.get("rope_scaling") or None
     if not rs:
-        return
+        return {}
     rtype = rs.get("rope_type", rs.get("type", "default"))
     if rtype == "default":
-        return
-    if rtype in ("linear", "llama3"):
-        raise NotImplementedError(
-            f"rope_scaling type {rtype!r} is not ported (unscaled rope only)")
+        return {}
+    if rtype == "linear":
+        return {"rope_scaling_type": "linear",
+                "rope_scaling_factor": float(rs["factor"])}
+    if rtype == "llama3":
+        return {
+            "rope_scaling_type": "llama3",
+            "rope_scaling_factor": float(rs["factor"]),
+            "rope_low_freq_factor": float(rs["low_freq_factor"]),
+            "rope_high_freq_factor": float(rs["high_freq_factor"]),
+            "rope_original_max_position": int(
+                rs["original_max_position_embeddings"]),
+        }
     raise ValueError(f"unsupported rope_scaling type {rtype!r}")
+
+
+def _phi3_rope_kw(hf: Dict, common: Dict) -> Dict:
+    """phi3's partial rotary factor and longrope (or its legacy alias
+    "su") as JAX maps them (mixq_tpu/models/hf.py:105-140): the attention
+    factor from the config, else sqrt(1 + ln(max_pos / orig) / ln(orig))
+    when the context is extended."""
+    import math
+
+    kw = {}
+    head_dim = common["hidden_size"] // common["num_attention_heads"]
+    prf = float(hf.get("partial_rotary_factor", 1.0))
+    if prf < 1.0:
+        kw["rotary_dim"] = int(head_dim * prf)
+    rs = hf.get("rope_scaling") or None
+    if rs and rs.get("rope_type", rs.get("type")) in ("longrope", "su"):
+        orig = int(hf.get("original_max_position_embeddings",
+                          common["max_position_embeddings"]))
+        factor = common["max_position_embeddings"] / orig
+        att = rs.get("attention_factor")
+        if att is None:
+            att = (1.0 if factor <= 1.0 else
+                   math.sqrt(1 + math.log(factor) / math.log(orig)))
+        kw.update({
+            "rope_scaling_type": "longrope",
+            "rope_short_factor": tuple(float(f) for f in rs["short_factor"]),
+            "rope_long_factor": tuple(float(f) for f in rs["long_factor"]),
+            "rope_original_max_position": orig,
+            "rope_attention_factor": float(att)})
+    elif rs:
+        kw.update(rope_scaling_kw(hf))
+    return kw
 
 
 def config_from_hf(hf: Dict) -> ModelConfig:
     """Map an HF config dict to ModelConfig, field for field as JAX's
-    config_from_hf does, for the llama, baichuan, mistral and gemma2
-    families."""
+    config_from_hf does, for PORTED_FAMILIES."""
     mt = hf.get("model_type", "llama")
     if mt not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"config_from_hf: model_type {mt!r} is not ported "
-            f"({', '.join(PORTED_FAMILIES)} only)")
-    _check_rope_scaling(hf)
+            f"config_from_hf: model_type {mt!r} is not ported (have: "
+            f"{', '.join(PORTED_FAMILIES)}; falcon, gptj, opt, chatglm and "
+            "starcoder2 are ROADMAP.md Queue A item 6, mixtral and "
+            "qwen2_moe item 7)")
     common = dict(
         model_type=mt,
         vocab_size=hf.get("vocab_size", 32000),
@@ -83,6 +132,46 @@ def config_from_hf(hf: Dict) -> ModelConfig:
         intermediate_size=hf["intermediate_size"],
     )
     n_kv = hf.get("num_key_value_heads", common["num_attention_heads"])
+    if mt == "qwen3":
+        return ModelConfig(
+            **common,
+            num_key_value_heads=n_kv,
+            head_dim=hf.get("head_dim"),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+            rope_theta=hf.get("rope_theta", 1e6),
+            attention_bias=hf.get("attention_bias", False),
+            sliding_window=(hf.get("sliding_window")
+                            if hf.get("use_sliding_window", False) else None),
+            qk_norm=True,
+            **rope_scaling_kw(hf),
+        )
+    if mt == "phi3":
+        return ModelConfig(
+            **common,
+            num_key_value_heads=n_kv,
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            sliding_window=hf.get("sliding_window"),
+            **_phi3_rope_kw(hf, common),
+        )
+    if mt == "gemma":
+        # llama naming; sqrt(hidden) embedding scale, GeGLU MLP, (1 + w)
+        # norms (folded at load), explicit head_dim, always a tied head;
+        # hidden_act before the deprecated hidden_activation, as the
+        # installed transformers' GemmaMLP reads them (JAX's rule,
+        # mixq_tpu/models/hf.py:224-245)
+        return ModelConfig(
+            **{**common, "tie_word_embeddings": True},
+            num_key_value_heads=n_kv,
+            head_dim=hf.get("head_dim", 256),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            hidden_act=hf.get("hidden_act")
+            or hf.get("hidden_activation") or "gelu_pytorch_tanh",
+            embed_multiplier=float(common["hidden_size"]) ** 0.5,
+            gated_mlp=True,
+            **rope_scaling_kw(hf),
+        )
     if mt == "gemma2":
         return ModelConfig(
             **{**common, "tie_word_embeddings": True},
@@ -100,7 +189,9 @@ def config_from_hf(hf: Dict) -> ModelConfig:
             final_logit_softcap=hf.get("final_logit_softcapping"),
             sliding_window=hf.get("sliding_window", 4096),
             sliding_window_pattern=2,   # even layers local, odd global
+            **rope_scaling_kw(hf),
         )
+    # llama, aquila, baichuan, mistral, qwen2 (qwen2: q/k/v bias).
     # Baichuan-13B takes ALiBi in place of rotary: JAX's rule
     # (mixq_tpu/models/hf.py:177-200), 40 layers or an explicit
     # position_embedding "ALIBI"
@@ -114,12 +205,13 @@ def config_from_hf(hf: Dict) -> ModelConfig:
         rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
         rope_theta=hf.get("rope_theta", 10000.0),
         hidden_act=hf.get("hidden_act", "silu"),
-        attention_bias=hf.get("attention_bias", False),
+        attention_bias=(mt == "qwen2") or hf.get("attention_bias", False),
         sliding_window=(hf.get("sliding_window")
                         if hf.get("use_sliding_window", mt == "mistral")
                         else None),
         alibi=alibi,
         rope_style="none" if alibi else "neox",
+        **rope_scaling_kw(hf),
     )
 
 
@@ -195,7 +287,20 @@ _LLAMA = dict(
 )
 _SCHEMES: Dict[str, Dict[str, Optional[str]]] = {
     "llama": _LLAMA,
+    "aquila": _LLAMA,
     "mistral": _LLAMA,
+    # qwen2's q/k/v bias is read beside each weight
+    "qwen2": _LLAMA,
+    "qwen3": dict(_LLAMA, q_norm="model.layers.{i}.self_attn.q_norm.weight",
+                  k_norm="model.layers.{i}.self_attn.k_norm.weight"),
+    # llama naming, a tied head (JAX's scheme, mixq_tpu/models/hf.py:473)
+    "gemma": _LLAMA,
+    # q|k|v packed, split by rows at load; gate|up packed, gate first
+    # (mixq_tpu/models/hf.py:504-517)
+    "phi3": dict(_LLAMA, q=None, k=None, v=None,
+                 qkv="model.layers.{i}.self_attn.qkv_proj", gate=None,
+                 up="model.layers.{i}.mlp.gate_up_proj",
+                 packed_gate_up=True),
     # one fused [q | k | v] tensor (JAX's scheme, mixq_tpu/models/hf.py:
     # 384-396)
     "baichuan": dict(_LLAMA, q=None, k=None, v=None,
@@ -215,7 +320,9 @@ def scheme_for(model_type: str) -> Dict[str, Optional[str]]:
     if model_type not in _SCHEMES:
         raise NotImplementedError(
             f"no weight scheme for model_type {model_type!r} in the port "
-            f"({', '.join(PORTED_FAMILIES)} only)")
+            f"(have: {', '.join(PORTED_FAMILIES)}; falcon, gptj, opt, "
+            "chatglm and starcoder2 are ROADMAP.md Queue A item 6, mixtral "
+            "and qwen2_moe item 7)")
     return _SCHEMES[model_type]
 
 
@@ -242,10 +349,11 @@ def _linear_from_src(src: TensorSource, prefix: str, spec: LinearSpec,
 def _qkv_from_src(src: TensorSource, scheme, i: int, cfg: ModelConfig,
                   spec: LinearSpec, oset: Optional[Q.OutlierSet], device):
     """(wq, wk, wv), sharing one outlier set (they share one quantized
-    activation): from separate q/k/v tensors, or from a fused [q | k | v]
-    tensor (baichuan's W_pack) split by rows at n_q*hd and n_q*hd +
-    n_kv*hd, its bias too (JAX's _qkv_from_src, mixq_tpu/models/hf.py:
-    550-609, its non-falcon branch)."""
+    activation): from separate q/k/v tensors (with qwen2's bias), or from
+    a fused [q | k | v] tensor (baichuan's W_pack, phi3's qkv_proj) split
+    by rows at n_q*hd and n_q*hd + n_kv*hd, its bias too (JAX's
+    _qkv_from_src, mixq_tpu/models/hf.py:550-609, its non-falcon
+    branch)."""
     if not scheme.get("qkv"):
         return tuple(_linear_from_src(src, scheme[n].format(i=i), spec,
                                       oset, device) for n in ("q", "k", "v"))
@@ -272,7 +380,9 @@ def params_from_source(
     """Convert an HF state dict into DecoderParams on `device`, quantizing
     per `specs`, as JAX's params_from_source does for dense blocks:
     weights widened to f32 and transposed to [K, N], norm scales in f32
-    (gemma's +1 offset folded in), embed and head in bf16 (JAX's default
+    (gemma's +1 offset folded in; qwen3's q_norm / k_norm as stored),
+    phi3's packed [gate; up] split at I, gate first (JAX's
+    mixq_tpu/models/hf.py:706-710), embed and head in bf16 (JAX's default
     store dtype), the head None when tied.
 
     outlier_sets: per-layer sets keyed "{i}.wqkv", "{i}.wo", "{i}.up"
@@ -285,33 +395,49 @@ def params_from_source(
     # into the stored scale so the runtime norm stays uniform
     norm_off = 1.0 if cfg.model_type in ("gemma", "gemma2") else 0.0
 
-    def norm_vec(key, i=None):
+    def vec(key, i=None):
         if not key:
             return None
         name = key.format(i=i) if i is not None else key
-        if not src.has(name):
-            return None
-        return _f32(src, name, device) + norm_off
+        return _f32(src, name, device) if src.has(name) else None
+
+    def norm_vec(key, i=None):
+        v = vec(key, i)
+        return None if v is None else v + norm_off
 
     def linear(slot, spec, oset, i):
         return _linear_from_src(src, scheme[slot].format(i=i), spec, oset,
                                 device)
 
+    def gate_up(i, oset):
+        """(gate, up), sharing one outlier set: two tensors, or one
+        packed [gate; up] split at I."""
+        if not scheme.get("packed_gate_up"):
+            return (linear("gate", specs.gate, oset, i),
+                    linear("up", specs.up, oset, i))
+        w = _f32(src, scheme["up"].format(i=i) + ".weight", device)
+        I = cfg.intermediate_size
+        return (from_float(w[:I].t().contiguous(), specs.gate,
+                           outlier_set=oset),
+                from_float(w[I:].t().contiguous(), specs.up,
+                           outlier_set=oset))
+
     blocks = []
     for i in range(cfg.num_hidden_layers):
         wq, wk, wv = _qkv_from_src(src, scheme, i, cfg, specs.wqkv,
                                    osets.get(f"{i}.wqkv"), device)
-        up_oset = osets.get(f"{i}.up")
+        gate, up = gate_up(i, osets.get(f"{i}.up"))
         blocks.append(BlockParams(
             ln1_scale=norm_vec(scheme["ln1"], i),
             ln1_bias=None,
             attn=AttnParams(wq=wq, wk=wk, wv=wv,
                             wo=linear("o", specs.wo, osets.get(f"{i}.wo"),
-                                      i)),
+                                      i),
+                            q_norm=vec(scheme.get("q_norm"), i),
+                            k_norm=vec(scheme.get("k_norm"), i)),
             ln2_scale=norm_vec(scheme.get("ln2"), i),
             ln2_bias=None,
-            mlp=MLPParams(up=linear("up", specs.up, up_oset, i),
-                          gate=linear("gate", specs.gate, up_oset, i),
+            mlp=MLPParams(up=up, gate=gate,
                           down=linear("down", specs.down,
                                       osets.get(f"{i}.down"), i)),
             post_attn_norm_scale=norm_vec(scheme.get("post_attn"), i),

@@ -1,6 +1,7 @@
 """Transformer building blocks (mirrors mixq_tpu/models/layers.py).
 
-Ported: rmsnorm, rmsnorm_quant (kernel 1 on the card), unscaled neox RoPE,
+Ported: rmsnorm, rmsnorm_quant (kernel 1 on the card), neox RoPE with
+HF's linear, llama3 and longrope scaling and partial rotary dims,
 the KV cache in JAX's two layouts (batch-major, with ring writes for
 sliding-window models, and head-major), written in place, and `attend`, the
 masked attention that serves prefill (plain PyTorch, as JAX computes it in
@@ -14,7 +15,8 @@ dynamic-offset write into the big head-major cache is a whole-array pass on
 the TPU. On the card a write into a [.., S, D] stripe is an ordinary strided
 copy, so this cache is written in place and keeps no tail; results, not
 layout, are held against the reference. Layernorm, rope scaling and
-`attend_chunked` are still to be ported (ROADMAP.md Queue A). `attend`
+`attend_chunked` are still to be ported, and so is gptj-style RoPE
+(ROADMAP.md Queue A item 6). `attend`
 takes gemma2's score scale, softcap and (alternating) sliding window, and
 ALiBi's bias (`alibi_slopes`; Baichuan-13B, whose rope style "none" is the
 identity rotation).
@@ -30,7 +32,7 @@ from mixq_tpu_torch.kernels.rmsnorm_quant import fused_rmsnorm_quant
 from mixq_tpu_torch.ops import quant as Q
 from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
                                              QuantizedAct)
-from mixq_tpu_torch.utils.arith import true_div
+from mixq_tpu_torch.utils.arith import constant, true_div
 from mixq_tpu_torch.utils.shapes import round_up
 
 
@@ -69,35 +71,92 @@ def rmsnorm_quant(
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
 
-def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float = 10000.0
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float = 10000.0,
+                 scaling: Optional[tuple] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 cos/sin tables for the given positions: ([..., dim/2] x 2).
-    Unscaled rope only (rope_scaling is still to be ported)."""
+    """f32 cos/sin tables for the given positions: ([..., dim/2] x 2), in
+    the operation order of mixq_tpu/models/layers.py:80-124. `scaling` is
+    HF's rope_scaling as the decoder builds it (None, or):
+      ("linear", f)                      every frequency divided by f;
+      ("llama3", f, low, high, orig)     Llama-3.1+: wavelengths past
+          orig / low divided by f, under orig / high kept, interpolated
+          between (transformers' _compute_llama3_parameters);
+      ("longrope", factors, att)         phi3: frequency i divided by
+          factors[i], both tables scaled by the attention factor att.
+    Python numbers enter as f32, as JAX's weak types do, and every
+    division is an f32 division."""
+    dev = positions.device
+    f32 = lambda v: constant(float(v), torch.float32, dev)
     exps = true_div(torch.arange(0, dim, 2, dtype=torch.float32,
-                                 device=positions.device), dim)
+                                 device=dev), dim)
     inv_freq = 1.0 / (theta ** exps)
+    att = None
+    if scaling is not None:
+        kind = scaling[0]
+        if kind == "linear":
+            inv_freq = true_div(inv_freq, scaling[1])
+        elif kind == "llama3":
+            import math
+
+            _, factor, low_f, high_f, orig = scaling
+            low_wl, high_wl = orig / low_f, orig / high_f
+            wavelen = f32(2.0 * math.pi) / inv_freq
+            scaled = true_div(inv_freq, factor)
+            smooth = true_div(f32(orig) / wavelen - f32(low_f),
+                              high_f - low_f)
+            smoothed = (f32(1.0) - smooth) * scaled + smooth * inv_freq
+            inv_freq = torch.where(
+                wavelen > f32(low_wl), scaled,
+                torch.where(wavelen < f32(high_wl), inv_freq, smoothed))
+        elif kind == "longrope":
+            _, factors, att = scaling
+            inv_freq = inv_freq / _rope_factors(tuple(factors), dev)
+        else:
+            raise ValueError(f"unsupported rope scaling {kind}")
     angles = positions.float()[..., None] * inv_freq
+    if att is not None:
+        return torch.cos(angles) * f32(att), torch.sin(angles) * f32(att)
     return torch.cos(angles), torch.sin(angles)
 
 
+@functools.lru_cache(maxsize=16)
+def _rope_factors(factors: Tuple[float, ...], device: torch.device
+                  ) -> torch.Tensor:
+    """longrope's per-frequency factors as an f32 tensor on `device`, made
+    once per list and device (as alibi_slopes is: a CUDA graph of the
+    decode step cannot hold the host-to-device copy). Only read."""
+    with torch.inference_mode(False):
+        return torch.tensor(factors, dtype=torch.float32, device=device)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-               style: str = "neox") -> torch.Tensor:
-    """Rotate-half ('neox') rope on x [B, T, H, D] with cos/sin [T, D/2] or
-    [B, T, D/2]; computed in f32, returned in x.dtype. Style "none" (ALiBi
-    models) is x itself: JAX rotates by cos = 1, sin = 0
-    (mixq_tpu/models/decoder.py:455-456), which gives back x."""
+               style: str = "neox",
+               rotary_dim: Optional[int] = None) -> torch.Tensor:
+    """Rotate-half ('neox') rope on x [B, T, H, D] with cos/sin [T, rot/2]
+    or [B, T, rot/2]; computed in f32, returned in x.dtype. With
+    `rotary_dim` rot < D (partial rotary: Phi-4-mini-class phi3) only the
+    first rot values of each head rotate and the rest pass through
+    (mixq_tpu/models/layers.py:127-164). Style "none" (ALiBi models) is x
+    itself: JAX rotates by cos = 1, sin = 0
+    (mixq_tpu/models/decoder.py:455-456), which gives back x. The gptj
+    style (rotate every two) is ROADMAP.md Queue A item 6."""
     if style == "none":
         return x
     if style != "neox":
-        raise NotImplementedError(f"rope style {style!r} is not ported")
+        raise NotImplementedError(
+            f"rope style {style!r} is not ported (ROADMAP.md Queue A item 6)")
+    D = x.shape[-1]
+    rot = rotary_dim or D
     c = cos.unsqueeze(-2)
     s = sin.unsqueeze(-2)
     if c.dim() == x.dim() - 1:
         c, s = c[None], s[None]
-    xf = x.float()
+    xf = x[..., :rot].float()
     x1, x2 = torch.chunk(xf, 2, dim=-1)
-    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
-    return out.to(x.dtype)
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    if rot < D:
+        out = torch.cat([out, x[..., rot:]], dim=-1)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -164,12 +164,12 @@ def test_serving_engine_drains(hf_dirs):
 
 
 def test_unported_family_raises(hf_dirs, tmp_path):
-    d = str(tmp_path / "qwen")
+    d = str(tmp_path / "falcon")
     shutil.copytree(hf_dirs["f32"], d)
     with open(os.path.join(d, "config.json")) as f:
         hf = json.load(f)
     with open(os.path.join(d, "config.json"), "w") as f:
-        json.dump(dict(hf, model_type="qwen2"), f)
+        json.dump(dict(hf, model_type="falcon"), f)
     for call in (AutoModel.from_pretrained, AutoModel.engine):
         with pytest.raises(NotImplementedError, match="item 6"):
             call(d, device="cpu")

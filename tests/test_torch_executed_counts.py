@@ -6,10 +6,10 @@ name. Here: the demangled names the profiler gives the port's kernels (as
 an H100 run of chip_smoke.py printed them) map to the launch-count keys of
 `kernels.launch_counts()`, template arguments to modes; other kernels are
 skipped; a name of one of the port's kernels that does not parse raises;
-the keys a name cannot show (the GEMMs' epilogues, decode attention's
-ring, both attentions' ALiBi slopes) are left out. `kernels.block_events`
-keeps a card_trace window's block: the events between its two spin
-kernels (a primer's before the first are left out).
+the keys a name cannot show (the GEMMs' epilogues, decode attention's ring,
+both attentions' ALiBi slopes and head dim) are left out.
+`kernels.block_events` keeps a card_trace window's block: the events
+between its two spin kernels (a primer's before the first are left out).
 """
 import types
 
@@ -43,6 +43,17 @@ ANON = "void (anonymous namespace)::"
     (ANON + "decode_attention_kernel<2, false, true>((anonymous "
      "namespace)::Args)", ["decode_attention", "decode_attention.bf16",
                            "decode_attention.softcap"]),
+    # a group that is not a power of two is a mode of its own (head dim 96
+    # is a runtime argument: kernels.UNNAMED)
+    (ANON + "flash_decode_kernel<7, true, false>((anonymous namespace)"
+     "::Args)", ["flash_decode", "flash_decode.g7"]),
+    (ANON + "flash_decode_kernel<3, false, false>(Args)",
+     ["flash_decode", "flash_decode.g3"]),
+    (ANON + "decode_attention_kernel<7, false, false>((anonymous "
+     "namespace)::Args)", ["decode_attention", "decode_attention.bf16",
+                           "decode_attention.g7"]),
+    (ANON + "decode_attention_kernel<6, true, false>(Args)",
+     ["decode_attention", "decode_attention.int8", "decode_attention.g6"]),
     (ANON + "rmsnorm_quant_regs<512, 1>(__nv_bfloat16 const*, float "
      "const*)", ["rmsnorm_quant"]),
     (ANON + "rmsnorm_quant_loop(__nv_bfloat16 const*, float const*)",
@@ -70,7 +81,8 @@ def test_keys_are_launch_counts_keys_but_the_unnamed():
     keys = set(kernels.executed_counts([]))
     assert keys == set(kernels.launch_counts()) - kernels.UNNAMED
     assert {"mix_gemm.gelu_new", "w8a16.silu", "decode_attention.ring",
-            "decode_attention.alibi", "flash_decode.alibi"} <= kernels.UNNAMED
+            "decode_attention.alibi", "flash_decode.alibi",
+            "flash_decode.d96", "decode_attention.d96"} <= kernels.UNNAMED
     assert not kernels.UNNAMED - set(kernels.launch_counts())
 
 

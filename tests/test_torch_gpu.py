@@ -880,6 +880,12 @@ FLASH_CASES = [(nq, nkv, D, S, 0.0, None)
                                      (32, 8, 128, 512), (2, 2, 32, 64))] + [
     (4, 2, 256, 300, 50.0, 24.0 ** -0.5), (4, 2, 256, 4096, 50.0, None),
     (4, 2, 128, 200, 50.0, 144.0 ** -0.5)]
+# the RMSNorm families' groups and head dim (no softcap): Qwen2/2.5-7B's
+# 28/4 (g = 7) at S = 640, Qwen2.5-14B's 40/8 (5), Qwen2-1.5B's 12/2 (6),
+# Phi-4-mini's 24/8 (3), Phi-3's 32/32 at D = 96, and g = 7 at D = 96
+GROUP_CASES = [(28, 4, 128, 640), (40, 8, 128, 300), (12, 2, 128, 200),
+               (24, 8, 128, 130), (32, 32, 96, 640), (7, 1, 96, 200)]
+FLASH_CASES += [(nq, nkv, D, S, 0.0, None) for nq, nkv, D, S in GROUP_CASES]
 
 
 @pytest.mark.parametrize("splits", [1, 2, 4, 8])
@@ -1144,7 +1150,11 @@ DECODE_CASES = [
     (32, 8, 128, 512, False, 0.0, None), (32, 32, 128, 300, False, 0.0, None),
     (16, 8, 256, 700, False, 50.0, 256.0 ** -0.5),
     (32, 8, 128, 600, True, 0.0, None), (8, 2, 64, 200, True, 0.0, None),
-    (2, 2, 32, 64, False, 0.0, None)]
+    (2, 2, 32, 64, False, 0.0, None)] + [
+    # the RMSNorm families' groups and head dims (GROUP_CASES), and
+    # Phi-3's heads on its window's ring
+    (nq, nkv, D, S, False, 0.0, None) for nq, nkv, D, S in GROUP_CASES] + [
+    (32, 32, 96, 600, True, 0.0, None)]
 
 
 @pytest.mark.parametrize("splits", [1, 2, 4, 8])
@@ -1281,12 +1291,15 @@ def test_decode_attention_plan_launch(cuda):
 
 @pytest.mark.parametrize("nq,nkv,D,int8,cap", [
     (32, 8, 128, True, False), (32, 32, 128, False, False),
-    (16, 8, 256, True, True)])
+    (16, 8, 256, True, True), (28, 4, 128, True, False),
+    (28, 4, 128, False, False), (32, 32, 96, True, False),
+    (32, 32, 96, False, False)])
 def test_decode_attention_smem_on_served_heads(cuda, nq, nkv, D, int8, cap):
     """At the heads kernel 8 serves (Mistral-7B int8, Llama-2-7B bf16,
-    Gemma-2-9B int8 with the softcap) a block's shared memory, the
-    library's own figure, is within a launch's limit, and the card holds
-    at least 4 blocks an SM."""
+    Gemma-2-9B int8 with the softcap, Qwen2.5-7B's g = 7 and Phi-3's
+    D = 96 in both types) a block's shared memory, the library's own
+    figure, is within a launch's limit, and the card holds at least 4
+    blocks an SM."""
     from mixq_tpu_torch.kernels import decode_attention as DA
     g = nq // nkv
     assert 0 < DA.launch_smem(int8, g, D) <= 224 * 1024
@@ -1299,10 +1312,11 @@ def test_decode_attention_refusals(cuda):
     k, v, ks, vs = _batch_major(cuda, g, 2, 16, 2, 64, True)
     with pytest.raises(ValueError):                  # scales missing: bf16
         decode_attention(q, k, v, 8)                 # K expected
-    with pytest.raises(ValueError):                  # g = 3
-        decode_attention(q[:, :3].contiguous(), k[:, :, :1].contiguous(),
-                         v[:, :, :1].contiguous(), 8,
-                         ks[:, :, :1].contiguous(), vs[:, :, :1].contiguous())
+    with pytest.raises(ValueError):                  # g = 9
+        decode_attention(torch.cat([q, q, q[:, :1]], 1),
+                         k[:, :, :1].contiguous(), v[:, :, :1].contiguous(),
+                         8, ks[:, :, :1].contiguous(),
+                         vs[:, :, :1].contiguous())
     with pytest.raises(ValueError):                  # lengths not int32
         decode_attention(q, k, v, torch.ones(2, device=cuda), ks, vs)
     slopes = torch.ones(4, device=cuda)
@@ -1313,6 +1327,65 @@ def test_decode_attention_refusals(cuda):
         decode_attention(q, k, v, 8, ks, vs, alibi_slopes=slopes.cpu())
     with pytest.raises(ValueError):                  # one slope per kv head
         decode_attention(q, k, v, 8, ks, vs, alibi_slopes=slopes[:2])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nq,nkv,D", [(28, 4, 128), (32, 32, 96)])
+def test_family_heads_through_the_wrappers_plans(cuda, int8, nq, nkv, D):
+    """Kernels 3 and 8 at Qwen2.5-7B's heads (g = 7) and Phi-3's (D = 96)
+    through each wrapper's own plan on the card's cluster tables, at the
+    smoke's B = 64 and at B = 2 (split over clusters), S = 640, ragged
+    lengths with a row of length 1: one launch per call, two calls
+    bit-equal, within each kernel's limit of its plain version."""
+    g = _gen(nq + D + int8)
+    for B in (64, 2):
+        q = torch.randn(B, nq, D, generator=g, device=cuda).to(torch.bfloat16)
+        lengths = torch.randint(1, 641, (B,), generator=g, device=cuda,
+                                dtype=torch.int32)
+        lengths[0], lengths[-1] = 1, 640
+        k, v, ks, vs = _cache(cuda, g, 1, nkv, B, 640, D, int8, pad=True)
+        before = flash_decode_attention.launches
+        got = flash_decode_attention(q, k, v, lengths, ks, vs, layer=0)
+        again = flash_decode_attention(q, k, v, lengths, ks, vs, layer=0)
+        torch.cuda.synchronize()
+        assert flash_decode_attention.launches == before + 2
+        assert torch.equal(got, again)
+        _assert_flash_close(got, flash_decode_plain(q, k, v, lengths, ks, vs,
+                                                    layer=0), int8)
+        k, v, ks, vs = _batch_major(cuda, g, B, 640, nkv, D, int8)
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, lengths, ks, vs)
+        again = decode_attention(q, k, v, lengths, ks, vs)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 2
+        assert torch.equal(got, again)
+        _assert_decode_close(got, decode_attention_plain(q, k, v, lengths,
+                                                         ks, vs))
+
+
+def test_attention_refuses_groups_and_head_dims_it_lacks(cuda):
+    """Both wrappers raise, and run nothing, on a group past 8 (Falcon-7B's
+    71/1), a softcap at a group that is not a power of two, and a head dim
+    whose row is not a chunk count they take (D = 80); no plain version
+    stands in."""
+    g = _gen(29)
+
+    def heads(nq, nkv, D):
+        q = torch.randn(2, nq, D, generator=g, device=cuda).to(torch.bfloat16)
+        return (q, _cache(cuda, g, 1, nkv, 2, 64, D, True, pad=True),
+                _batch_major(cuda, g, 2, 64, nkv, D, True))
+
+    before = (flash_decode_attention.launches, decode_attention.launches)
+    for (nq, nkv, D), cap in (((9, 1, 64), 0.0), ((7, 1, 64), 30.0),
+                              ((4, 4, 80), 0.0)):
+        q, hm, bm = heads(nq, nkv, D)
+        with pytest.raises(ValueError):
+            flash_decode_attention(q, *hm[:2], 32, *hm[2:], layer=0,
+                                   softcap=cap)
+        with pytest.raises(ValueError):
+            decode_attention(q, *bm[:2], 32, *bm[2:], softcap=cap)
+    assert (flash_decode_attention.launches,
+            decode_attention.launches) == before
 
 
 # ---------------------------------------------------------------------------

@@ -54,10 +54,10 @@ def test_config_from_hf_as_jax(family):
 
 
 @pytest.mark.parametrize("change,err", [
-    ({"model_type": "qwen2"}, NotImplementedError),
+    ({"model_type": "starcoder2"}, NotImplementedError),
     ({"model_type": "falcon"}, NotImplementedError),
-    ({"rope_scaling": {"rope_type": "linear", "factor": 2.0}},
-     NotImplementedError),
+    ({"rope_scaling": {"rope_type": "dynamic", "factor": 2.0}},
+     ValueError),
     ({"rope_scaling": {"rope_type": "yarn", "factor": 2.0}}, ValueError)])
 def test_config_from_hf_raises(change, err):
     with pytest.raises(err):
