@@ -121,8 +121,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      teacher-forced within the layout's logits limit, and the same tokens
      up to its first step whose top-2 margin is not above twice its
      card-vs-CPU gap;
-  5. serve: full-width 32-layer Llama-2-7B in four configurations,
-     full-width Gemma-2-9B at 21 of its 42 layers (a depth cut for the
+  5. serve: full-width Llama-2-7B in four configurations (those that
+     phase 6 does not time, and QUIK's, at PATH_LAYERS = 16 of 32 layers),
+     full-width Gemma-2-9B at 14 of its 42 layers (depth cuts for the
      time limit) in three, full-width 32-layer Mistral-7B-v0.1 W8A8O16,
      Llama-2-7B W8A8O16 with bf16 KV and Llama-2-7B QUIK W4A4 (256 outlier
      channels per linear input; kernels 2 and A in their zero-point modes,
@@ -203,7 +204,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      were just written), the card's peak memory while each load ran, the
      files read, and the phase's peak memory. Every directory is deleted
      when it is no longer needed, and the phase's in a `finally`;
-  8. Baichuan: full-width Baichuan-13B at 20 of its 40 layers (a depth
+  8. Baichuan: full-width Baichuan-13B at 10 of its 40 layers (a depth
      cut for the time limit; ALiBi, 40 heads) from a
      seeded bf16 state dict under Baichuan's HF names (q, k and v as one
      W_pack tensor; phase 7's planted embedding) through
@@ -270,9 +271,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (the control) and mix8 (asserted: acc and exact_match >= 0.9 on
      mix8, kernel 8 run in its decode steps, counted by name). It prints
      the rows, the host seconds, evaluated tokens/s and the peak memory.
- 11. speculative serving (run last): the Markov Llama-2-7B of
+ 11. speculative serving: the Markov Llama-2-7B of
      benchserve.py:95-110 (make_markov_state: v_eff 512, cycles of ~16,
-     shared blocks, margin 30; full width, 16 of its 32 layers: a depth
+     shared blocks, margin 30; full width, 8 of its 32 layers: a depth
      cut for the time limit) through
      quantize_model(W8A8), on phase 9's two pools with spec_k 4, n-grams of
      3 and spec windows of 8 rounds. Phase 9's script shape with prompts
@@ -302,17 +303,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      bit-equal to the uninterrupted run (sampled rows included);
      generate_speculative on a 64-token chain prompt equals greedy
      generate up to its first near-tie (forwards per token printed).
- 12. families (run last; families_phase): the RMSNorm families' presets,
+ 12. families (families_phase): the RMSNorm families' presets,
      each from its published config.json through config_from_hf, at full
-     width: Qwen2.5-7B (28/4 heads: g = 7; q/k/v bias) at full depth
+     width: Qwen2.5-7B (28/4 heads: g = 7; q/k/v bias)
      under "flash" (int8 KV, kernel 3) and "auto" (bf16 KV, kernel 8);
      Phi-3-mini-4k (D = 96) under both ("auto": its window's ring);
      Phi-3's shape with longrope and 48 seeded factors (phi3_longrope:
      the published lists are not in the repository) under "flash";
      Qwen3-8B (QK-norm) and Gemma-7B (exact GELU, tied head) under
-     "flash"; Llama-3.1-8B (llama3 rope scaling) under "auto"; all but
-     Qwen2.5-7B at FAMILY_LAYERS = 8 layers (a depth cut for the time
-     limit). Each from a seeded HF-named bf16 dict on the card
+     "flash"; Llama-3.1-8B (llama3 rope scaling) under "auto"; all at
+     FAMILY_LAYERS = 4 layers (a depth cut for the time limit: 28 and 8
+     layers before phase 13). Each from a seeded HF-named bf16 dict on the card
      (family_state_dict: qwen2's biases, qwen3's q_norm / k_norm, phi3's
      packed qkv_proj and gate_up_proj, gemma's tied head) through
      quantize_model (W8A8, empty sets) and warmup_online (two batches of 8
@@ -329,13 +330,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      device ms, bound, peak memory; the longrope model's on 4,608 slots,
      its long factors). It prints the host seconds of the dict,
      quantize_model and warmup_online and each model's peak memory.
+ 13. LayerNorm families (run last; families_phase on LN_PATHS): phase
+     12's flow on the LayerNorm families' presets and ChatGLM3, from their
+     HF-named dicts (ln_state_dict: falcon's fused query_key_value, gptj's
+     head bias, opt's positions, starcoder2's biases, chatglm's packed
+     dense_h_to_4h): Falcon-7B (71 heads on one kv head, D = 64: kernels
+     3 and 8 in head tiles) at full width and depth under "flash" and
+     "auto"; StarCoder2-7B (36/4, g = 9), ChatGLM3-6B (32/2, g = 16,
+     kernel 1) and OPT-6.7B (learned positions, relu) under "flash",
+     GPT-J-6B (gptj RoPE on 64 of 256, fc_out on kernel B) under "auto",
+     at LN_LAYERS = 4 layers; the launches expected from each path's specs
+     and model (spec_launches); each preset's 2-layer reference (the
+     control of OPT shifts its learned positions by one); the B=8 step.
+     Phase 3 holds kernels 3 and 8 at 71/1/64, 36/4, 32/2 and 24/2 (D =
+     128) and their g = 8 yardsticks at the same K/V bytes (B = 64 and 8,
+     int8 and bf16; kernel_large_groups, ms per valid row over the
+     yardstick's) and kernel 2 at the five presets' blocks at M = 8.
 It prints each phase's host seconds as it ends. It then prints the
 kernels line (one entry per ported TPU kernel, and one
 per mode a later slice added to a path: the GEMMs' gelu_new epilogue,
 flash decode's softcap and both attentions' ALiBi, kernels 3 and 8 at
 phase 9's pools, kernels 1, 2 and 3 at phase 11's verify, QUIK's
-zero-point modes of kernels 2 and A, and kernels 3 and 8 at g = 7 and at
-D = 96; launches summed over phases 5-12) and, last, the device line.
+zero-point modes of kernels 2 and A, kernels 3 and 8 at g = 7, at
+D = 96 and at groups past 8 ("tiled"); launches summed over phases
+5-13) and, last, the device line.
 Details go to OUT_DIR/chip_smoke.json. Without a CUDA card, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -1602,7 +1620,7 @@ def flash_row(dev, gen, B, S, n_q, n_kv, D, int8, softcap=0.0, scale=None,
                work=f"{model} B={B} S={S} n_q={n_q} n_kv={n_kv} D={D} "
                     f"{mode}, {rows_of} ({valid} valid rows)"
                     + (f", q and K + {offset:g}" if offset else ""),
-               tolerance=tolerance,
+               tolerance=tolerance, valid_rows=valid,
                max_abs_err=err.max().item(), beyond_2_ulps=beyond,
                beyond_levels=levels, share_beyond_2_ulps=share,
                ms=device_ms(lambda: flash_decode_attention(*args, **opts), 50),
@@ -1638,12 +1656,14 @@ def flash_plan(B, S, n_q, n_kv, D, int8, softcap):
     from mixq_tpu_torch.kernels import flash_decode as FD
 
     g = n_q // n_kv
+    T, G = FD.head_tile(g)
     clusters = FD._clusters(0, int8, g, softcap > 0, S, D)
     p = FD.plan_flash(B, n_kv, g, S, D, int8, _build.sm_count(0), clusters)
     return dict(splits=p.splits, blocks=p.blocks, smem=p.smem,
+                head_tiles=T, tile_heads=G,
                 max_active_clusters=clusters[p.splits - 1],
-                loads="ring" if FD.uses_ring(g, int8) else "registers",
-                **FLASH_PTXAS.get((g, int8, softcap > 0), {}))
+                loads="ring" if FD.uses_ring(G, int8) else "registers",
+                **FLASH_PTXAS.get((G, int8, softcap > 0), {}))
 
 
 def kernel_flash(dev, gen, rows):
@@ -1883,6 +1903,7 @@ def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
     pool's rows (pool_lengths)."""
     from mixq_tpu_torch.kernels import _build
     from mixq_tpu_torch.kernels import decode_attention as DA
+    from mixq_tpu_torch.kernels import flash_decode as FD
     from mixq_tpu_torch.kernels.decode_attention import (
         DECODE_ATOL, decode_attention, decode_attention_plain)
     from mixq_tpu_torch.models.layers import alibi_slopes
@@ -1972,6 +1993,7 @@ def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
                     f"{mode}, {rows_of} ({valid} valid rows)"
                     + (f", q and K + {offset:g}" if offset else ""),
                tolerance=f"2 bf16 ulps of |y| + {DECODE_ATOL}",
+               valid_rows=valid,
                max_abs_err=err.max().item(), beyond_2_ulps=beyond,
                share_beyond_2_ulps=(over > 0).float().mean().item(),
                ms=device_ms(lambda: decode_attention(*args, **opts), 50),
@@ -1993,7 +2015,10 @@ def decode_row(dev, gen, B, S, n_q, n_kv, D, int8, model, softcap=0.0,
                          max_active_clusters=clusters[plan.splits - 1],
                          loads="cp.async ring (csrc/decode_attention.cu::"
                                "stages)",
-                         **DECODE_PTXAS.get((g, int8, softcap > 0), {})))
+                         head_tiles=FD.head_tile(g)[0],
+                         tile_heads=FD.head_tile(g)[1],
+                         **DECODE_PTXAS.get((FD.head_tile(g)[1], int8,
+                                             softcap > 0), {})))
     if sweep:
         row["ms_by_splits"] = {}
         for R in DA.SPLITS:
@@ -2095,24 +2120,32 @@ FAMILY_M = 8
 
 def family_linears(cfg):
     """(name, K, N, fuse, f32) of one block's linears of `cfg` as its decode
-    runs them: the gate with its hidden_act's epilogue; f32 where kernel 2
-    returns f32 for a bias added outside it (q/k/v of an attention_bias
-    model, ops/mixed_linear.py::mixed_linear_prepared)."""
-    from mixq_tpu_torch.models.decoder import GATE_FUSE
+    runs them: a gate with its hidden_act's epilogue, or a plain MLP's up
+    with its GELU; f32 (and no epilogue in the kernel) where kernel 2
+    returns f32 for a bias added outside it (LINEAR_BIASES; q/k/v of an
+    attention_bias model; ops/mixed_linear.py::mixed_linear_prepared)."""
+    from mixq_tpu_torch.models.decoder import GATE_FUSE, UP_FUSE, gated_mlp
 
     H, I = cfg.hidden_size, cfg.intermediate_size
     q = cfg.num_attention_heads * cfg.head_dim_
     kv = cfg.num_key_value_heads * cfg.head_dim_
-    bias = bool(cfg.attention_bias)
-    return [("q", H, q, "none", bias), ("k", H, kv, "none", bias),
-            ("v", H, kv, "none", bias), ("o", q, H, "none", False),
-            ("up", H, I, "none", False),
-            ("gate", H, I, GATE_FUSE[cfg.hidden_act], False),
-            ("down", I, H, "none", False)]
+    biases = LINEAR_BIASES.get(cfg.model_type,
+                               ("wqkv",) if cfg.attention_bias else ())
+    qkv, o, up, down = (s in biases for s in ("wqkv", "wo", "up", "down"))
+    mlp = ([("up", H, I, "none", up),
+            ("gate", H, I, GATE_FUSE[cfg.hidden_act], False)]
+           if gated_mlp(cfg) else
+           [("up", H, I, "none" if up else UP_FUSE[cfg.hidden_act], up)])
+    return ([("q", H, q, "none", qkv), ("k", H, kv, "none", qkv),
+             ("v", H, kv, "none", qkv), ("o", q, H, "none", o)] + mlp
+            + [("down", I, H, "none", down)])
 
 
-def kernel_family_linears(dev, rows):
-    """Kernels 1 and 2 at the RMSNorm families' shapes (FAMILY_PRESETS) at
+def kernel_family_linears(dev, rows, chosen, prefix, seed):
+    """Kernels 1 and 2 at the shapes of the presets `chosen` (the RMSNorm
+    families', FAMILY_PRESETS, or the LayerNorm families', LN_PRESETS;
+    rows under `prefix`; linears on kernel B, GPT-J's fc_out by JAX's arch
+    policy, left out; kernel 1 rows where a model has an RMSNorm) at
     M=FAMILY_M with 128 outlier channels, on a generator of their own:
     each distinct (K, N, fuse, output dtype) of a preset's block held to
     GEMM_TOL against the plain version on the same inputs (kernel 2's f32
@@ -2122,14 +2155,22 @@ def kernel_family_linears(dev, rows):
     `torch._int_mm` takes more than 16 rows); kernel 1 at each distinct
     width and eps of the presets (rmsnorm_row, A8, its own plan only)."""
     from mixq_tpu_torch import presets
+    from mixq_tpu_torch.config import QuantConfig
     from mixq_tpu_torch.kernels.mix_gemm import mix_gemm, mix_gemm_plain
+    from mixq_tpu_torch.quantize.quantizer import (apply_arch_policy,
+                                                   resolve_specs)
 
-    gen = torch.Generator(device=dev).manual_seed(21)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     M, Bo = FAMILY_M, 128
     blocks, checked = [], {}
-    for preset in FAMILY_PRESETS:
+    for preset in chosen:
         cfg = getattr(presets, preset)()
-        linears = family_linears(cfg)
+        specs = resolve_specs(apply_arch_policy(QuantConfig.w8a8(),
+                                                cfg.model_type))
+        slot = {"q": "wqkv", "k": "wqkv", "v": "wqkv", "o": "wo"}
+        on_b = [n for n, *_ in family_linears(cfg)
+                if getattr(specs, slot.get(n, n)).version == "WEIGHT_ONLY"]
+        linears = [r for r in family_linears(cfg) if r[0] not in on_b]
         seq, errs, bounds = [], [], []
         for name, K, N, fuse, f32 in linears:
             ins, _ = gemm_inputs(dev, gen, M, K, N, Bo)
@@ -2158,8 +2199,11 @@ def kernel_family_linears(dev, rows):
             None, bounds, mode="W8A8", max_abs_err=max(errs),
             tolerance=GEMM_TOL,
             library="none: torch._int_mm takes more than 16 rows",
-            work=f"the 7 linears of one {cfg.model_type} block "
-                 f"({preset}) at M={M}, {Bo} outlier channels each: "
+            work=f"the {len(linears)} kernel-2 linears of one "
+                 f"{cfg.model_type} block ({preset}) at M={M}, {Bo} outlier "
+                 "channels each"
+                 + (f" ({', '.join(on_b)} on kernel B)" if on_b else "")
+                 + ": "
                  + ", ".join(f"{n} {K}x{N}" + ("" if fu == "none" else
                                                f"+{fu}") + (" f32" if f
                                                             else "")
@@ -2172,11 +2216,61 @@ def kernel_family_linears(dev, rows):
         torch.cuda.empty_cache()
     floor = trivial_launch_ms(dev)
     widths = sorted({(c.hidden_size, c.rms_norm_eps) for c in
-                     (getattr(presets, p)() for p in FAMILY_PRESETS)})
-    rows["family_rmsnorm_quant"] = [
+                     (getattr(presets, p)() for p in chosen)
+                     if c.layernorm == "rmsnorm"})
+    rows[f"{prefix}_rmsnorm_quant"] = [
         rmsnorm_row(dev, gen, M, H, 8, floor, eps=eps, by_plan=False)
         for H, eps in widths]
-    rows["family_mix_gemm"] = blocks
+    rows[f"{prefix}_mix_gemm"] = blocks
+
+
+# kernels 3 and 8 at the groups past 8 in phase 3: (model, n_q, n_kv, D),
+# each beside a g = 8 yardstick that reads the same K/V bytes (the same
+# n_kv and D), and the LayerNorm families' presets whose kernel-2 blocks
+# (and ChatGLM3's kernel 1) phase 3 holds at M = FAMILY_M
+LARGE_HEADS = [("Falcon-7B", 71, 1, 64), ("StarCoder2-7B", 36, 4, 128),
+               ("ChatGLM3-6B", 32, 2, 128), ("StarCoder2-3B", 24, 2, 128)]
+LARGE_YARDSTICKS = {1: ("g=8 at Falcon-7B's bytes", 8, 1, 64),
+                    4: ("g=8 at StarCoder2-7B's bytes", 32, 4, 128),
+                    2: ("g=8 at ChatGLM3-6B's bytes", 16, 2, 128)}
+LN_PRESETS = ("falcon_7b", "starcoder2_7b", "chatglm3_6b", "gptj_6b",
+              "opt_6_7b")
+
+
+def kernel_large_groups(dev, rows):
+    """Kernels 3 and 8 at the groups past 8 (LARGE_HEADS: Falcon-7B's 71/1
+    at D = 64, StarCoder2-7B's 36/4, ChatGLM3-6B's 32/2, StarCoder2-3B's
+    24/2) and their g = 8 yardsticks at the same K/V bytes, at B = 64 and
+    B = 8 (generate's batch) with S = 512, int8 and bf16 KV (bf16 beside
+    SDPA with enable_gqa), on a generator of their own. Returns kernel 3's
+    Falcon-7B B=64 int8 row, kernel 8's bf16 one (with a library call), and
+    each large group's ms per valid row over its yardstick's, by kernel,
+    B and KV type."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    heads = LARGE_HEADS + list(LARGE_YARDSTICKS.values())
+    cases = [(m, nq, nkv, D, B, int8) for m, nq, nkv, D in heads
+             for B in (64, 8) for int8 in (True, False)]
+    rows["large_flash"] = [
+        flash_row(dev, gen, B, 512, nq, nkv, D, int8, model=m)
+        for m, nq, nkv, D, B, int8 in cases]
+    rows["large_decode"] = [
+        decode_row(dev, gen, B, 512, nq, nkv, D, int8, m)
+        for m, nq, nkv, D, B, int8 in cases]
+    torch.cuda.empty_cache()
+    at = {c[:1] + c[4:]: i for i, c in enumerate(cases)}
+    ratios = {}
+    for kernel in ("large_flash", "large_decode"):
+        rs = rows[kernel]
+        for m, nq, nkv, D in LARGE_HEADS:
+            y = LARGE_YARDSTICKS[nkv][0]
+            for B in (64, 8):
+                for int8 in (True, False):
+                    a, b = rs[at[(m, B, int8)]], rs[at[(y, B, int8)]]
+                    ratios[f"{kernel} {m} B={B} "
+                           f"{'int8' if int8 else 'bf16'}"] = (
+                        (a["ms"] / a["valid_rows"])
+                        / (b["ms"] / b["valid_rows"]))
+    return rows["large_flash"][0], rows["large_decode"][1], ratios
 
 
 # ---------------------------------------------------------------------------
@@ -2336,16 +2430,17 @@ def attn_modes(cfg, specs, kv_dtype, max_seq):
     (flash_decode, in its softcap mode for gemma2, its ALiBi mode for an
     ALiBi model) on the head-major cache, kernel 8 (decode_attention, by
     KV type, ring for a uniform window, softcap, ALiBi) on the batch-major
-    one; either in its mode of a group that is not a power of two ("g7")
-    and of head dim 96 ("d96")."""
+    one; either in its mode of a (tile) group that is not a power of two
+    ("g7"), of a group past 8 ("tiled") and of head dim 96 ("d96")."""
     from mixq_tpu_torch.kernels.flash_decode import use_head_major_cache
 
-    from mixq_tpu_torch.kernels.flash_decode import GROUP_MODES
+    from mixq_tpu_torch.kernels.flash_decode import GROUP_MODES, head_tile
 
     itemsize = 1 if kv_dtype == "int8" else 2
     cap = bool(cfg.attn_logit_softcap)
-    g = cfg.num_attention_heads // cfg.num_key_value_heads
-    shape = ([f"g{g}"] if g in GROUP_MODES else []) + (
+    T, G = head_tile(cfg.num_attention_heads // cfg.num_key_value_heads)
+    shape = ([f"g{G}"] if G in GROUP_MODES else []) + (
+        ["tiled"] if T > 1 else []) + (
         ["d96"] if cfg.head_dim_ == 96 else [])
     if use_head_major_cache(specs.attn_impl, cfg, max_seq, itemsize):
         return (["flash_decode"] + (["flash_decode.softcap"] if cap else [])
@@ -2360,16 +2455,65 @@ def attn_modes(cfg, specs, kv_dtype, max_seq):
             + [f"decode_attention.{m}" for m in shape])
 
 
-def expect_launches(name, cfg, forwards, decode_steps, attn):
+def expect_launches(name, cfg, forwards, decode_steps, attn, specs=None):
+    """The wrappers' launch counts of `forwards` forwards and
+    `decode_steps` decode steps: by the path's name (PER_LAYER), or with
+    `specs` from the specs and the model (spec_launches)."""
     from mixq_tpu_torch.models.decoder import GATE_FUSE
 
     L = cfg.num_hidden_layers
-    gate = ("w8a16" if name == "W8A16" else "mix_gemm") + "." + GATE_FUSE[
-        cfg.hidden_act]
-    want = {k: v * L * forwards
-            for k, v in {**PER_LAYER[name], gate: 1}.items()}
+    if specs is not None:
+        per = spec_launches(cfg, specs)
+    else:
+        gate = ("w8a16" if name == "W8A16" else "mix_gemm") + "." + (
+            GATE_FUSE[cfg.hidden_act])
+        per = {**PER_LAYER[name], gate: 1}
+    want = {k: v * L * forwards for k, v in per.items()}
     want.update({k: L * decode_steps for k in attn})
     return want
+
+
+# the linears of a LayerNorm family (and chatglm) that carry a bias in its
+# checkpoint (add_qkv_bias, use_bias, fc_in / fc_out, OPT's every linear):
+# the GEMM returns f32 and the bias and the epilogue run outside it
+LINEAR_BIASES = {"falcon": (), "gptj": ("up", "down"), "chatglm": ("wqkv",),
+                 "opt": ("wqkv", "wo", "up", "down"),
+                 "starcoder2": ("wqkv", "wo", "up", "down")}
+
+
+def spec_launches(cfg, specs):
+    """One layer's wrapper launches from the specs and the model: kernel 1
+    for each RMSNorm whose group shares a prepared activation (a LayerNorm
+    takes torch ops); each linear on kernel 2 (MIX W8A8) or kernel B
+    (WEIGHT_ONLY: GPT-J's fc_out by JAX's arch policy); the gate's epilogue,
+    or a non-gated MLP's GELU on the up GEMM when up has no bias."""
+    from mixq_tpu_torch.models.decoder import (GATE_FUSE, UP_FUSE,
+                                               _shares_act, gated_mlp)
+
+    per = {}
+
+    def add(key, n=1):
+        per[key] = per.get(key, 0) + n
+
+    def kernel(slot):
+        return ("w8a16", "w8") if getattr(
+            specs, slot).version == "WEIGHT_ONLY" else ("mix_gemm", "w8a8")
+
+    if cfg.layernorm == "rmsnorm":
+        add("rmsnorm_quant", int(_shares_act(specs.wqkv))
+            + int(_shares_act(specs.up)))
+    gated = gated_mlp(cfg)
+    for slot, n in (("wqkv", 3), ("wo", 1), ("up", 1), ("down", 1)) + (
+            (("gate", 1),) if gated else ()):
+        k, mode = kernel(slot)
+        add(k, n)
+        add(f"{k}.{mode}", n)
+    biases = LINEAR_BIASES.get(cfg.model_type, ())
+    if gated:
+        add(f"{kernel('gate')[0]}.{GATE_FUSE[cfg.hidden_act]}")
+    elif "up" not in biases and UP_FUSE[cfg.hidden_act] != "none":
+        add(f"{kernel('up')[0]}.{UP_FUSE[cfg.hidden_act]}")
+    return {k: v for k, v in per.items() if v}
 
 
 def check_launches(counts, want, what):
@@ -2926,8 +3070,11 @@ def prime(eng):
     eng.decode_step(tokens[:, :1], cache)
 
 
-def serve(dev, params, cfg, specs, name, kv_dtype, eng=None):
-    """generate on `eng` (a new engine over `params` when None)."""
+def serve(dev, params, cfg, specs, name, kv_dtype, eng=None,
+          by_specs=False):
+    """generate on `eng` (a new engine over `params` when None); the
+    launches expected by the path's name, or `by_specs` from its specs and
+    model (spec_launches)."""
     from mixq_tpu_torch.kernels import (card_trace, launch_counts,
                                         reset_launch_counts)
 
@@ -2947,7 +3094,9 @@ def serve(dev, params, cfg, specs, name, kv_dtype, eng=None):
     # is run again, at most 6 windows, and each kernel's count is its most
     # in any window
     attn = attn_modes(cfg, specs, kv_dtype, 128)
-    want = expect_launches(name, cfg, new, new - 1, attn)
+    expect = functools.partial(expect_launches, name, cfg,
+                               specs=specs if by_specs else None)
+    want = expect(new, new - 1, attn)
     most, short = {}, []
     for _ in range(6):
         torch.cuda.synchronize()
@@ -2973,7 +3122,7 @@ def serve(dev, params, cfg, specs, name, kv_dtype, eng=None):
     # the wrappers launched the prefill, the eager step and the captured
     # step
     check_executed(most, want, f"{name} serve")
-    check_launches(counts, expect_launches(name, cfg, 3, 2, attn),
+    check_launches(counts, expect(3, 2, attn),
                    f"{name} serve (wrapper launches)")
     # the same generate unprofiled, timed; then the stepwise host loop on
     # the same engine: the same tokens
@@ -3381,16 +3530,20 @@ INIT_BUDGET = {"QUIK": 256}
 # still served (phase 5).
 TIMED_PATHS = ("Llama-2-7B W8A8O16", "Mistral-7B W8A8O16",
                "Llama-2-7B QUIK W4A4")
-# depth cut for the time limit (with QUIK's phases): phase 5 serves
-# Gemma-2-9B's three paths at 21 of its 42 layers (full width; the
-# alternating windows, softcaps and every kernel mode unchanged)
-SERVE_LAYERS = {"Gemma-2-9B": 21}
+# depth cut for the time limit (with QUIK's phases, 21 layers; 14 since
+# phase 13): phase 5 serves Gemma-2-9B's three paths at 14 of its 42
+# layers (full width; the alternating windows, softcaps and every kernel
+# mode unchanged), and (since phase 13) the Llama-2-7B paths it does not
+# time (TIMED_PATHS) and QUIK's, whose eager step profiles slowly, at
+# PATH_LAYERS of 32
+SERVE_LAYERS = {"Gemma-2-9B": 14}
+PATH_LAYERS = 16
 MODELS = {"Llama-2-7B": llama2_7b, "Gemma-2-9B": gemma2_9b,
           "Mistral-7B": mistral_7b}
 
-# phase 8 runs Baichuan-13B at 20 of its 40 layers, full width (a depth
-# cut for the time limit)
-BAICHUAN_LAYERS = 20
+# phase 8 runs Baichuan-13B at 10 of its 40 layers, full width (a depth
+# cut for the time limit: 20 before phase 13)
+BAICHUAN_LAYERS = 10
 # Phase 8's two serve paths: (label, profile tag, attn_impl, KV type)
 BAICHUAN_PATHS = [
     ("Baichuan-13B W8A8O16 bf16 KV (auto)", "baichuan_auto_bf16kv", "auto",
@@ -3400,7 +3553,7 @@ BAICHUAN_PATHS = [
 
 # layers the reduced families serve (full width; a depth cut for the time
 # limit)
-FAMILY_LAYERS = 8
+FAMILY_LAYERS = 4
 # (config, label, layers served (None: all), [(attn_impl, kv_dtype)]):
 # Qwen2.5-7B at full width and depth under both policies (kernel 3 and
 # kernel 8 at g = 7), Phi-3-mini under both (D = 96 on both kernels; its
@@ -3409,7 +3562,7 @@ FAMILY_LAYERS = 8
 # under "flash", Llama-3.1-8B under "auto". A config is a preset's name
 # or a function of this script.
 FAMILY_PATHS = [
-    ("qwen25_7b", "Qwen2.5-7B", None,
+    ("qwen25_7b", "Qwen2.5-7B", FAMILY_LAYERS,
      (("flash", "int8"), ("auto", "bfloat16"))),
     ("phi3_mini_4k", "Phi-3-mini-4k", FAMILY_LAYERS,
      (("flash", "int8"), ("auto", "bfloat16"))),
@@ -3530,6 +3683,13 @@ KERNEL_ROWS = [
     ("decode_attention_d96", "decode_attention", "REPLACES",
      "decode_attention_d96", ("decode_attention.d96",),
      (family_label("Phi-3-mini-4k", "auto", "bfloat16"),)),
+    ("flash_decode_tiled", "flash_decode", "REPLACES", "flash_decode_tiled",
+     ("flash_decode.tiled",),
+     tuple(family_label(m, "flash", "int8")
+           for m in ("Falcon-7B", "StarCoder2-7B", "ChatGLM3-6B"))),
+    ("decode_attention_tiled", "decode_attention", "REPLACES",
+     "decode_attention_tiled", ("decode_attention.tiled",),
+     (family_label("Falcon-7B", "auto", "bfloat16"),)),
 ]
 # entries whose mode is a runtime argument (the gelu_new epilogue), which
 # a kernel's name does not show: the card's runs are counted by the
@@ -3540,8 +3700,24 @@ EXECUTED_AS = {"mix_gemm_w8a8_gelu_new": ("mix_gemm.w8a8",),
                "flash_decode_alibi": ("flash_decode",),
                "decode_attention_alibi": ("decode_attention",),
                "flash_decode_d96": ("flash_decode",),
-               "decode_attention_d96": ("decode_attention",)}
+               "decode_attention_d96": ("decode_attention",),
+               "flash_decode_tiled": ("flash_decode",),
+               "decode_attention_tiled": ("decode_attention",)}
 KERNEL_NOTES = {
+    "flash_decode_tiled": "kernel 3 at a group past 8 query heads a kv head "
+                          "in head tiles of at most 8 (a grid axis; one "
+                          "launch); timed row: Falcon-7B's 71/1 at D = 64, "
+                          "B=64, int8 KV; launches: the card's kernel-3 "
+                          "runs in phase 13's Falcon-7B, StarCoder2-7B and "
+                          "ChatGLM3-6B \"flash\" serves (the group is a "
+                          "runtime argument), wrapper_launches their tiled "
+                          "launches",
+    "decode_attention_tiled": "kernel 8 at a group past 8 in head tiles; "
+                              "timed row: Falcon-7B's 71/1 at D = 64, B=64, "
+                              "bf16 KV, beside SDPA; launches: the card's "
+                              "kernel-8 runs in phase 13's Falcon-7B "
+                              "\"auto\" serve, wrapper_launches its tiled "
+                              "launches",
     "flash_decode_g7": "kernel 3 at a group of 7 query heads a kv head "
                        "(flash_decode_kernel<7, ...>); timed row: "
                        "Qwen2.5-7B's 28/4 heads, int8 KV; launches: the "
@@ -3597,7 +3773,8 @@ KERNEL_NOTES = {
                            "slot_lengths + 4); one launch per verify token "
                            "(Queue B item 1); launches: the card's runs in "
                            "that pool's profiled windows (8 verify rounds "
-                           "x 4 x 16 layers, and a plain window's 8 x 16)",
+                           "x 4 x SPEC_LAYERS, and a plain window's 8 x "
+                           "SPEC_LAYERS)",
     "decode_attention_pool": "kernel 8 at phase 9's bf16 batch-major pool "
                              "(JAX's default engine configuration): 64 "
                              "slots of 640 positions, rows of length 1 to "
@@ -5012,11 +5189,13 @@ def family_state_dict(cfg, dev, seed=7, boost=BOOST):
 
 def step_bound_ms(eng, cfg, B, kv_len):
     """The least time of a decode step: every weight read once (of an
-    untied embedding only the B gathered rows), and the valid K/V rows
+    untied embedding and of learned positions only the B gathered rows),
+    and the valid K/V rows
     (int8 with their f32 scales, or bf16) at `kv_len` positions."""
     p = eng.params
-    unread = (0 if p.lm_head is None else tensor_bytes(p.embed)
-              - B * cfg.hidden_size * p.embed.element_size())
+    row = B * cfg.hidden_size * p.embed.element_size()
+    unread = (0 if p.lm_head is None else tensor_bytes(p.embed) - row) + (
+        0 if p.pos_embed is None else tensor_bytes(p.pos_embed) - row)
     slot_bytes = (cfg.head_dim_ + 4 if eng.engine_cfg.kv_dtype == "int8"
                   else 2 * cfg.head_dim_)
     nbytes = (tensor_bytes(p) - unread + 2 * cfg.num_hidden_layers
@@ -5091,18 +5270,19 @@ FAMILY_REF_BOOST = 10.0
 FAMILY_GAP_TOL = 0.08
 
 
-def family_reference_model(dev, cfg, qcfg):
+def family_reference_model(dev, cfg, qcfg, make_dict):
     """The model of family_reference: `cfg` at full width and
-    FAMILY_REF_LAYERS layers from family_state_dict at FAMILY_REF_BOOST,
-    through quantize_model and warmup_online_outliers (2 batches of 2 x 32
-    tokens) on the card: (params, cfg, specs, promoted counts)."""
+    FAMILY_REF_LAYERS layers from `make_dict` (family_state_dict or
+    ln_state_dict) at FAMILY_REF_BOOST, through quantize_model and warmup_online_outliers (2
+    batches of 2 x 32 tokens) on the card: (params, cfg, specs, promoted
+    counts)."""
     import dataclasses
 
     from mixq_tpu_torch.models.hf import TensorSource
     from mixq_tpu_torch.quantize import quantize_model, warmup_online_outliers
 
     cfg2 = dataclasses.replace(cfg, num_hidden_layers=FAMILY_REF_LAYERS)
-    sd = family_state_dict(cfg2, dev, seed=8, boost=FAMILY_REF_BOOST)
+    sd = make_dict(cfg2, dev, seed=8, boost=FAMILY_REF_BOOST)
     params, specs = quantize_model(TensorSource.from_torch_state_dict(sd),
                                    cfg2, qcfg, device=dev)
     del sd
@@ -5118,8 +5298,9 @@ def family_reference(dev, model, attn_impl, kv_dtype, label):
     tokens (rows starting at 0 and 3) and a decode step on 128 slots (a
     longrope model's on LONGROPE_SLOTS: its long factors). Holds the
     card's logits within FAMILY_GAP_TOL of the CPU's (logits_gap), that
-    limit below the gap of the control (the card's run with RoPE left out:
-    a fault of the glue), every decode attention launch within its plain
+    limit below the gap of the control (the card's run with RoPE left out,
+    or a learned-position model's positions shifted by one: a fault of the
+    glue), every decode attention launch within its plain
     version's limit (Tap), and every launch of kernels 1 and 2 within
     theirs (LinearTap: the path's shapes and modes, qwen2's f32 q/k/v, the
     3072- and 3584-wide norms, gemma's exact GELU at N=24576, ...)."""
@@ -5141,11 +5322,14 @@ def family_reference(dev, model, attn_impl, kv_dtype, label):
     slots = (LONGROPE_SLOTS if cfg.rope_scaling_type == "longrope"
              else 128)
     runs, rope = {}, D.apply_rope
+    shifted = card
+    if cfg.rope_style == "none" and card.pos_embed is not None:
+        shifted = card._replace(pos_embed=torch.roll(card.pos_embed, 1, 0))
     for name, p, d in (("cpu", cpu, "cpu"), ("card", card, dev),
-                       ("control", card, dev)):
+                       ("control", shifted, dev)):
         eng = InferenceEngine(p, cfg, specs, EngineConfig(
             max_seq_len=slots, prefill_chunk=8, kv_dtype=kv_dtype), device=d)
-        if name == "control":
+        if name == "control" and shifted is card:
             D.apply_rope = lambda x, *a, **kw: x
         try:
             with Tap() as tap, LinearTap() as lin:
@@ -5202,9 +5386,10 @@ def family_reference(dev, model, attn_impl, kv_dtype, label):
     return out
 
 
-def families_phase(dev):
-    """Phase 12: each preset of FAMILY_PATHS from a seeded HF-named bf16
-    dict on the card (family_state_dict) through quantize_model (W8A8:
+def families_phase(dev, paths, make_dict, seed):
+    """Phase 12 (FAMILY_PATHS, family_state_dict) and phase 13 (LN_PATHS,
+    ln_state_dict): each preset of `paths` from a seeded HF-named bf16
+    dict on the card (`make_dict`) through quantize_model (W8A8:
     empty outlier sets, the budget reserved) and warmup_online (two
     batches of 8 x 64 tokens; counts within the budget), served by
     generate (8 requests x 32 tokens, the decode steps as graph replays;
@@ -5221,10 +5406,10 @@ def families_phase(dev):
     from mixq_tpu_torch.models.hf import TensorSource
     from mixq_tpu_torch.quantize import quantize_model
 
-    gen = torch.Generator(device=dev).manual_seed(12)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     qcfg = QuantConfig.w8a8()
     out = {"paths": {}, "models": {}}
-    for preset, label, layers, policies in FAMILY_PATHS:
+    for preset, label, layers, policies in paths:
         full = (getattr(presets, preset) if hasattr(presets, preset)
                 else globals()[preset])()
         cfg = (full if layers is None else
@@ -5236,7 +5421,7 @@ def families_phase(dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        sd = family_state_dict(cfg, dev)
+        sd = make_dict(cfg, dev)
         secs = {"float_dict": time.perf_counter() - t0}
         t0 = time.perf_counter()
         params, specs = quantize_model(TensorSource.from_torch_state_dict(sd),
@@ -5247,7 +5432,7 @@ def families_phase(dev):
         gc.collect()
         torch.cuda.empty_cache()
         model["param_gib"] = tensor_bytes(params) / 2 ** 30
-        ref_model = family_reference_model(dev, full, qcfg)
+        ref_model = family_reference_model(dev, full, qcfg, make_dict)
         for i, (attn_impl, kv_dtype) in enumerate(policies):
             eng = new_engine(dev, params, cfg, dataclasses.replace(
                 specs, attn_impl=attn_impl), kv_dtype)
@@ -5270,7 +5455,7 @@ def families_phase(dev):
                 family_label(label, attn_impl, kv_dtype))
             t0 = time.perf_counter()
             eng, path["serve"] = serve(dev, None, cfg, eng.specs, "W8A8",
-                                       kv_dtype, eng=eng)
+                                       kv_dtype, eng=eng, by_specs=True)
             path["step"] = family_step(dev, eng, cfg, gen)
             path["host_s"] = time.perf_counter() - t0
             name = family_label(label, attn_impl, kv_dtype)
@@ -5293,6 +5478,127 @@ def families_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the LayerNorm families at full width
+# ---------------------------------------------------------------------------
+
+# layers the reduced LayerNorm families serve (full width; a depth cut for
+# the time limit)
+LN_LAYERS = 4
+# (preset, label, layers served (None: all), [(attn_impl, kv_dtype)]):
+# Falcon-7B at full width and depth under both policies (kernel 3 and
+# kernel 8 at g = 71), StarCoder2-7B (g = 9), ChatGLM3-6B (g = 16, kernel
+# 1) and OPT-6.7B (learned positions, relu) under "flash", GPT-J-6B (gptj
+# RoPE, D = 256) under "auto"
+LN_PATHS = [
+    ("falcon_7b", "Falcon-7B", None, (("flash", "int8"),
+                                      ("auto", "bfloat16"))),
+    ("starcoder2_7b", "StarCoder2-7B", LN_LAYERS, (("flash", "int8"),)),
+    ("chatglm3_6b", "ChatGLM3-6B", LN_LAYERS, (("flash", "int8"),)),
+    ("gptj_6b", "GPT-J-6B", LN_LAYERS, (("auto", "bfloat16"),)),
+    ("opt_6_7b", "OPT-6.7B", LN_LAYERS, (("flash", "int8"),)),
+]
+
+
+def ln_state_dict(cfg, dev, seed=7, boost=BOOST):
+    """A bf16 state dict of a LayerNorm family (falcon, gptj, opt,
+    starcoder2) or chatglm under its HF checkpoint names on the card from
+    `seed`, as family_state_dict makes the RMSNorm ones (N(0, EMBED_STD)
+    embedding rows with the PLANTED channels raised by `boost`, N(0, 0.02)
+    weights and biases of the linears that have them, LINEAR_BIASES; norm
+    scales of ones, LayerNorm biases of zeros): falcon's fused
+    query_key_value (interleaved per kv group; at one kv head rows
+    [q | k | v]) and its untied head; gptj's head with its bias (which no
+    scheme reads); opt's positions, N(0, EMBED_STD), with HF's two leading
+    rows and no head (tied); chatglm's query_key_value with its bias and dense_h_to_4h
+    packed [gate; up]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.head_dim_)
+    mt = cfg.model_type
+
+    def w(*shape, std=0.02):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16) * std
+
+    def full(n, v):
+        return torch.full((n,), v, device=dev, dtype=torch.bfloat16)
+
+    def norm(sd, name, bias=True):
+        sd[name + ".weight"] = full(H, 1.0)
+        if bias:
+            sd[name + ".bias"] = full(H, 0.0)
+
+    def linear(sd, name, n_out, n_in, bias):
+        sd[name + ".weight"] = w(n_out, n_in)
+        if bias:
+            sd[name + ".bias"] = w(n_out)
+
+    biases = LINEAR_BIASES[mt]
+    qkv_rows = (nq + 2 * nkv) * hd
+    embed, layer, final = {
+        "falcon": ("transformer.word_embeddings.weight",
+                   "transformer.h.{i}.", "transformer.ln_f"),
+        "gptj": ("transformer.wte.weight", "transformer.h.{i}.",
+                 "transformer.ln_f"),
+        "opt": ("model.decoder.embed_tokens.weight",
+                "model.decoder.layers.{i}.", "model.decoder.final_layer_norm"),
+        "starcoder2": ("model.embed_tokens.weight", "model.layers.{i}.",
+                       "model.norm"),
+        "chatglm": ("transformer.embedding.word_embeddings.weight",
+                    "transformer.encoder.layers.{i}.",
+                    "transformer.encoder.final_layernorm"),
+    }[mt]
+    emb = w(V, H, std=EMBED_STD)
+    emb[:, list(PLANTED)] += boost
+    sd = {embed: emb}
+    norm(sd, final, bias=mt != "chatglm")
+    for i in range(cfg.num_hidden_layers):
+        p = layer.format(i=i)
+        if mt in ("falcon", "chatglm"):
+            glm = mt == "chatglm"
+            norm(sd, p + "input_layernorm", bias=not glm)
+            if glm:
+                norm(sd, p + "post_attention_layernorm", bias=False)
+            linear(sd, p + "self_attention.query_key_value", qkv_rows, H,
+                   "wqkv" in biases)
+            linear(sd, p + "self_attention.dense", H, nq * hd, False)
+            linear(sd, p + "mlp.dense_h_to_4h", 2 * I if glm else I, H,
+                   False)
+            linear(sd, p + "mlp.dense_4h_to_h", H, I, False)
+            continue
+        attn, o, up, down, ln1, ln2 = {
+            "gptj": ("attn.{}_proj", "attn.out_proj", "mlp.fc_in",
+                     "mlp.fc_out", "ln_1", None),
+            "opt": ("self_attn.{}_proj", "self_attn.out_proj", "fc1", "fc2",
+                    "self_attn_layer_norm", "final_layer_norm"),
+            "starcoder2": ("self_attn.{}_proj", "self_attn.o_proj",
+                           "mlp.c_fc", "mlp.c_proj", "input_layernorm",
+                           "post_attention_layernorm"),
+        }[mt]
+        norm(sd, p + ln1)
+        if ln2 is not None:
+            norm(sd, p + ln2)
+        for name, n in (("q", nq), ("k", nkv), ("v", nkv)):
+            linear(sd, p + attn.format(name), n * hd, H, "wqkv" in biases)
+        linear(sd, p + o, H, nq * hd, "wo" in biases)
+        linear(sd, p + up, I, H, "up" in biases)
+        linear(sd, p + down, H, I, "down" in biases)
+    head = {"falcon": "lm_head", "gptj": "lm_head", "starcoder2": "lm_head",
+            "chatglm": "transformer.output_layer"}.get(mt)
+    if head is not None and not cfg.tie_word_embeddings:
+        linear(sd, head, V, H, mt == "gptj")
+    if mt == "opt":
+        # positions at the embedding's scale, as OPT's learned ones are,
+        # so that the reference's control (positions shifted) moves the
+        # logits
+        sd["model.decoder.embed_positions.weight"] = w(
+            cfg.max_position_embeddings + 2, H, std=EMBED_STD)
+    torch.cuda.synchronize()
+    return sd
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: speculative serving
 # ---------------------------------------------------------------------------
 
@@ -5302,9 +5608,10 @@ def families_phase(dev):
 # SPEC_V_EFF) with cycles of ~SPEC_CYCLE tokens, its blocks one shared set
 # of small random arrays, logit margin 30, so greedy output walks the chain
 # and a prompt that walks it makes n-grams recur; at SPEC_LAYERS of the 32
-# layers (a depth cut for the time limit, made with QUIK's phases)
+# layers (a depth cut for the time limit, made with QUIK's phases: 16;
+# 8 since phase 13)
 SPEC_V_EFF, SPEC_CYCLE = 512, 16
-SPEC_LAYERS = 16
+SPEC_LAYERS = 8
 SPEC_K, SPEC_NGRAM, SPEC_WINDOW_R = 4, 3, 8
 # the script through an engine in turn: plain windows, spec windows,
 # step_serve (adaptive), async plain windows
@@ -6376,7 +6683,12 @@ def main():
     (main_rows["flash_decode_g7"], main_rows["flash_decode_d96"],
      main_rows["decode_attention_g7"],
      main_rows["decode_attention_d96"]) = kernel_family_heads(dev, rows)
-    kernel_family_linears(dev, rows)
+    kernel_family_linears(dev, rows, FAMILY_PRESETS, "family", 21)
+    (main_rows["flash_decode_tiled"], main_rows["decode_attention_tiled"],
+     report["large_group_ratios"]) = kernel_large_groups(dev, rows)
+    print(f"large groups, ms per valid row over g = 8's at the same bytes: "
+          f"{report['large_group_ratios']}", flush=True)
+    kernel_family_linears(dev, rows, LN_PRESETS, "layernorm", 23)
     for name, rs in rows.items():
         for r in rs:
             lib = ("-" if r.get("library_ms") is None
@@ -6435,6 +6747,9 @@ def main():
         if model in SERVE_LAYERS:
             cfg = dataclasses.replace(
                 cfg, num_hidden_layers=SERVE_LAYERS[model])
+        elif model == "Llama-2-7B" and (label not in TIMED_PATHS
+                                        or name == "QUIK"):
+            cfg = dataclasses.replace(cfg, num_hidden_layers=PATH_LAYERS)
         t0 = time.perf_counter()
         # QUIK's path draws from its own generator: the other phases keep
         # their inputs
@@ -6498,14 +6813,18 @@ def main():
     phase_done("10 evaluation")
     report["spec"] = spec_phase(dev)
     phase_done("11 speculative serving")
-    report["families"] = families_phase(dev)
+    report["families"] = families_phase(dev, FAMILY_PATHS,
+                                        family_state_dict, 12)
     phase_done("12 families")
+    report["ln_families"] = families_phase(dev, LN_PATHS, ln_state_dict, 13)
+    phase_done("13 LayerNorm families")
     report["total_s"] = time.perf_counter() - t_start
 
     kernels = []
     served = {**report["paths"], **report["baichuan"]["paths"],
               **report["cb"]["pools"], "evaluation": report["evaluation"],
-              **report["spec"]["pools"], **report["families"]["paths"]}
+              **report["spec"]["pools"], **report["families"]["paths"],
+              **report["ln_families"]["paths"]}
     for name, mod, attr, row, keys, labels in KERNEL_ROWS:
         source = MODULES[mod].SOURCE
         r = main_rows[row]

@@ -2,7 +2,7 @@
 // [B, S, n_kv, D] (bf16, or int8 with per-(token, head) f32 scales
 // [B, S, n_kv]), with per-row valid lengths and first valid positions, GQA
 // groups of g query heads per kv head (g = 1, 2, 4, 8 in every mode; 3, 5,
-// 6, 7 without the softcap), an optional ring layout
+// 6, 7 and any g past 8 without the softcap), an optional ring layout
 // (sliding-window caches), gemma2's score scale and logit softcap, and
 // Baichuan-13B's ALiBi bias.
 //
@@ -97,7 +97,15 @@
 // - At most 128 registers (no spill; chip_smoke.py's build phase prints
 //   them) and under 48 KB of shared memory at the served heads: 4 blocks
 //   an SM.
-// Launch: grid (R, n_kv, B), cluster (R, 1, 1), block 128, dynamic shared
+// - A group past 8 (Falcon-7B's 71 heads on one kv head, StarCoder2's 9,
+//   ChatGLM3's 16) is cut into T = ceil(g / 8) head tiles of G = ceil(g /
+//   T) heads (71: 9 tiles of 8, the last with 7; 9: 5 + 4), each a block
+//   (a cluster of R) of the G <= 8 code on a grid axis beside the kv head,
+//   so a stripe's tiles run together and L2 serves their re-reads; heads
+//   of a tile past the group load a zero q, take no slope and write
+//   nothing. No register or shared array is sized by g, and a large group
+//   adds no instantiation.
+// Launch: grid (R, n_kv * T, B), cluster (R, 1, 1), block 128, dynamic shared
 // memory smem_bytes<G, kInt8>(D) (exported: decode_attention_smem_bytes),
 // its limit set once per device (mixq::allow_smem). The launcher returns
 // the CUDA error; it allocates nothing and does not synchronize.
@@ -169,7 +177,7 @@ __host__ __device__ inline int smem_bytes(int D) {
 }
 
 struct Args {
-  const __nv_bfloat16* q;   // [B, n_kv*G, D]
+  const __nv_bfloat16* q;   // [B, n_kv*g, D]
   const char* k;            // [B, S, n_kv, D]
   const char* v;
   const float* ks;          // [B, S, n_kv] or null
@@ -178,11 +186,20 @@ struct Args {
   int length_all;
   const int32_t* starts;    // [B] or null: start_all
   int start_all;
-  const float* alibi;       // [n_kv*G] ALiBi slopes or null
-  __nv_bfloat16* out;       // [B, n_kv*G, D]
+  const float* alibi;       // [n_kv*g] ALiBi slopes or null
+  __nv_bfloat16* out;       // [B, n_kv*g, D]
   int S, D, ring;
   float scale, softcap;
+  int n_kv, g, tiles;       // kv heads, the group, its head tiles
 };
+
+// The head tiles of a group: T = ceil(g / 8) tiles of G = ceil(g / T)
+// heads (kernels/flash_decode.py::head_tile)
+__host__ __device__ inline int head_tiles(int g) { return (g + 7) / 8; }
+__host__ __device__ inline int tile_group(int g) {
+  const int t = head_tiles(g);
+  return (g + t - 1) / t;
+}
 
 // The physical chunk of 16-byte chunk c of stage row r: rows of 8 or more
 // chunks XOR the chunk's low bits with row bits 0 and 2-3, so that the K
@@ -292,9 +309,17 @@ decode_attention_kernel(const Args a) {
   __shared__ float s_w[kMaxSplits * G], s_l[G];
   __shared__ __align__(16) float pwarp[kWarps * 16 * 8];  // each warp's p
 
-  // the cluster is (R, 1, 1) and the grid (R, n_kv, B): rank = blockIdx.x
-  const int R = gridDim.x, rank = blockIdx.x;
-  const int hk = blockIdx.y, b = blockIdx.z, n_kv = gridDim.y;
+  // the cluster is (R, 1, 1) and the grid (R, n_kv * T, B): rank =
+  // blockIdx.x; this block's heads h0 .. h0 + gv - 1 of kv head hk
+  // (a group past 8 runs in tiles of G >= 5 heads, so the instantiations
+  // of G <= 4 keep their one tile at compile time)
+  constexpr bool kTiled = G >= 5;
+  const int R = gridDim.x, rank = blockIdx.x, b = blockIdx.z, n_kv = a.n_kv;
+  const int hk = kTiled ? blockIdx.y / a.tiles : blockIdx.y;
+  const int gs = kTiled ? a.g : G;                          // the group
+  const int h0 = kTiled ? (blockIdx.y - hk * a.tiles) * G : 0;
+  const int gv = kTiled ? min(G, gs - h0) : G;
+  const int hrow = hk * gs + h0;      // the tile's first head in its row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int j = lane >> 2, t = lane & 3;   // mma group and thread in it
 
@@ -370,13 +395,13 @@ decode_attention_kernel(const Args a) {
   };
 
   // q's A fragments, [k16 step][lane]: head j's values {d0, d0+1} and
-  // {d0+2, d0+3} of unit u of chunk t + 4i (zeros past the g heads or the
-  // row), by cp.async in the first commit group
-  const __nv_bfloat16* qg = a.q + ((size_t)b * n_kv + hk) * G * D;
+  // {d0+2, d0+3} of unit u of chunk t + 4i (zeros past the tile's heads
+  // in the group or the row), by cp.async in the first commit group
+  const __nv_bfloat16* qg = a.q + ((size_t)b * n_kv * gs + hrow) * D;
   for (int f = tid; f < KC * 32; f += kThreads) {
     const int kc = f >> 5, ln = f & 31, jj = ln >> 2;
     const int ch = (ln & 3) + 4 * (kc / U), u = kc % U;
-    const bool ok = jj < G && ch < chunks;
+    const bool ok = jj < gv && ch < chunks;
     mixq::cp_async8(qf + f, ok ? qg + jj * D + ch * E + 4 * u : qg, ok);
   }
   Cursor ic, cc;                                    // fetch and use
@@ -470,8 +495,9 @@ decode_attention_kernel(const Args a) {
               if constexpr (kInt8)
                 sv = __fmul_rn(sv, sscale[rr]);
               if (a.alibi)      // head j's slope; the query at len - 1
-                sv = __fadd_rn(sv, __fmul_rn(a.alibi[hk * G + j],
-                                             (float)(p - (len - 1))));
+                sv = __fadd_rn(sv, __fmul_rn(
+                                       j < gv ? a.alibi[hrow + j] : 0.f,
+                                       (float)(p - (len - 1))));
               if (uniform) sv = 0.f;
               tmax = fmaxf(tmax, sv);
             }
@@ -673,8 +699,8 @@ decode_attention_kernel(const Args a) {
     }
   }
   __syncthreads();
-  __nv_bfloat16* o = a.out + ((size_t)b * n_kv + hk) * G * D;
-  for (int i = rank * kThreads + tid; i < G * D; i += R * kThreads) {
+  __nv_bfloat16* o = a.out + ((size_t)b * n_kv * gs + hrow) * D;
+  for (int i = rank * kThreads + tid; i < gv * D; i += R * kThreads) {
     const int h = i / D;
     float y = res[i];
     if (R > 1) {
@@ -716,7 +742,7 @@ int launch(const Args& a, int B, int n_kv, int R, cudaStream_t stream) {
   cudaError_t e = configure<G, kInt8, kSoftcap>(cfg, attr, R,
                                                 smem_bytes<G, kInt8>(a.D));
   if (e != cudaSuccess) return (int)e;
-  cfg.gridDim = dim3(R, n_kv, B);
+  cfg.gridDim = dim3(R, n_kv * a.tiles, B);
   cfg.stream = stream;
   e = cudaLaunchKernelEx(&cfg, decode_attention_kernel<G, kInt8, kSoftcap>,
                          a);
@@ -784,8 +810,11 @@ int smem_of(int g, int D) {
   }
 }
 
+// g: the group; its head tiles' G picks the instantiation
 int route(int int8, bool cap, int g, const Args& a, int B, int n_kv, int R,
           cudaStream_t stream, int* n) {
+  if (g < 1 || (cap && head_tiles(g) > 1)) return (int)cudaErrorInvalidValue;
+  g = tile_group(g);
   if (int8)
     return cap ? dispatch<true, true>(g, a, B, n_kv, R, stream, n)
                : dispatch<true, false>(g, a, B, n_kv, R, stream, n);
@@ -798,6 +827,7 @@ int route(int int8, bool cap, int g, const Args& a, int B, int n_kv, int R,
 // lengths / starts: a [B] int32 array, or null and the scalar beside it.
 // softcap > 0: scores = tanh(scores / softcap) * softcap after the scale.
 // alibi: [n_kv * g] f32 slopes, or null for no ALiBi (not with a softcap).
+// g past 8 runs in head tiles (not with a softcap).
 // ring != 0: position p lives in slot p % S, and lengths are absolute.
 // splits: R, the blocks of one row's cluster
 // (kernels/decode_attention.py::plan_decode).
@@ -813,13 +843,13 @@ extern "C" int decode_attention_launch(
                (const float*)ks, (const float*)vs, (const int32_t*)lengths,
                length_all, (const int32_t*)starts, start_all,
                (const float*)alibi, (__nv_bfloat16*)out, S, D, ring, scale,
-               softcap};
+               softcap, n_kv, g, head_tiles(g)};
   return route(int8, softcap > 0.f, g, a, B, n_kv, splits,
                (cudaStream_t)stream, nullptr);
 }
 
-// How many clusters of `splits` blocks of one instantiation, at head dim D,
-// fit on the card at once (cudaOccupancyMaxActiveClusters) into *n;
+// How many clusters of `splits` blocks of the instantiation of group g (its
+// head tiles' G), at head dim D, fit on the card at once (cudaOccupancyMaxActiveClusters) into *n;
 // returns the CUDA error.
 extern "C" int decode_attention_max_active_clusters(int splits, int int8,
                                                     int g, int softcap, int D,
@@ -830,8 +860,10 @@ extern "C" int decode_attention_max_active_clusters(int splits, int int8,
   return route(int8, softcap != 0, g, a, 0, 0, splits, nullptr, n);
 }
 
-// The dynamic shared memory of one block of the (g, int8) instantiations at
-// head dim D, as a launch takes it; -1 for a g the kernel lacks.
+// The dynamic shared memory of one block of the (g, int8) instantiations
+// (g's head tiles' G) at head dim D, as a launch takes it; -1 for g < 1.
 extern "C" int decode_attention_smem_bytes(int int8, int g, int D) {
+  if (g < 1) return -1;
+  g = tile_group(g);
   return int8 ? smem_of<true>(g, D) : smem_of<false>(g, D);
 }

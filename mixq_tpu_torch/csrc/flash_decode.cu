@@ -2,7 +2,8 @@
 // [n_kv, B, S, D] (bf16, or int8 with per-(token, head) f32 scales), with
 // per-row valid lengths and first valid slots (left-padded prompts) and GQA
 // groups of g query heads per kv head (g = 1, 2, 4, 8 in every mode; 3, 5,
-// 6, 7 without the softcap, which only gemma2 takes, at g = 2).
+// 6, 7 and any g past 8 without the softcap, which only gemma2 takes, at
+// g = 2).
 //
 // Replaces: mixq_tpu/ops/pallas/flash_decode.py::flash_decode_attention
 // (its main-cache path, with the softcap and the score-scale override of
@@ -76,7 +77,21 @@
 // V stream overlaps the softmax. A row's dots and the p . v partials are
 // summed over its lanes by a reduce-scatter butterfly (lane_sum).
 //
-// Launch: grid (R, n_kv, B), cluster (R, 1, 1), block 128, dynamic shared
+// A group past 8 (Falcon-7B's 71 heads on one kv head, StarCoder2's 9,
+// ChatGLM3's 16) is cut into T = ceil(g / 8) head tiles of G = ceil(g / T)
+// heads (71: 9 tiles of 8, the last with 7; 9: 5 + 4; 12: 6 + 6; 16: 8 +
+// 8), and each tile is a block (a cluster of R) of the G <= 8 code: the
+// tile index is a grid axis beside the kv head, so the tiles of one
+// (kv head, batch row) are neighbours in the launch order and run
+// together, and L2 serves each one's re-read of the stripe. A tile past
+// the group's end (the last tile's heads >= g) loads a zero q, takes no
+// slope and writes nothing. So no register or shared array is sized by g,
+// only by G, and a large group adds no instantiation. The design keeps the
+// per-tile K/V walk as it is; looping over the tiles inside a block over
+// the stripe in shared memory would read it once from L2, but needs the
+// scores of every tile's heads at once (g*P*4 bytes: 71 heads do not fit
+// at S = 512 with the ring).
+// Launch: grid (R, n_kv * T, B), cluster (R, 1, 1), block 128, dynamic shared
 // memory ring + g*D*4 + g*D + 4*g*D*4 + g*P*4 (+ 2*P*4 int8) bytes, P = the
 // longest part (kernels/flash_decode.py::smem_bytes). The launcher returns
 // the CUDA error; it allocates nothing and does not synchronize.
@@ -113,7 +128,7 @@ struct Pipe {
 constexpr int kSmemMax = 226 * 1024;
 
 struct Args {
-  const __nv_bfloat16* q;   // [B, n_kv*G, D]
+  const __nv_bfloat16* q;   // [B, n_kv*g, D]
   const char* k;            // [n_kv, B, S, D]
   const char* v;
   const float* ks;          // [n_kv, B, Sp]
@@ -121,11 +136,20 @@ struct Args {
   const int32_t* lengths;   // [B] or null: length_all
   int length_all;
   const int32_t* starts;    // [B] or null: 0
-  const float* alibi;       // [n_kv*G] ALiBi slopes or null
-  __nv_bfloat16* out;       // [B, n_kv*G, D]
+  const float* alibi;       // [n_kv*g] ALiBi slopes or null
+  __nv_bfloat16* out;       // [B, n_kv*g, D]
   int B, S, Sp, D, P;       // P: the longest part a rank takes
   float scale, softcap;
+  int n_kv, g, tiles;       // kv heads, the group, its head tiles
 };
+
+// The head tiles of a group: T = ceil(g / 8) tiles of G = ceil(g / T)
+// heads (kernels/flash_decode.py::head_tile)
+__host__ __device__ inline int head_tiles(int g) { return (g + 7) / 8; }
+__host__ __device__ inline int tile_group(int g) {
+  const int t = head_tiles(g);
+  return (g + t - 1) / t;
+}
 
 // Slots per warp step (a row takes mixq::pow2_chunks lanes), the longest
 // part of S slots a rank takes at R, and the dynamic shared memory of a
@@ -339,9 +363,17 @@ flash_decode_kernel(const Args a) {
   __shared__ float cl_m[G], cl_l[G], cl_pmax[G];   // read by the peers
   __shared__ float s_l[G], s_pscale[G];
 
-  // the cluster is (R, 1, 1) and the grid (R, n_kv, B): rank = blockIdx.x
-  const int R = gridDim.x, rank = blockIdx.x;
-  const int hk = blockIdx.y, b = blockIdx.z, n_kv = gridDim.y;
+  // the cluster is (R, 1, 1) and the grid (R, n_kv * T, B): rank =
+  // blockIdx.x; this block's heads h0 .. h0 + gv - 1 of kv head hk
+  // (a group past 8 runs in tiles of G >= 5 heads, so the instantiations
+  // of G <= 4 keep their one tile at compile time)
+  constexpr bool kTiled = G >= 5;
+  const int R = gridDim.x, rank = blockIdx.x, b = blockIdx.z;
+  const int hk = kTiled ? blockIdx.y / a.tiles : blockIdx.y;
+  const int gs = kTiled ? a.g : G;                          // the group
+  const int h0 = kTiled ? (blockIdx.y - hk * a.tiles) * G : 0;
+  const int gv = kTiled ? min(G, gs - h0) : G;
+  const int hrow = hk * gs + h0;      // the tile's first head in its row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = min(a.lengths ? a.lengths[b] : a.length_all, a.S);
   const int st = max(a.starts ? a.starts[b] : 0, 0);
@@ -370,12 +402,15 @@ flash_decode_kernel(const Args a) {
   // scales (cp.async) and K's first rows, then q is quantized
   if (n > 0) {
     const int4* qg = reinterpret_cast<const int4*>(
-        a.q + ((size_t)b * n_kv + hk) * G * D);
+        a.q + ((size_t)b * a.n_kv * gs + hrow) * D);
     constexpr int kQ = (G * 512 / 8 + kThreads - 1) / kThreads;  // D <= 512
     int4 qv[kQ];
+    // the tile's heads past the group read as zeros
 #pragma unroll
-    for (int j = 0; j < kQ; ++j)
-      if ((tid + j * kThreads) * 8 < G * D) qv[j] = qg[tid + j * kThreads];
+    for (int j = 0; j < kQ; ++j) {
+      const int i = tid + j * kThreads;
+      qv[j] = i * 8 < gv * D ? qg[i] : make_int4(0, 0, 0, 0);
+    }
     if constexpr (kInt8) {
       for (int i = tid; i < n; i += kThreads) {
         mixq::cp_async4(ksm + i, ksr + lo + i);
@@ -477,7 +512,8 @@ flash_decode_kernel(const Args a) {
       if constexpr (kSoftcap)
         sv = __fmul_rn(tanhf(__fdiv_rn(sv, a.softcap)), a.softcap);
       if (a.alibi)      // head h's slope, read where it is used
-        sv = __fadd_rn(sv, __fmul_rn(a.alibi[hk * G + h], (float)(lo + i)));
+        sv = __fadd_rn(sv, __fmul_rn(h < gv ? a.alibi[hrow + h] : 0.f,
+                                     (float)(lo + i)));
       sc[h * P + i] = sv;
       m[h] = fmaxf(m[h], sv);
     }
@@ -597,8 +633,8 @@ flash_decode_kernel(const Args a) {
   // ---- 7. the partials over the ranks in rank order; rank r finishes the
   // output slots r * 128 + tid + k * R * 128
   if (R > 1) mixq::cluster_sync(); else __syncthreads();
-  __nv_bfloat16* o = a.out + ((size_t)b * n_kv + hk) * G * D;
-  for (int i = rank * kThreads + tid; i < G * D; i += R * kThreads) {
+  __nv_bfloat16* o = a.out + ((size_t)b * a.n_kv * gs + hrow) * D;
+  for (int i = rank * kThreads + tid; i < gv * D; i += R * kThreads) {
     const int h = i / D;
     float y = 0.f;
     if (live) {
@@ -647,7 +683,7 @@ int launch(const Args& a, int n_kv, int R, cudaStream_t stream) {
   cudaError_t e = configure<G, kInt8, kSoftcap>(
       cfg, attr, R, smem_bytes<G, kInt8>(a.S, a.D, R));
   if (e != cudaSuccess) return (int)e;
-  cfg.gridDim = dim3(R, n_kv, a.B);
+  cfg.gridDim = dim3(R, n_kv * a.tiles, a.B);
   cfg.stream = stream;
   e = cudaLaunchKernelEx(&cfg, flash_decode_kernel<G, kInt8, kSoftcap>, a);
   if (e != cudaSuccess) return (int)e;
@@ -702,8 +738,11 @@ int dispatch(int g, const Args& a, int n_kv, int R, cudaStream_t stream,
   }
 }
 
+// g: the group; its head tiles' G picks the instantiation
 int route(int int8, bool cap, int g, const Args& a, int n_kv, int R,
           cudaStream_t stream, int* n) {
+  if (g < 1 || (cap && head_tiles(g) > 1)) return (int)cudaErrorInvalidValue;
+  g = tile_group(g);
   if (int8)
     return cap ? dispatch<true, true>(g, a, n_kv, R, stream, n)
                : dispatch<true, false>(g, a, n_kv, R, stream, n);
@@ -713,8 +752,9 @@ int route(int int8, bool cap, int g, const Args& a, int n_kv, int R,
 
 }  // namespace
 
-// softcap > 0: scores = tanh(scores / softcap) * softcap after the scale;
-// alibi: [n_kv * g] f32 slopes, or null for no ALiBi;
+// softcap > 0: scores = tanh(scores / softcap) * softcap after the scale
+// (g <= 8 only); alibi: [n_kv * g] f32 slopes, or null for no ALiBi; g past
+// 8 runs in head tiles;
 // splits: R, the blocks of one row's cluster
 // (kernels/flash_decode.py::plan_flash).
 extern "C" int flash_decode_launch(const void* q, const void* k,
@@ -731,14 +771,14 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                length_all, (const int32_t*)starts, (const float*)alibi,
                (__nv_bfloat16*)out, B, S, Sp, D,
                part_rows(S, rows_per_step(D * (int8 ? 1 : 2)), splits),
-               scale, softcap};
+               scale, softcap, n_kv, g, head_tiles(g)};
   return route(int8, softcap > 0.f, g, a, n_kv, splits,
                (cudaStream_t)stream, nullptr);
 }
 
-// How many clusters of `splits` blocks of one instantiation, at S slots of
-// head dim D, fit on the card at once (cudaOccupancyMaxActiveClusters)
-// into *n; returns the CUDA error.
+// How many clusters of `splits` blocks of the instantiation of group g (its
+// head tiles' G), at S slots of head dim D, fit on the card at once
+// (cudaOccupancyMaxActiveClusters) into *n; returns the CUDA error.
 extern "C" int flash_decode_max_active_clusters(int splits, int int8, int g,
                                                 int softcap, int S, int D,
                                                 int* n) {

@@ -6,8 +6,8 @@ integer count of its launches in its `launches` attribute, and a wrapper
 with several modes also counts them by mode in `mode_launches` (the GEMMs
 by weight mode and by epilogue, flash decode its softcap and ALiBi
 launches, decode attention its KV type, ring, softcap and ALiBi launches,
-and both attentions their launches at a group that is not a power of two
-and at head dim 96),
+and both attentions their launches at a group that is not a power of two,
+at a group past 8 and at head dim 96),
 so a run can show that the main path went through the kernels, in the
 modes it expects.
 
@@ -79,13 +79,15 @@ _BASES = ("mix_gemm_kernel", "mix_gemm_zp_kernel", "w8a16_kernel",
           "flash_decode_kernel", "decode_attention_kernel",
           "rmsnorm_quant_regs", "rmsnorm_quant_loop")
 # the launch-count keys a kernel's name does not show: the GEMMs'
-# epilogues, decode attention's ring, both attentions' ALiBi slopes and
-# head dim are runtime arguments
+# epilogues, decode attention's ring, both attentions' ALiBi slopes, head
+# dim and a group past 8 (its head tiles run the instantiation of the
+# tile's G) are runtime arguments
 UNNAMED = frozenset([f"mix_gemm.{e}" for e in mix_gemm.EPILOGUES]
                     + [f"w8a16.{e}" for e in w8a16.EPILOGUES]
                     + ["decode_attention.ring", "decode_attention.alibi",
                        "flash_decode.alibi", "flash_decode.d96",
-                       "decode_attention.d96"])
+                       "decode_attention.d96", "flash_decode.tiled",
+                       "decode_attention.tiled"])
 
 
 def _keys_of(m) -> list:

@@ -4,7 +4,8 @@ Replaces mixq_tpu/ops/pallas/decode_attention.py::decode_attention with the
 CUDA kernel in mixq_tpu_torch/csrc/decode_attention.cu. q [B, n_q, D] bf16
 against one layer of the batch-major cache, k, v [B, S, n_kv, D] bf16 or
 int8 with per-(token, head) scales [B, S, n_kv] f32, GQA g = n_q / n_kv in
-GROUPS (1-8; with a softcap 1, 2, 4, 8), head dims whose row is a power of
+GROUPS (1-8; with a softcap 1, 2, 4, 8) or past 8 in head tiles of those
+(kernels.flash_decode.head_tile; no softcap), head dims whose row is a power of
 two of 16-byte chunks or D = 96 (ROW_BYTES), per-row valid lengths and first valid positions (each an int
 or [B] int32). The recipe is the Pallas kernel's, which is `attend`'s over
 the cache: K and V widened to f32, scores = (q . k) * scale * k_scale,
@@ -50,7 +51,8 @@ in units of UNIT positions.
 tensors. Besides its total `launches` the wrapper counts its
 launches by mode in `mode_launches`: "int8" or "bf16" (the KV type), "ring",
 "softcap" and "alibi", and as kernel 3 does, "g3", "g5", "g6", "g7" (a
-group that is not a power of two) and "d96" (head dim 96).
+group that is not a power of two), "tiled" (a group past 8) and "d96"
+(head dim 96).
 """
 from __future__ import annotations
 
@@ -64,7 +66,8 @@ from mixq_tpu_torch.kernels import _build
 from mixq_tpu_torch.kernels.flash_decode import (GROUPS, ROW_BYTES,
                                                  SHAPE_MODES,
                                                  SOFTCAP_GROUPS,
-                                                 count_shape_modes)
+                                                 count_shape_modes,
+                                                 head_tile)
 
 SOURCE = "mixq_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "mixq_tpu/ops/pallas/decode_attention.py:85"
@@ -100,7 +103,8 @@ def stage_rows(D: int) -> int:
 class DecodePlan(NamedTuple):
     """Kernel 8's launch plan (plan_decode)."""
     splits: int                # R: blocks (one cluster) per (kv head, row)
-    blocks: int                # the grid: n_kv * B * R
+                               # and head tile
+    blocks: int                # the grid: n_kv * T * B * R
     stage: int                 # positions a ring stage holds
 
 
@@ -110,8 +114,8 @@ def plan_decode(B: int, n_kv: int, g: int, S: int, D: int, int8: bool,
                 clusters: Optional[Sequence[int]] = None) -> DecodePlan:
     """The kernel's launch plan from static shapes only (never the rows'
     lengths or starts), by `_build.split_size`'s rule as kernel 3's
-    `plan_flash`: the tiles are the n_kv * B (kv head, batch row) stripes,
-    the chunks S's runs of MIN_STAGES ring stages, and R is the largest of
+    `plan_flash`: the tiles are the n_kv * B (kv head, batch row) stripes
+    times the group's head tiles (head_tile), the chunks S's runs of MIN_STAGES ring stages, and R is the largest of
     SPLITS, at most one chunk a rank, whose clusters of R blocks all fit on
     the card at once (`clusters[R - 1]`: the card's count for this
     instantiation, `_clusters`; by default BLOCKS_PER_SM blocks per SM
@@ -122,15 +126,16 @@ def plan_decode(B: int, n_kv: int, g: int, S: int, D: int, int8: bool,
     tuple (the plan is cached)."""
     del int8, softcap
     P = stage_rows(D)
-    tiles, chunks = n_kv * B, max(1, S // (MIN_STAGES * P))
+    tiles, chunks = n_kv * B * head_tile(g)[0], max(1, S // (MIN_STAGES * P))
     R = _build.split_size(tiles, chunks, sm_count, clusters, BLOCKS_PER_SM,
                           SPLITS)
     return DecodePlan(R, tiles * R, P)
 
 
 def launch_smem(int8: bool, g: int, D: int) -> int:
-    """The dynamic shared memory of one block of the instantiation at head
-    dim D, as the library's launch takes it (decode_attention_smem_bytes)."""
+    """The dynamic shared memory of one block of the instantiation of group
+    g (its head tiles' G) at head dim D, as the library's launch takes it
+    (decode_attention_smem_bytes)."""
     return _lib().decode_attention_smem_bytes(int(int8), g, D)
 
 
@@ -234,9 +239,9 @@ def _decode(q, k, v, kv_len, k_scale, v_scale, kv_start, ring, scale,
     Bk, S, n_kv, Dk = k.shape
     quantized = k_scale is not None
     kv_dtype = torch.int8 if quantized else torch.bfloat16
-    if Bk != B or Dk != D or n_q % n_kv or n_q // n_kv not in GROUPS:
+    if Bk != B or Dk != D or n_q % n_kv:
         raise ValueError(f"shapes q {tuple(q.shape)} / k {tuple(k.shape)}: "
-                         f"need matching B, D and n_q/n_kv in {GROUPS}")
+                         f"need matching B, D and n_kv dividing n_q")
     esize = 1 if quantized else 2
     if D * esize not in ROW_BYTES:
         raise ValueError(f"head dim {D} not supported for {kv_dtype}")

@@ -40,10 +40,16 @@ row's slots between the ranks, as the kernel computes it.
 `flash_decode_level` sizes one flipped probability level per output row,
 the unit of the kernel's tolerance against the plain version on a peaked
 softmax.
+A group past 8 query heads a kv head (Falcon-7B's 71, StarCoder2's 9,
+ChatGLM3's 16) runs in head tiles (`head_tile`): T = ceil(g / 8) blocks
+of G = ceil(g / T) heads each take the stripe, one launch; there is no
+softcap in that mode (ValueError).
+
 Besides its total `launches`, the wrapper counts its softcap and ALiBi
 launches in `mode_launches["softcap"]` and `mode_launches["alibi"]`, its
-launches at a group that is not a power of two in `mode_launches["g3"]`,
-"g5", "g6" and "g7", and at head dim 96 in `mode_launches["d96"]`.
+launches whose (tile) group is not a power of two in
+`mode_launches["g3"]`, "g5", "g6" and "g7", its launches at a group past
+8 in "tiled", and at head dim 96 in `mode_launches["d96"]`.
 """
 from __future__ import annotations
 
@@ -61,9 +67,11 @@ REPLACES = "mixq_tpu/ops/pallas/flash_decode.py:442"
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 SMEM_LIMIT = 227 * 1024          # H100 dynamic shared memory per block
 LAUNCH_SMEM = 226 * 1024         # a launch: room left for static smem
-# the GQA groups n_q / n_kv the kernel is built for; with a softcap only
-# the power-of-two ones (no family with a softcap has another group)
+# the GQA groups n_q / n_kv the kernel is built for (a group past 8 runs in
+# head tiles of these: head_tile); with a softcap only the power-of-two
+# ones (no family with a softcap has another group)
 GROUPS = (1, 2, 3, 4, 5, 6, 7, 8)
+MAX_TILE = GROUPS[-1]
 SOFTCAP_GROUPS = (1, 2, 4, 8)
 # the groups that are not a power of two, each counted as a mode of its
 # own (mode_launches["g7"], ...), as is the head dim 96 ("d96") in both
@@ -85,6 +93,17 @@ MIN_STEPS = 4
 RING_STAGES = 4
 
 Rows = Union[int, torch.Tensor, None]
+
+
+def head_tile(g: int) -> Tuple[int, int]:
+    """(T, G): a group of g query heads a kv head as the kernels run it,
+    T = ceil(g / 8) head tiles of G = ceil(g / T) heads, the last tile
+    masked past g (csrc/flash_decode.cu::head_tiles, tile_group): 71 ->
+    (9, 8), 9 -> (2, 5), 12 -> (2, 6), 16 -> (2, 8); g <= 8 -> (1, g)."""
+    if g < 1:
+        raise ValueError(f"group {g} must be >= 1")
+    T = -(-g // MAX_TILE)
+    return T, -(-g // T)
 
 
 def _rows(x: Rows, B: int, device) -> torch.Tensor:
@@ -278,17 +297,18 @@ def _row_smem(g: int, S: int, D: int) -> int:
 
 
 def flash_decode_supported(g: int, S: int, D: int, kv_itemsize: int) -> bool:
-    """Whether the kernel takes these shapes: a group it is built for, a
-    head dim it reads in whole 16-byte chunks, and a whole row's scores in
-    shared memory."""
-    return (g in GROUPS and D * kv_itemsize in ROW_BYTES
-            and _row_smem(g, S, D) <= SMEM_LIMIT)
+    """Whether the kernel takes these shapes: any group (past 8 in head
+    tiles), a head dim it reads in whole 16-byte chunks, and a whole row's
+    scores of a tile's heads in shared memory."""
+    return (g >= 1 and D * kv_itemsize in ROW_BYTES
+            and _row_smem(head_tile(g)[1], S, D) <= SMEM_LIMIT)
 
 
 class FlashPlan(NamedTuple):
     """Kernel 3's launch plan (plan_flash)."""
     splits: int                # R: blocks (one cluster) per (kv head, row)
-    blocks: int                # the grid: n_kv * B * R
+                               # and head tile
+    blocks: int                # the grid: n_kv * T * B * R
     step: int                  # slots a block reads at once
     smem: int                  # dynamic shared memory of a block
 
@@ -298,7 +318,8 @@ def plan_flash(B: int, n_kv: int, g: int, S: int, D: int, int8: bool,
                sm_count: int, clusters: Optional[Sequence[int]] = None
                ) -> FlashPlan:
     """The kernel's launch plan from static shapes only (never the rows'
-    lengths): the tiles are the n_kv * B (kv head, batch row) stripes, the
+    lengths): the tiles are the n_kv * B (kv head, batch row) stripes
+    times the group's T head tiles (head_tile; G heads a block), the
     stages S's chunks of MIN_STEPS block steps (a block step: WARPS *
     rows_per_step * unroll slots), and R is `_build.split_size`'s rule over
     the cluster sizes SPLITS: the largest R, at most one chunk a rank,
@@ -309,20 +330,22 @@ def plan_flash(B: int, n_kv: int, g: int, S: int, D: int, int8: bool,
     part's scores fit in shared memory. `clusters`, when given, is a tuple
     (the plan is cached)."""
     esize = 1 if int8 else 2
+    T, G = head_tile(g)
     rpw = rows_per_step(D, esize)
-    step = WARPS * rpw * unroll(uses_ring(g, int8))
-    tiles, stages = n_kv * B, max(1, S // (MIN_STEPS * step))
+    step = WARPS * rpw * unroll(uses_ring(G, int8))
+    tiles, stages = n_kv * B * T, max(1, S // (MIN_STEPS * step))
     R = _build.split_size(tiles, stages, sm_count, clusters, BLOCKS_PER_SM,
                           SPLITS)
     R = next((r for r in SPLITS if r >= R
-              and smem_bytes(g, S, D, esize, r) <= LAUNCH_SMEM), SPLITS[-1])
-    return FlashPlan(R, tiles * R, step, smem_bytes(g, S, D, esize, R))
+              and smem_bytes(G, S, D, esize, r) <= LAUNCH_SMEM), SPLITS[-1])
+    return FlashPlan(R, tiles * R, step, smem_bytes(G, S, D, esize, R))
 
 
 def _clusters(index: int, int8: bool, g: int, softcap: bool, S: int,
               D: int) -> Tuple[int, ...]:
-    """The card's clusters of 1..8 blocks of one instantiation at S slots
-    of head dim D (its shared memory) at once."""
+    """The card's clusters of 1..8 blocks of the instantiation of group g
+    (its head tiles' G) at S slots of head dim D (its shared memory) at
+    once."""
     return _build.cluster_table("flash_decode",
                                 "flash_decode_max_active_clusters", index,
                                 int(int8), g, int(softcap), S, D)
@@ -419,13 +442,14 @@ def _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap,
     n_kv, Bk, S, Dk = k.shape
     quantized = k_scale is not None
     kv_dtype = torch.int8 if quantized else torch.bfloat16
-    if Bk != B or Dk != D or n_q % n_kv or n_q // n_kv not in GROUPS:
+    if Bk != B or Dk != D or n_q % n_kv:
         raise ValueError(f"shapes q {tuple(q.shape)} / k {tuple(k.shape)}: "
-                         f"need matching B, D and n_q/n_kv in {GROUPS}")
+                         f"need matching B, D and n_kv dividing n_q")
     esize = 1 if quantized else 2
     if D * esize not in ROW_BYTES:
         raise ValueError(f"head dim {D} not supported for {kv_dtype}")
     g = n_q // n_kv
+    G = head_tile(g)[1]
     dev = q.device
     if softcap < 0:
         raise ValueError(f"softcap {softcap} must be >= 0 (0: none)")
@@ -456,8 +480,8 @@ def _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap,
     if alibi_slopes is not None:
         _build.require(alibi_slopes, torch.float32, (n_q,), "alibi_slopes",
                        dev)
-    if _row_smem(g, S, D) > SMEM_LIMIT:
-        raise ValueError(f"a row's g*S*4 scores ({_row_smem(g, S, D)} bytes "
+    if _row_smem(G, S, D) > SMEM_LIMIT:
+        raise ValueError(f"a row's G*S*4 scores ({_row_smem(G, S, D)} bytes "
                          f"of shared memory with the reduction buffers) "
                          f"exceed {SMEM_LIMIT}")
     if splits is None:
@@ -467,7 +491,7 @@ def _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap,
                             _clusters(index, quantized, g, softcap > 0, S,
                                       D)).splits
     if (splits not in SPLITS
-            or smem_bytes(g, S, D, esize, splits) > LAUNCH_SMEM):
+            or smem_bytes(G, S, D, esize, splits) > LAUNCH_SMEM):
         raise ValueError(f"{splits} splits: R must be one of {SPLITS} with "
                          f"the part's scores in {LAUNCH_SMEM} bytes")
     lib = _lib()
@@ -499,15 +523,19 @@ def _flash(q, k, v, lengths, k_scale, v_scale, kv_start, layer, softcap,
 
 
 def count_shape_modes(modes: dict, g: int, D: int) -> None:
-    """Counts a launch at a group that is not a power of two, and at head
-    dim 96, in a wrapper's mode_launches."""
-    if g in GROUP_MODES:
-        modes[f"g{g}"] += 1
+    """Counts a launch whose instantiation's group (a tile's G) is not a
+    power of two, a launch at a group past 8 ("tiled") and at head dim 96,
+    in a wrapper's mode_launches."""
+    T, G = head_tile(g)
+    if G in GROUP_MODES:
+        modes[f"g{G}"] += 1
+    if T > 1:
+        modes["tiled"] += 1
     if D == 96:
         modes["d96"] += 1
 
 
-SHAPE_MODES = tuple(f"g{g}" for g in GROUP_MODES) + ("d96",)
+SHAPE_MODES = tuple(f"g{g}" for g in GROUP_MODES) + ("tiled", "d96")
 flash_decode_attention.launches = 0
 flash_decode_attention.mode_launches = {
     "softcap": 0, "alibi": 0, **dict.fromkeys(SHAPE_MODES, 0)}

@@ -9,11 +9,19 @@ and partial rotary dims, or ALiBi with rope style "none": Baichuan-13B),
 qwen2 (q/k/v bias), qwen3 (QK-norm: a per-head RMSNorm on q and k before
 RoPE), phi3 (packed q/k/v and gate/up at load, head dim 96), gemma (the
 embedding multiplier, the GeGLU MLP, (1 + w) norms folded at load),
-mistral (a uniform sliding window) and gemma2 (the
+mistral (a uniform sliding window), gemma2 (the
 embedding multiplier, post-attention and post-FFW norms, the GeGLU MLP with
 the tanh-GELU fused into the gate GEMM, the query_pre_attn_scalar score
 scale, the attention and final-logit softcaps, the tied head, and
-alternating sliding windows) on the python-loop-over-layers runtime, over
+alternating sliding windows), and the LayerNorm families: falcon
+(LayerNorm with bias, the parallel block sharing one pre-norm, or the new
+decoder's own ln_mlp, a GELU MLP without a gate, MQA / GQA up to 71 query
+heads a kv head, ALiBi with slopes pre-scaled by 1/sqrt(head_dim)), gptj
+(the parallel block, gptj-style RoPE on a partial rotary dim, gelu_new),
+opt (learned positions, per row in slot mode; relu after the up linear),
+starcoder2 (biases on every linear and norm, gelu_pytorch_tanh) and
+chatglm (RMSNorm, gptj-style RoPE on half the head, q/k/v bias), on the
+python-loop-over-layers runtime, over
 either KV-cache layout, dispatched on the cache as JAX does:
 
   batch-major cache (JAX's default; a uniform window writes it as a ring):
@@ -39,7 +47,13 @@ kernels.flash_decode.use_head_major_cache on `DecoderSpecs.attn_impl`.
 The precision of each linear slot comes from `DecoderSpecs` (e.g. from
 quantize.resolve_specs). As in JAX, only a MIX linear group (q/k/v, up/gate)
 shares one prepared activation, made by the fused norm + quantization
-(kernel 1); FP16 and WEIGHT_ONLY linears take the plain rmsnorm output. Per
+(kernel 1; after a LayerNorm, `layernorm` then `prepare_act` in torch ops,
+as JAX has no Pallas LayerNorm); FP16 and WEIGHT_ONLY linears take the
+plain norm output. A parallel block's MLP quantizes the attention's
+pre-norm output again with its own outlier set (JAX's mixed_linear on
+h_ln). A non-gated MLP fuses its GELU into the up GEMM (relu runs after
+it); with a bias the GEMM returns f32 and the bias and activation are
+added outside (ops/mixed_linear.py). Per
 block on the card, W8A8: kernel 1 twice, the int8 GEMM seven times (q, k,
 v, o, up, gate+SiLU or gemma2's gate+GELU-tanh, down); W4A4 (reference
 policy): kernel 1 twice, five packed-W4 GEMMs (q, k, v, up, gate) and two
@@ -57,9 +71,8 @@ cache `attend` then takes the [B, T] query positions (JAX's jnp path, f32),
 on the head-major cache kernel 3 runs once per verify token t at per-row
 length slot_lengths + t + 1 (JAX's one flash call per t over its tail,
 decoder.py:611-646; the port reads its main cache). The stacked `lax.scan`
-runtime, LayerNorm, the parallel block, non-gated MLPs and MLP bias,
-gptj-style RoPE and falcon's pre-scaled ALiBi slopes (ROADMAP.md Queue A
-item 6) and MoE blocks (item 7) raise NotImplementedError.
+runtime and the other layer ops of ROADMAP.md Queue A item 6 and MoE
+blocks (item 7) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -73,12 +86,15 @@ from mixq_tpu_torch.config import ModelConfig
 from mixq_tpu_torch.kernels.decode_attention import decode_attention
 from mixq_tpu_torch.kernels.flash_decode import flash_decode_attention
 from mixq_tpu_torch.models.layers import (KVCache, alibi_slopes,
-                                          apply_rope, attend, rmsnorm,
-                                          rmsnorm_quant, rope_cos_sin)
+                                          apply_rope, attend,
+                                          falcon_alibi_slopes, layernorm,
+                                          rmsnorm, rmsnorm_quant,
+                                          rope_cos_sin)
 from mixq_tpu_torch.ops import quant as Q
 from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
                                              from_float, mixed_linear,
-                                             mixed_linear_prepared)
+                                             mixed_linear_prepared,
+                                             prepare_act)
 from mixq_tpu_torch.utils.arith import constant, true_div
 
 
@@ -118,7 +134,7 @@ class DecoderParams(NamedTuple):
     lnf_bias: Optional[torch.Tensor]
     lm_head: Optional[torch.Tensor]   # [H, V]; None = tied to embed
     stacked: Optional[BlockParams] = None   # scan runtime (not ported)
-    pos_embed: Optional[torch.Tensor] = None  # OPT positions (not ported)
+    pos_embed: Optional[torch.Tensor] = None  # [P, H] OPT's positions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,41 +170,43 @@ PREFILL_ATTEND = "prefill_attend"
 # the gate GEMM's epilogue for each gated-MLP activation (JAX's _mlp)
 GATE_FUSE = {"silu": "silu", "gelu": "gelu", "gelu_new": "gelu_new",
               "gelu_pytorch_tanh": "gelu_new"}
+# the up GEMM's epilogue of a non-gated MLP (JAX's _mlp: gelu_new for the
+# tanh GELUs, else the exact one); relu runs after the GEMM
+UP_FUSE = {"gelu": "gelu", "gelu_new": "gelu_new",
+           "gelu_pytorch_tanh": "gelu_new", "relu": "none"}
 
 
 # the rope scalings forward builds (HF's rope_scaling through config_from_hf)
 ROPE_SCALINGS = (None, "linear", "llama3", "longrope")
 
 
+def gated_mlp(cfg: ModelConfig) -> bool:
+    """Whether the MLP has a gate (JAX's rule: gated_mlp, else silu)."""
+    return (cfg.gated_mlp if cfg.gated_mlp is not None
+            else cfg.hidden_act == "silu")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError on the features the port does not run:
-    LayerNorm, the parallel block, non-gated MLPs, MLP bias, gptj-style
-    RoPE and falcon's ALiBi (ROADMAP.md Queue A item 6), MoE (item 7)."""
-    gated = (cfg.gated_mlp if cfg.gated_mlp is not None
-             else cfg.hidden_act == "silu")
+    rope styles and scalings, norms and activations JAX's decoder does not
+    have (ROADMAP.md Queue A item 6, the layer ops), MoE (item 7)."""
+    acts = GATE_FUSE if gated_mlp(cfg) else UP_FUSE
     unsupported = {
-        "layernorm": cfg.layernorm != "rmsnorm",
-        "parallel_attn_mlp": cfg.parallel_attn_mlp,
-        # ALiBi models rotate nothing (rope style "none")
-        "rope_style": cfg.rope_style != ("none" if cfg.alibi else "neox"),
-        # partial rotary: an even part of the head (neox halves)
+        "layernorm": cfg.layernorm not in ("rmsnorm", "layernorm"),
+        # ALiBi and learned-position models rotate nothing (style "none")
+        "rope_style": cfg.rope_style not in ("neox", "gptj", "none"),
+        # partial rotary: an even part of the head (halves or pairs)
         "rotary_dim": cfg.rotary_dim is not None and not (
             0 < cfg.rotary_dim <= cfg.head_dim_ and cfg.rotary_dim % 2 == 0),
         "num_local_experts": cfg.num_local_experts > 0,
-        "gated_mlp": not gated,
-        "hidden_act": cfg.hidden_act not in GATE_FUSE,
+        "hidden_act": cfg.hidden_act not in acts,
         "rope_scaling_type": cfg.rope_scaling_type not in ROPE_SCALINGS,
-        # falcon's slopes are pre-scaled by 1/sqrt(head_dim)
-        # (mixq_tpu/models/decoder.py:489-494)
-        "alibi": cfg.alibi and cfg.model_type == "falcon",
-        "mlp_bias": cfg.mlp_bias,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
             f"model features not ported yet: {bad} (ROADMAP.md Queue A "
-            "item 6: LayerNorm, the parallel block, non-gated MLPs with "
-            "bias, gptj-style RoPE, falcon; item 7: MoE)")
+            "item 6: the layer ops; item 7: MoE)")
 
 
 def rope_scaling(cfg: ModelConfig, max_seq: int) -> Optional[tuple]:
@@ -217,13 +235,28 @@ def _shares_act(spec: LinearSpec) -> bool:
     return spec.version not in ("FP16", "WEIGHT_ONLY", "QUIK")
 
 
-def _norm_act(x, scale, lin: MixLinearParams, spec: LinearSpec,
+def _norm(x, scale, bias, cfg: ModelConfig):
+    """The config's norm (JAX's _norm, decoder.py:160-163)."""
+    if cfg.layernorm == "rmsnorm":
+        return rmsnorm(x, scale, cfg.rms_norm_eps)
+    return layernorm(x, scale, bias, cfg.rms_norm_eps)
+
+
+def _prepare(h, lin: MixLinearParams, spec: LinearSpec):
+    """A MIX linear group's shared quantized activation of h (None for
+    the linears that take the fp input)."""
+    return prepare_act(h, lin, spec) if _shares_act(spec) else None
+
+
+def _norm_act(x, scale, bias, lin: MixLinearParams, spec: LinearSpec,
               cfg: ModelConfig):
     """The pre-linear norm; for a MIX linear group also its shared
-    quantized activation (kernel 1)."""
-    if _shares_act(spec):
+    quantized activation: kernel 1 after an RMSNorm, `prepare_act` after
+    a LayerNorm."""
+    if cfg.layernorm == "rmsnorm" and _shares_act(spec):
         return rmsnorm_quant(x, scale, lin, spec, cfg.rms_norm_eps)
-    return rmsnorm(x, scale, cfg.rms_norm_eps), None
+    h = _norm(x, scale, bias, cfg)
+    return h, _prepare(h, lin, spec)
 
 
 def _linear(lin, h, act, spec):
@@ -232,21 +265,30 @@ def _linear(lin, h, act, spec):
     return mixed_linear_prepared(lin, act, spec)
 
 
-def _mlp(x: torch.Tensor, bp: BlockParams, specs: DecoderSpecs,
+def _mlp(h: torch.Tensor, act, mlp: MLPParams, specs: DecoderSpecs,
          cfg: ModelConfig, stats: Optional[dict] = None) -> torch.Tensor:
-    """Gated MLP on the pre-norm residual x: norm, up and gate sharing one
-    quantized activation, the activation of `cfg.hidden_act` fused into the
-    gate GEMM (SwiGLU, or gemma's GeGLU: gelu_pytorch_tanh is gelu_new),
-    then down. With a `stats` dict, the inputs of up (the normed x) and
-    down (the inner product) go into it."""
-    mlp = bp.mlp
-    gate_fuse = GATE_FUSE[cfg.hidden_act]
-    spec_gate = (specs.gate if specs.gate.fuse == gate_fuse
-                 else dataclasses.replace(specs.gate, fuse=gate_fuse))
-    h, act = _norm_act(x, bp.ln2_scale, mlp.up, specs.up, cfg)
-    up = _linear(mlp.up, h, act, specs.up)
-    gate = _linear(mlp.gate, h, act, spec_gate)
-    inner = (gate.float() * up.float()).to(up.dtype)
+    """The MLP on its normed input h (with its shared quantized activation
+    `act` on a MIX path). Gated: up and gate sharing `act`, the activation
+    of `cfg.hidden_act` fused into the gate GEMM (SwiGLU, or gemma's
+    GeGLU: gelu_pytorch_tanh is gelu_new), then down. Non-gated (falcon,
+    gptj, opt, starcoder2; JAX's _mlp, decoder.py:205-215): the GELU fused
+    into the up GEMM, relu after it, then down. With a `stats` dict, the
+    inputs of up (h) and down (the inner product) go into it."""
+    if mlp.gate is not None:
+        gate_fuse = GATE_FUSE[cfg.hidden_act]
+        spec_gate = (specs.gate if specs.gate.fuse == gate_fuse
+                     else dataclasses.replace(specs.gate, fuse=gate_fuse))
+        up = _linear(mlp.up, h, act, specs.up)
+        gate = _linear(mlp.gate, h, act, spec_gate)
+        inner = (gate.float() * up.float()).to(up.dtype)
+    else:
+        spec_up = specs.up
+        if spec_up.fuse == "none":
+            spec_up = dataclasses.replace(spec_up,
+                                          fuse=UP_FUSE[cfg.hidden_act])
+        inner = _linear(mlp.up, h, act, spec_up)
+        if cfg.hidden_act == "relu":
+            inner = torch.clamp_min(inner, 0)
     if stats is not None:
         stats.update(up=h, down=inner)
     return mixed_linear(mlp.down, inner, specs.down)
@@ -262,14 +304,18 @@ def block_core(
     cfg: ModelConfig,
     stats: Optional[dict] = None,
 ) -> torch.Tensor:
-    """One decoder block, with the KV-cache strategy injected. With a
-    `stats` dict, the input of each linear group goes into it under its
-    slot: "wqkv" (the normed x; on a MIX path kernel 1's y), "wo" (the
-    attention output), "up" and "down" (see _mlp)."""
+    """One decoder block, with the KV-cache strategy injected: sequential
+    (x + attention, then + MLP of its own norm), or parallel (falcon,
+    gptj: x + attention + MLP of the same pre-norm output, or of the new
+    decoder's own ln_mlp). With a `stats` dict, the input of each linear
+    group goes into it under its slot: "wqkv" (the normed x; on a MIX path
+    kernel 1's y), "wo" (the attention output), "up" and "down" (see
+    _mlp)."""
     B, T, _ = x.shape
     n_q, n_kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                      cfg.head_dim_)
-    h_ln, act = _norm_act(x, bp.ln1_scale, bp.attn.wq, specs.wqkv, cfg)
+    h_ln, act = _norm_act(x, bp.ln1_scale, bp.ln1_bias, bp.attn.wq,
+                          specs.wqkv, cfg)
     q = _linear(bp.attn.wq, h_ln, act, specs.wqkv).reshape(B, T, n_q, hd)
     k = _linear(bp.attn.wk, h_ln, act, specs.wqkv).reshape(B, T, n_kv, hd)
     v = _linear(bp.attn.wv, h_ln, act, specs.wqkv).reshape(B, T, n_kv, hd)
@@ -287,8 +333,21 @@ def block_core(
     if bp.post_attn_norm_scale is not None:      # gemma2 pre-residual norms
         attn_out = rmsnorm(attn_out, bp.post_attn_norm_scale,
                            cfg.rms_norm_eps)
+    if cfg.parallel_attn_mlp:
+        # JAX's parallel block (decoder.py:325-331): falcon-7b and gptj
+        # share the attention's pre-norm, quantized again with the MLP's
+        # own outlier set; falcon's new decoder has its own ln_mlp
+        if bp.ln2_scale is None:
+            h2, act2 = h_ln, _prepare(h_ln, bp.mlp.up, specs.up)
+        else:
+            h2, act2 = _norm_act(x, bp.ln2_scale, bp.ln2_bias, bp.mlp.up,
+                                 specs.up, cfg)
+        mlp_out = _mlp(h2, act2, bp.mlp, specs, cfg, stats)
+        return x + attn_out.to(x.dtype) + mlp_out.to(x.dtype)
     x = x + attn_out.to(x.dtype)
-    mlp_out = _mlp(x, bp, specs, cfg, stats)
+    h2, act2 = _norm_act(x, bp.ln2_scale, bp.ln2_bias, bp.mlp.up, specs.up,
+                         cfg)
+    mlp_out = _mlp(h2, act2, bp.mlp, specs, cfg, stats)
     if bp.post_ffw_norm_scale is not None:
         mlp_out = rmsnorm(mlp_out, bp.post_ffw_norm_scale, cfg.rms_norm_eps)
     return x + mlp_out.to(x.dtype)
@@ -376,8 +435,8 @@ def forward(
     runs no reduction for it."""
     _check_supported(cfg)
     _check_attn_impl(specs.attn_impl)
-    if params.stacked is not None or params.pos_embed is not None:
-        raise NotImplementedError("stacked (scan) params / learned positions")
+    if params.stacked is not None:
+        raise NotImplementedError("stacked (scan) params")
     B, T = tokens.shape
     verify = slot_lengths is not None and T > 1
     W, pattern = cfg.sliding_window, cfg.sliding_window_pattern
@@ -429,8 +488,13 @@ def forward(
             rope_pos = q_slot
         kv_len = (cache.length + T).expand(B).contiguous()    # [B] int32
         slots = cache.slots(T, ring)
-    # ALiBi models rotate nothing (apply_rope's style "none"); partial
-    # rotary models take tables of their rotary dim
+    if params.pos_embed is not None:
+        # OPT's learned positions at the RoPE positions (per row in slot
+        # mode), added in the activation dtype (decoder.py:457-459)
+        pe = params.pos_embed[rope_pos].to(x.dtype)
+        x = x + (pe[None] if rope_pos.dim() == 1 else pe)
+    # ALiBi and learned-position models rotate nothing (apply_rope's style
+    # "none"); partial rotary models take tables of their rotary dim
     cos, sin = (rope_cos_sin(rope_pos, cfg.rotary_dim or cfg.head_dim_,
                              cfg.rope_theta,
                              rope_scaling(cfg, cache.max_seq))
@@ -440,9 +504,14 @@ def forward(
                   if cfg.query_pre_attn_scalar is not None else None)
     attn_softcap = cfg.attn_logit_softcap
     # ALiBi's [n_q] slopes on the cache's device, as JAX passes them to
-    # every attention (decoder.py:487-488)
-    alibi = (alibi_slopes(cfg.num_attention_heads, cache.k.device)
-             if cfg.alibi else None)
+    # every attention (decoder.py:487-494; falcon's divided by
+    # sqrt(head_dim))
+    alibi = None
+    if cfg.alibi:
+        alibi = (falcon_alibi_slopes(cfg.num_attention_heads, cfg.head_dim_,
+                                     cache.k.device)
+                 if cfg.model_type == "falcon" else
+                 alibi_slopes(cfg.num_attention_heads, cache.k.device))
     # layer windows: uniform, or on layers i % pattern == 0 (gemma2); the
     # decode step's first position for each distinct window
     windows = [W if W is not None and i % pattern == 0 else None
@@ -531,7 +600,7 @@ def _verify_attend(q, k_c, v_c, ks_c, vs_c, q_slot, slot_lengths, kv_start,
 def _head(x, params: DecoderParams, specs: DecoderSpecs, cfg: ModelConfig,
           head_f32: torch.Tensor) -> torch.Tensor:
     """The final norm and the f32 head: logits [B, T, V] f32."""
-    x = rmsnorm(x, params.lnf_scale, cfg.rms_norm_eps)
+    x = _norm(x, params.lnf_scale, params.lnf_bias, cfg)
     # jnp.dot(bf16, bf16, preferred_element_type=f32): f32 products of the
     # bf16-rounded operands, summed in f32
     logits = torch.matmul(x.to(specs.wqkv.odtype).float(), head_f32)
@@ -564,8 +633,11 @@ def init_decoder_params(
     WEIGHT_ONLY linears get none. JAX's init makes no outlier sets, so this
     is the port's way to run the outlier term of the GEMM on random
     weights; likewise a model with `attention_bias` (qwen2) gets N(0,
-    0.02) q/k/v biases, and a qk_norm model (qwen3) unit QK-norm scales,
-    as JAX's init makes them."""
+    0.02) q/k/v biases, one with `mlp_bias` (starcoder2) N(0, 0.02) up and
+    down biases, and opt N(0, 0.02) learned positions. As JAX's init
+    (decoder.py:886-941) makes them: a qk_norm model (qwen3) unit QK-norm
+    scales, a LayerNorm model zero norm biases, a parallel block no second
+    norm (ln2_scale None) and a non-gated MLP no gate."""
     _check_supported(cfg)
     specs = specs or DecoderSpecs.fp16()
     if generator is None:
@@ -589,6 +661,15 @@ def init_decoder_params(
     def ones(n):
         return torch.ones((n,), dtype=torch.float32, device=device)
 
+    ln_bias = cfg.layernorm == "layernorm"
+
+    def zeros(n, on=True):
+        return (torch.zeros((n,), dtype=torch.float32, device=device)
+                if on else None)
+
+    def mlp_bias(n):
+        return normal(n) if cfg.mlp_bias else None
+
     blocks = []
     for _ in range(cfg.num_hidden_layers):
         s_qkv, s_o = oset(H, specs.wqkv), oset(n_q * hd, specs.wo)
@@ -605,19 +686,26 @@ def init_decoder_params(
             k_norm=ones(hd) if cfg.qk_norm else None,
         )
         mlp = MLPParams(
-            up=from_float(normal(H, I), specs.up, outlier_set=s_up),
-            gate=from_float(normal(H, I), specs.gate, outlier_set=s_up),
-            down=from_float(normal(I, H), specs.down, outlier_set=s_down),
+            up=from_float(normal(H, I), specs.up, bias=mlp_bias(I),
+                          outlier_set=s_up),
+            gate=(from_float(normal(H, I), specs.gate, outlier_set=s_up)
+                  if gated_mlp(cfg) else None),
+            down=from_float(normal(I, H), specs.down, bias=mlp_bias(H),
+                            outlier_set=s_down),
         )
+        seq = not cfg.parallel_attn_mlp
         blocks.append(BlockParams(
-            ln1_scale=ones(H), ln1_bias=None, attn=attn, ln2_scale=ones(H),
-            ln2_bias=None, mlp=mlp,
+            ln1_scale=ones(H), ln1_bias=zeros(H, ln_bias), attn=attn,
+            ln2_scale=ones(H) if seq else None,
+            ln2_bias=zeros(H, ln_bias and seq), mlp=mlp,
             post_attn_norm_scale=ones(H) if cfg.post_norms else None,
             post_ffw_norm_scale=ones(H) if cfg.post_norms else None))
     return DecoderParams(
         embed=normal(V, H),
         blocks=tuple(blocks),
         lnf_scale=ones(H),
-        lnf_bias=None,
+        lnf_bias=zeros(H, ln_bias),
         lm_head=None if cfg.tie_word_embeddings else normal(H, V),
+        pos_embed=(normal(cfg.max_position_embeddings, H)
+                   if cfg.model_type == "opt" else None),
     )

@@ -11,18 +11,24 @@ Ported: `TensorSource` over a dict, a torch state dict or an HF
 safetensors directory (read by the port's own utils/safetensors_io.py),
 `config_from_hf` with HF's linear, llama3 and (phi3) longrope rope
 scaling, `load_hf_config`, `load_model`, and the weight-name schemes of
-the RMSNorm families (PORTED_FAMILIES: llama, aquila, baichuan, mistral,
-qwen2, qwen3, phi3, gemma, gemma2), and `params_from_source` for their
-dense blocks (separate q/k/v with qwen2's bias, or baichuan's fused
-`W_pack` and phi3's `qkv_proj` split at load; phi3's packed `gate_up_proj`
-split gate first; qwen3's q_norm / k_norm; gated MLP; gemma's +1 norm
-offset; gemma2's post-norms; a tied head). Every weight is quantized where
-its tensor lies or on `device`: a state dict on the card is quantized on
-the card, one tensor at a time, never through numpy; a tensor goes to
-`device` in its stored dtype and is widened there. The other families
-(falcon, gptj, opt, chatglm, starcoder2: ROADMAP.md Queue A item 6) and
-the MoE ones (mixtral, qwen2_moe: item 7) raise NotImplementedError; yarn,
-dynamic and other rope scalings raise ValueError, as in JAX.
+the dense families (PORTED_FAMILIES: the RMSNorm ones, llama, aquila,
+baichuan, mistral, qwen2, qwen3, phi3, gemma, gemma2, and the LayerNorm
+ones, falcon, gptj, opt, starcoder2, with chatglm), and
+`params_from_source` for their dense blocks (separate q/k/v with qwen2's
+or starcoder2's bias, or baichuan's fused `W_pack`, phi3's `qkv_proj` and
+chatglm's `query_key_value` (with its bias) split at load, falcon's
+`query_key_value` interleaved per kv group; phi3's `gate_up_proj` and
+chatglm's `dense_h_to_4h` split gate first; qwen3's q_norm / k_norm;
+gated or plain MLPs with their biases; LayerNorm biases, falcon's
+`input_layernorm` or `ln_attn` and `ln_mlp`; OPT's learned positions
+without their +2 offset; gemma's +1 norm offset; gemma2's post-norms; a
+tied head). Every weight is quantized where its tensor lies or on
+`device`: a state dict on the card is quantized on the card, one tensor
+at a time, never through numpy; a tensor goes to `device` in its stored
+dtype and is widened there. The MoE families (mixtral, qwen2_moe:
+ROADMAP.md Queue A item 7) raise NotImplementedError; yarn, dynamic and
+other rope scalings raise ValueError, as in JAX. As JAX, no scheme reads
+an `lm_head.bias` (GPT-J's HF head has one; ROADMAP.md Queue C).
 """
 from __future__ import annotations
 
@@ -43,7 +49,8 @@ from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
 from mixq_tpu_torch.utils.safetensors_io import SafeTensorsFile
 
 PORTED_FAMILIES = ("llama", "aquila", "baichuan", "mistral", "qwen2",
-                   "qwen3", "phi3", "gemma", "gemma2")
+                   "qwen3", "phi3", "gemma", "gemma2", "falcon", "gptj",
+                   "opt", "chatglm", "starcoder2")
 
 
 # ---------------------------------------------------------------------------
@@ -116,9 +123,8 @@ def config_from_hf(hf: Dict) -> ModelConfig:
     if mt not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"config_from_hf: model_type {mt!r} is not ported (have: "
-            f"{', '.join(PORTED_FAMILIES)}; falcon, gptj, opt, chatglm and "
-            "starcoder2 are ROADMAP.md Queue A item 6, mixtral and "
-            "qwen2_moe item 7)")
+            f"{', '.join(PORTED_FAMILIES)}; mixtral and qwen2_moe are "
+            "ROADMAP.md Queue A item 7)")
     common = dict(
         model_type=mt,
         vocab_size=hf.get("vocab_size", 32000),
@@ -129,8 +135,10 @@ def config_from_hf(hf: Dict) -> ModelConfig:
         max_position_embeddings=hf.get(
             "max_position_embeddings", hf.get("n_positions", 4096)),
         tie_word_embeddings=hf.get("tie_word_embeddings", False),
-        intermediate_size=hf["intermediate_size"],
     )
+    if mt in _LAYERNORM_CONFIGS:
+        return _LAYERNORM_CONFIGS[mt](hf, common)
+    common["intermediate_size"] = hf["intermediate_size"]
     n_kv = hf.get("num_key_value_heads", common["num_attention_heads"])
     if mt == "qwen3":
         return ModelConfig(
@@ -213,6 +221,114 @@ def config_from_hf(hf: Dict) -> ModelConfig:
         rope_style="none" if alibi else "neox",
         **rope_scaling_kw(hf),
     )
+
+
+def _starcoder2(hf: Dict, common: Dict) -> ModelConfig:
+    """JAX's starcoder2 mapping (mixq_tpu/models/hf.py:89-104): LayerNorm,
+    use_bias on every linear, a plain MLP of gelu_pytorch_tanh."""
+    return ModelConfig(
+        **common,
+        intermediate_size=hf["intermediate_size"],
+        num_key_value_heads=hf.get("num_key_value_heads",
+                                   common["num_attention_heads"]),
+        rms_norm_eps=hf.get("norm_epsilon", 1e-5),
+        rope_theta=hf.get("rope_theta", 10000.0),
+        hidden_act=hf.get("hidden_act", "gelu_pytorch_tanh"),
+        attention_bias=hf.get("use_bias", True),
+        mlp_bias=hf.get("use_bias", True),
+        layernorm="layernorm",
+        sliding_window=(hf.get("sliding_window")
+                        if hf.get("use_sliding_window", False) else None),
+        **rope_scaling_kw(hf),
+    )
+
+
+def _falcon(hf: Dict, common: Dict) -> ModelConfig:
+    """JAX's falcon mapping (mixq_tpu/models/hf.py:246-261): MQA
+    (multi_query) or the new decoder's num_kv_heads, the parallel block,
+    GELU without a gate, ALiBi (rope style "none") or rotary."""
+    n_head = common["num_attention_heads"]
+    alibi = hf.get("alibi", False)
+    return ModelConfig(
+        **common,
+        intermediate_size=hf.get("ffn_hidden_size",
+                                 4 * common["hidden_size"]),
+        num_key_value_heads=(hf.get("num_kv_heads", n_head)
+                             if hf.get("new_decoder_architecture", False)
+                             else (1 if hf.get("multi_query", True)
+                                   else n_head)),
+        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+        rope_theta=hf.get("rope_theta", 10000.0),
+        hidden_act="gelu",
+        layernorm="layernorm",
+        parallel_attn_mlp=hf.get("parallel_attn", True),
+        alibi=alibi,
+        rope_style="none" if alibi else "neox",
+    )
+
+
+def _gptj(hf: Dict, common: Dict) -> ModelConfig:
+    """JAX's gptj mapping (mixq_tpu/models/hf.py:262-275): the parallel
+    block, gptj-style RoPE on rotary_dim, gelu_new."""
+    return ModelConfig(
+        **common,
+        intermediate_size=hf.get("n_inner") or 4 * common["hidden_size"],
+        num_key_value_heads=common["num_attention_heads"],
+        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+        hidden_act=("gelu_new"
+                    if hf.get("activation_function", "gelu_new")
+                    in ("gelu_new", "gelu_pytorch_tanh") else "gelu"),
+        layernorm="layernorm",
+        parallel_attn_mlp=True,
+        rope_style="gptj",
+        rotary_dim=hf.get("rotary_dim", 64),
+    )
+
+
+def _opt(hf: Dict, common: Dict) -> ModelConfig:
+    """JAX's opt mapping (mixq_tpu/models/hf.py:276-292): learned
+    positions (rope style "none"), relu or GELU; a word_embed_proj_dim
+    other than hidden_size (project_in / project_out) raises ValueError."""
+    wepd = hf.get("word_embed_proj_dim", hf.get("hidden_size", 768))
+    if wepd != hf.get("hidden_size", 768):
+        raise ValueError(
+            "OPT variants with word_embed_proj_dim != hidden_size "
+            "(project_in/project_out, e.g. opt-350m) are not supported")
+    common = dict(common, hidden_size=hf.get("hidden_size", 768))
+    return ModelConfig(
+        **common,
+        intermediate_size=hf.get("ffn_dim", 3072),
+        num_key_value_heads=common["num_attention_heads"],
+        hidden_act={"gelu": "gelu", "gelu_new": "gelu_new"}.get(
+            hf.get("activation_function", "relu"), "relu"),
+        layernorm="layernorm",
+        rope_style="none",
+    )
+
+
+def _chatglm(hf: Dict, common: Dict) -> ModelConfig:
+    """JAX's chatglm mapping (mixq_tpu/models/hf.py:293-308): RMSNorm,
+    multi-query groups, SwiGLU, gptj-style RoPE on half of kv_channels,
+    theta scaled by rope_ratio."""
+    common = dict(common, vocab_size=hf.get("padded_vocab_size",
+                                            hf.get("vocab_size", 65024)))
+    return ModelConfig(
+        **common,
+        intermediate_size=hf["ffn_hidden_size"],
+        num_key_value_heads=(hf.get("multi_query_group_num",
+                                    common["num_attention_heads"])
+                             if hf.get("multi_query_attention", False)
+                             else common["num_attention_heads"]),
+        rms_norm_eps=hf.get("layernorm_epsilon", 1e-5),
+        hidden_act="silu",
+        rope_style="gptj",
+        rotary_dim=hf.get("kv_channels", 128) // 2,
+        rope_theta=10000.0 * hf.get("rope_ratio", 1.0),
+    )
+
+
+_LAYERNORM_CONFIGS = {"starcoder2": _starcoder2, "falcon": _falcon,
+                      "gptj": _gptj, "opt": _opt, "chatglm": _chatglm}
 
 
 # ---------------------------------------------------------------------------
@@ -316,13 +432,103 @@ _SCHEMES: Dict[str, Dict[str, Optional[str]]] = {
 }
 
 
+# The LayerNorm families and chatglm (JAX's schemes, mixq_tpu/models/hf.py:
+# 397-463, 486-503). A tuple names alternatives, the first present read
+# (falcon-7b's input_layernorm, the new decoder's ln_attn).
+_SCHEMES["falcon"] = dict(
+    embed="transformer.word_embeddings.weight",
+    ln1=("transformer.h.{i}.input_layernorm.weight",
+         "transformer.h.{i}.ln_attn.weight"),
+    ln1_bias=("transformer.h.{i}.input_layernorm.bias",
+              "transformer.h.{i}.ln_attn.bias"),
+    ln2="transformer.h.{i}.ln_mlp.weight",
+    ln2_bias="transformer.h.{i}.ln_mlp.bias",
+    q=None, k=None, v=None,
+    qkv="transformer.h.{i}.self_attention.query_key_value",
+    o="transformer.h.{i}.self_attention.dense",
+    gate=None,
+    up="transformer.h.{i}.mlp.dense_h_to_4h",
+    down="transformer.h.{i}.mlp.dense_4h_to_h",
+    lnf="transformer.ln_f.weight",
+    lnf_bias="transformer.ln_f.bias",
+    lm_head="lm_head.weight",
+)
+_SCHEMES["gptj"] = dict(
+    embed="transformer.wte.weight",
+    ln1="transformer.h.{i}.ln_1.weight",
+    ln1_bias="transformer.h.{i}.ln_1.bias",
+    q="transformer.h.{i}.attn.q_proj",
+    k="transformer.h.{i}.attn.k_proj",
+    v="transformer.h.{i}.attn.v_proj",
+    qkv=None,
+    o="transformer.h.{i}.attn.out_proj",
+    gate=None,
+    up="transformer.h.{i}.mlp.fc_in",
+    down="transformer.h.{i}.mlp.fc_out",
+    ln2=None,
+    lnf="transformer.ln_f.weight",
+    lnf_bias="transformer.ln_f.bias",
+    lm_head="lm_head.weight",
+)
+_SCHEMES["chatglm"] = dict(
+    embed="transformer.embedding.word_embeddings.weight",
+    ln1="transformer.encoder.layers.{i}.input_layernorm.weight",
+    q=None, k=None, v=None,
+    qkv="transformer.encoder.layers.{i}.self_attention.query_key_value",
+    o="transformer.encoder.layers.{i}.self_attention.dense",
+    gate=None,               # gate|up packed in dense_h_to_4h, gate first
+    up="transformer.encoder.layers.{i}.mlp.dense_h_to_4h",
+    down="transformer.encoder.layers.{i}.mlp.dense_4h_to_h",
+    ln2="transformer.encoder.layers.{i}.post_attention_layernorm.weight",
+    lnf="transformer.encoder.final_layernorm.weight",
+    lm_head="transformer.output_layer.weight",
+    packed_gate_up=True,
+)
+_SCHEMES["opt"] = dict(
+    embed="model.decoder.embed_tokens.weight",
+    pos_embed="model.decoder.embed_positions.weight",
+    ln1="model.decoder.layers.{i}.self_attn_layer_norm.weight",
+    ln1_bias="model.decoder.layers.{i}.self_attn_layer_norm.bias",
+    q="model.decoder.layers.{i}.self_attn.q_proj",
+    k="model.decoder.layers.{i}.self_attn.k_proj",
+    v="model.decoder.layers.{i}.self_attn.v_proj",
+    qkv=None,
+    o="model.decoder.layers.{i}.self_attn.out_proj",
+    gate=None,
+    up="model.decoder.layers.{i}.fc1",
+    down="model.decoder.layers.{i}.fc2",
+    ln2="model.decoder.layers.{i}.final_layer_norm.weight",
+    ln2_bias="model.decoder.layers.{i}.final_layer_norm.bias",
+    lnf="model.decoder.final_layer_norm.weight",
+    lnf_bias="model.decoder.final_layer_norm.bias",
+    lm_head="lm_head.weight",
+)
+_SCHEMES["starcoder2"] = dict(
+    embed="model.embed_tokens.weight",
+    ln1="model.layers.{i}.input_layernorm.weight",
+    ln1_bias="model.layers.{i}.input_layernorm.bias",
+    q="model.layers.{i}.self_attn.q_proj",
+    k="model.layers.{i}.self_attn.k_proj",
+    v="model.layers.{i}.self_attn.v_proj",
+    qkv=None,
+    o="model.layers.{i}.self_attn.o_proj",
+    gate=None,                               # plain GELU MLP (c_fc/c_proj)
+    up="model.layers.{i}.mlp.c_fc",
+    down="model.layers.{i}.mlp.c_proj",
+    ln2="model.layers.{i}.post_attention_layernorm.weight",
+    ln2_bias="model.layers.{i}.post_attention_layernorm.bias",
+    lnf="model.norm.weight",
+    lnf_bias="model.norm.bias",
+    lm_head="lm_head.weight",
+)
+
+
 def scheme_for(model_type: str) -> Dict[str, Optional[str]]:
     if model_type not in _SCHEMES:
         raise NotImplementedError(
             f"no weight scheme for model_type {model_type!r} in the port "
-            f"(have: {', '.join(PORTED_FAMILIES)}; falcon, gptj, opt, "
-            "chatglm and starcoder2 are ROADMAP.md Queue A item 6, mixtral "
-            "and qwen2_moe item 7)")
+            f"(have: {', '.join(PORTED_FAMILIES)}; mixtral and qwen2_moe "
+            "are ROADMAP.md Queue A item 7)")
     return _SCHEMES[model_type]
 
 
@@ -350,10 +556,11 @@ def _qkv_from_src(src: TensorSource, scheme, i: int, cfg: ModelConfig,
                   spec: LinearSpec, oset: Optional[Q.OutlierSet], device):
     """(wq, wk, wv), sharing one outlier set (they share one quantized
     activation): from separate q/k/v tensors (with qwen2's bias), or from
-    a fused [q | k | v] tensor (baichuan's W_pack, phi3's qkv_proj) split
-    by rows at n_q*hd and n_q*hd + n_kv*hd, its bias too (JAX's
-    _qkv_from_src, mixq_tpu/models/hf.py:550-609, its non-falcon
-    branch)."""
+    a fused tensor (JAX's _qkv_from_src, mixq_tpu/models/hf.py:550-609):
+    falcon's at g > 1 interleaved per kv group, rows [(q_0..q_g-1, k, v)
+    x n_kv]; otherwise [q | k | v] (baichuan's W_pack, phi3's qkv_proj,
+    chatglm's query_key_value) split by rows at n_q*hd and n_q*hd +
+    n_kv*hd; a bias likewise."""
     if not scheme.get("qkv"):
         return tuple(_linear_from_src(src, scheme[n].format(i=i), spec,
                                       oset, device) for n in ("q", "k", "v"))
@@ -362,8 +569,21 @@ def _qkv_from_src(src: TensorSource, scheme, i: int, cfg: ModelConfig,
     bias = (_f32(src, prefix + ".bias", device)
             if src.has(prefix + ".bias") else None)
     hd = cfg.head_dim_
-    sizes = [cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd,
-             cfg.num_key_value_heads * hd]
+    n_q, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
+    if cfg.model_type == "falcon" and n_kv < n_q:
+        g = n_q // n_kv
+
+        def groups(t):                 # [n_kv * (g + 2) * hd, ...]
+            t = t.reshape(n_kv, g + 2, hd, *t.shape[1:])
+            return (t[:, :g].reshape(n_q * hd, *t.shape[3:]),
+                    t[:, g].reshape(n_kv * hd, *t.shape[3:]),
+                    t[:, g + 1].reshape(n_kv * hd, *t.shape[3:]))
+        ws = groups(w)
+        bs = groups(bias) if bias is not None else (None,) * 3
+        return tuple(from_float(wp.t().contiguous(), spec, bias=bp,
+                                outlier_set=oset)
+                     for wp, bp in zip(ws, bs))
+    sizes = [n_q * hd, n_kv * hd, n_kv * hd]
     ws = torch.split(w, sizes, dim=0)
     bs = torch.split(bias, sizes, dim=0) if bias is not None else (None,) * 3
     return tuple(from_float(wp.t().contiguous(), spec, bias=bp,
@@ -379,11 +599,13 @@ def params_from_source(
 ) -> DecoderParams:
     """Convert an HF state dict into DecoderParams on `device`, quantizing
     per `specs`, as JAX's params_from_source does for dense blocks:
-    weights widened to f32 and transposed to [K, N], norm scales in f32
-    (gemma's +1 offset folded in; qwen3's q_norm / k_norm as stored),
-    phi3's packed [gate; up] split at I, gate first (JAX's
-    mixq_tpu/models/hf.py:706-710), embed and head in bf16 (JAX's default
-    store dtype), the head None when tied.
+    weights widened to f32 and transposed to [K, N], norm scales and
+    biases in f32 (gemma's +1 offset folded in; qwen3's q_norm / k_norm as
+    stored), phi3's and chatglm's packed [gate; up] split at I, gate first
+    (JAX's mixq_tpu/models/hf.py:706-710), a plain MLP's gate None, embed,
+    head and OPT's positions (their first two rows, HF's offset, dropped:
+    :749-754) in bf16 (JAX's default store dtype), the head None when
+    tied.
 
     outlier_sets: per-layer sets keyed "{i}.wqkv", "{i}.wo", "{i}.up"
     (shared by gate), "{i}.down", e.g. from quantize.calibration."""
@@ -396,10 +618,12 @@ def params_from_source(
     norm_off = 1.0 if cfg.model_type in ("gemma", "gemma2") else 0.0
 
     def vec(key, i=None):
-        if not key:
-            return None
-        name = key.format(i=i) if i is not None else key
-        return _f32(src, name, device) if src.has(name) else None
+        """The first present of `key`'s names (a name or a tuple)."""
+        for k in ((key,) if isinstance(key, str) else key or ()):
+            name = k.format(i=i) if i is not None else k
+            if src.has(name):
+                return _f32(src, name, device)
+        return None
 
     def norm_vec(key, i=None):
         v = vec(key, i)
@@ -411,7 +635,9 @@ def params_from_source(
 
     def gate_up(i, oset):
         """(gate, up), sharing one outlier set: two tensors, or one
-        packed [gate; up] split at I."""
+        packed [gate; up] split at I; (None, up) for a plain MLP."""
+        if not scheme.get("gate") and not scheme.get("packed_gate_up"):
+            return None, linear("up", specs.up, oset, i)
         if not scheme.get("packed_gate_up"):
             return (linear("gate", specs.gate, oset, i),
                     linear("up", specs.up, oset, i))
@@ -429,14 +655,14 @@ def params_from_source(
         gate, up = gate_up(i, osets.get(f"{i}.up"))
         blocks.append(BlockParams(
             ln1_scale=norm_vec(scheme["ln1"], i),
-            ln1_bias=None,
+            ln1_bias=vec(scheme.get("ln1_bias"), i),
             attn=AttnParams(wq=wq, wk=wk, wv=wv,
                             wo=linear("o", specs.wo, osets.get(f"{i}.wo"),
                                       i),
                             q_norm=vec(scheme.get("q_norm"), i),
                             k_norm=vec(scheme.get("k_norm"), i)),
             ln2_scale=norm_vec(scheme.get("ln2"), i),
-            ln2_bias=None,
+            ln2_bias=vec(scheme.get("ln2_bias"), i),
             mlp=MLPParams(up=up, gate=gate,
                           down=linear("down", specs.down,
                                       osets.get(f"{i}.down"), i)),
@@ -449,9 +675,16 @@ def params_from_source(
     if not cfg.tie_word_embeddings and src.has(scheme["lm_head"]):
         lm_head = _f32(src, scheme["lm_head"], device).t().contiguous().to(
             torch.bfloat16)
+    pos_embed = None
+    if scheme.get("pos_embed") and src.has(scheme["pos_embed"]):
+        pe = _f32(src, scheme["pos_embed"], device)
+        if cfg.model_type == "opt":
+            pe = pe[2:]        # OPT's learned positions carry a +2 offset
+        pos_embed = pe.to(torch.bfloat16)
     return DecoderParams(embed=embed, blocks=tuple(blocks),
-                         lnf_scale=norm_vec(scheme["lnf"]), lnf_bias=None,
-                         lm_head=lm_head)
+                         lnf_scale=norm_vec(scheme["lnf"]),
+                         lnf_bias=vec(scheme.get("lnf_bias")),
+                         lm_head=lm_head, pos_embed=pos_embed)
 
 
 def load_hf_config(path: str) -> ModelConfig:

@@ -1,7 +1,10 @@
 """Transformer building blocks (mirrors mixq_tpu/models/layers.py).
 
-Ported: rmsnorm, rmsnorm_quant (kernel 1 on the card), neox RoPE with
-HF's linear, llama3 and longrope scaling and partial rotary dims,
+Ported: rmsnorm, rmsnorm_quant (kernel 1 on the card), layernorm (the
+LayerNorm families: falcon, gptj, opt, starcoder2; torch glue, as JAX has
+no Pallas LayerNorm), neox and gptj (rotate every two: gptj, chatglm)
+RoPE with HF's linear, llama3 and longrope scaling and partial rotary
+dims,
 the KV cache in JAX's two layouts (batch-major, with ring writes for
 sliding-window models, and head-major), written in place, and `attend`, the
 masked attention that serves prefill (plain PyTorch, as JAX computes it in
@@ -14,12 +17,11 @@ The JAX cache's token-major tail window and its flush exist because a
 dynamic-offset write into the big head-major cache is a whole-array pass on
 the TPU. On the card a write into a [.., S, D] stripe is an ordinary strided
 copy, so this cache is written in place and keeps no tail; results, not
-layout, are held against the reference. Layernorm, rope scaling and
-`attend_chunked` are still to be ported, and so is gptj-style RoPE
-(ROADMAP.md Queue A item 6). `attend`
+layout, are held against the reference. `attend_chunked` is still to be
+ported (ROADMAP.md Queue A item 6). `attend`
 takes gemma2's score scale, softcap and (alternating) sliding window, and
 ALiBi's bias (`alibi_slopes`; Baichuan-13B, whose rope style "none" is the
-identity rotation).
+identity rotation; falcon's pre-scaled slopes, `falcon_alibi_slopes`).
 """
 from __future__ import annotations
 
@@ -45,6 +47,21 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor,
+              bias: Optional[torch.Tensor], eps: float = 1e-5
+              ) -> torch.Tensor:
+    """LayerNorm in f32 (mixq_tpu/models/layers.py:43-52): the mean and
+    the population variance over the last axis, the scale and the
+    optional bias, rounded to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
 def rmsnorm_quant(
@@ -132,19 +149,18 @@ def _rope_factors(factors: Tuple[float, ...], device: torch.device
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                style: str = "neox",
                rotary_dim: Optional[int] = None) -> torch.Tensor:
-    """Rotate-half ('neox') rope on x [B, T, H, D] with cos/sin [T, rot/2]
-    or [B, T, rot/2]; computed in f32, returned in x.dtype. With
-    `rotary_dim` rot < D (partial rotary: Phi-4-mini-class phi3) only the
-    first rot values of each head rotate and the rest pass through
-    (mixq_tpu/models/layers.py:127-164). Style "none" (ALiBi models) is x
-    itself: JAX rotates by cos = 1, sin = 0
-    (mixq_tpu/models/decoder.py:455-456), which gives back x. The gptj
-    style (rotate every two) is ROADMAP.md Queue A item 6."""
+    """Rope on x [B, T, H, D] with cos/sin [T, rot/2] or [B, T, rot/2];
+    computed in f32, returned in x.dtype (mixq_tpu/models/layers.py:
+    127-164): 'neox' rotates halves, 'gptj' (gptj, chatglm) every two
+    neighbours, (x[2i], x[2i+1]) by angle i. With `rotary_dim` rot < D
+    (partial rotary: gptj, chatglm, Phi-4-mini-class phi3) only the first
+    rot values of each head rotate and the rest pass through. Style "none"
+    (ALiBi and learned-position models) is x itself: JAX rotates by cos =
+    1, sin = 0 (mixq_tpu/models/decoder.py:455-456), which gives back x."""
     if style == "none":
         return x
-    if style != "neox":
-        raise NotImplementedError(
-            f"rope style {style!r} is not ported (ROADMAP.md Queue A item 6)")
+    if style not in ("neox", "gptj"):
+        raise ValueError(f"unknown rope style {style}")
     D = x.shape[-1]
     rot = rotary_dim or D
     c = cos.unsqueeze(-2)
@@ -152,8 +168,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     if c.dim() == x.dim() - 1:
         c, s = c[None], s[None]
     xf = x[..., :rot].float()
-    x1, x2 = torch.chunk(xf, 2, dim=-1)
-    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    if style == "neox":
+        x1, x2 = torch.chunk(xf, 2, dim=-1)
+        out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    else:
+        x1, x2 = xf[..., 0::2], xf[..., 1::2]
+        out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s],
+                          dim=-1).reshape(xf.shape)
+    out = out.to(x.dtype)
     if rot < D:
         out = torch.cat([out, x[..., rot:]], dim=-1)
     return out
@@ -182,6 +204,20 @@ def alibi_slopes(n_heads: int, device: torch.device) -> torch.Tensor:
         slopes += [extra_base ** i
                    for i in range(1, 2 * (n_heads - closest) + 1, 2)]
     return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def falcon_alibi_slopes(n_heads: int, head_dim: int,
+                        device: torch.device) -> torch.Tensor:
+    """falcon's slopes: alibi_slopes divided by f32 sqrt(head_dim), as
+    mixq_tpu/models/decoder.py:489-494 pre-scales them (falcon adds the
+    bias before its 1/sqrt(head_dim) score scale; `attend` and the
+    kernels add it after the scale). Made once per shape and device, as
+    alibi_slopes is."""
+    with torch.inference_mode(False):
+        root = torch.sqrt(torch.tensor(float(head_dim),
+                                       dtype=torch.float32))
+        return (alibi_slopes(n_heads, torch.device("cpu")) / root).to(device)
 
 
 # ---------------------------------------------------------------------------

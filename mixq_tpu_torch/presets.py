@@ -1,5 +1,6 @@
 """Full-size model configurations the port serves, each from its published
 config (all layers): the shapes chip_smoke.py and the example scripts run.
+The field values are copied from each model's published config.json.
 """
 from mixq_tpu_torch.config import ModelConfig
 
@@ -130,3 +131,88 @@ def gemma_7b() -> ModelConfig:
         num_attention_heads=16, num_key_value_heads=16, head_dim=256,
         max_position_embeddings=8192, rms_norm_eps=1e-6, rope_theta=10000.0,
         rope_scaling=None, hidden_act="gelu", attention_bias=False))
+
+
+def falcon_7b() -> ModelConfig:
+    """The published config.json of tiiuae/falcon-7b through
+    models.hf.config_from_hf: 71 query heads of 64 on one kv head
+    (multi_query: g = 71), H=4544, the parallel block with one shared
+    LayerNorm, a GELU MLP of 4 x H, rotary (alibi false), no biases."""
+    from mixq_tpu_torch.models.hf import config_from_hf
+
+    return config_from_hf(dict(
+        model_type="falcon", vocab_size=65024, hidden_size=4544,
+        num_hidden_layers=32, num_attention_heads=71, multi_query=True,
+        new_decoder_architecture=False, parallel_attn=True, alibi=False,
+        bias=False, layer_norm_epsilon=1e-5, bos_token_id=11,
+        eos_token_id=11))
+
+
+def starcoder2_7b() -> ModelConfig:
+    """The published config.json of bigcode/starcoder2-7b through
+    models.hf.config_from_hf: 36/4 heads of 128 (g = 9), H=4608,
+    I=18432, LayerNorm and biases everywhere (use_bias), a
+    gelu_pytorch_tanh MLP, theta 1e6, its 4096 sliding_window not used
+    (no use_sliding_window: JAX's rule)."""
+    from mixq_tpu_torch.models.hf import config_from_hf
+
+    return config_from_hf(dict(
+        model_type="starcoder2", vocab_size=49152, hidden_size=4608,
+        intermediate_size=18432, num_hidden_layers=32,
+        num_attention_heads=36, num_key_value_heads=4,
+        max_position_embeddings=16384, norm_epsilon=1e-5,
+        rope_theta=1000000, hidden_act="gelu_pytorch_tanh",
+        sliding_window=4096, use_bias=True, norm_type="layer_norm",
+        mlp_type="default"))
+
+
+def gptj_6b() -> ModelConfig:
+    """The published config.json of EleutherAI/gpt-j-6b through
+    models.hf.config_from_hf: 16 heads of 256, H=4096, 28 layers, the
+    parallel block, gptj-style RoPE on 64 of each head's 256 values,
+    gelu_new, n_inner null (4 x H)."""
+    from mixq_tpu_torch.models.hf import config_from_hf
+
+    return config_from_hf(dict(
+        model_type="gptj", vocab_size=50400, n_embd=4096, n_layer=28,
+        n_head=16, n_inner=None, n_positions=2048, rotary_dim=64,
+        activation_function="gelu_new", layer_norm_epsilon=1e-5,
+        tie_word_embeddings=False))
+
+
+def opt_6_7b() -> ModelConfig:
+    """The published config.json of facebook/opt-6.7b through
+    models.hf.config_from_hf: 32 heads of 128, H=4096, ffn_dim 16384,
+    learned positions (2048), relu, LayerNorm before each sublayer."""
+    from mixq_tpu_torch.models.hf import config_from_hf
+
+    return config_from_hf(dict(
+        model_type="opt", vocab_size=50272, hidden_size=4096,
+        ffn_dim=16384, num_hidden_layers=32, num_attention_heads=32,
+        max_position_embeddings=2048, activation_function="relu",
+        do_layer_norm_before=True, word_embed_proj_dim=4096))
+
+
+def chatglm3_6b() -> ModelConfig:
+    """The published config.json of THUDM/chatglm3-6b through
+    models.hf.config_from_hf: 32 heads of 128 in 2 multi-query groups
+    (g = 16), H=4096, ffn_hidden_size 13696 (SwiGLU), RMSNorm, gptj-style
+    RoPE on half of kv_channels 128, q/k/v bias (add_qkv_bias),
+    padded_vocab_size 65024. The config names its depth `num_layers` and
+    its context `seq_length`, which JAX's mapping does not read (it gives
+    32 layers and 4096 positions; ROADMAP.md Queue C): the preset sets
+    them from those fields."""
+    import dataclasses
+
+    from mixq_tpu_torch.models.hf import config_from_hf
+
+    hf = dict(model_type="chatglm", padded_vocab_size=65024,
+              hidden_size=4096, ffn_hidden_size=13696, kv_channels=128,
+              num_layers=28, num_attention_heads=32,
+              multi_query_attention=True, multi_query_group_num=2,
+              layernorm_epsilon=1e-5, rmsnorm=True, add_qkv_bias=True,
+              add_bias_linear=False, seq_length=8192,
+              tie_word_embeddings=False)
+    return dataclasses.replace(config_from_hf(hf),
+                               num_hidden_layers=hf["num_layers"],
+                               max_position_embeddings=hf["seq_length"])

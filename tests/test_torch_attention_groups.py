@@ -172,7 +172,14 @@ def test_shapes_the_kernels_take():
     for g in FD.GROUPS:
         assert FD.flash_decode_supported(g, 640, 96, 1)
         assert FD.flash_decode_supported(g, 640, 96, 2)
-    assert not FD.flash_decode_supported(9, 640, 128, 1)     # falcon: 71
+    # a group past 8 runs in head tiles of at most 8 (Falcon-7B's 71 heads
+    # on one kv head, StarCoder2's 9, ChatGLM3's 16)
+    assert FD.MAX_TILE == 8
+    assert [FD.head_tile(g) for g in (1, 8, 9, 12, 16, 71)] == [
+        (1, 1), (1, 8), (2, 5), (2, 6), (2, 8), (9, 8)]
+    for g in (9, 12, 16, 71):
+        assert FD.flash_decode_supported(g, 640, 128, 1)
+        assert FD.flash_decode_supported(g, 640, 64, 2)
     assert not FD.flash_decode_supported(4, 640, 80, 1)      # 80 bytes
     assert not FD.flash_decode_supported(4, 640, 48, 1)      # 48 bytes
     assert FD.flash_decode_supported(4, 640, 48, 2)          # 96 bytes

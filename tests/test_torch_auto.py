@@ -164,14 +164,14 @@ def test_serving_engine_drains(hf_dirs):
 
 
 def test_unported_family_raises(hf_dirs, tmp_path):
-    d = str(tmp_path / "falcon")
+    d = str(tmp_path / "mixtral")
     shutil.copytree(hf_dirs["f32"], d)
     with open(os.path.join(d, "config.json")) as f:
         hf = json.load(f)
     with open(os.path.join(d, "config.json"), "w") as f:
-        json.dump(dict(hf, model_type="falcon"), f)
+        json.dump(dict(hf, model_type="mixtral"), f)
     for call in (AutoModel.from_pretrained, AutoModel.engine):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError, match="item 7"):
             call(d, device="cpu")
     with pytest.raises(NotImplementedError):
         thf.load_model(d, device="cpu")

@@ -21,7 +21,10 @@ peaked softmax; flash decode and decode attention split over clusters of
 1, 2, 4 and 8 blocks, bit-equal across two launches of a plan, and flash
 decode's peaked Gemma-2-9B case over 8 seeds against the plain version on
 the card and on the CPU; both with ALiBi at every cluster size, kernel 3
-with its rows held in probability levels, since ALiBi rows are peaked)
+with its rows held in probability levels, since ALiBi rows are peaked;
+both at groups past 8 in head tiles: Falcon-7B's 71/1, StarCoder2's
+36/4 and 24/2, ChatGLM3's 32/2, and 71/1 with falcon's slopes at every
+cluster size)
 and the wrappers' refusals; W4A4O16 g128 (kernel A), QUIK W4A4 (the
 zero-point modes) and W8A16 (kernel B) checkpoints saved from the card and loaded back onto it (the greedy
 tokens of the params before the save; the CPU's load bit-equal), and the
@@ -1312,11 +1315,16 @@ def test_decode_attention_refusals(cuda):
     k, v, ks, vs = _batch_major(cuda, g, 2, 16, 2, 64, True)
     with pytest.raises(ValueError):                  # scales missing: bf16
         decode_attention(q, k, v, 8)                 # K expected
-    with pytest.raises(ValueError):                  # g = 9
+    with pytest.raises(ValueError):                  # g = 9 with a softcap
         decode_attention(torch.cat([q, q, q[:, :1]], 1),
                          k[:, :, :1].contiguous(), v[:, :, :1].contiguous(),
                          8, ks[:, :, :1].contiguous(),
-                         vs[:, :, :1].contiguous())
+                         vs[:, :, :1].contiguous(), softcap=30.0)
+    with pytest.raises(ValueError):                  # 3 kv heads, 4 q heads
+        decode_attention(q, torch.cat([k, k[:, :, :1]], 2),
+                         torch.cat([v, v[:, :, :1]], 2), 8,
+                         torch.cat([ks, ks[:, :, :1]], 2),
+                         torch.cat([vs, vs[:, :, :1]], 2))
     with pytest.raises(ValueError):                  # lengths not int32
         decode_attention(q, k, v, torch.ones(2, device=cuda), ks, vs)
     slopes = torch.ones(4, device=cuda)
@@ -1364,10 +1372,10 @@ def test_family_heads_through_the_wrappers_plans(cuda, int8, nq, nkv, D):
 
 
 def test_attention_refuses_groups_and_head_dims_it_lacks(cuda):
-    """Both wrappers raise, and run nothing, on a group past 8 (Falcon-7B's
-    71/1), a softcap at a group that is not a power of two, and a head dim
-    whose row is not a chunk count they take (D = 80); no plain version
-    stands in."""
+    """Both wrappers raise, and run nothing, on a softcap at a group past 8
+    (its head tiles take none) or at a group that is not a power of two,
+    and a head dim whose row is not a chunk count they take (D = 80); no
+    plain version stands in."""
     g = _gen(29)
 
     def heads(nq, nkv, D):
@@ -1376,8 +1384,8 @@ def test_attention_refuses_groups_and_head_dims_it_lacks(cuda):
                 _batch_major(cuda, g, 2, 64, nkv, D, True))
 
     before = (flash_decode_attention.launches, decode_attention.launches)
-    for (nq, nkv, D), cap in (((9, 1, 64), 0.0), ((7, 1, 64), 30.0),
-                              ((4, 4, 80), 0.0)):
+    for (nq, nkv, D), cap in (((9, 1, 64), 30.0), ((16, 1, 64), 30.0),
+                              ((7, 1, 64), 30.0), ((4, 4, 80), 0.0)):
         q, hm, bm = heads(nq, nkv, D)
         with pytest.raises(ValueError):
             flash_decode_attention(q, *hm[:2], 32, *hm[2:], layer=0,
@@ -1386,6 +1394,91 @@ def test_attention_refuses_groups_and_head_dims_it_lacks(cuda):
             decode_attention(q, *bm[:2], 32, *bm[2:], softcap=cap)
     assert (flash_decode_attention.launches,
             decode_attention.launches) == before
+
+
+# the LayerNorm families' groups past 8: Falcon-7B's 71/1 at D = 64,
+# StarCoder2-7B's 36/4, ChatGLM3-6B's 32/2, StarCoder2-3B's 24/2
+LARGE_GROUPS = [(71, 1, 64), (36, 4, 128), (32, 2, 128), (24, 2, 128)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nq,nkv,D", LARGE_GROUPS)
+def test_large_groups_through_the_wrappers_plans(cuda, int8, nq, nkv, D):
+    """Kernels 3 and 8 at the groups past 8, in head tiles, through each
+    wrapper's own plan at B = 64 and B = 8 (generate's batch), S = 640,
+    ragged lengths with a row of length 1 and first slots: one launch per
+    call counted in "tiled", two calls bit-equal, kernel 8 within its
+    limit of its plain version, kernel 3 within its limit or, on a row
+    whose few valid slots make each probability level large, within
+    PEAK_LEVELS of its row (an exp() ulp flips a rounding of p; the rows'
+    lengths are random in 1-640: on an H100 a 24/2 bf16 row read 6e-4
+    beyond two ulps against the 5e-4 of a spread softmax)."""
+    g = _gen(nq + D + int8 + 1000)
+    for B in (64, 8):
+        q = torch.randn(B, nq, D, generator=g, device=cuda).to(torch.bfloat16)
+        lengths = torch.randint(1, 641, (B,), generator=g, device=cuda,
+                                dtype=torch.int32)
+        lengths[0], lengths[-1] = 1, 640
+        starts = torch.zeros(B, dtype=torch.int32, device=cuda)
+        starts[1] = min(int(lengths[1]) - 1, 17)
+        k, v, ks, vs = _cache(cuda, g, 1, nkv, B, 640, D, int8, pad=True)
+        before = flash_decode_attention.launches
+        tiled = flash_decode_attention.mode_launches["tiled"]
+        got = flash_decode_attention(q, k, v, lengths, ks, vs, starts,
+                                     layer=0)
+        again = flash_decode_attention(q, k, v, lengths, ks, vs, starts,
+                                       layer=0)
+        torch.cuda.synchronize()
+        assert flash_decode_attention.launches == before + 2
+        assert flash_decode_attention.mode_launches["tiled"] == tiled + 2
+        assert torch.equal(got, again)
+        args = (q, k, v, lengths, ks, vs, starts, 0)
+        ref = flash_decode_plain(*args).float()
+        over = ((got.float() - ref).abs() - 2 * BF16_ULP * ref.abs()).amax(-1)
+        assert ((over <= FLASH_ATOL[int8])
+                | (over / flash_decode_level(*args) <= PEAK_LEVELS[int8])
+                ).all()
+        k, v, ks, vs = _batch_major(cuda, g, B, 640, nkv, D, int8)
+        before = decode_attention.launches
+        tiled = decode_attention.mode_launches["tiled"]
+        got = decode_attention(q, k, v, lengths, ks, vs, starts)
+        again = decode_attention(q, k, v, lengths, ks, vs, starts)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 2
+        assert decode_attention.mode_launches["tiled"] == tiled + 2
+        assert torch.equal(got, again)
+        _assert_decode_close(got, decode_attention_plain(q, k, v, lengths,
+                                                         ks, vs, starts))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True])
+def test_falcon_heads_with_alibi_at_every_cluster_size(cuda, int8, splits):
+    """Falcon-7B's 71 heads on one kv head (9 head tiles), D = 64, with
+    falcon's pre-scaled ALiBi slopes, at each cluster size R: kernel 3
+    within PEAK_LEVELS probability levels of a row of its plain version
+    (ALiBi peaks the rows), kernel 8 within its limit."""
+    from mixq_tpu_torch.kernels.decode_attention import _decode
+    from mixq_tpu_torch.kernels.flash_decode import _flash
+    from mixq_tpu_torch.models.layers import falcon_alibi_slopes
+    g = _gen(71 + splits + 10 * int8)
+    B, S, nq, D = 4, 300, 71, 64
+    q = torch.randn(B, nq, D, generator=g, device=cuda).to(torch.bfloat16)
+    lengths = torch.tensor([S, 170, 1, 64], dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, 9, 0, 20], dtype=torch.int32, device=cuda)
+    slopes = falcon_alibi_slopes(nq, D, torch.device(cuda))
+    k, v, ks, vs = _cache(cuda, g, 1, 1, B, S, D, int8, pad=True)
+    args = (q, k, v, lengths, ks, vs, starts, 0)
+    got = _flash(*args, 0.0, None, slopes, splits=splits)
+    ref = flash_decode_plain(*args, alibi_slopes=slopes).float()
+    over = ((got.float() - ref).abs() - 2 * BF16_ULP * ref.abs()).amax(-1)
+    assert ((over / flash_decode_level(*args, alibi_slopes=slopes)).max()
+            <= PEAK_LEVELS[int8])
+    k, v, ks, vs = _batch_major(cuda, g, B, S, 1, D, int8)
+    got = _decode(q, k, v, lengths, ks, vs, starts, False, None, 0.0, slopes,
+                  splits=splits)
+    _assert_decode_close(got, decode_attention_plain(
+        q, k, v, lengths, ks, vs, starts, alibi_slopes=slopes))
 
 
 # ---------------------------------------------------------------------------

@@ -54,8 +54,8 @@ def test_config_from_hf_as_jax(family):
 
 
 @pytest.mark.parametrize("change,err", [
-    ({"model_type": "starcoder2"}, NotImplementedError),
-    ({"model_type": "falcon"}, NotImplementedError),
+    ({"model_type": "mixtral"}, NotImplementedError),
+    ({"model_type": "qwen2_moe"}, NotImplementedError),
     ({"rope_scaling": {"rope_type": "dynamic", "factor": 2.0}},
      ValueError),
     ({"rope_scaling": {"rope_type": "yarn", "factor": 2.0}}, ValueError)])
@@ -197,9 +197,9 @@ def test_unported_sources_raise():
     cfg = thf.config_from_hf(hf_config("llama"))
     state = hf_state(cfg, 0)
     src = thf.TensorSource.from_dict(state)
-    with pytest.raises(NotImplementedError):     # interleaved q/k/v
+    with pytest.raises(NotImplementedError):     # no MoE scheme
         thf.params_from_source(src, dataclasses.replace(
-            cfg, model_type="falcon"), TSpecs.fp16(), device="cpu")
+            cfg, model_type="mixtral"), TSpecs.fp16(), device="cpu")
     with pytest.raises(NotImplementedError):
         thf.params_from_source(src, dataclasses.replace(
             cfg, num_local_experts=4), TSpecs.fp16(), device="cpu")

@@ -139,9 +139,11 @@ def test_apply_rope_partial_rotary_bit_equal(rot):
             np.testing.assert_array_equal(
                 got[..., rot:].float().numpy(),
                 np.asarray(xj[..., rot:].astype(jnp.float32)))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # gptj's style is ported (tests/test_torch_layernorm_families.py); a
+    # style neither package has raises, as in JAX
+    with pytest.raises(ValueError, match="unknown rope style"):
         tlayers.apply_rope(torch.zeros(1, 1, 1, 8), torch.zeros(1, 4),
-                           torch.zeros(1, 4), "gptj")
+                           torch.zeros(1, 4), "glm")
 
 
 def _longrope_cfg():
