@@ -8,8 +8,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build: the five CUDA kernel libraries from mixq_tpu_torch/csrc, timed,
      with each instantiation's registers and spills (ptxas) of the
      int8-activation GEMM (kernels 2 and A; the four MIX instantiations
-     held at their registers from before QUIK's zero-point mode, and the
-     two zero-point ones), of flash decode and of
+     held at their registers from before QUIK's zero-point mode, the
+     two zero-point ones and MoE's expert-batched one), of flash decode and of
      decode attention (24 instantiations each: g = 1, 2, 4, 8 x int8 x
      softcap, and g = 3, 5, 6, 7 x int8 without a softcap), of
      kernel 1's register kernel (512 threads of one chunk, 256 of two; a
@@ -96,7 +96,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      presets' blocks at M=8 (Qwen2.5-7B's q/k/v in the f32-output mode
      its bias takes, Gemma-7B's exact-GELU gate at N=24576, K up to
      24,576) against its plain version, each block of seven timed, and
-     kernel 1 at each preset's width and eps;
+     kernel 1 at each preset's width and eps; then MoE's expert GEMMs
+     (kernel_experts): kernel 2's expert-batched mode at Mixtral-8x7B's
+     gate/up (4096 x 14336) and down (14336 x 4096), 8 experts at C = 8
+     and 64 rows, and Qwen1.5-MoE-A2.7B's (2048 x 1408, 1408 x 2048), 60
+     experts at C = 8, a block of zero rows in each (exact capacity's
+     sentinels), against its plain version (the values apart counted),
+     beside a loop of torch._int_mm over the experts;
   4. reference: tiny W8A8, W4A4 (per-channel and grouped) and W8A16 llama
      models, and tiny W8A8, W4A4 and W8A16 gemma2 models (caps that bind
      without saturating), on the head-major cache (attn_impl="flash"); a
@@ -245,7 +251,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the int8 pool within 1e-5 of their max; the verify one position late
      rejected), the native scheduler in use, and no admission prefill past
      the rows (M=4096) at which phase 3 held kernels 1 and 2.
- 10. evaluation (run last), the wrappers' counts set to 0 just before and
+ 10. evaluation (after phase 8), the wrappers' counts set to 0 just before and
      read just after: examples/realistic_gate_torch.run with JAX's
      defaults (a tiny LM trained on the card for 600 steps, planted
      outlier channels, the online predictor's warmup, PPL of fp16, mix8,
@@ -273,7 +279,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the rows, the host seconds, evaluated tokens/s and the peak memory.
  11. speculative serving: the Markov Llama-2-7B of
      benchserve.py:95-110 (make_markov_state: v_eff 512, cycles of ~16,
-     shared blocks, margin 30; full width, 8 of its 32 layers: a depth
+     shared blocks, margin 30; full width, 4 of its 32 layers: a depth
      cut for the time limit) through
      quantize_model(W8A8), on phase 9's two pools with spec_k 4, n-grams of
      3 and spec windows of 8 rounds. Phase 9's script shape with prompts
@@ -330,14 +336,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      device ms, bound, peak memory; the longrope model's on 4,608 slots,
      its long factors). It prints the host seconds of the dict,
      quantize_model and warmup_online and each model's peak memory.
- 13. LayerNorm families (run last; families_phase on LN_PATHS): phase
+ 13. LayerNorm families (families_phase on LN_PATHS): phase
      12's flow on the LayerNorm families' presets and ChatGLM3, from their
      HF-named dicts (ln_state_dict: falcon's fused query_key_value, gptj's
      head bias, opt's positions, starcoder2's biases, chatglm's packed
      dense_h_to_4h): Falcon-7B (71 heads on one kv head, D = 64: kernels
-     3 and 8 in head tiles) at full width and depth under "flash" and
-     "auto"; StarCoder2-7B (36/4, g = 9), ChatGLM3-6B (32/2, g = 16,
-     kernel 1) and OPT-6.7B (learned positions, relu) under "flash",
+     3 and 8 in head tiles) at full width, 16 of its 32 layers, under
+     "flash" and "auto"; StarCoder2-7B (36/4, g = 9), ChatGLM3-6B (32/2,
+     g = 16, kernel 1) and OPT-6.7B (learned positions, relu) under "flash",
      GPT-J-6B (gptj RoPE on 64 of 256, fc_out on kernel B) under "auto",
      at LN_LAYERS = 4 layers; the launches expected from each path's specs
      and model (spec_launches); each preset's 2-layer reference (the
@@ -346,14 +352,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      128) and their g = 8 yardsticks at the same K/V bytes (B = 64 and 8,
      int8 and bf16; kernel_large_groups, ms per valid row over the
      yardstick's) and kernel 2 at the five presets' blocks at M = 8.
+ 14. sparse MoE (run last; moe_phase): phase 12's flow on
+     presets.mixtral_8x7b (8 experts, top-2) at 2 of its 32 layers under
+     "flash" (int8 KV, kernel 3) and "auto" (bf16 KV, kernel 8) and
+     presets.qwen1_5_moe_a2_7b (60 experts, top-4 raw, the shared expert
+     on kernel 2, q/k/v bias) at 4 of its 24 under "flash", both at full
+     width from seeded HF-named dicts (moe_state_dict: the router's rows
+     zero at the planted channels); each preset's 2-layer reference
+     (every expert-mode launch held to its plain version too); the
+     launches by mode asserted (kernel 1 once a layer, kernel 2 four or
+     seven times, its expert mode three times); then Mixtral-8x7B at
+     full depth from init_decoder_params (~47 GB of int8), its decode
+     step at B=8 and B=64 as graph replays beside its byte bound, the
+     card's expert-mode runs counted (moe_full_depth).
 It prints each phase's host seconds as it ends. It then prints the
 kernels line (one entry per ported TPU kernel, and one
 per mode a later slice added to a path: the GEMMs' gelu_new epilogue,
 flash decode's softcap and both attentions' ALiBi, kernels 3 and 8 at
 phase 9's pools, kernels 1, 2 and 3 at phase 11's verify, QUIK's
 zero-point modes of kernels 2 and A, kernels 3 and 8 at g = 7, at
-D = 96 and at groups past 8 ("tiled"); launches summed over phases
-5-13) and, last, the device line.
+D = 96 and at groups past 8 ("tiled"), kernel 2's expert mode; launches
+summed over phases 5-14) and, last, the device line.
 Details go to OUT_DIR/chip_smoke.json. Without a CUDA card, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -412,12 +431,13 @@ def _device_us(prof):
     return sum(e.self_device_time_total for e in block_events(prof))
 
 
-def device_ms(fn, iters, warmup=2):
+def device_ms(fn, iters, warmup=2, events=None):
     """Mean device time of one call: the durations of everything `iters`
     calls ran on the card (CUPTI, through torch.profiler), over `iters`.
     The host's gaps between kernels are left out, so a small kernel
-    launched from Python is timed, not its launch."""
-    from mixq_tpu_torch.kernels import card_trace
+    launched from Python is timed, not its launch. A list passed as
+    `events` gets the timed window's device events."""
+    from mixq_tpu_torch.kernels import block_events, card_trace
 
     for _ in range(warmup):
         fn()
@@ -431,6 +451,8 @@ def device_ms(fn, iters, warmup=2):
                 fn()
         us = _device_us(prof)
         if us > 0:
+            if events is not None:
+                events.extend(block_events(prof))
             return us / iters / 1e3
     raise SmokeError("the profiler saw no device time")
 
@@ -1145,6 +1167,7 @@ A16_LIB = ("torch.matmul of x with the pre-dequantized bf16 weight (product "
 A16_PTXAS = {}
 MIX_PTXAS = {}
 ZP_PTXAS = {}
+EXPERTS_PTXAS = {}
 RMS_PTXAS = {}
 FLASH_PTXAS = {}
 DECODE_PTXAS = {}
@@ -1155,12 +1178,15 @@ def ptxas_by_mode(log, kernel):
     -v` log, keyed by its template arguments (ints and bools, from the
     mangled name): (w4, grouped) for w8a16_kernel and mix_gemm_kernel,
     (g, int8, softcap) for flash_decode_kernel and
-    decode_attention_kernel, (threads, chunks) for rmsnorm_quant_regs."""
+    decode_attention_kernel, (threads, chunks) for rmsnorm_quant_regs, ()
+    for a kernel that is not a template (mix_gemm_experts_kernel)."""
     out, key = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             key = None
-            if f"{kernel}I" in ln:
+            if f"{kernel}E" in ln:
+                key = ()
+            elif f"{kernel}I" in ln:
                 args = ln.split(f"{kernel}I", 1)[1].split("EE", 1)[0] + "E"
                 key = tuple(int(v) if t == "i" else v == "1" for t, v in
                             re.findall(r"L([ib])(\d+)E", args))
@@ -2273,6 +2299,96 @@ def kernel_large_groups(dev, rows):
     return rows["large_flash"][0], rows["large_decode"][1], ratios
 
 
+# MoE's expert GEMMs, kernel 2's expert mode (phase 14's linears): (label,
+# E, C, K, N). Mixtral-8x7B's gate/up and down at C = 8 (generate's B=8
+# decode step: exact capacity gives every expert C = S rows) and C = 64
+# (the B=64 step), Qwen1.5-MoE-A2.7B's at C = 8.
+EXPERT_SHAPES = [
+    ("Mixtral-8x7B gate/up", 8, 8, 4096, 14336),
+    ("Mixtral-8x7B down", 8, 8, 14336, 4096),
+    ("Mixtral-8x7B gate/up", 8, 64, 4096, 14336),
+    ("Mixtral-8x7B down", 8, 64, 14336, 4096),
+    ("Qwen1.5-MoE-A2.7B gate/up", 60, 8, 2048, 1408),
+    ("Qwen1.5-MoE-A2.7B down", 60, 8, 1408, 2048),
+]
+EXPERT_LIB = ("a loop over the experts of torch._int_mm (each expert's rows "
+              "padded to 32 and a column-major copy of its weight), then "
+              "the scales in torch ops")
+
+
+def expert_bound(E, C, K, N):
+    """Every expert's int8 weight and rows, the scales and the f32 output
+    once; the int8 products and the two scale multiplies."""
+    nbytes = E * K * N + E * C * K + E * C * 4 + E * N * 4 + E * C * N * 4
+    return bound_ms(nbytes, [(2 * E * C * K * N, "int8"),
+                             (2 * E * C * N, "f32")])
+
+
+def kernel_experts(dev, rows):
+    """Kernel 2's expert mode at EXPERT_SHAPES (own generator: the later
+    phases keep their inputs): int8 activations with a block of zero rows
+    (the sentinel slots of exact capacity), held to its plain version
+    within GEMM_TOL, the values not bit-equal counted (the int32
+    accumulator is exact and the scales multiply in JAX's order, so none
+    are expected), then timed over rotated weight copies (cold in L2)
+    beside the plain version and the _int_mm loop; each row with its
+    split-K plan over the E x tiles output tiles. Returns the Mixtral
+    gate/up row at C = 8."""
+    from mixq_tpu_torch.kernels import _build
+    from mixq_tpu_torch.kernels.mix_gemm import (_clusters, mix_gemm_experts,
+                                                 mix_gemm_experts_plain,
+                                                 plan_mix)
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    clusters = _clusters(0, False, False, experts=True)
+    out = rows.setdefault("mix_gemm_experts", [])
+    for label, E, C, K, N in EXPERT_SHAPES:
+        q_x = torch.randint(-127, 128, (E, C, K), generator=gen, device=dev,
+                            dtype=torch.int8)
+        q_x[0, C // 2:] = 0
+        w = torch.randint(-127, 128, (E, K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        xs = torch.rand(E, C, 1, generator=gen, device=dev) * 1e-3 + 1e-4
+        ws = torch.rand(E, N, generator=gen, device=dev) * 1e-3 + 1e-4
+        got = mix_gemm_experts(q_x, w, xs, ws)
+        torch.cuda.synchronize()
+        ref = mix_gemm_experts_plain(q_x, w, xs, ws)
+        what = f"mix_gemm_experts {label} E={E} C={C} K={K} N={N}"
+        err = check_gemm(got, ref, what)
+        apart = int((got != ref).sum())
+        x_pad = torch.zeros((E, max(32, -(-C // 8) * 8), K), device=dev,
+                            dtype=torch.int8)
+        x_pad[:, :C] = q_x
+        copies = copies_of(w, E * K * N)
+        lib_copies = [[c[e].t().contiguous().t() for e in range(E)]
+                      for c in copies]
+
+        def lib(wl):
+            acc = torch.stack([torch._int_mm(x_pad[e], wl[e])[:C]
+                               for e in range(E)])
+            return acc.float() * xs * ws[:, None, :]
+        check(torch.equal(lib(lib_copies[0]), ref),
+              f"{what}: the _int_mm loop is not the plain version's")
+        b, by = expert_bound(E, C, K, N)
+        plan = plan_mix(C, N, K, False, 1, _build.sm_count(0), clusters,
+                        experts=E)
+        out.append(dict(
+            work=f"{label} E={E} C={C} K={K} N={N}", mode="w8a8_experts",
+            ms=device_ms(rotating([lambda c=c: mix_gemm_experts(
+                q_x, c, xs, ws) for c in copies]), 20),
+            plain_ms=device_ms(lambda: mix_gemm_experts_plain(
+                q_x, w, xs, ws), 3),
+            library_ms=device_ms(rotating([lambda c=c: lib(c)
+                                           for c in lib_copies]), 20),
+            bound_ms=b, bound_by=by, tolerance=GEMM_TOL, max_abs_err=err,
+            values_apart=apart, library=EXPERT_LIB,
+            plan=dict(splits=plan.splits, blocks=plan.blocks,
+                      clusters=clusters[plan.splits - 1])))
+        del q_x, w, copies, lib_copies, got, ref, x_pad
+        torch.cuda.empty_cache()
+    return out[0]
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-6
 # ---------------------------------------------------------------------------
@@ -2486,7 +2602,11 @@ def spec_launches(cfg, specs):
     for each RMSNorm whose group shares a prepared activation (a LayerNorm
     takes torch ops); each linear on kernel 2 (MIX W8A8) or kernel B
     (WEIGHT_ONLY: GPT-J's fc_out by JAX's arch policy); the gate's epilogue,
-    or a non-gated MLP's GELU on the up GEMM when up has no bias."""
+    or a non-gated MLP's GELU on the up GEMM when up has no bias. An MoE
+    block (W8A8): kernel 1 before q/k/v only (the MLP takes the plain
+    norm), kernel 2 on q/k/v/o, its expert mode three times (gate, up,
+    down over every expert), and qwen2-moe's shared expert's gate, up and
+    down on kernel 2, no epilogue."""
     from mixq_tpu_torch.models.decoder import (GATE_FUSE, UP_FUSE,
                                                _shares_act, gated_mlp)
 
@@ -2499,6 +2619,10 @@ def spec_launches(cfg, specs):
         return ("w8a16", "w8") if getattr(
             specs, slot).version == "WEIGHT_ONLY" else ("mix_gemm", "w8a8")
 
+    if cfg.num_local_experts > 0:
+        dense = 4 + (3 if cfg.model_type == "qwen2_moe" else 0)
+        return {"rmsnorm_quant": 1, "mix_gemm": dense + 3,
+                "mix_gemm.w8a8": dense, "mix_gemm.w8a8_experts": 3}
     if cfg.layernorm == "rmsnorm":
         add("rmsnorm_quant", int(_shares_act(specs.wqkv))
             + int(_shares_act(specs.up)))
@@ -2663,22 +2787,40 @@ class LinearTap:
     """Holds every card launch of kernels 1 and 2 inside a `with` block
     against its plain version on the same inputs: kernel 2 (`mix_gemm` as
     ops/mixed_linear.py calls it: its bf16- and f32-output modes, QUIK's
-    zero point) within GEMM_TOL, kernel 1 (`fused_rmsnorm_quant` as
-    models/layers.py calls it) within KERNEL1_TOL (kernel1_close). Records
+    zero point) within GEMM_TOL, its expert mode (`mix_gemm_experts` as
+    ops/moe.py calls it) within GEMM_TOL, kernel 1 (`fused_rmsnorm_quant`
+    as models/layers.py calls it) within KERNEL1_TOL (kernel1_close). Records
     by kernel and shape the launches, the rows seen, the largest error and
     the output values not bit-equal to the plain version's. Used as
     `with LinearTap() as lin:` around eager calls (it reads the card)."""
 
     def __enter__(self):
-        from mixq_tpu_torch.kernels.mix_gemm import mix_gemm_plain
+        from mixq_tpu_torch.kernels.mix_gemm import (mix_gemm_experts_plain,
+                                                     mix_gemm_plain)
         from mixq_tpu_torch.kernels.rmsnorm_quant import rmsnorm_quant_plain
         from mixq_tpu_torch.models import layers as Lm
         from mixq_tpu_torch.ops import mixed_linear as ML
+        from mixq_tpu_torch.ops import moe as MoE
 
         self.shapes = {}
-        self._mods = (ML, Lm)
-        self._real = (ML.mix_gemm, Lm.fused_rmsnorm_quant)
-        real_mg, real_rq = self._real
+        self._mods = (ML, Lm, MoE)
+        self._real = (ML.mix_gemm, Lm.fused_rmsnorm_quant,
+                      MoE.mix_gemm_experts)
+        real_mg, real_rq, real_ex = self._real
+
+        def ex(*a, **kw):
+            out = real_ex(*a, **kw)
+            if out.is_cuda:
+                ref = mix_gemm_experts_plain(*a)
+                err = (out - ref).abs()
+                tol = BF16_ULP * ref.abs() + 1e-4 * ref.abs().max()
+                ok = (bool((err <= tol).all())
+                      and bool(torch.isfinite(out).all()))
+                E, C, K = a[0].shape
+                self._add(f"mix_gemm_experts E={E} K={K} N={out.shape[-1]}",
+                          C, ok, err.max().item(), int((out != ref).sum()),
+                          out.numel())
+            return out
 
         def mg(*a, **kw):
             out = real_mg(*a, **kw)
@@ -2716,12 +2858,14 @@ class LinearTap:
                           x.numel() // x.shape[-1], ok, dy,
                           int((out[0] != ref[0]).sum()), out[0].numel())
             return out
-        ML.mix_gemm, Lm.fused_rmsnorm_quant = mg, rq
+        ML.mix_gemm, Lm.fused_rmsnorm_quant, MoE.mix_gemm_experts = (
+            mg, rq, ex)
         return self
 
     def __exit__(self, *exc):
-        ML, Lm = self._mods
-        ML.mix_gemm, Lm.fused_rmsnorm_quant = self._real
+        ML, Lm, MoE = self._mods
+        ML.mix_gemm, Lm.fused_rmsnorm_quant, MoE.mix_gemm_experts = (
+            self._real)
         return False
 
     def _add(self, key, M, ok, err, differing, values):
@@ -3690,6 +3834,8 @@ KERNEL_ROWS = [
     ("decode_attention_tiled", "decode_attention", "REPLACES",
      "decode_attention_tiled", ("decode_attention.tiled",),
      (family_label("Falcon-7B", "auto", "bfloat16"),)),
+    ("mix_gemm_w8a8_experts", "mix_gemm", "REPLACES_EXPERTS",
+     "mix_gemm_experts", ("mix_gemm.w8a8_experts",), None),
 ]
 # entries whose mode is a runtime argument (the gelu_new epilogue), which
 # a kernel's name does not show: the card's runs are counted by the
@@ -3704,6 +3850,15 @@ EXECUTED_AS = {"mix_gemm_w8a8_gelu_new": ("mix_gemm.w8a8",),
                "flash_decode_tiled": ("flash_decode",),
                "decode_attention_tiled": ("decode_attention",)}
 KERNEL_NOTES = {
+    "mix_gemm_w8a8_experts": "kernel 2's expert-batched mode "
+                             "(mix_gemm_experts_kernel: every expert of an "
+                             "MoE linear in one launch, f32 out); timed "
+                             "row: Mixtral-8x7B's gate/up, 8 experts x 8 "
+                             "rows (exact capacity at B=8), 4096 x 14336; "
+                             "replaces JAX's jnp int8 batched dot_general "
+                             "in expert_linear (no Pallas kernel); "
+                             "launches: the card's runs in phase 14's "
+                             "serves",
     "flash_decode_tiled": "kernel 3 at a group past 8 query heads a kv head "
                           "in head tiles of at most 8 (a grid axis; one "
                           "launch); timed row: Falcon-7B's 71/1 at D = 64, "
@@ -5203,14 +5358,19 @@ def step_bound_ms(eng, cfg, B, kv_len):
     return bound_ms(nbytes, [])[0]
 
 
-def family_step(dev, eng, cfg, gen, B=8, fill=512, slots=640, steps=8):
+def family_step(dev, eng, cfg, gen, B=8, fill=512, slots=640, steps=8,
+                iters=3):
     """The decode step at generate's batch B=8 with 512 of 640 positions
     filled, as replays of the device loop's CUDA graph: device ms a step
-    (CUPTI over 8 replays from the same state; the three small kernels of
-    the rewind, a few microseconds, included), its bound, the logits
-    finite, and the peak memory while it ran."""
+    (CUPTI over `iters` runs of 8 replays from the same state, after one
+    more; the three small kernels of the rewind, a few microseconds,
+    included), in the same profiler window the port's kernels the card
+    ran a run (`executed`, by launch-count key) and the six longest
+    kernels by device ms a step; its bound, the logits finite, and the
+    peak memory while it ran."""
     from mixq_tpu_torch.engine.engine import DecodeLoop
     from mixq_tpu_torch.engine.sampling import SamplingParams
+    from mixq_tpu_torch.kernels import executed_counts
 
     from mixq_tpu_torch.models.decoder import rope_scaling
 
@@ -5245,7 +5405,15 @@ def family_step(dev, eng, cfg, gen, B=8, fill=512, slots=640, steps=8):
         rewind()
         loop.replay(steps)
 
-    ms = device_ms(run, 3, warmup=1) / steps
+    events = []
+    ms = device_ms(run, iters, warmup=1, events=events) / steps
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0) + e.self_device_time_total
+    executed = {k: v // iters for k, v in executed_counts(
+        (e.name, 1) for e in events).items() if v}
+    top = {n[:90]: us / iters / steps / 1e3 for n, us in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:6]}
     logits = loop.logits
     check(tuple(logits.shape) == (B, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
@@ -5253,6 +5421,8 @@ def family_step(dev, eng, cfg, gen, B=8, fill=512, slots=640, steps=8):
     return dict(batch=B, kv_filled=fill, slots=slots, rope_scaling=rope,
                 head_major=cache.head_major, graph_device_ms=ms,
                 bound_ms=step_bound_ms(eng, cfg, B, fill + (steps + 1) / 2),
+                replays=steps, executed=executed,
+                top_kernels_ms_per_step=top,
                 max_memory_allocated_gib=torch.cuda.max_memory_allocated()
                 / 2 ** 30)
 
@@ -5386,7 +5556,7 @@ def family_reference(dev, model, attn_impl, kv_dtype, label):
     return out
 
 
-def families_phase(dev, paths, make_dict, seed):
+def families_phase(dev, paths, make_dict, seed, reference_once=False):
     """Phase 12 (FAMILY_PATHS, family_state_dict) and phase 13 (LN_PATHS,
     ln_state_dict): each preset of `paths` from a seeded HF-named bf16
     dict on the card (`make_dict`) through quantize_model (W8A8:
@@ -5396,9 +5566,12 @@ def families_phase(dev, paths, make_dict, seed):
     the wrappers' and the card's launches by mode asserted, tokens equal
     to the stepwise loop's) under each of its policies, then its decode
     step at B=8 timed (family_step; a longrope model's on a cache of
-    LONGROPE_SLOTS, its long factors). It prints, per model, the host
-    seconds of the dict, quantize_model and warmup_online and the peak
-    memory, and per path the serve and the step."""
+    LONGROPE_SLOTS, its long factors). With `reference_once`, a preset's
+    2-layer reference runs under its first policy only (phase 14: the
+    CPU's plain expert products are the phase's longest part). It prints,
+    per model, the host seconds of the dict, quantize_model, the reference
+    model and warmup_online and the peak memory, and per path the serve
+    and the step."""
     import dataclasses
 
     from mixq_tpu_torch import presets
@@ -5432,7 +5605,10 @@ def families_phase(dev, paths, make_dict, seed):
         gc.collect()
         torch.cuda.empty_cache()
         model["param_gib"] = tensor_bytes(params) / 2 ** 30
+        t0 = time.perf_counter()
         ref_model = family_reference_model(dev, full, qcfg, make_dict)
+        torch.cuda.synchronize()
+        secs["reference_model"] = time.perf_counter() - t0
         for i, (attn_impl, kv_dtype) in enumerate(policies):
             eng = new_engine(dev, params, cfg, dataclasses.replace(
                 specs, attn_impl=attn_impl), kv_dtype)
@@ -5450,9 +5626,10 @@ def families_phase(dev, paths, make_dict, seed):
                 model["max_memory_allocated_gib"] = (
                     torch.cuda.max_memory_allocated() / 2 ** 30)
             path = {"attn_impl": attn_impl, "kv_dtype": kv_dtype}
-            path["reference"] = family_reference(
-                dev, ref_model, attn_impl, kv_dtype,
-                family_label(label, attn_impl, kv_dtype))
+            if i == 0 or not reference_once:
+                path["reference"] = family_reference(
+                    dev, ref_model, attn_impl, kv_dtype,
+                    family_label(label, attn_impl, kv_dtype))
             t0 = time.perf_counter()
             eng, path["serve"] = serve(dev, None, cfg, eng.specs, "W8A8",
                                        kv_dtype, eng=eng, by_specs=True)
@@ -5482,15 +5659,17 @@ def families_phase(dev, paths, make_dict, seed):
 # ---------------------------------------------------------------------------
 
 # layers the reduced LayerNorm families serve (full width; a depth cut for
-# the time limit)
+# the time limit), and Falcon-7B's (16 of 32 since phase 14, a cut for the
+# time limit)
 LN_LAYERS = 4
+FALCON_LAYERS = 16
 # (preset, label, layers served (None: all), [(attn_impl, kv_dtype)]):
-# Falcon-7B at full width and depth under both policies (kernel 3 and
+# Falcon-7B at full width under both policies (kernel 3 and
 # kernel 8 at g = 71), StarCoder2-7B (g = 9), ChatGLM3-6B (g = 16, kernel
 # 1) and OPT-6.7B (learned positions, relu) under "flash", GPT-J-6B (gptj
 # RoPE, D = 256) under "auto"
 LN_PATHS = [
-    ("falcon_7b", "Falcon-7B", None, (("flash", "int8"),
+    ("falcon_7b", "Falcon-7B", FALCON_LAYERS, (("flash", "int8"),
                                       ("auto", "bfloat16"))),
     ("starcoder2_7b", "StarCoder2-7B", LN_LAYERS, (("flash", "int8"),)),
     ("chatglm3_6b", "ChatGLM3-6B", LN_LAYERS, (("flash", "int8"),)),
@@ -5599,6 +5778,145 @@ def ln_state_dict(cfg, dev, seed=7, boost=BOOST):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: sparse MoE (Mixtral-8x7B, Qwen1.5-MoE-A2.7B) at full width
+# ---------------------------------------------------------------------------
+
+# (preset, label, layers served, [(attn_impl, kv_dtype)]): Mixtral-8x7B at
+# 2 of its 32 layers (a bf16 dict of all 32 is 93 GB) under "flash" (int8
+# KV, kernel 3 at 32/8) and "auto" (bf16 KV, kernel 8), Qwen1.5-MoE-A2.7B
+# (60 experts, top-4 without renormalisation, the shared expert, q/k/v
+# bias) at 4 of its 24 under "flash"; both at full width (depth cuts for
+# the time limit). Mixtral's decode step is timed at full depth
+# (moe_full_depth).
+MOE_PATHS = [
+    ("mixtral_8x7b", "Mixtral-8x7B", 2, (("flash", "int8"),
+                                         ("auto", "bfloat16"))),
+    ("qwen1_5_moe_a2_7b", "Qwen1.5-MoE-A2.7B", 4, (("flash", "int8"),)),
+]
+# Qwen1.5-MoE-A2.7B's shared expert (its published config's
+# shared_expert_intermediate_size; ModelConfig holds no field for it, the
+# loader reads it from the weights)
+QWEN_MOE_SHARED = 5632
+# the router's N(0, MOE_ROUTER_STD) rows, zero at the PLANTED channels, so
+# that each token's own channels route it (with the planted ones in the
+# router, every token would take the same experts)
+MOE_ROUTER_STD = 0.5
+# the batches of Mixtral-8x7B's full-depth decode step
+MOE_STEP_BATCHES = (8, 64)
+
+
+def moe_state_dict(cfg, dev, seed=7, boost=BOOST):
+    """A bf16 state dict of an MoE preset under its HF names on the card
+    from `seed`, as family_state_dict makes the dense ones (the planted
+    embedding, N(0, 0.02) weights, norms of ones; the PLANTED channels
+    modulo H: Qwen1.5-MoE's H=2048 takes 2, 11, 1003 and 1023): llama's
+    attention (with qwen2-moe's q/k/v biases), the router `gate` [E, H] (N(0,
+    MOE_ROUTER_STD), zero at the planted channels) and each expert's
+    [N, K] weights (mixtral's block_sparse_moe.experts.{e}.w1/w3/w2,
+    qwen2-moe's mlp.experts.{e}.gate_proj/up_proj/down_proj), and qwen2-
+    moe's shared expert (QWEN_MOE_SHARED wide) and its gate [1, H]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    E = cfg.num_local_experts
+    nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.head_dim_)
+
+    def w(*shape, std=0.02):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16) * std
+
+    def norm():
+        return torch.ones((H,), device=dev, dtype=torch.bfloat16)
+
+    planted = sorted({c % H for c in PLANTED})
+    sd = {"model.embed_tokens.weight": w(V, H, std=EMBED_STD),
+          "model.norm.weight": norm(), "lm_head.weight": w(V, H)}
+    sd["model.embed_tokens.weight"][:, planted] += boost
+    qwen = cfg.model_type == "qwen2_moe"
+    pre, names = (("mlp", ("gate_proj", "up_proj", "down_proj")) if qwen
+                  else ("block_sparse_moe", ("w1", "w3", "w2")))
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = norm()
+        sd[p + "post_attention_layernorm.weight"] = norm()
+        for name, shape in (("q", (nq * hd, H)), ("k", (nkv * hd, H)),
+                            ("v", (nkv * hd, H)), ("o", (H, nq * hd))):
+            sd[p + f"self_attn.{name}_proj.weight"] = w(*shape)
+        if cfg.attention_bias:
+            for name, n in (("q", nq), ("k", nkv), ("v", nkv)):
+                sd[p + f"self_attn.{name}_proj.bias"] = w(n * hd)
+        router = w(E, H, std=MOE_ROUTER_STD)
+        router[:, planted] = 0
+        sd[p + f"{pre}.gate.weight"] = router
+        for e in range(E):
+            for name, shape in zip(names, ((I, H), (I, H), (H, I))):
+                sd[p + f"{pre}.experts.{e}.{name}.weight"] = w(*shape)
+        if qwen:
+            for name, shape in (("gate_proj", (QWEN_MOE_SHARED, H)),
+                                ("up_proj", (QWEN_MOE_SHARED, H)),
+                                ("down_proj", (H, QWEN_MOE_SHARED))):
+                sd[p + f"mlp.shared_expert.{name}.weight"] = w(*shape)
+            sd[p + "mlp.shared_expert_gate.weight"] = w(1, H)
+    torch.cuda.synchronize()
+    return sd
+
+
+def moe_full_depth(dev):
+    """Mixtral-8x7B at its full depth (32 layers, ~47 GB of int8 weights)
+    from init_decoder_params on the card (W8A8, 128 outlier channels on
+    the attention's inputs; the experts take none), its decode step at
+    each of MOE_STEP_BATCHES with 512 of 640 positions filled on the
+    int8 head-major cache (kernel 3), as graph replays (family_step:
+    device ms, the byte bound of every weight and the K/V rows, peak
+    memory; one run of 8 replays profiled, a cut for the time limit: the
+    profiler's events of a 32-layer MoE step take seconds to read), the
+    card's expert-mode runs in the replays counted (3 a layer and
+    step)."""
+    from mixq_tpu_torch import presets
+    from mixq_tpu_torch.models.decoder import init_decoder_params
+
+    cfg = presets.mixtral_8x7b()
+    specs = path_specs("W8A8", "flash")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    t0 = time.perf_counter()
+    params = init_decoder_params(cfg, specs, gen, device=dev,
+                                 dtype=torch.bfloat16, outlier_budget=128)
+    torch.cuda.synchronize()
+    out = {"layers": cfg.num_hidden_layers, "init_s": time.perf_counter() - t0,
+           "param_gib": tensor_bytes(params) / 2 ** 30, "steps": {}}
+    eng = new_engine(dev, params, cfg, specs, "int8")
+    del params
+    for B in MOE_STEP_BATCHES:
+        step = family_step(dev, eng, cfg, gen, B=B, iters=1)
+        want = 3 * cfg.num_hidden_layers * step["replays"]
+        got = step["executed"].get("mix_gemm.w8a8_experts", 0)
+        check(got == want, f"Mixtral-8x7B full depth B={B}: {got} runs of "
+              f"the expert mode on the card, not {want}")
+        out["steps"][f"B={B}"] = step
+        print(f"step Mixtral-8x7B W8A8O16 int8 KV (flash), full depth, "
+              f"B={B}: {step}", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(dev):
+    """Phase 14: MOE_PATHS through families_phase (seeded HF-named dicts
+    from moe_state_dict through quantize_model and warmup_online, each
+    preset's 2-layer full-width reference card vs CPU under its first
+    policy, generate served
+    under each policy with the launches asserted, the B=8 step at the
+    served depth), then Mixtral-8x7B's full-depth step (moe_full_depth)."""
+    out = families_phase(dev, MOE_PATHS, moe_state_dict, 14,
+                         reference_once=True)
+    t0 = time.perf_counter()
+    out["full_depth"] = moe_full_depth(dev)
+    out["full_depth"]["host_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: speculative serving
 # ---------------------------------------------------------------------------
 
@@ -5609,9 +5927,9 @@ def ln_state_dict(cfg, dev, seed=7, boost=BOOST):
 # of small random arrays, logit margin 30, so greedy output walks the chain
 # and a prompt that walks it makes n-grams recur; at SPEC_LAYERS of the 32
 # layers (a depth cut for the time limit, made with QUIK's phases: 16;
-# 8 since phase 13)
+# 8 since phase 13; 4 since phase 14)
 SPEC_V_EFF, SPEC_CYCLE = 512, 16
-SPEC_LAYERS = 8
+SPEC_LAYERS = 4
 SPEC_K, SPEC_NGRAM, SPEC_WINDOW_R = 4, 3, 8
 # the script through an engine in turn: plain windows, spec windows,
 # step_serve (adaptive), async plain windows
@@ -6585,6 +6903,21 @@ def main():
               f"mix_gemm_zp_kernel<W4={w4}> spills: {r}")
     report["mix_gemm_zp_ptxas"] = {f"w4={k[0]}": v
                                    for k, v in ZP_PTXAS.items()}
+    # and neither does MoE's expert-batched kernel
+    EXPERTS_PTXAS.update(ptxas_by_mode(ptxas.get("mix_gemm", ""),
+                                       "mix_gemm_experts_kernel"))
+    check(ptxas.get("mix_gemm") == "(cached)" or len(EXPERTS_PTXAS) == 1,
+          f"mix_gemm: ptxas reported {len(EXPERTS_PTXAS)} expert-mode "
+          "instantiations")
+    for r in EXPERTS_PTXAS.values():
+        check(" 0 bytes spill stores" in r.get("spills", ""),
+              f"mix_gemm_experts_kernel spills: {r}")
+    report["mix_gemm_experts_ptxas"] = EXPERTS_PTXAS.get((), {})
+    report["mix_gemm_experts_clusters"] = mix_gemm._clusters(
+        0, False, False, experts=True)
+    print(f"  mix_gemm_experts: {report['mix_gemm_experts_ptxas']}; "
+          f"clusters of 1..8 blocks the card holds at once: "
+          f"{report['mix_gemm_experts_clusters']}", flush=True)
     report["mix_gemm_zp_clusters"] = {
         f"w4={w4}": mix_gemm._clusters(0, w4, False, True)
         for w4 in (False, True)}
@@ -6689,6 +7022,7 @@ def main():
     print(f"large groups, ms per valid row over g = 8's at the same bytes: "
           f"{report['large_group_ratios']}", flush=True)
     kernel_family_linears(dev, rows, LN_PRESETS, "layernorm", 23)
+    main_rows["mix_gemm_experts"] = kernel_experts(dev, rows)
     for name, rs in rows.items():
         for r in rs:
             lib = ("-" if r.get("library_ms") is None
@@ -6818,13 +7152,15 @@ def main():
     phase_done("12 families")
     report["ln_families"] = families_phase(dev, LN_PATHS, ln_state_dict, 13)
     phase_done("13 LayerNorm families")
+    report["moe"] = moe_phase(dev)
+    phase_done("14 MoE")
     report["total_s"] = time.perf_counter() - t_start
 
     kernels = []
     served = {**report["paths"], **report["baichuan"]["paths"],
               **report["cb"]["pools"], "evaluation": report["evaluation"],
               **report["spec"]["pools"], **report["families"]["paths"],
-              **report["ln_families"]["paths"]}
+              **report["ln_families"]["paths"], **report["moe"]["paths"]}
     for name, mod, attr, row, keys, labels in KERNEL_ROWS:
         source = MODULES[mod].SOURCE
         r = main_rows[row]

@@ -6,10 +6,11 @@ numpy arrays, bf16 as ml_dtypes' bfloat16) and builds the port's
 `DecoderParams` with the same field layout and dtypes: int8 q_weight (or
 packed int4 uint8 [K/2, N], halves layout), f32 w_scale [N] or [G, N],
 f32 k_mask / out_mask, bf16 w_outlier, int32 out_ind, QUIK's f32
-reduced_w, embed and lm_head (None = tied). Every array is carried bit for
-bit. It reads fields by name
-and imports nothing of JAX. jnp.int4 weight storage is not carried: the
-port keeps int4 weights packed, JAX's default storage.
+reduced_w, embed and lm_head (None = tied), and a sparse-MoE block's
+router, stacked int8 (or bf16) experts with their [E, N] scales and
+qwen2-moe's shared expert. Every array is carried bit for bit. It reads
+fields by name and imports nothing of JAX. jnp.int4 weight storage is
+not carried: the port keeps int4 weights packed, JAX's default storage.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from mixq_tpu_torch.models.decoder import (AttnParams, BlockParams,
                                            DecoderParams, MLPParams)
 from mixq_tpu_torch.ops.mixed_linear import MixLinearParams
+from mixq_tpu_torch.ops.moe import ExpertLinearParams, MoEParams
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -46,6 +48,19 @@ def _linear(p, device) -> MixLinearParams:
                               for f in MixLinearParams._fields})
 
 
+def _moe(p, device) -> MoEParams:
+    def experts(e):
+        return ExpertLinearParams(tensor_from_numpy(e.q_weight, device),
+                                  _opt(e.w_scale, device))
+    return MoEParams(
+        router=tensor_from_numpy(p.router, device), gate=experts(p.gate),
+        up=experts(p.up), down=experts(p.down),
+        shared_gate=_linear(p.shared_gate, device),
+        shared_up=_linear(p.shared_up, device),
+        shared_down=_linear(p.shared_down, device),
+        shared_route=_opt(p.shared_route, device))
+
+
 def decoder_params_from_numpy(params, device="cuda") -> DecoderParams:
     """The port's DecoderParams from a numpy-mapped JAX DecoderParams."""
     if getattr(params, "stacked", None) is not None:
@@ -53,8 +68,7 @@ def decoder_params_from_numpy(params, device="cuda") -> DecoderParams:
     blocks = []
     for bp in params.blocks:
         a, m = bp.attn, bp.mlp
-        if getattr(m, "moe", None) is not None:
-            raise NotImplementedError("MoE blocks are not ported")
+        moe = getattr(m, "moe", None)
         blocks.append(BlockParams(
             ln1_scale=_opt(bp.ln1_scale, device),
             ln1_bias=_opt(bp.ln1_bias, device),
@@ -68,7 +82,8 @@ def decoder_params_from_numpy(params, device="cuda") -> DecoderParams:
             ln2_bias=_opt(bp.ln2_bias, device),
             mlp=MLPParams(up=_linear(m.up, device),
                           gate=_linear(m.gate, device),
-                          down=_linear(m.down, device)),
+                          down=_linear(m.down, device),
+                          moe=None if moe is None else _moe(moe, device)),
             post_attn_norm_scale=_opt(bp.post_attn_norm_scale, device),
             post_ffw_norm_scale=_opt(bp.post_ffw_norm_scale, device),
         ))

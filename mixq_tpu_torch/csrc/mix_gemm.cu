@@ -22,11 +22,17 @@
 // grouped, W8 grouped). mix_gemm_zp_kernel<false> and <true> are the same
 // per-channel kernels with the zero-point term (the tile's template
 // argument ZP, so the MIX instantiations compile as before).
+// mix_gemm_experts_kernel is kernel 2's tile over E experts in one launch
+// (MoE's expert linears, f32 out, no outlier term or epilogue): the grid's
+// y axis runs the experts' M-tiles, and each block offsets the operands to
+// its expert's slices.
 //
 // Replaces: mixq_tpu/ops/pallas/mix_gemm.py::mix_gemm with an int8
 // activation (the int32 dot of `_kernel`/`_kernel_outlier`, `_unpack_w4`
 // and `_grouped_int8_dot`), and with it
-// mixq_tpu/ops/pallas/int8_matmul.py::int8_matmul_dequant.
+// mixq_tpu/ops/pallas/int8_matmul.py::int8_matmul_dequant; the expert mode
+// replaces mixq_tpu/ops/moe.py::expert_linear's int8 batched dot_general
+// (a jnp product with no Pallas kernel).
 //
 // Bound on the card: at decode (M = batch <= a few hundred) the weight
 // read, K*N bytes (W4: K*N/2): Llama-2-7B's 4096 x 11008 is 45 MB (W4:
@@ -418,18 +424,18 @@ __device__ __forceinline__ void finish(const Args& a, const float* Ys,
   }
 }
 
-// One output tile's split, MT live 16-row M-tiles (1-4); grouped,
-// STEPWISE for a group size that is not a multiple of KSTEP; ZP adds the
-// zero-point term (per-channel only).
+// One output tile's split, M-tile `mtile` with MT live 16-row M-tiles
+// (1-4); grouped, STEPWISE for a group size that is not a multiple of
+// KSTEP; ZP adds the zero-point term (per-channel only).
 template <bool W4, bool GROUPED, int MT, bool STEPWISE, bool ZP>
-__device__ __forceinline__ void gemm_tile(const Args& a,
-                                          unsigned char* smem) {
+__device__ __forceinline__ void gemm_tile(const Args& a, unsigned char* smem,
+                                          int mtile) {
   static_assert(!(ZP && GROUPED), "a zero point takes per-channel scales");
   using L = Layout<W4>;
   // the partial tile and the sums of its S copies: int32 (exact), or f32
   using Sum4 = std::conditional_t<GROUPED, float4, int4>;
   const int S = gridDim.z, z = blockIdx.z;   // the cluster is (1, 1, S)
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = mtile * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wn = warp & 3, wk = warp >> 2;
   const int g = lane >> 2, q = lane & 3;
@@ -848,13 +854,13 @@ __device__ __forceinline__ void gemm_tile(const Args& a,
 }
 
 template <bool W4, bool GROUPED, bool STEPWISE, bool ZP = false>
-__device__ __forceinline__ void gemm_tiles(const Args& a,
-                                           unsigned char* smem) {
-  switch (min(BM, a.M - (int)blockIdx.y * BM + 15) / 16) {
-    case 1: gemm_tile<W4, GROUPED, 1, STEPWISE, ZP>(a, smem); break;
-    case 2: gemm_tile<W4, GROUPED, 2, STEPWISE, ZP>(a, smem); break;
-    case 3: gemm_tile<W4, GROUPED, 3, STEPWISE, ZP>(a, smem); break;
-    default: gemm_tile<W4, GROUPED, 4, STEPWISE, ZP>(a, smem); break;
+__device__ __forceinline__ void gemm_tiles(const Args& a, unsigned char* smem,
+                                           int mtile) {
+  switch (min(BM, a.M - mtile * BM + 15) / 16) {
+    case 1: gemm_tile<W4, GROUPED, 1, STEPWISE, ZP>(a, smem, mtile); break;
+    case 2: gemm_tile<W4, GROUPED, 2, STEPWISE, ZP>(a, smem, mtile); break;
+    case 3: gemm_tile<W4, GROUPED, 3, STEPWISE, ZP>(a, smem, mtile); break;
+    default: gemm_tile<W4, GROUPED, 4, STEPWISE, ZP>(a, smem, mtile); break;
   }
 }
 
@@ -867,11 +873,11 @@ mix_gemm_kernel(const Args a) {
   // W4 groups that do not divide K/2 go step-wise too
   if constexpr (GROUPED) {
     if (a.gs % KSTEP || (W4 && (a.K / 2) % a.gs)) {
-      gemm_tiles<W4, true, true>(a, smem);
+      gemm_tiles<W4, true, true>(a, smem, blockIdx.y);
       return;
     }
   }
-  gemm_tiles<W4, GROUPED, false>(a, smem);
+  gemm_tiles<W4, GROUPED, false>(a, smem, blockIdx.y);
 }
 
 // QUIK: the per-channel kernel with the zero-point term
@@ -879,26 +885,48 @@ template <bool W4>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 mix_gemm_zp_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  gemm_tiles<W4, false, false, true>(a, smem);
+  gemm_tiles<W4, false, false, true>(a, smem, blockIdx.y);
+}
+
+// The expert-batched W8A8 mode (MoE): E per-channel W8 products in one
+// launch, y[e] = float(q_x[e] @ w[e]) * x_scale[e] * w_scale[e] into f32
+// out[e]. Args hold expert 0's operands and one expert's M = C rows; the
+// grid's y axis is E x M-tiles, expert-major, and each block moves the
+// operands to its expert's slices (q_x [E, C, K], w [E, K, N], x_scale
+// [E, C], w_scale [E, N], out [E, C, N]) before running kernel 2's tile.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+mix_gemm_experts_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int m_tiles = (a.M + BM - 1) / BM;
+  const int e = blockIdx.y / m_tiles;
+  Args b = a;
+  b.qx += (size_t)e * a.M * a.K;
+  b.w += (size_t)e * a.K * a.N;
+  b.xs += (size_t)e * a.M;
+  b.ws += (size_t)e * a.N;
+  b.out = reinterpret_cast<float*>(a.out) + (size_t)e * a.M * a.N;
+  gemm_tiles<false, false, false>(b, smem, blockIdx.y - e * m_tiles);
 }
 
 using KernelFn = void (*)(const Args);
 
-template <bool W4, bool GROUPED, bool ZP>
+template <bool W4, bool GROUPED, bool ZP, bool EXPERTS = false>
 KernelFn kernel_fn() {
-  if constexpr (ZP)
+  if constexpr (EXPERTS)
+    return mix_gemm_experts_kernel;
+  else if constexpr (ZP)
     return mix_gemm_zp_kernel<W4>;
   else
     return mix_gemm_kernel<W4, GROUPED>;
 }
 
-template <bool W4, bool GROUPED, bool ZP>
+template <bool W4, bool GROUPED, bool ZP, bool EXPERTS = false>
 cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
                       int S) {
   static unsigned long long smem_set = 0;   // per instantiation and device
   constexpr int smem = Layout<W4>::SMEM;
-  cudaError_t e = mixq::allow_smem(kernel_fn<W4, GROUPED, ZP>(), smem,
-                                   smem_set);
+  cudaError_t e = mixq::allow_smem(kernel_fn<W4, GROUPED, ZP, EXPERTS>(),
+                                   smem, smem_set);
   if (e != cudaSuccess) return e;
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
@@ -911,28 +939,29 @@ cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
   return cudaSuccess;
 }
 
-template <bool W4, bool GROUPED, bool ZP = false>
-int launch(const Args& a, int S, cudaStream_t stream) {
+// E: the experts of the expert-batched mode (grid y = E x M-tiles)
+template <bool W4, bool GROUPED, bool ZP = false, bool EXPERTS = false>
+int launch(const Args& a, int S, cudaStream_t stream, int E = 1) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t e = configure<W4, GROUPED, ZP>(cfg, attr, S);
+  cudaError_t e = configure<W4, GROUPED, ZP, EXPERTS>(cfg, attr, S);
   if (e != cudaSuccess) return (int)e;
-  cfg.gridDim = dim3((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, S);
+  cfg.gridDim = dim3((a.N + BN - 1) / BN, E * ((a.M + BM - 1) / BM), S);
   cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, kernel_fn<W4, GROUPED, ZP>(), a);
+  e = cudaLaunchKernelEx(&cfg, kernel_fn<W4, GROUPED, ZP, EXPERTS>(), a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <bool W4, bool GROUPED, bool ZP = false>
+template <bool W4, bool GROUPED, bool ZP = false, bool EXPERTS = false>
 int max_clusters(int S, int* n) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t e = configure<W4, GROUPED, ZP>(cfg, attr, S);
+  cudaError_t e = configure<W4, GROUPED, ZP, EXPERTS>(cfg, attr, S);
   if (e != cudaSuccess) return (int)e;
   cfg.gridDim = dim3(1, 1, S);
   return (int)cudaOccupancyMaxActiveClusters(
-      n, kernel_fn<W4, GROUPED, ZP>(), &cfg);
+      n, kernel_fn<W4, GROUPED, ZP, EXPERTS>(), &cfg);
 }
 
 int gcd(int x, int y) { return y ? gcd(y, x % y) : x; }
@@ -986,4 +1015,26 @@ extern "C" int mix_gemm_max_active_clusters(int splits, int w4, int grouped,
 extern "C" int mix_gemm_zp_max_active_clusters(int splits, int w4, int* n) {
   return w4 ? max_clusters<true, false, true>(splits, n)
             : max_clusters<false, false, true>(splits, n);
+}
+
+// The expert-batched W8A8 mode: qx int8 [E, C, K], w int8 [E, K, N], xs f32
+// [E, C], ws f32 [E, N] into out f32 [E, C, N], one launch of E x M-tiles x
+// N-tiles output tiles, each split S ways (plan_mix with `experts`).
+extern "C" int mix_gemm_experts_launch(const void* qx, const void* w,
+                                       const void* xs, const void* ws,
+                                       void* out, int E, int C, int N, int K,
+                                       int splits, void* stream) {
+  if (splits < 1 || splits > MAX_SPLITS || E < 1 || C < 1 ||
+      (long long)E * ((C + BM - 1) / BM) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Args a{(const int8_t*)qx, (const int8_t*)w, (const float*)xs,
+               (const float*)ws, nullptr, nullptr, out, C, N, K, 0,
+               mixq::kNone, 1, K, 1, nullptr, nullptr};
+  return launch<false, false, false, true>(a, splits, (cudaStream_t)stream,
+                                           E);
+}
+
+// The same count for the expert-batched kernel.
+extern "C" int mix_gemm_experts_max_active_clusters(int splits, int* n) {
+  return max_clusters<false, false, false, true>(splits, n);
 }

@@ -25,6 +25,13 @@ The kernel splits K over a thread-block cluster when the output tiles
 alone would not fill the card, and `plan_mix` chooses the split and gives
 the bounds the kernel walks, so the plan can be checked on the CPU.
 
+`mix_gemm_experts` is kernel 2 over the E experts of an MoE linear in one
+launch ("w8a8_experts"): q_x int8 [E, C, K], w int8 [E, K, N], x_scale f32
+[E, C, 1] and w_scale f32 [E, N] give y [E, C, N] f32 = float(q_x[e] @
+w[e]) * x_scale[e] * w_scale[e] (mixq_tpu/ops/moe.py::expert_linear's W8A8
+product, a jnp dot_general in JAX), with no outlier term or epilogue; its
+plan counts the E x tiles output tiles.
+
 A bf16 activation is the a16 (weight-only) mode, which runs on kernel B
 (kernels/w8a16.py); `mix_gemm` hands it over, as the Pallas kernel
 dispatches on the activation's dtype. `int8_matmul_dequant` is
@@ -57,7 +64,11 @@ REPLACES_INT8_MATMUL = "mixq_tpu/ops/pallas/int8_matmul.py:53"
 # QUIK's GEMM has no Pallas kernel: JAX runs its int8 dot_general and the
 # zero-point epilogue in jnp (quik_linear)
 REPLACES_QUIK = "mixq_tpu/ops/mixed_linear.py:341"
-MODES = ("w8a8", "w8a8_grouped", "w4", "w4_grouped", "w8a8_zp", "w4_zp")
+# nor has MoE's expert GEMM: JAX's expert_linear is one int8 batched
+# dot_general
+REPLACES_EXPERTS = "mixq_tpu/ops/moe.py:69"
+MODES = ("w8a8", "w8a8_grouped", "w4", "w4_grouped", "w8a8_zp", "w4_zp",
+         "w8a8_experts")
 EPILOGUES = _build.FUSES[1:]              # "silu", "gelu", "gelu_new"
 # the kernel's tiling (csrc/mix_gemm.cu): an output tile, the stored weight
 # rows of one stage of the cp.async ring (W4: packed rows), the ring's
@@ -67,8 +78,10 @@ BM, BN, KSTEP, STAGES, BLOCKS_PER_SM = 64, 128, 128, 4, 1
 
 @functools.lru_cache(maxsize=1024)       # every decode step asks again
 def plan_mix(M: int, N: int, K: int, w4: bool, G: int, sm_count: int,
-             clusters: Optional[Sequence[int]] = None) -> _build.SplitPlan:
-    """The kernel's launch plan: the output tiles (BM x BN), then K split
+             clusters: Optional[Sequence[int]] = None,
+             experts: int = 1) -> _build.SplitPlan:
+    """The kernel's launch plan: the output tiles (BM x BN; the expert
+    mode's `experts` x that, M being one expert's rows), then K split
     over a cluster by `_build.split_k`'s rule (`clusters[S - 1]`: the
     card's clusters of S blocks at once, `_clusters`). A split walks whole
     stages of KSTEP stored rows (K-rows, or for W4 packed rows of [0, K/2),
@@ -85,7 +98,7 @@ def plan_mix(M: int, N: int, K: int, w4: bool, G: int, sm_count: int,
     if G > 1:
         gs = K // G
         unit = KSTEP * gs // math.gcd(KSTEP, gs)
-    tiles = -(-M // BM) * -(-N // BN)
+    tiles = experts * -(-M // BM) * -(-N // BN)
     S, units = _build.split_k(tiles, -(-rows // unit), sm_count, clusters,
                               BLOCKS_PER_SM)
     bounds = tuple((a * unit, min(b * unit, rows)) for a, b in units)
@@ -93,9 +106,13 @@ def plan_mix(M: int, N: int, K: int, w4: bool, G: int, sm_count: int,
 
 
 def _clusters(index: int, w4: bool, grouped: bool,
-              zp: bool = False) -> Tuple[int, ...]:
+              zp: bool = False, experts: bool = False) -> Tuple[int, ...]:
     """The card's clusters of 1..8 blocks of one weight mode at once (the
-    zero-point modes are instantiations of their own)."""
+    zero-point modes and the expert mode are kernels of their own)."""
+    if experts:
+        return _build.cluster_table("mix_gemm",
+                                    "mix_gemm_experts_max_active_clusters",
+                                    index)
     if zp:
         return _build.cluster_table("mix_gemm",
                                     "mix_gemm_zp_max_active_clusters",
@@ -264,3 +281,69 @@ def int8_matmul_dequant(
     (the mixlib.int8FusedDequantize[Silu] kernel) on kernel 2."""
     return mix_gemm(q_x, q_w, x_scale, w_scale, x_outlier, w_outlier,
                     fuse=fuse, out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# The expert-batched mode (MoE)
+# ---------------------------------------------------------------------------
+
+def mix_gemm_experts_plain(q_x: torch.Tensor, w: torch.Tensor,
+                           x_scale: torch.Tensor,
+                           w_scale: torch.Tensor) -> torch.Tensor:
+    """PyTorch version of the expert mode, in JAX's order (expert_linear):
+    the int32 accumulator of each expert's product in float64 (exact, as
+    mix_gemm_plain's), rounded to f32, times x_scale [E, C, 1], then times
+    w_scale [E, N]."""
+    acc = torch.bmm(q_x.double(), w.double()).float()
+    return acc * x_scale * w_scale[:, None, :]
+
+
+@functools.cache
+def _experts_launcher():
+    fn = _build.load("mix_gemm").mix_gemm_experts_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def mix_gemm_experts(
+    q_x: torch.Tensor,                # int8 [E, C, K]
+    w: torch.Tensor,                  # int8 [E, K, N]
+    x_scale: torch.Tensor,            # f32 [E, C, 1]
+    w_scale: torch.Tensor,            # f32 [E, N]
+    splits: Optional[int] = None,
+) -> torch.Tensor:
+    """Returns y [E, C, N] f32. `splits` forces the split-K factor S (1-8)
+    instead of plan_mix's, so a card test can hold the result across
+    plans."""
+    if q_x.device.type == "cpu":
+        return mix_gemm_experts_plain(q_x, w, x_scale, w_scale)
+    if q_x.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_x.device}")
+    E, C, K = q_x.shape
+    N = w.shape[-1]
+    if K % 16 or N % 16:
+        raise ValueError(f"K ({K}) and N ({N}) must be multiples of 16")
+    if E * -(-C // BM) > 65535:
+        raise ValueError(f"{E} experts x {-(-C // BM)} M-tiles pass the "
+                         "grid's 65535 rows")
+    dev = q_x.device
+    _build.require(q_x, torch.int8, (E, C, K), "q_x", dev)
+    _build.require(w, torch.int8, (E, K, N), "w", dev)
+    _build.require(x_scale, torch.float32, (E, C, 1), "x_scale", dev)
+    _build.require(w_scale, torch.float32, (E, N), "w_scale", dev)
+    out = torch.empty((E, C, N), dtype=torch.float32, device=dev)
+    if splits is None:
+        index = q_x.get_device()
+        splits = plan_mix(C, N, K, False, 1, _build.sm_count(index),
+                          _clusters(index, False, False, experts=True),
+                          experts=E).splits
+    rc = _experts_launcher()(q_x.data_ptr(), w.data_ptr(), x_scale.data_ptr(),
+                             w_scale.data_ptr(), out.data_ptr(), E, C, N, K,
+                             splits,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "mix_gemm_experts")
+    mix_gemm.launches += 1
+    mix_gemm.mode_launches["w8a8_experts"] += 1
+    return out

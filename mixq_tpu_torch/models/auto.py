@@ -9,8 +9,8 @@ Each entry point runs on the card unless the caller passes device="cpu".
 A directory with a `manifest.json` is a quantized checkpoint
 (quantize/checkpoint.py); any other is an HF safetensors directory
 (models/hf.py::TensorSource.from_safetensors_dir). Only the families the
-port serves load (models.hf.PORTED_FAMILIES); the MoE ones are ROADMAP
-Queue A item 7.
+port serves load (models.hf.PORTED_FAMILIES, the sparse-MoE mixtral and
+qwen2_moe among them).
 """
 from __future__ import annotations
 
@@ -37,8 +37,7 @@ def _hf_config(path: str) -> ModelConfig:
     if mt not in SUPPORTED_MODEL_TYPES:
         raise NotImplementedError(
             f"model_type {mt!r} is not ported (have: "
-            f"{', '.join(SUPPORTED_MODEL_TYPES)}; mixtral and qwen2_moe "
-            "are ROADMAP Queue A item 7)")
+            f"{', '.join(SUPPORTED_MODEL_TYPES)})")
     return config_from_hf(hf)
 
 

@@ -20,7 +20,9 @@ heads a kv head, ALiBi with slopes pre-scaled by 1/sqrt(head_dim)), gptj
 (the parallel block, gptj-style RoPE on a partial rotary dim, gelu_new),
 opt (learned positions, per row in slot mode; relu after the up linear),
 starcoder2 (biases on every linear and norm, gelu_pytorch_tanh) and
-chatglm (RMSNorm, gptj-style RoPE on half the head, q/k/v bias), on the
+chatglm (RMSNorm, gptj-style RoPE on half the head, q/k/v bias), and the
+sparse-MoE families, mixtral and qwen2_moe (ops/moe.py: the routed experts
+on kernel 2's expert mode, qwen2-moe's sigmoid-gated shared expert), on the
 python-loop-over-layers runtime, over
 either KV-cache layout, dispatched on the cache as JAX does:
 
@@ -55,7 +57,11 @@ h_ln). A non-gated MLP fuses its GELU into the up GEMM (relu runs after
 it); with a bias the GEMM returns f32 and the bias and activation are
 added outside (ops/mixed_linear.py). Per
 block on the card, W8A8: kernel 1 twice, the int8 GEMM seven times (q, k,
-v, o, up, gate+SiLU or gemma2's gate+GELU-tanh, down); W4A4 (reference
+v, o, up, gate+SiLU or gemma2's gate+GELU-tanh, down), or for an MoE
+block kernel 1 once (before q/k/v; the MLP takes the plain norm, its
+experts quantizing per (expert, slot) row), kernel 2 four times (q, k, v,
+o), its expert mode three times (gate, up, down over every expert) and
+qwen2-moe's shared expert three kernel-2 launches more; W4A4 (reference
 policy): kernel 1 twice, five packed-W4 GEMMs (q, k, v, up, gate) and two
 W8A8 ones (o, down); W8A16: seven a16 GEMMs and no kernel 1; and one decode
 attention per decode step (kernel 3 or 8; gemma2: in its softcap mode;
@@ -71,8 +77,8 @@ cache `attend` then takes the [B, T] query positions (JAX's jnp path, f32),
 on the head-major cache kernel 3 runs once per verify token t at per-row
 length slot_lengths + t + 1 (JAX's one flash call per t over its tail,
 decoder.py:611-646; the port reads its main cache). The stacked `lax.scan`
-runtime and the other layer ops of ROADMAP.md Queue A item 6 and MoE
-blocks (item 7) raise NotImplementedError.
+runtime and the other layer ops of ROADMAP.md Queue A item 6 raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -91,6 +97,7 @@ from mixq_tpu_torch.models.layers import (KVCache, alibi_slopes,
                                           rmsnorm, rmsnorm_quant,
                                           rope_cos_sin)
 from mixq_tpu_torch.ops import quant as Q
+from mixq_tpu_torch.ops.moe import MoEParams, expert_from_float, moe_mlp
 from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
                                              from_float, mixed_linear,
                                              mixed_linear_prepared,
@@ -110,10 +117,10 @@ class AttnParams(NamedTuple):
 
 
 class MLPParams(NamedTuple):
-    up: Optional[MixLinearParams]    # [H, I]
+    up: Optional[MixLinearParams]    # [H, I]; None for sparse-MoE blocks
     gate: Optional[MixLinearParams]  # [H, I]
     down: Optional[MixLinearParams]  # [I, H]
-    moe: Optional[object] = None     # sparse MoE (not ported)
+    moe: Optional[MoEParams] = None  # sparse MoE: replaces up/gate/down
 
 
 class BlockParams(NamedTuple):
@@ -189,7 +196,7 @@ def gated_mlp(cfg: ModelConfig) -> bool:
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError on the features the port does not run:
     rope styles and scalings, norms and activations JAX's decoder does not
-    have (ROADMAP.md Queue A item 6, the layer ops), MoE (item 7)."""
+    have (ROADMAP.md Queue A item 6, the layer ops)."""
     acts = GATE_FUSE if gated_mlp(cfg) else UP_FUSE
     unsupported = {
         "layernorm": cfg.layernorm not in ("rmsnorm", "layernorm"),
@@ -198,7 +205,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         # partial rotary: an even part of the head (halves or pairs)
         "rotary_dim": cfg.rotary_dim is not None and not (
             0 < cfg.rotary_dim <= cfg.head_dim_ and cfg.rotary_dim % 2 == 0),
-        "num_local_experts": cfg.num_local_experts > 0,
         "hidden_act": cfg.hidden_act not in acts,
         "rope_scaling_type": cfg.rope_scaling_type not in ROPE_SCALINGS,
     }
@@ -206,7 +212,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"model features not ported yet: {bad} (ROADMAP.md Queue A "
-            "item 6: the layer ops; item 7: MoE)")
+            "item 6: the layer ops)")
 
 
 def rope_scaling(cfg: ModelConfig, max_seq: int) -> Optional[tuple]:
@@ -242,18 +248,20 @@ def _norm(x, scale, bias, cfg: ModelConfig):
     return layernorm(x, scale, bias, cfg.rms_norm_eps)
 
 
-def _prepare(h, lin: MixLinearParams, spec: LinearSpec):
+def _prepare(h, lin: Optional[MixLinearParams], spec: LinearSpec):
     """A MIX linear group's shared quantized activation of h (None for
-    the linears that take the fp input)."""
-    return prepare_act(h, lin, spec) if _shares_act(spec) else None
+    the linears that take the fp input, and for an MoE block's MLP,
+    whose experts quantize their own rows)."""
+    return (prepare_act(h, lin, spec)
+            if lin is not None and _shares_act(spec) else None)
 
 
-def _norm_act(x, scale, bias, lin: MixLinearParams, spec: LinearSpec,
-              cfg: ModelConfig):
+def _norm_act(x, scale, bias, lin: Optional[MixLinearParams],
+              spec: LinearSpec, cfg: ModelConfig):
     """The pre-linear norm; for a MIX linear group also its shared
     quantized activation: kernel 1 after an RMSNorm, `prepare_act` after
-    a LayerNorm."""
-    if cfg.layernorm == "rmsnorm" and _shares_act(spec):
+    a LayerNorm. An MoE block's MLP (lin None) takes the plain norm."""
+    if lin is not None and cfg.layernorm == "rmsnorm" and _shares_act(spec):
         return rmsnorm_quant(x, scale, lin, spec, cfg.rms_norm_eps)
     h = _norm(x, scale, bias, cfg)
     return h, _prepare(h, lin, spec)
@@ -272,8 +280,18 @@ def _mlp(h: torch.Tensor, act, mlp: MLPParams, specs: DecoderSpecs,
     of `cfg.hidden_act` fused into the gate GEMM (SwiGLU, or gemma's
     GeGLU: gelu_pytorch_tanh is gelu_new), then down. Non-gated (falcon,
     gptj, opt, starcoder2; JAX's _mlp, decoder.py:205-215): the GELU fused
-    into the up GEMM, relu after it, then down. With a `stats` dict, the
-    inputs of up (h) and down (the inner product) go into it."""
+    into the up GEMM, relu after it, then down. Sparse MoE (JAX's _mlp,
+    decoder.py:177-188): ops/moe.py::moe_mlp on the plain norm output h.
+    With a `stats` dict, the inputs of up (h) and down (the inner product;
+    for an MoE block h again, as JAX reports it) go into it."""
+    if mlp.moe is not None:
+        if stats is not None:
+            stats.update(up=h, down=h)
+        return moe_mlp(h, mlp.moe, specs.up, specs.down,
+                       top_k=cfg.num_experts_per_tok,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       act="silu" if cfg.hidden_act == "silu" else "gelu",
+                       norm_topk=cfg.moe_norm_topk)
     if mlp.gate is not None:
         gate_fuse = GATE_FUSE[cfg.hidden_act]
         spec_gate = (specs.gate if specs.gate.fuse == gate_fuse
@@ -632,12 +650,16 @@ def init_decoder_params(
     activation, and so do up/gate; o and down have their own. FP16 and
     WEIGHT_ONLY linears get none. JAX's init makes no outlier sets, so this
     is the port's way to run the outlier term of the GEMM on random
-    weights; likewise a model with `attention_bias` (qwen2) gets N(0,
-    0.02) q/k/v biases, one with `mlp_bias` (starcoder2) N(0, 0.02) up and
-    down biases, and opt N(0, 0.02) learned positions. As JAX's init
+    weights; likewise a model with `attention_bias` (qwen2, qwen2_moe) gets
+    N(0, 0.02) q/k/v biases, one with `mlp_bias` (starcoder2) N(0, 0.02) up
+    and down biases, and opt N(0, 0.02) learned positions. As JAX's init
     (decoder.py:886-941) makes them: a qk_norm model (qwen3) unit QK-norm
     scales, a LayerNorm model zero norm biases, a parallel block no second
-    norm (ln2_scale None) and a non-gated MLP no gate."""
+    norm (ln2_scale None) and a non-gated MLP no gate; an MoE model
+    (num_local_experts > 0) an N(0, 0.02) router [H, E] and stacked N(0,
+    0.02) experts quantized per (expert, out-channel) by expert_from_float
+    (gate as specs.gate, up, down), with no outlier sets and no shared
+    expert (JAX's init, decoder.py:913-928)."""
     _check_supported(cfg)
     specs = specs or DecoderSpecs.fp16()
     if generator is None:
@@ -685,14 +707,23 @@ def init_decoder_params(
             q_norm=ones(hd) if cfg.qk_norm else None,
             k_norm=ones(hd) if cfg.qk_norm else None,
         )
-        mlp = MLPParams(
-            up=from_float(normal(H, I), specs.up, bias=mlp_bias(I),
-                          outlier_set=s_up),
-            gate=(from_float(normal(H, I), specs.gate, outlier_set=s_up)
-                  if gated_mlp(cfg) else None),
-            down=from_float(normal(I, H), specs.down, bias=mlp_bias(H),
-                            outlier_set=s_down),
-        )
+        if cfg.num_local_experts > 0:
+            E = cfg.num_local_experts
+
+            def experts(d_in, d_out, spec):
+                return expert_from_float(normal(E, d_in, d_out), spec)
+            mlp = MLPParams(up=None, gate=None, down=None, moe=MoEParams(
+                router=normal(H, E), gate=experts(H, I, specs.gate),
+                up=experts(H, I, specs.up), down=experts(I, H, specs.down)))
+        else:
+            mlp = MLPParams(
+                up=from_float(normal(H, I), specs.up, bias=mlp_bias(I),
+                              outlier_set=s_up),
+                gate=(from_float(normal(H, I), specs.gate, outlier_set=s_up)
+                      if gated_mlp(cfg) else None),
+                down=from_float(normal(I, H), specs.down, bias=mlp_bias(H),
+                                outlier_set=s_down),
+            )
         seq = not cfg.parallel_attn_mlp
         blocks.append(BlockParams(
             ln1_scale=ones(H), ln1_bias=zeros(H, ln_bias), attn=attn,

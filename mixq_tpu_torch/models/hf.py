@@ -11,24 +11,27 @@ Ported: `TensorSource` over a dict, a torch state dict or an HF
 safetensors directory (read by the port's own utils/safetensors_io.py),
 `config_from_hf` with HF's linear, llama3 and (phi3) longrope rope
 scaling, `load_hf_config`, `load_model`, and the weight-name schemes of
-the dense families (PORTED_FAMILIES: the RMSNorm ones, llama, aquila,
+the families (PORTED_FAMILIES: the RMSNorm ones, llama, aquila,
 baichuan, mistral, qwen2, qwen3, phi3, gemma, gemma2, and the LayerNorm
-ones, falcon, gptj, opt, starcoder2, with chatglm), and
-`params_from_source` for their dense blocks (separate q/k/v with qwen2's
-or starcoder2's bias, or baichuan's fused `W_pack`, phi3's `qkv_proj` and
-chatglm's `query_key_value` (with its bias) split at load, falcon's
-`query_key_value` interleaved per kv group; phi3's `gate_up_proj` and
-chatglm's `dense_h_to_4h` split gate first; qwen3's q_norm / k_norm;
-gated or plain MLPs with their biases; LayerNorm biases, falcon's
-`input_layernorm` or `ln_attn` and `ln_mlp`; OPT's learned positions
-without their +2 offset; gemma's +1 norm offset; gemma2's post-norms; a
-tied head). Every weight is quantized where its tensor lies or on
-`device`: a state dict on the card is quantized on the card, one tensor
-at a time, never through numpy; a tensor goes to `device` in its stored
-dtype and is widened there. The MoE families (mixtral, qwen2_moe:
-ROADMAP.md Queue A item 7) raise NotImplementedError; yarn, dynamic and
-other rope scalings raise ValueError, as in JAX. As JAX, no scheme reads
-an `lm_head.bias` (GPT-J's HF head has one; ROADMAP.md Queue C).
+ones, falcon, gptj, opt, starcoder2, with chatglm, and the sparse-MoE
+ones, mixtral and qwen2_moe), and `params_from_source` for their blocks
+(separate q/k/v with qwen2's or starcoder2's bias, or baichuan's fused
+`W_pack`, phi3's `qkv_proj` and chatglm's `query_key_value` (with its
+bias) split at load, falcon's `query_key_value` interleaved per kv
+group; phi3's `gate_up_proj` and chatglm's `dense_h_to_4h` split gate
+first; qwen3's q_norm / k_norm; gated or plain MLPs with their biases;
+LayerNorm biases, falcon's `input_layernorm` or `ln_attn` and `ln_mlp`;
+OPT's learned positions without their +2 offset; gemma's +1 norm offset;
+gemma2's post-norms; a tied head; an MoE block's router and experts,
+each expert's [N, K] weights stacked [E, K, N] and quantized per
+(expert, out-channel), and qwen2-moe's shared expert and its sigmoid
+gate). Every weight is quantized where its tensor lies or on `device`: a
+state dict on the card is quantized on the card, one tensor at a time,
+never through numpy; a tensor goes to `device` in its stored dtype and
+is widened there. Yarn, dynamic and other rope scalings raise
+ValueError, as in JAX, and so does a qwen2_moe config with dense layers
+(mlp_only_layers, decoder_sparse_step != 1). As JAX, no scheme reads an
+`lm_head.bias` (GPT-J's HF head has one; ROADMAP.md Queue C).
 """
 from __future__ import annotations
 
@@ -46,11 +49,12 @@ from mixq_tpu_torch.models.decoder import (AttnParams, BlockParams,
 from mixq_tpu_torch.ops import quant as Q
 from mixq_tpu_torch.ops.mixed_linear import (LinearSpec, MixLinearParams,
                                              from_float)
+from mixq_tpu_torch.ops.moe import MoEParams, expert_from_float
 from mixq_tpu_torch.utils.safetensors_io import SafeTensorsFile
 
 PORTED_FAMILIES = ("llama", "aquila", "baichuan", "mistral", "qwen2",
                    "qwen3", "phi3", "gemma", "gemma2", "falcon", "gptj",
-                   "opt", "chatglm", "starcoder2")
+                   "opt", "chatglm", "starcoder2", "mixtral", "qwen2_moe")
 
 
 # ---------------------------------------------------------------------------
@@ -123,8 +127,7 @@ def config_from_hf(hf: Dict) -> ModelConfig:
     if mt not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"config_from_hf: model_type {mt!r} is not ported (have: "
-            f"{', '.join(PORTED_FAMILIES)}; mixtral and qwen2_moe are "
-            "ROADMAP.md Queue A item 7)")
+            f"{', '.join(PORTED_FAMILIES)})")
     common = dict(
         model_type=mt,
         vocab_size=hf.get("vocab_size", 32000),
@@ -138,6 +141,8 @@ def config_from_hf(hf: Dict) -> ModelConfig:
     )
     if mt in _LAYERNORM_CONFIGS:
         return _LAYERNORM_CONFIGS[mt](hf, common)
+    if mt == "qwen2_moe":
+        return _qwen2_moe(hf, common)
     common["intermediate_size"] = hf["intermediate_size"]
     n_kv = hf.get("num_key_value_heads", common["num_attention_heads"])
     if mt == "qwen3":
@@ -151,6 +156,19 @@ def config_from_hf(hf: Dict) -> ModelConfig:
             sliding_window=(hf.get("sliding_window")
                             if hf.get("use_sliding_window", False) else None),
             qk_norm=True,
+            **rope_scaling_kw(hf),
+        )
+    if mt == "mixtral":
+        # JAX's mapping (mixq_tpu/models/hf.py:163-176)
+        return ModelConfig(
+            **common,
+            num_key_value_heads=n_kv,
+            head_dim=hf.get("head_dim"),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+            rope_theta=hf.get("rope_theta", 1e6),
+            sliding_window=hf.get("sliding_window"),
+            num_local_experts=hf.get("num_local_experts", 8),
+            num_experts_per_tok=hf.get("num_experts_per_tok", 2),
             **rope_scaling_kw(hf),
         )
     if mt == "phi3":
@@ -219,6 +237,30 @@ def config_from_hf(hf: Dict) -> ModelConfig:
                         else None),
         alibi=alibi,
         rope_style="none" if alibi else "neox",
+        **rope_scaling_kw(hf),
+    )
+
+
+def _qwen2_moe(hf: Dict, common: Dict) -> ModelConfig:
+    """qwen2_moe as JAX maps it (mixq_tpu/models/hf.py:144-162): the
+    experts' moe_intermediate_size, q/k/v bias, the raw top-k weights
+    unless norm_topk_prob; dense layers raise ValueError."""
+    if hf.get("mlp_only_layers") or hf.get("decoder_sparse_step", 1) != 1:
+        raise ValueError(
+            "qwen2_moe with dense layers (mlp_only_layers / "
+            "decoder_sparse_step != 1) is not supported yet")
+    return ModelConfig(
+        **common,
+        intermediate_size=hf.get("moe_intermediate_size", 1408),
+        num_key_value_heads=hf.get("num_key_value_heads",
+                                   common["num_attention_heads"]),
+        head_dim=hf.get("head_dim"),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+        rope_theta=hf.get("rope_theta", 1e6),
+        attention_bias=True,
+        num_local_experts=hf.get("num_experts", 60),
+        num_experts_per_tok=hf.get("num_experts_per_tok", 4),
+        moe_norm_topk=hf.get("norm_topk_prob", False),
         **rope_scaling_kw(hf),
     )
 
@@ -523,12 +565,23 @@ _SCHEMES["starcoder2"] = dict(
 )
 
 
+# the MoE families: llama's attention and norms; the MLP is read by
+# params_from_source's MoE branch (_moe_from_src)
+_SCHEMES["mixtral"] = dict(_LLAMA, gate=None, up=None, down=None)
+_SCHEMES["qwen2_moe"] = _SCHEMES["mixtral"]
+# each MoE family's MLP prefix and expert weight names (gate, up, down)
+_MOE_NAMES = {
+    "mixtral": ("model.layers.{i}.block_sparse_moe", ("w1", "w3", "w2")),
+    "qwen2_moe": ("model.layers.{i}.mlp",
+                  ("gate_proj", "up_proj", "down_proj")),
+}
+
+
 def scheme_for(model_type: str) -> Dict[str, Optional[str]]:
     if model_type not in _SCHEMES:
         raise NotImplementedError(
             f"no weight scheme for model_type {model_type!r} in the port "
-            f"(have: {', '.join(PORTED_FAMILIES)}; mixtral and qwen2_moe "
-            "are ROADMAP.md Queue A item 7)")
+            f"(have: {', '.join(PORTED_FAMILIES)})")
     return _SCHEMES[model_type]
 
 
@@ -590,6 +643,44 @@ def _qkv_from_src(src: TensorSource, scheme, i: int, cfg: ModelConfig,
                             outlier_set=oset) for wp, bp in zip(ws, bs))
 
 
+def _moe_from_src(src: TensorSource, cfg: ModelConfig, specs: DecoderSpecs,
+                  i: int, device) -> MoEParams:
+    """Block i's sparse MoE as JAX reads it (mixq_tpu/models/hf.py:
+    652-708): the router `.gate` [E, H] transposed to [H, E] and each
+    expert's [N, K] weights stacked [E, K, N] (mixtral's w1/w3/w2 as gate,
+    up, down; qwen2-moe's gate_proj/up_proj/down_proj), quantized as
+    specs.gate, specs.up and specs.down; qwen2-moe's shared expert (its
+    gate and up as specs.up, down as specs.down, no outlier sets) and its
+    gate `shared_expert_gate` [1, H] as shared_route [H, 1]; router and
+    shared_route in bf16 (JAX's store dtype)."""
+    pre, names = _MOE_NAMES[cfg.model_type]
+    pre = pre.format(i=i)
+
+    def stack(name):
+        return torch.stack([
+            _f32(src, f"{pre}.experts.{e}.{name}.weight", device).t()
+            for e in range(cfg.num_local_experts)])
+
+    shared = {}
+    if src.has(pre + ".shared_expert.gate_proj.weight"):
+        def lin(name, spec):
+            return _linear_from_src(src, f"{pre}.shared_expert.{name}", spec,
+                                    None, device)
+        shared = dict(
+            shared_gate=lin("gate_proj", specs.up),
+            shared_up=lin("up_proj", specs.up),
+            shared_down=lin("down_proj", specs.down),
+            shared_route=_f32(src, pre + ".shared_expert_gate.weight",
+                              device).t().contiguous().to(torch.bfloat16))
+    return MoEParams(
+        router=_f32(src, pre + ".gate.weight", device).t().contiguous().to(
+            torch.bfloat16),
+        gate=expert_from_float(stack(names[0]), specs.gate),
+        up=expert_from_float(stack(names[1]), specs.up),
+        down=expert_from_float(stack(names[2]), specs.down),
+        **shared)
+
+
 def params_from_source(
     src: TensorSource,
     cfg: ModelConfig,
@@ -605,13 +696,11 @@ def params_from_source(
     (JAX's mixq_tpu/models/hf.py:706-710), a plain MLP's gate None, embed,
     head and OPT's positions (their first two rows, HF's offset, dropped:
     :749-754) in bf16 (JAX's default store dtype), the head None when
-    tied.
+    tied; an MoE block's MLP from `_moe_from_src`.
 
     outlier_sets: per-layer sets keyed "{i}.wqkv", "{i}.wo", "{i}.up"
     (shared by gate), "{i}.down", e.g. from quantize.calibration."""
     scheme = scheme_for(cfg.model_type)
-    if cfg.num_local_experts > 0:
-        raise NotImplementedError("MoE blocks are not ported")
     osets = outlier_sets or {}
     # gemma stores RMSNorm weights as w and applies (1 + w): fold the +1
     # into the stored scale so the runtime norm stays uniform
@@ -652,7 +741,14 @@ def params_from_source(
     for i in range(cfg.num_hidden_layers):
         wq, wk, wv = _qkv_from_src(src, scheme, i, cfg, specs.wqkv,
                                    osets.get(f"{i}.wqkv"), device)
-        gate, up = gate_up(i, osets.get(f"{i}.up"))
+        if cfg.num_local_experts > 0:
+            mlp = MLPParams(up=None, gate=None, down=None,
+                            moe=_moe_from_src(src, cfg, specs, i, device))
+        else:
+            gate, up = gate_up(i, osets.get(f"{i}.up"))
+            mlp = MLPParams(up=up, gate=gate,
+                            down=linear("down", specs.down,
+                                        osets.get(f"{i}.down"), i))
         blocks.append(BlockParams(
             ln1_scale=norm_vec(scheme["ln1"], i),
             ln1_bias=vec(scheme.get("ln1_bias"), i),
@@ -663,9 +759,7 @@ def params_from_source(
                             k_norm=vec(scheme.get("k_norm"), i)),
             ln2_scale=norm_vec(scheme.get("ln2"), i),
             ln2_bias=vec(scheme.get("ln2_bias"), i),
-            mlp=MLPParams(up=up, gate=gate,
-                          down=linear("down", specs.down,
-                                      osets.get(f"{i}.down"), i)),
+            mlp=mlp,
             post_attn_norm_scale=norm_vec(scheme.get("post_attn"), i),
             post_ffw_norm_scale=norm_vec(scheme.get("post_ffw"), i),
         ))

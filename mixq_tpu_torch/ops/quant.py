@@ -274,10 +274,10 @@ def gather_outlier_weights(w: torch.Tensor, oset: OutlierSet) -> torch.Tensor:
 
 
 def top_indices(scores: torch.Tensor, n: int) -> torch.Tensor:
-    """Indices of the n largest scores, largest first, ties by the lower
-    index first, as jax.lax.top_k orders them (torch.topk does not): a
-    stable descending sort, on the CPU and the card alike."""
-    return torch.sort(scores, descending=True, stable=True).indices[:n]
+    """Indices of the n largest scores along the last axis, largest first,
+    ties by the lower index first, as jax.lax.top_k orders them (torch.topk
+    does not): a stable descending sort, on the CPU and the card alike."""
+    return torch.sort(scores, descending=True, stable=True).indices[..., :n]
 
 
 def top_k_outliers_from_scales(

@@ -216,3 +216,41 @@ def chatglm3_6b() -> ModelConfig:
     return dataclasses.replace(config_from_hf(hf),
                                num_hidden_layers=hf["num_layers"],
                                max_position_embeddings=hf["seq_length"])
+
+
+def mixtral_8x7b() -> ModelConfig:
+    """The published config.json of mistralai/Mixtral-8x7B-v0.1 through
+    models.hf.config_from_hf: 32 layers, H=4096, 32/8 heads of 128, 8
+    experts of I=14336, top-2 (renormalised), theta 1e6, no sliding
+    window, untied head."""
+    from mixq_tpu_torch.models.hf import config_from_hf
+
+    return config_from_hf(dict(
+        model_type="mixtral", vocab_size=32000, hidden_size=4096,
+        intermediate_size=14336, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=32768, rms_norm_eps=1e-5,
+        rope_theta=1000000.0, hidden_act="silu", sliding_window=None,
+        num_local_experts=8, num_experts_per_tok=2,
+        tie_word_embeddings=False))
+
+
+def qwen1_5_moe_a2_7b() -> ModelConfig:
+    """The published config.json of Qwen/Qwen1.5-MoE-A2.7B through
+    models.hf.config_from_hf: 24 layers, H=2048, 16/16 heads of 128, q/k/v
+    bias, 60 experts of moe_intermediate_size 1408, top-4 without
+    renormalisation (norm_topk_prob false), a shared expert of 5632 (its
+    width comes from the weights; no config field holds it), theta 1e6,
+    untied head."""
+    from mixq_tpu_torch.models.hf import config_from_hf
+
+    return config_from_hf(dict(
+        model_type="qwen2_moe", vocab_size=151936, hidden_size=2048,
+        intermediate_size=5632, moe_intermediate_size=1408,
+        shared_expert_intermediate_size=5632, num_hidden_layers=24,
+        num_attention_heads=16, num_key_value_heads=16,
+        max_position_embeddings=8192, rms_norm_eps=1e-6,
+        rope_theta=1000000.0, hidden_act="silu", sliding_window=32768,
+        use_sliding_window=False, max_window_layers=21,
+        decoder_sparse_step=1, num_experts=60, num_experts_per_tok=4,
+        norm_topk_prob=False, tie_word_embeddings=False))

@@ -14,6 +14,9 @@ w_outlier`). The dtype tag is `str(np.dtype)` of the leaf ("int8",
 tagged "bfloat16" as JAX does. The port's packed W4 is a plain uint8
 [K/2, N] leaf (JAX's default storage); JAX's "int4_packed" / "int4_raw"
 tags come from jnp.int4 storage, which the port does not carry, and raise.
+A sparse-MoE block's leaves are JAX's too: `mlp.moe.router`,
+`mlp.moe.{gate,up,down}.{q_weight,w_scale}` and qwen2-moe's
+`mlp.moe.shared_{gate,up,down}.*` and `mlp.moe.shared_route`.
 
     save_checkpoint(dir, params, model_cfg, quant_cfg)
     params, model_cfg, quant_cfg = load_checkpoint(dir, device="cuda")
@@ -35,6 +38,7 @@ from mixq_tpu_torch.config import ModelConfig, QuantConfig
 from mixq_tpu_torch.models.decoder import (AttnParams, BlockParams,
                                            DecoderParams, MLPParams)
 from mixq_tpu_torch.ops.mixed_linear import MixLinearParams
+from mixq_tpu_torch.ops.moe import ExpertLinearParams, MoEParams
 from mixq_tpu_torch.utils.safetensors_io import SafeTensorsFile, save_file
 
 _SHARD_BYTES = 8 * 1024 ** 3        # JAX's 8 GB shards
@@ -77,10 +81,6 @@ def save_checkpoint(path: str, params: DecoderParams, model_cfg: ModelConfig,
     if params.stacked is not None:
         raise NotImplementedError(
             "stacked (scan) params are not ported (ROADMAP Queue A item 6)")
-    if model_cfg.num_local_experts > 0 or any(
-            bp.mlp.moe is not None for bp in params.blocks):
-        raise NotImplementedError(
-            "MoE blocks are not ported (ROADMAP Queue A item 7)")
     os.makedirs(path, exist_ok=True)
     manifest: Dict[str, Any] = {"format_version": 1, "weights": {}}
     shards: List[Dict[str, torch.Tensor]] = [{}]
@@ -152,11 +152,21 @@ class _CheckpointReader:
             h.close()
 
 
-def _load_mlp(p: str, model_cfg: ModelConfig, linear) -> MLPParams:
-    """The dense MLP (JAX's MoE branch is ROADMAP Queue A item 7)."""
+def _load_mlp(p: str, model_cfg: ModelConfig, get, linear) -> MLPParams:
+    """The dense MLP, or (num_local_experts > 0) the sparse-MoE leaves
+    (JAX's _load_mlp, mixq_tpu/quantize/checkpoint.py:159-177)."""
     if model_cfg.num_local_experts > 0:
-        raise NotImplementedError(
-            "MoE checkpoints are not ported (ROADMAP Queue A item 7)")
+        def experts(prefix):
+            return ExpertLinearParams(q_weight=get(prefix + ".q_weight"),
+                                      w_scale=get(prefix + ".w_scale"))
+        m = p + ".mlp.moe"
+        return MLPParams(up=None, gate=None, down=None, moe=MoEParams(
+            router=get(m + ".router"), gate=experts(m + ".gate"),
+            up=experts(m + ".up"), down=experts(m + ".down"),
+            shared_gate=linear(m + ".shared_gate", required=False),
+            shared_up=linear(m + ".shared_up", required=False),
+            shared_down=linear(m + ".shared_down", required=False),
+            shared_route=get(m + ".shared_route")))
     return MLPParams(
         up=linear(p + ".mlp.up"),
         gate=linear(p + ".mlp.gate", required=False),  # no-gate archs
@@ -217,7 +227,7 @@ def load_checkpoint(path: str, device="cuda"
                 ),
                 ln2_scale=get(p + ".ln2_scale"),
                 ln2_bias=get(p + ".ln2_bias"),
-                mlp=_load_mlp(p, model_cfg, linear),
+                mlp=_load_mlp(p, model_cfg, get, linear),
                 post_attn_norm_scale=get(p + ".post_attn_norm_scale"),
                 post_ffw_norm_scale=get(p + ".post_ffw_norm_scale"),
             ))

@@ -8,6 +8,10 @@ the set freezes. The steady-state forward always runs the budget-padded
 outlier term, so promotion changes parameter values, never shapes: a
 warmed model serves through the same kernels and the same graph as before.
 
+An MoE block's MLP takes no outlier set (its experts quantize per (expert,
+slot) row, as JAX's): its None up, gate and down are passed over when
+promoting and counting, and `_replace` keeps its `moe` leaf.
+
 Each warmup batch runs the stats forward (forward(collect_stats=True)) on a
 fresh batch-major bf16 cache of its own length, on the parameters' device;
 the detector and the promotion run there too. Deciding whether a linear

@@ -12,8 +12,9 @@ as one F32 `model.safetensors` and once in bf16, sharded, with
 - AutoModel.engine (on the HF directory, and on a checkpoint saved from
   it) serves JAX's greedy tokens, top-2 margins asserted; serving_engine
   drains a few requests to the engine's greedy tokens.
-- An unported model_type raises NotImplementedError naming ROADMAP Queue
-  A item 6.
+- An unported model_type raises NotImplementedError; a tiny mixtral
+  directory (the MoE slice) loads W8A8 bit-equal to JAX's from_pretrained
+  and AutoModel.engine serves it.
 - blocks_from_tokens and get_calib_dataset equal JAX's."""
 import json
 import os
@@ -164,17 +165,37 @@ def test_serving_engine_drains(hf_dirs):
 
 
 def test_unported_family_raises(hf_dirs, tmp_path):
-    d = str(tmp_path / "mixtral")
+    d = str(tmp_path / "jamba")
     shutil.copytree(hf_dirs["f32"], d)
     with open(os.path.join(d, "config.json")) as f:
         hf = json.load(f)
     with open(os.path.join(d, "config.json"), "w") as f:
-        json.dump(dict(hf, model_type="mixtral"), f)
+        json.dump(dict(hf, model_type="jamba"), f)
     for call in (AutoModel.from_pretrained, AutoModel.engine):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="not ported"):
             call(d, device="cpu")
     with pytest.raises(NotImplementedError):
         thf.load_model(d, device="cpu")
+    # mixtral loads: transformers' tiny model written as a directory
+    from transformers import MixtralConfig, MixtralForCausalLM
+
+    torch.manual_seed(4)
+    model = MixtralForCausalLM(MixtralConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+        num_local_experts=4, num_experts_per_tok=2,
+        max_position_embeddings=128)).eval()
+    dm = str(tmp_path / "mixtral")
+    model.save_pretrained(dm, safe_serialization=True)
+    params, cfg, specs = AutoModel.from_pretrained(dm, TQuantConfig.w8a8(),
+                                                   device="cpu")
+    jp, jcfg, _ = JAutoModel.from_pretrained(dm, QuantConfig.w8a8())
+    assert cfg.num_local_experts == 4 and params.blocks[0].mlp.moe
+    ck.assert_port_bit_equal(params, decoder_params_from_numpy(
+        jax.tree.map(np.asarray, jp), "cpu"))
+    eng = AutoModel.engine(dm, EngineConfig(**ECFG), device="cpu")
+    assert eng.params.blocks[1].mlp.moe is not None
+    assert [len(t) for t in eng.generate(ck.PROMPTS[:2], 3)] == [3, 3]
 
 
 def test_calib_data_equals_jax(tmp_path):

@@ -3,8 +3,8 @@ checkpoint.py, on tiny models built by the JAX package and carried over
 with convert.decoder_params_from_numpy (tests/test_torch_models.py).
 
 - Leaf names: the port's `_leaf_paths` equal JAX's for llama W8A8O16,
-  W4A4O16 with 128-row groups, W8A16, FP16 specs, gemma2 (post-norms) and
-  baichuan.
+  W4A4O16 with 128-row groups, W8A16, FP16 specs, gemma2 (post-norms),
+  baichuan and a W8A8 mixtral (the MoE leaves under `mlp.moe`).
 - Port save -> port load: every tensor bit-equal, and the logits equal.
 - JAX save_checkpoint -> port load_checkpoint: bit-equal to
   decoder_params_from_numpy of the same JAX params, and the port's greedy
@@ -17,9 +17,10 @@ with convert.decoder_params_from_numpy (tests/test_torch_models.py).
 - The same params written by both packages give equal manifests (names,
   shards, dtype tags) and configs, with _SHARD_BYTES patched small on both
   sides so that the checkpoint spans several shards.
+- MoE params round-trip bit-equal; stacked params raise
+  (NotImplementedError citing ROADMAP item 6).
 - Errors: a missing tensor (KeyError naming it), JAX's int4_packed tag,
-  MoE and stacked params (NotImplementedError citing ROADMAP items 7 and
-  6), and the card as the default device on a machine without one."""
+  and the card as the default device on a machine without one."""
 import contextlib
 import dataclasses
 import json
@@ -35,13 +36,19 @@ from mixq_tpu.config import EngineConfig as JEngineConfig
 from mixq_tpu.config import ModelConfig, QuantConfig
 from mixq_tpu.engine import InferenceEngine as JEngine
 from mixq_tpu.models import KVCache as JKVCache
+from mixq_tpu.models.decoder import DecoderSpecs as JSpecs
 from mixq_tpu.models.decoder import forward as j_forward
+from mixq_tpu.models.decoder import init_decoder_params as j_init
+from mixq_tpu.ops.mixed_linear import LinearSpec as JLinearSpec
 from mixq_tpu.quantize import checkpoint as jck
 from mixq_tpu_torch.config import EngineConfig
 from mixq_tpu_torch.config import ModelConfig as TModelConfig
 from mixq_tpu_torch.config import QuantConfig as TQuantConfig
+from mixq_tpu_torch.convert import decoder_params_from_numpy
 from mixq_tpu_torch.engine import InferenceEngine
+from mixq_tpu_torch.models.decoder import DecoderSpecs as TSpecs
 from mixq_tpu_torch.models.decoder import forward, lm_head_f32
+from mixq_tpu_torch.ops.mixed_linear import LinearSpec as TLinearSpec
 from mixq_tpu_torch.models.layers import KVCache
 from mixq_tpu_torch.quantize import checkpoint as tck
 
@@ -166,6 +173,18 @@ def greedy_with_margins(eng, prompts=PROMPTS, new=NEW, rel=5e-3):
     return got
 
 
+def moe_build(seed=0):
+    """models.build's tuple for a tiny W8A8 mixtral (4 experts, top 2)
+    from JAX's init, carried over by convert.py."""
+    cfg = ModelConfig.tiny(model_type="mixtral", num_attention_heads=2,
+                           num_key_value_heads=1, num_local_experts=4)
+    specs = JSpecs.uniform(JLinearSpec(w_bit=8, a_bit=8))
+    jp = j_init(jax.random.PRNGKey(seed), cfg, specs)
+    return (cfg, jp, specs,
+            decoder_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"),
+            TSpecs.uniform(TLinearSpec(w_bit=8, a_bit=8)))
+
+
 LEAF_CASES = {
     "llama_w8a8o16": lambda: models.build(0),
     "llama_w4a4o16_g128": lambda: models.build(
@@ -174,6 +193,7 @@ LEAF_CASES = {
     "llama_fp16": lambda: models.build(0, quantized=False),
     "gemma2": lambda: models.build(0, cfg=gemma2.gemma2_cfg()),
     "baichuan": lambda: models.build(0, cfg=baichuan.alibi_cfg()),
+    "mixtral_w8a8": moe_build,
 }
 
 
@@ -187,7 +207,16 @@ def test_leaf_names_equal_jax(case):
     if case == "llama_w8a8o16":
         assert "blocks.1.attn.wq.w_outlier" in names
         assert "blocks.0.mlp.down.out_count" in names
-    assert not any(".moe" in n or n.startswith("stacked") for n in names)
+    assert not any(n.startswith("stacked") for n in names)
+    moe = [n for n in names if ".moe" in n]
+    if case == "mixtral_w8a8":
+        assert moe == [f"blocks.{i}.mlp.moe.{leaf}" for i in range(2)
+                       for leaf in ("router", "gate.q_weight",
+                                    "gate.w_scale", "up.q_weight",
+                                    "up.w_scale", "down.q_weight",
+                                    "down.w_scale")]
+    else:
+        assert not moe
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -306,18 +335,22 @@ def test_int4_tags_raise(saved):
 
 
 def test_moe_and_stacked_raise(saved, tmp_path):
+    """MoE params round-trip bit-equal, and their logits with them;
+    stacked params still raise (ROADMAP Queue A item 6)."""
     d, cfg, tp, qcfg = saved
-    moe = dataclasses.replace(cfg_port(cfg), num_local_experts=2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tck.save_checkpoint(str(tmp_path / "m"), tp, moe, tqcfg(qcfg))
+    mcfg, _, _, mp, mspecs = moe_build(1)
+    dm = str(tmp_path / "m")
+    tck.save_checkpoint(dm, mp, cfg_port(mcfg), tqcfg(qcfg))
+    got, c2, _ = tck.load_checkpoint(dm, device="cpu")
+    assert c2 == cfg_port(mcfg) and c2.num_local_experts == 4
+    assert_port_bit_equal(got, mp)
+    toks = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
+    assert torch.equal(port_logits(got, mspecs, c2, toks),
+                       port_logits(mp, mspecs, c2, toks))
     with pytest.raises(NotImplementedError, match="item 6"):
         tck.save_checkpoint(str(tmp_path / "s"),
                             tp._replace(stacked=tp.blocks[0]),
                             cfg_port(cfg), tqcfg(qcfg))
-    with open(os.path.join(d, "model_config.json"), "w") as f:
-        json.dump(moe.to_dict(), f)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tck.load_checkpoint(d, device="cpu")
 
 
 def test_stacked_names_raise(saved):

@@ -54,6 +54,9 @@ ANON = "void (anonymous namespace)::"
                            "decode_attention.g7"]),
     (ANON + "decode_attention_kernel<6, true, false>(Args)",
      ["decode_attention", "decode_attention.int8", "decode_attention.g6"]),
+    # MoE's expert-batched mode of kernel 2: one instantiation
+    (ANON + "mix_gemm_experts_kernel((anonymous namespace)::Args)",
+     ["mix_gemm", "mix_gemm.w8a8_experts"]),
     (ANON + "rmsnorm_quant_regs<512, 1>(__nv_bfloat16 const*, float "
      "const*)", ["rmsnorm_quant"]),
     (ANON + "rmsnorm_quant_loop(__nv_bfloat16 const*, float const*)",

@@ -10,7 +10,10 @@ bit-equal across their split-K plans, grouped deterministic at each; its
 QUIK zero-point modes (W8 and packed W4) on asymmetric activations that
 reach -128 / -8 and rows of zeros, with 256 outlier channels, bit-equal to
 the plain version without an outlier term or epilogue and across split
-plans, and a tiny QUIK model's logits on the card against the CPU; the
+plans, and a tiny QUIK model's logits on the card against the CPU; its
+expert-batched mode (MoE) at Mixtral's and Qwen1.5-MoE's expert shapes
+and ragged rows, bit-equal to the plain version and across split plans,
+and the MoE block with no host sync and as a CUDA graph; the
 a16 GEMM with int8 and packed weights, per-channel and grouped scales and
 outliers; every GEMM epilogue: SiLU, exact GELU and tanh GELU; flash
 decode with gemma2's softcap and score scale, up to its 4096-slot window,
@@ -2573,3 +2576,138 @@ def test_safetensors_reads_onto_the_card_in_its_dtype(cuda, tmp_path):
     x = _f32(src, "model.w", cuda)
     assert x.dtype == torch.float32 and torch.equal(x.cpu(), w.float())
     assert torch.cuda.max_memory_allocated() - base <= w.numel() * 6
+
+
+# ---------------------------------------------------------------------------
+# MoE: kernel 2's expert-batched mode and the MoE block on the card
+# ---------------------------------------------------------------------------
+
+def _expert_operands(cuda, E, C, K, N, seed):
+    g = _gen(seed)
+    q_x = torch.randint(-127, 128, (E, C, K), generator=g, device=cuda,
+                        dtype=torch.int8)
+    q_x[0, C // 2:] = 0                  # zero sentinel rows
+    w = torch.randint(-127, 128, (E, K, N), generator=g, device=cuda,
+                      dtype=torch.int8)
+    xs = torch.rand(E, C, 1, generator=g, device=cuda) * 1e-3 + 1e-4
+    ws = torch.rand(E, N, generator=g, device=cuda) * 1e-3 + 1e-4
+    return q_x, w, xs, ws
+
+
+@pytest.mark.parametrize("E,C,K,N", [
+    # chip_smoke.py phase 3's shapes: Mixtral-8x7B gate/up and down at C =
+    # 8 and 64, Qwen1.5-MoE-A2.7B's experts at C = 8
+    (8, 8, 4096, 14336), (8, 64, 4096, 14336), (8, 8, 14336, 4096),
+    (60, 8, 2048, 1408), (60, 8, 1408, 2048),
+    # ragged C (M-tiles with 13, 6 and 1 live rows), N not a multiple of
+    # 128, K tails inside a stage
+    (3, 13, 272, 400), (2, 70, 1040, 2064), (5, 1, 256, 384)])
+def test_mix_gemm_experts(cuda, E, C, K, N):
+    """The expert mode against its plain version: the int32 accumulator is
+    exact and the scales multiply in JAX's order with IEEE f32 rounding on
+    both sides, so the result is bit-equal; zero rows give zeros."""
+    from mixq_tpu_torch.kernels.mix_gemm import (mix_gemm_experts,
+                                                 mix_gemm_experts_plain)
+
+    ops = _expert_operands(cuda, E, C, K, N, E + C + K + N)
+    got = mix_gemm_experts(*ops)
+    torch.cuda.synchronize()
+    assert got.shape == (E, C, N) and got.dtype == torch.float32
+    assert torch.equal(got, mix_gemm_experts_plain(*ops))
+    assert not got[0, C // 2:].any()
+
+
+def test_mix_gemm_experts_across_plans_and_counts(cuda):
+    """S = 1, 2, 5, 8 and the plan's give the same bits (int32 partials);
+    one launch a call, counted as "w8a8_experts"; the plan counts the E x
+    tiles output tiles (one expert's 32 tiles split, eight experts' 256
+    not), and its clusters fit the card."""
+    from mixq_tpu_torch.kernels.mix_gemm import mix_gemm_experts
+
+    ops = _expert_operands(cuda, 8, 8, 14336, 4096, 5)
+    before = mix_gemm.launches
+    modes = dict(mix_gemm.mode_launches)
+    runs = [mix_gemm_experts(*ops, splits=S) for S in (1, 2, 5, 8)]
+    runs.append(mix_gemm_experts(*ops))
+    torch.cuda.synchronize()
+    for r in runs[1:]:
+        assert torch.equal(runs[0], r)
+    assert mix_gemm.launches == before + 5
+    assert mix_gemm.mode_launches["w8a8_experts"] == modes[
+        "w8a8_experts"] + 5
+    assert mix_gemm.mode_launches["w8a8"] == modes["w8a8"]
+    clusters = _clusters_mix(0, False, False, experts=True)
+    assert all(n > 0 for n in clusters)
+    sm = _build.sm_count(0)
+    assert plan_mix(8, 4096, 14336, False, 1, sm, clusters,
+                    experts=8).splits == 1
+    assert plan_mix(8, 4096, 14336, False, 1, sm, clusters,
+                    experts=1).splits > 1
+
+
+def test_mix_gemm_experts_refuses(cuda):
+    from mixq_tpu_torch.kernels.mix_gemm import mix_gemm_experts
+
+    q_x, w, xs, ws = _expert_operands(cuda, 2, 8, 256, 384, 1)
+    with pytest.raises(ValueError):
+        mix_gemm_experts(q_x, w.float(), xs, ws)
+    with pytest.raises(ValueError):
+        mix_gemm_experts(q_x, w, xs.reshape(2, 8), ws)
+    with pytest.raises(ValueError):
+        mix_gemm_experts(q_x[:, :, :250].contiguous(), w[:, :250], xs, ws)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_moe_block_on_the_card(cuda, shared):
+    """moe_mlp (W8A8, exact capacity) on the card: no host sync (sync debug
+    mode "error"), three expert-mode launches (and with qwen2-moe's shared
+    expert three kernel-2 ones), a CUDA graph's replay bit-equal to the
+    eager call, and the output within 2e-3 of max|y| of the same block on
+    the CPU (the router's f32 sums differ by ulps between the devices; no
+    token here sits near a routing tie)."""
+    from mixq_tpu_torch.convert import params_to
+    from mixq_tpu_torch.ops.mixed_linear import LinearSpec, from_float
+    from mixq_tpu_torch.ops.moe import MoEParams, expert_from_float, moe_mlp
+
+    g = torch.Generator().manual_seed(2)
+    H, I, E = 512, 256, 8
+    spec = LinearSpec(w_bit=8, a_bit=8)
+
+    def n(*s, std=0.05):
+        return torch.randn(s, generator=g) * std
+    kw = {}
+    if shared:
+        kw = dict(shared_gate=from_float(n(H, 384), spec),
+                  shared_up=from_float(n(H, 384), spec),
+                  shared_down=from_float(n(384, H), spec),
+                  shared_route=n(H, 1).to(torch.bfloat16))
+    cpu_p = MoEParams(router=n(H, E, std=0.2).to(torch.bfloat16),
+                      gate=expert_from_float(n(E, H, I), spec),
+                      up=expert_from_float(n(E, H, I), spec),
+                      down=expert_from_float(n(E, I, H), spec), **kw)
+    x_cpu = torch.randn(4, 2, H, generator=g).to(torch.bfloat16)
+    p, x = params_to(cpu_p, cuda), x_cpu.to(cuda)
+
+    def run():
+        return moe_mlp(x, p, spec, spec, top_k=2)
+    run()
+    torch.cuda.synchronize()
+    before = dict(mix_gemm.mode_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert mix_gemm.mode_launches["w8a8_experts"] == before[
+        "w8a8_experts"] + 3
+    assert mix_gemm.mode_launches["w8a8"] == before["w8a8"] + (
+        3 if shared else 0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    ref = moe_mlp(x_cpu, cpu_p, spec, spec, top_k=2).float()
+    err = (eager.cpu().float() - ref).abs().max() / ref.abs().max()
+    assert err < 2e-3, err

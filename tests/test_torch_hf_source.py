@@ -54,8 +54,10 @@ def test_config_from_hf_as_jax(family):
 
 
 @pytest.mark.parametrize("change,err", [
-    ({"model_type": "mixtral"}, NotImplementedError),
-    ({"model_type": "qwen2_moe"}, NotImplementedError),
+    # families neither package maps (mixtral and qwen2_moe map since the
+    # MoE slice: tests/test_torch_moe_models.py)
+    ({"model_type": "jamba"}, NotImplementedError),
+    ({"model_type": "dbrx"}, NotImplementedError),
     ({"rope_scaling": {"rope_type": "dynamic", "factor": 2.0}},
      ValueError),
     ({"rope_scaling": {"rope_type": "yarn", "factor": 2.0}}, ValueError)])
@@ -194,13 +196,19 @@ def test_from_torch_state_dict_as_jax(family):
 
 
 def test_unported_sources_raise():
+    """A family without a scheme raises; the MoE families have theirs
+    (llama's attention, the MLP read from the experts), so a dense llama
+    dict under an MoE config lacks the expert tensors."""
     cfg = thf.config_from_hf(hf_config("llama"))
     state = hf_state(cfg, 0)
     src = thf.TensorSource.from_dict(state)
-    with pytest.raises(NotImplementedError):     # no MoE scheme
+    with pytest.raises(NotImplementedError):     # no scheme
         thf.params_from_source(src, dataclasses.replace(
-            cfg, model_type="mixtral"), TSpecs.fp16(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        thf.params_from_source(src, dataclasses.replace(
-            cfg, num_local_experts=4), TSpecs.fp16(), device="cpu")
+            cfg, model_type="jamba"), TSpecs.fp16(), device="cpu")
+    for mt in ("mixtral", "qwen2_moe"):
+        assert thf.scheme_for(mt)["q"] == thf.scheme_for("llama")["q"]
+        with pytest.raises(KeyError, match=r"\.gate\.weight"):  # router
+            thf.params_from_source(src, dataclasses.replace(
+                cfg, model_type=mt, num_local_experts=4), TSpecs.fp16(),
+                device="cpu")
     assert thf.scheme_for("mistral") is thf.scheme_for("llama")
